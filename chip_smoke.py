@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU, and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one CUDA card and the
+CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
+``src/repro_torch/kernels/csrc``, then:
+
+1. holds each kernel against its plain PyTorch version on the card, at the
+   shapes of the main path, and times kernel, plain version and (for the
+   stencil) one PyTorch library call with CUDA events, in turns plain,
+   kernel, kernel, plain;
+2. runs the Mandelbrot farm (4096 x 2048, 64 bands of 32 rows, 1000
+   iterations) sequentially, fused and streaming, which must agree exactly;
+3. runs the image pipeline (16 RGB 2048 x 2048 images, grey then EDGE5) in
+   the three modes, which must agree exactly;
+4. solves 4 Jacobi systems of n = 4096 on the MultiCoreEngine (4 nodes,
+   tol 1e-6), which must land within 1e-3 of the true solutions;
+5. model-checks the Monte-Carlo pi farm with ``csp.check``, then estimates pi
+   from 256 x 10^6 points in the three modes, which must agree exactly, and
+   prints a logged run's netlog report.
+
+Kernel launch counts are reset just before phase 2 and read after phase 5:
+each kernel must have been launched by the main path.  One more fused run
+of the farm and of the pipeline is then traced with ``torch.profiler`` to
+print the device's busy time and idle share.  The last two lines
+are a JSON summary of the kernels and ``{"ok": true, "device": ...}``.  Any
+failure raises and the script exits non-zero; so does a machine without a
+CUDA device, where nothing is printed on standard output.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+F32_PEAK = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
+HBM_RATE = 3.35e12    # H100 SXM device-memory bytes/s
+L2_BYTES = 50 * 2**20
+SLEEP_CYCLES = 200_000_000  # ~100 ms at the H100's ~2 GHz clock
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- timing --------------------------------------------------------------------
+
+def timed_turns(torch, fns: dict, reps: dict, flush=None) -> dict:
+    """Median ms per call of each function, timed with CUDA events in turns
+    plain, kernel, kernel, plain (library calls ride with the kernel turns).
+    ``flush`` runs before every timed call, outside the events.
+
+    Each turn starts behind a 100 ms device sleep, so the host queues the
+    calls ahead of the device and the events time the device's work, not
+    the host's Python between launches (a plain version that issues more
+    launches than the sleep covers is timed with its launch cost)."""
+    for fn in fns.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    order = ["plain", "kernel", "kernel", "plain"]
+    samples: dict = {k: [] for k in fns}
+    for turn in order:
+        names = [turn] + ([n for n in fns if n not in ("plain", "kernel")]
+                          if turn == "kernel" else [])
+        for name in names:
+            events = []
+            torch.cuda._sleep(SLEEP_CYCLES)
+            for _ in range(reps[name]):
+                if flush is not None:
+                    flush()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fns[name]()
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            samples[name].extend(s.elapsed_time(e) for s, e in events)
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def host_cost_us(torch, fn, calls_per_fn: int, reps: int = 5) -> float:
+    """Host microseconds per wrapper call, measured while the device sleeps
+    (so no launch waits on a full queue)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / (reps * calls_per_fn) * 1e6
+
+
+def profile_run(torch, label: str, fn) -> None:
+    """One run under ``torch.profiler``: its wall, the device's busy time
+    (kernels and copies) and idle share, and the host ops that took most
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in avgs
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)) / 1e3
+    top = sorted(avgs, key=lambda e: e.self_cpu_time_total, reverse=True)[:4]
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device "
+          f"busy {busy_ms:.2f} ms, idle {1 - busy_ms / wall_ms:.1%}; top "
+          "host ops: " + ", ".join(
+              f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
+              for e in top))
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+# -- phase 1: kernels against their plain versions -------------------------------
+
+def check_mandelbrot(torch, dev, W, H, bands, iters) -> dict:
+    from repro_torch.kernels.mandelbrot import ops, ref
+    band_h, delta = H // bands, 3.0 / W
+    kw = dict(x0=-2.2, y0=-1.15, pixel_delta=delta, max_iterations=iters)
+    rows0 = [torch.tensor(b * band_h, dtype=torch.int32, device=dev)
+             for b in range(bands)]
+    err, escaped_work = 0, 0
+    for r0 in rows0:
+        got = ops.mandelbrot(band_h, W, row0=r0, **kw)
+        want = ref.mandelbrot(band_h, W, row0=r0, **kw)
+        err = max(err, int((got - want).abs().max()))
+        escaped_work += int(got.sum()) + int((got < iters).sum())
+    check(err == 0, f"mandelbrot kernel differs from its plain version "
+                     f"(max |diff| {err})")
+
+    def sweep(fn):  # every band of the farm, one call each
+        return lambda: [fn(band_h, W, row0=r0, **kw) for r0 in rows0]
+
+    t = timed_turns(torch, {"plain": sweep(ref.mandelbrot),
+                            "kernel": sweep(ops.mandelbrot)},
+                    {"plain": 1, "kernel": 5})
+    ms, plain_ms = t["kernel"] / bands, t["plain"] / bands
+    bound_ms, bound_by = bound(9.0 * escaped_work / bands,
+                               band_h * W * 4)
+    host_us = host_cost_us(torch, sweep(ops.mandelbrot), bands)
+    print(f"[kernel] mandelbrot band ({band_h}, {W}) x {bands} bands, "
+          f"{iters} it: exact; kernel {ms:.4f} ms/band, plain "
+          f"{plain_ms:.3f} ms/band, library none, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {9 * escaped_work:.3e} f32 ops over the farm), "
+          f"roofline {bound_ms / ms:.1%}; host {host_us:.1f} us/call")
+
+    full_k = ops.mandelbrot(H, W, **kw, device=dev)
+    full_p = ref.mandelbrot(H, W, **kw, device=dev)
+    check(torch.equal(full_k, full_p), "full-image mandelbrot differs")
+    work = int(full_k.sum()) + int((full_k < iters).sum())
+    tf = timed_turns(torch, {"plain": lambda: ref.mandelbrot(
+                                 H, W, **kw, device=dev),
+                             "kernel": lambda: ops.mandelbrot(
+                                 H, W, **kw, device=dev)},
+                     {"plain": 1, "kernel": 5})
+    fb, fby = bound(9.0 * work, H * W * 4)
+    print(f"[kernel] mandelbrot full ({H}, {W}), {iters} it: exact; kernel "
+          f"{tf['kernel']:.4f} ms, plain {tf['plain']:.3f} ms, bound "
+          f"{fb:.4f} ms ({fby}), roofline {fb / tf['kernel']:.1%}")
+    return {"name": "mandelbrot", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mandelbrot.cu",
+            "replaces": "src/repro/kernels/mandelbrot/kernel.py:20",
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def check_stencil(torch, dev) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels.stencil import ops, ref
+    from repro_torch.workloads import EDGE5
+    torch.backends.cudnn.allow_tf32 = False
+    flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator().manual_seed(0)
+    entry = None
+    cases = [((2048, 2048), 5, torch.float32, EDGE5),
+             ((2048, 2048), 3, torch.float32, None),
+             ((2048, 2048), 5, torch.bfloat16, None),
+             ((2048, 2048), 3, torch.bfloat16, None),
+             ((2047, 2048), 5, torch.float32, None)]
+    for (H, W), k, dtype, taps in cases:
+        if taps is None:
+            taps = ops.taps_of(torch.randn(k, k, generator=g))
+        img = torch.randn(H, W, generator=g).to(dtype).to(dev)
+        got, want = ops.stencil2d(img, taps), ref.stencil2d(img, taps)
+        err = float((got.float() - want.float()).abs().max())
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        check(torch.equal(got, want) or err <= tol,
+              f"stencil ({H}, {W}) k={k} {dtype}: max |diff| {err}")
+        weight = torch.tensor(taps, dtype=dtype, device=dev)[None, None]
+        t = timed_turns(
+            torch, {"plain": lambda: ref.stencil2d(img, taps),
+                    "kernel": lambda: ops.stencil2d(img, taps),
+                    "library": lambda: F.conv2d(img[None, None], weight,
+                                                padding=k // 2)},
+            {"plain": 10, "kernel": 20, "library": 20},
+            flush=flush_buf.zero_)
+        host_us = host_cost_us(torch, lambda: ops.stencil2d(img, taps), 1,
+                               reps=20)
+        nnz = sum(w != 0.0 for row in taps for w in row)
+        bound_ms, bound_by = bound(2.0 * nnz * H * W,
+                                   2.0 * H * W * img.element_size())
+        print(f"[kernel] stencil ({H}, {W}) k={k} {str(dtype)[6:]}: "
+              f"{'exact' if torch.equal(got, want) else f'max|diff| {err}'}"
+              f"; kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"library(conv2d) {t['library']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), roofline "
+              f"{bound_ms / t['kernel']:.1%}; host {host_us:.1f} us/call")
+        if entry is None:  # the main path's case: EDGE5 on f32 2048 x 2048
+            entry = {"name": "stencil", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/stencil.cu",
+                     "replaces": "src/repro/kernels/stencil/kernel.py:31",
+                     "max_abs_err": err, "ms": t["kernel"],
+                     "plain_ms": t["plain"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": t["library"]}
+    return entry
+
+
+# -- phases 2-5: the main path ----------------------------------------------------
+
+def three_modes(torch, net, n, mb, counts, kernel):
+    """(sequential, fused, streaming) results; checks that ``kernel`` (if
+    any) launched in every mode."""
+    from repro_torch.core import build, run_sequential
+    out = []
+    cn = build(net)
+    for mode, run in (("sequential", lambda: run_sequential(net, n)),
+                      ("fused", lambda: cn.run(instances=n)),
+                      ("streaming", lambda: cn.run_streaming(
+                          instances=n, microbatch_size=mb))):
+        before = counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in counts().items()}
+        if kernel is not None:
+            check(launched[kernel] > 0, f"{net.name} {mode}: {kernel} "
+                                        "kernel never launched")
+        print(f"[{net.name}] {mode}: {wall * 1e3:.1f} ms host wall, "
+              f"launches {launched}")
+        out.append(res)
+    print(f"[{net.name}] {cn.stream_stats.summary()}")
+    return out
+
+
+def run_farm(torch, counts, W, H, bands, iters):
+    import numpy as np
+    from repro_torch import workloads
+    net = workloads.mandelbrot_farm(width=W, height=H, bands=bands,
+                                    iterations=iters)
+    imgs = [workloads.assemble(r["collect"])
+            for r in three_modes(torch, net, bands, 16, counts, "mandelbrot")]
+    check(all(np.array_equal(imgs[0], im) for im in imgs[1:]),
+          "mandelbrot farm: sequential, fused and streaming differ")
+    img = imgs[0]
+    check(img.shape == (H, W) and img.min() >= 0 and img.max() == iters,
+          f"mandelbrot farm: image {img.shape} in [{img.min()}, {img.max()}]")
+    print(f"[mandelbrot] sequential == fused == streaming: True; image "
+          f"{img.shape}, {int((img == iters).sum())} interior pixels")
+    return net
+
+
+def run_pipeline(torch, dev, counts, n, size):
+    import numpy as np
+    from repro_torch import workloads
+    from repro_torch.interop import tree_from_numpy
+    from repro_torch.kernels.stencil import ref
+    imgs = tree_from_numpy(workloads.synthetic_images(n, size), dev)
+    net = workloads.image_pipeline(imgs)
+    outs = [r["collector"]
+            for r in three_modes(torch, net, n, 4, counts, "stencil")]
+    check(all(np.array_equal(a, b) for o in outs[1:]
+              for a, b in zip(outs[0], o)),
+          "image pipeline: sequential, fused and streaming differ")
+    grey = imgs[0] @ torch.tensor(workloads.GREY, device=dev)
+    want = ref.stencil2d(grey, workloads.EDGE5).cpu().numpy()
+    check(np.array_equal(outs[0][0], want),
+          "image pipeline: image 0 differs from the plain stencil")
+    edges = int((np.abs(outs[0][0]) > 1.0).sum())
+    check(edges > 0, "image pipeline: no edges found")
+    print(f"[image] sequential == fused == streaming: True; {n} images of "
+          f"{size}x{size}; {edges} edge pixels in image 0")
+    return net
+
+
+def run_jacobi(torch, dev, counts, n_systems, n, nodes, tol):
+    import numpy as np
+    from repro_torch import workloads
+    from repro_torch.interop import tree_from_numpy
+    systems, truths = workloads.jacobi_systems(n_systems, n)
+    net = workloads.jacobi(tree_from_numpy(systems, dev), n=n, nodes=nodes,
+                           tol=tol)
+    outs = [r["collector"]
+            for r in three_modes(torch, net, n_systems, 2, counts, None)]
+    check(all(np.array_equal(a, b) for o in outs[1:]
+              for a, b in zip(outs[0], o)),
+          "jacobi: sequential, fused and streaming differ")
+    errs = [float(np.max(np.abs(x - t))) for x, t in zip(outs[0], truths)]
+    check(max(errs) < 1e-3, f"jacobi: max|x - x_true| = {max(errs)}")
+    print(f"[jacobi] {n_systems} systems n={n}, {nodes} nodes, tol={tol}: "
+          f"max|x - x_true| = {max(errs):.2e} (OK < 1e-3)")
+
+
+def run_pi(torch, counts, instances, points):
+    from repro_torch import workloads
+    from repro_torch.core import build, csp, netlog
+    explicit = workloads.monte_carlo_pi(instances=instances, points=points,
+                                        workers=2, explicit=True)
+    r = csp.check(explicit, instances=3)
+    print(f"[csp] states={r.n_states} deadlock_free={r.deadlock_free} "
+          f"divergence_free={r.divergence_free} "
+          f"deterministic={r.deterministic} "
+          f"terminates={r.all_paths_terminate}")
+    check(r.deadlock_free and r.deterministic and r.all_paths_terminate,
+          "csp: the explicit pi farm failed its checks")
+    net = workloads.monte_carlo_pi(instances=instances, points=points,
+                                   workers=4)
+    pis = [float(r["collect"])
+           for r in three_modes(torch, net, instances, 32, counts, None)]
+    check(pis[0] == pis[1] == pis[2], f"pi: modes differ {pis}")
+    p = math.pi / 4
+    sigma = 4 * math.sqrt(p * (1 - p) / (instances * points))
+    check(abs(pis[0] - math.pi) < 4 * sigma,
+          f"pi: {pis[0]} is more than 4 sigma from pi")
+    print(f"[pi] sequential == fused == streaming: {pis[0]!r} "
+          f"(|pi - estimate| = {abs(pis[0] - math.pi):.2e}, "
+          f"sigma {sigma:.2e})")
+    cn = build(net)
+    cn.run(instances=instances, logged=True)
+    print(netlog.report(cn))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build, launch_counts, \
+        reset_launch_counts
+
+    card = gpu_name_and_power()
+    print(f"gpu: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    logs = _build.build_all(["mandelbrot", "stencil"])
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line:
+                print(f"  {name}: {line.strip()}")
+
+    W, H, BANDS, ITERS = 4096, 2048, 64, 1000
+    entries = [check_mandelbrot(torch, dev, W, H, BANDS, ITERS),
+               check_stencil(torch, dev)]
+
+    reset_launch_counts()  # the main path starts here
+    farm = run_farm(torch, launch_counts, W, H, BANDS, ITERS)
+    pipeline = run_pipeline(torch, dev, launch_counts, 16, 2048)
+    run_jacobi(torch, dev, launch_counts, 4, 4096, 4, 1e-6)
+    run_pi(torch, launch_counts, 256, 10**6)
+    launched = launch_counts()
+
+    # where the time goes: one more fused run of each kernel workload
+    from repro_torch.core import build
+    profile_run(torch, "mandelbrot fused", lambda: build(farm).run(
+        instances=BANDS))
+    profile_run(torch, "image fused", lambda: build(pipeline).run(
+        instances=16))
+
+    for e in entries:
+        e["launches"] = launched[e["name"]]
+        check(e["launches"] > 0, f"{e['name']}: never launched on the path")
+    print("kernels: " + "; ".join(
+        f"{e['name']} launches={e['launches']} check="
+        f"{'exact' if e['max_abs_err'] == 0 else e['max_abs_err']}"
+        for e in entries))
+    print(f"card: {card}")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

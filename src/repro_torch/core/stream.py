@@ -1,0 +1,682 @@
+"""Streaming microbatch executor — the process-oriented half of the paper.
+
+The fused builder (:mod:`.builder`) materialises the whole item batch and
+runs the network as one program; the paper's GPP runtime instead *streams*
+items through Emit → Worker/Engine → Collect concurrently.  This module
+recovers that throughput model on top of the GPU's asynchronous launches:
+
+* the item batch is split into ``microbatch_size`` chunks
+  (:func:`microbatch_plan` — the last chunk may be smaller);
+* every computational stage runs per chunk through the builder's shared
+  ``stage_fn`` path;
+* chunks are dispatched through the stage DAG without waiting: the host
+  queues each chunk's kernels on the current CUDA stream, records an event
+  behind them, and waits on that event only when the chunk *retires* at
+  Collect, so host scheduling overlaps device compute;
+* the number of un-retired chunks in flight is bounded (backpressure): the
+  depth defaults to the network's minimum positive CSP channel capacity
+  (:meth:`Network.min_capacity`), so a tight channel throttles the whole
+  pipeline exactly as a buffered CSP chain would;
+* ``OneFanAny`` becomes work-stealing chunk assignment: each chunk goes to
+  the least-loaded lane (with explicit per-worker branches, the whole chunk
+  is routed down that branch), and the schedule is recorded in
+  :class:`StreamStats`.
+
+Correctness is anchored two ways.  Numerically, every Collect and COMBINE
+reducer folds chunks with a carried accumulator in item order — the same
+linear left fold as the whole-batch run, so results are bit-identical to
+the fused and logged runs.  Formally, :func:`streaming_abstract_model`
+builds the CSP model of this schedule (chunks as items, lanes as concurrent
+stage chains) and :func:`.csp.trace_equivalent` checks it against
+:func:`synchronous_abstract_model` — the paper's §6.1.1 ``[T=`` refinement
+story applied to our own runtime.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from collections import deque
+from typing import Any, Optional
+
+import torch
+import torch.utils._pytree as pytree
+
+from ..device import to_device
+from . import trace as _trace
+from .builder import CompiledNetwork, _fan_merge, _fan_split, fold_host
+from .dataflow import Distribution, Kind, Network, NetworkError
+from .processes import AnyFanOne, Collect, Emit, OneFanAny, Worker
+
+__all__ = [
+    "microbatch_plan",
+    "slice_microbatch",
+    "stack_microbatches",
+    "SlotEvent",
+    "SlotPlan",
+    "fused_chains",
+    "plan_depth_lanes",
+    "StreamStats",
+    "StreamExecutor",
+    "streaming_abstract_model",
+    "synchronous_abstract_model",
+]
+
+_SKIP = object()  # sentinel: no chunk flowed down this branch
+
+
+# ==========================================================================
+# Microbatch planning
+# ==========================================================================
+
+def microbatch_plan(n_items: int, microbatch_size: int) -> list[tuple[int, int]]:
+    """``[(lo, hi), ...]`` half-open chunk bounds covering ``[0, n_items)``.
+
+    The last chunk may be smaller than ``microbatch_size``; callers that need
+    uniform chunks use :func:`stack_microbatches`.
+    """
+    if microbatch_size <= 0:
+        raise NetworkError(f"microbatch_size must be > 0, got {microbatch_size}")
+    if n_items < 0:
+        raise NetworkError(f"n_items must be >= 0, got {n_items}")
+    return [(lo, min(lo + microbatch_size, n_items))
+            for lo in range(0, n_items, microbatch_size)]
+
+
+def slice_microbatch(batch, lo: int, hi: int):
+    """Slice ``[lo, hi)`` off the leading axis of every tensor leaf."""
+    return pytree.tree_map(
+        lambda l: l[lo:hi] if isinstance(l, torch.Tensor) else l, batch)
+
+
+def stack_microbatches(batch, n_micro: int):
+    """``(B, ...)`` leaves → ``(n_micro, B // n_micro, ...)``.
+
+    The uniform-chunk reshape of the same microbatch schedule, used where the
+    chunk axis must be looped over as a whole (pipeline stages, gradient
+    accumulation).
+    """
+
+    def _one(leaf):
+        b = leaf.shape[0]
+        if n_micro <= 0 or b % n_micro:
+            raise NetworkError(
+                f"batch axis {b} not divisible into {n_micro} microbatches")
+        return leaf.reshape(n_micro, b // n_micro, *leaf.shape[1:])
+
+    return pytree.tree_map(_one, batch)
+
+
+# ==========================================================================
+# Slot-batch plans (continuous batching: requests join/leave between chunks)
+# ==========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class SlotEvent:
+    """One admission-queue transition: request ``rid`` joined or left slot
+    ``slot`` between decode chunks ``step - 1`` and ``step``."""
+
+    step: int
+    kind: str   # "join" | "leave"
+    slot: int
+    rid: int
+
+
+class SlotPlan:
+    """Which request owns which row of a slot-batched decode step.
+
+    The serving engine's counterpart of :func:`microbatch_plan`: where a
+    batch plan schedules a *fixed* item set into chunks, a slot plan
+    schedules an *open-ended* request stream into a fixed row set — requests
+    ``claim`` the lowest free slot when they join between decode chunks
+    (the OneFanAny any-channel at request level) and ``release`` it when
+    they finish, and every transition lands in :attr:`events` so an
+    admission trace can be replayed or audited."""
+
+    def __init__(self, n_slots: int):
+        if n_slots <= 0:
+            raise NetworkError(f"SlotPlan: n_slots must be > 0, got {n_slots}")
+        self.n_slots = n_slots
+        self.step = 0                       # decode chunks ticked so far
+        self.events: list[SlotEvent] = []
+        self._owner: list[Optional[int]] = [None] * n_slots
+
+    @property
+    def n_free(self) -> int:
+        return sum(o is None for o in self._owner)
+
+    def owner(self, slot: int) -> Optional[int]:
+        return self._owner[slot]
+
+    def claim(self, rid: int) -> int:
+        """Seat ``rid`` in the lowest free slot; raises when the batch is
+        full (admission must wait for a leave)."""
+        for s, owner in enumerate(self._owner):
+            if owner is None:
+                self._owner[s] = rid
+                self.events.append(SlotEvent(self.step, "join", s, rid))
+                return s
+        raise NetworkError(f"SlotPlan: no free slot for request {rid}")
+
+    def release(self, slot: int) -> int:
+        """Free ``slot``; returns the rid that held it."""
+        rid = self._owner[slot]
+        if rid is None:
+            raise NetworkError(f"SlotPlan: slot {slot} is already free")
+        self._owner[slot] = None
+        self.events.append(SlotEvent(self.step, "leave", slot, rid))
+        return rid
+
+    def active(self) -> list[tuple[int, int]]:
+        """``[(slot, rid), ...]`` for the occupied rows, slot order."""
+        return [(s, r) for s, r in enumerate(self._owner) if r is not None]
+
+    def mask(self) -> torch.Tensor:
+        """(n_slots,) bool advance mask for the batched decode step."""
+        return torch.tensor([o is not None for o in self._owner],
+                            dtype=torch.bool)
+
+    def tick(self) -> None:
+        """One decode chunk retired; joins/leaves now belong to the gap
+        before the next chunk."""
+        self.step += 1
+
+
+# ==========================================================================
+# Chain fusion planning (shared by the executor and the CSP abstraction)
+# ==========================================================================
+
+def fused_chains(net: Network) -> list[tuple[str, ...]]:
+    """Maximal linear runs of functional stages that may run as one stage.
+
+    A run ``a -> b -> ...`` fuses when every member is a Worker/Engine, every
+    link is the sole successor of its source and the sole predecessor of its
+    destination, and no connector (fan/cast/reducer) sits inside the run —
+    i.e. the stages form a straight pipe with no observable interleaving
+    point between them.  Fusing such a run into one per-chunk call preserves
+    results exactly (same op sequence) while cutting per-chunk dispatch to
+    one call per chain instead of one per stage.
+
+    Only runs of length >= 2 are returned; each is a tuple of stage names in
+    dataflow order.
+    """
+    chains: list[tuple[str, ...]] = []
+    in_chain: set[str] = set()
+    for name in net.toposort():
+        if name in in_chain:
+            continue
+        if net.procs[name].kind not in (Kind.WORKER, Kind.ENGINE):
+            continue
+        chain = [name]
+        node = name
+        while True:
+            succs = net.successors(node)
+            if len(succs) != 1:
+                break
+            nxt = succs[0]
+            if (net.procs[nxt].kind not in (Kind.WORKER, Kind.ENGINE)
+                    or len(net.predecessors(nxt)) != 1):
+                break
+            chain.append(nxt)
+            node = nxt
+        if len(chain) > 1:
+            chains.append(tuple(chain))
+            in_chain.update(chain)
+    return chains
+
+
+def plan_depth_lanes(net: Network, max_in_flight: Optional[int],
+                     lanes: Optional[int]) -> tuple[int, int]:
+    """The (in-flight depth, lane count) a StreamExecutor will run with.
+
+    Depth defaults to the network's minimum positive CSP channel capacity
+    (rendezvous networks get 2); lanes default to the widest OneFanAny (or
+    the depth when no fan is present).
+    """
+    if max_in_flight is not None:
+        depth = max_in_flight
+    else:
+        depth = net.min_capacity() or 2
+    if depth < 1:
+        raise NetworkError(f"max_in_flight must be >= 1, got {depth}")
+    if lanes is not None and lanes < 1:
+        raise NetworkError(f"lanes must be >= 1, got {lanes}")
+    fan_widths = [
+        len(net.successors(n)) for n, p in net.procs.items()
+        if (p.kind is Kind.SPREADER and p.distribution is Distribution.FAN
+            and p.fan_any)]
+    n_lanes = lanes if lanes is not None else max(fan_widths + [depth])
+    return depth, n_lanes
+
+
+# ==========================================================================
+# The executor
+# ==========================================================================
+
+@dataclasses.dataclass
+class StreamStats:
+    """Telemetry of one streaming run."""
+
+    n_items: int = 0
+    microbatch_size: int = 0
+    n_chunks: int = 0
+    depth: int = 0  # bounded in-flight chunks (backpressure)
+    lanes: int = 1
+    schedule: list = dataclasses.field(default_factory=list)  # (chunk, lane)
+    stalls: int = 0  # times the dispatcher blocked on backpressure
+    # live progress, incremented at retirement (the only synchronisation
+    # point).  Unlike ``n_items``/``n_chunks`` — plan totals preset when the
+    # run starts — these count what actually finished.
+    chunks_done: int = 0
+    items_done: int = 0
+    # per-stage buffer-donation outcomes: {stage: [chunks_requested,
+    # chunks_honoured]}.  The port donates nothing (PyTorch has no buffer
+    # donation to request), so every count stays 0; the keys still list the
+    # stages that ran.
+    donation: dict = dataclasses.field(default_factory=dict)
+    donation_enabled: bool = False
+    # fused-chain composition: one tuple of stage names per linear run that
+    # ran as a single per-chunk stage (empty when nothing fused)
+    fused: list = dataclasses.field(default_factory=list)
+
+    def donation_summary(self) -> str:
+        if not self.donation_enabled:
+            return "donation: disabled (PyTorch has no buffer donation)"
+        per = " ".join(f"{s}={h}/{r}" for s, (r, h) in
+                       sorted(self.donation.items()))
+        return f"donation: {per or '(no functional stages)'}"
+
+    def fused_summary(self) -> str:
+        if not self.fused:
+            return "fused: (no chains)"
+        per = " ".join("+".join(chain) for chain in self.fused)
+        return f"fused: {per}"
+
+    def summary(self) -> str:
+        req = sum(r for r, _ in self.donation.values())
+        hon = sum(h for _, h in self.donation.values())
+        return (f"stream: {self.n_chunks} chunks × ≤{self.microbatch_size} "
+                f"items, depth={self.depth}, lanes={self.lanes}, "
+                f"stalls={self.stalls}, donated={hon}/{req}, "
+                f"fused_chains={len(self.fused)}")
+
+
+class StreamExecutor:
+    """Run a :class:`CompiledNetwork` as a pipeline of microbatches."""
+
+    def __init__(self, compiled: CompiledNetwork, *, microbatch_size: int,
+                 max_in_flight: Optional[int] = None,
+                 lanes: Optional[int] = None, fuse: bool = True):
+        self.cn = compiled
+        self.net = compiled.net
+        self.order = compiled.order
+        self.mb = microbatch_size
+        # observability: the process-default TraceRecorder (disabled unless
+        # trace.enable())
+        self.rec = _trace.current()
+        # depth: bounded in-flight chunks; lanes: work-stealing lane count
+        # (explicit OneFanAny branches define it, otherwise as many lanes as
+        # chunks can be in flight)
+        self.depth, self.lanes = plan_depth_lanes(
+            self.net, max_in_flight, lanes)
+        self._outstanding = [0] * self.lanes
+        self._combine_carry: dict = {}  # per-run COMBINE accumulators
+        # per-stage callables persist across runs; jit_builds counts their
+        # first builds, so a warm executor stays at the same number
+        self._fns: dict = {}
+        self.jit_builds = 0
+        # chain fusion: a straight Worker/Engine run executes as ONE
+        # per-chunk stage (composed via the shared stage_fn path)
+        self._chains = fused_chains(self.net) if fuse else []
+        self._chain_of_head = {c[0]: c for c in self._chains}
+        self._chain_members = {n for c in self._chains for n in c[1:]}
+        self.stats = self._new_stats(0, 0)
+
+    def _new_stats(self, n_items: int, n_chunks: int) -> StreamStats:
+        return StreamStats(n_items=n_items, microbatch_size=self.mb,
+                           n_chunks=n_chunks, depth=self.depth,
+                           lanes=self.lanes, fused=list(self._chains))
+
+    def _stage_label(self, name: str) -> str:
+        """Telemetry key for a stage: fused chains report as one unit."""
+        chain = self._chain_of_head.get(name)
+        return "+".join(chain) if chain else name
+
+    # -- per-stage callable cache (shared stage_fn path) -------------------
+    def _cached(self, key, make):
+        fn = self._fns.get(key)
+        if fn is None:
+            self.jit_builds += 1
+            fn = self._fns[key] = make()
+        return fn
+
+    def _stage_call(self, name: str):
+        """The callable for ``name`` — for a fused-chain head, the
+        composition of every member's ``stage_fn``."""
+        def make():
+            chain = self._chain_of_head.get(name)
+            if chain is None:
+                return self.cn.stage_fn(name)
+            fns = tuple(self.cn.stage_fn(m) for m in chain)
+
+            def fused(x):
+                for f in fns:
+                    x = f(x)
+                return x
+
+            return fused
+
+        return self._cached(name, make)
+
+    def _carry_call(self, name: str):
+        return self._cached(("carry", name),
+                            lambda: self.cn.collect_carry_fn(name))
+
+    def _combine_carry_call(self, name: str):
+        return self._cached(("comb", name),
+                            lambda: self.cn.combine_carry_fn(name))
+
+    # -- work stealing ------------------------------------------------------
+    def _steal_lane(self, chunk_idx: int) -> int:
+        """OneFanAny chunk assignment: the least-loaded lane takes the chunk
+        (any-channel semantics at microbatch granularity)."""
+        lane = min(range(self.lanes), key=self._outstanding.__getitem__)
+        self._outstanding[lane] += 1
+        self.stats.schedule.append((chunk_idx, lane))
+        return lane
+
+    def _check_fan_divisibility(self, plan) -> None:
+        """Fail fast (before any dispatch) when a heterogeneous FAN cannot
+        split some chunk evenly — and name the knob the caller must turn."""
+        for name in self.order:
+            p = self.net.procs[name]
+            succs = self.net.successors(name)
+            if (p.kind is Kind.SPREADER
+                    and p.distribution is Distribution.FAN
+                    and len(succs) > 1 and not p.fan_any
+                    and not self._homogeneous_fan(name)):
+                k = len(succs)
+                bad = sorted({hi - lo for lo, hi in plan if (hi - lo) % k})
+                if bad:
+                    raise NetworkError(
+                        f"streaming over heterogeneous FAN {name!r} "
+                        f"({k} branches) needs every microbatch divisible "
+                        f"by {k}; microbatch_size={self.mb} yields chunk "
+                        f"sizes {bad} — pick a microbatch_size (and item "
+                        f"count) divisible by {k}")
+
+    def _branch_signature(self, start: str):
+        """The tag sequence of the functional chain from ``start`` down to
+        the join node, or None when the branch itself branches (give up)."""
+        sig: list = []
+        node = start
+        while True:
+            p = self.net.procs[node]
+            if p.kind not in (Kind.WORKER, Kind.ENGINE):
+                sig.append(("join", node))
+                return tuple(sig)
+            # untagged workers count as unique (conservative: heterogeneous)
+            sig.append(p.tag if p.tag is not None else node)
+            succs = self.net.successors(node)
+            if len(succs) != 1:
+                return None
+            node = succs[0]
+
+    def _homogeneous_fan(self, name: str) -> bool:
+        """True when every branch of a FAN runs the *same* stage-tag chain to
+        the same join — the paper's CSPm Def 7 condition (workers of one
+        stage share one ``f``), so whole chunks may route to any single
+        branch without changing results."""
+        sigs = {self._branch_signature(s) for s in self.net.successors(name)}
+        return None not in sigs and len(sigs) == 1
+
+    # -- one chunk through the DAG ------------------------------------------
+    def _dispatch_chunk(self, ci: int, chunk, final: bool):
+        """Push one microbatch through every stage (no waiting on the
+        device).
+
+        Returns (collect_streams, host_streams, lanes_used): the values bound
+        for each Collect (pre-fold), the host-side collect streams, and the
+        work-stealing lanes this chunk occupies.
+        """
+        net = self.net
+        wires: dict[tuple[str, str], Any] = {}
+        collect_streams: dict[str, Any] = {}
+        host_streams: dict[str, Any] = {}
+        lanes_used: list[int] = []
+
+        def _pop_in(name: str) -> list:
+            return [wires.pop((q, name)) for q in net.predecessors(name)]
+
+        for name in self.order:
+            p = net.procs[name]
+            succs = net.successors(name)
+            if p.kind is Kind.EMIT:
+                for s in succs:
+                    wires[(name, s)] = chunk
+            elif p.kind is Kind.SPREADER:
+                (x,) = _pop_in(name)
+                if x is _SKIP:
+                    for s in succs:
+                        wires[(name, s)] = _SKIP
+                elif p.distribution is Distribution.FAN and len(succs) > 1:
+                    if p.fan_any or self._homogeneous_fan(name):
+                        # whole chunk to one branch: work-stealing lane for
+                        # OneFanAny, round-robin for a homogeneous OneFanList
+                        lane = (self._steal_lane(ci) if p.fan_any
+                                else ci % len(succs))
+                        if p.fan_any:
+                            lanes_used.append(lane)
+                        take = lane % len(succs)
+                        for j, s in enumerate(succs):
+                            wires[(name, s)] = x if j == take else _SKIP
+                    else:  # heterogeneous branches: item-level round-robin —
+                        # every chunk must split evenly or assignment drifts
+                        # from the sequential oracle's
+                        outs = _fan_split(x, len(succs))
+                        for j, s in enumerate(succs):
+                            wires[(name, s)] = outs[j]
+                else:  # one successor, or casts: every successor reads the
+                    # same value (stages never write their inputs)
+                    for s in succs:
+                        wires[(name, s)] = x
+            elif p.kind in (Kind.WORKER, Kind.ENGINE):
+                if name in self._chain_members:
+                    continue  # runs inside its chain head's fused stage
+                chain = self._chain_of_head.get(name)
+                label = self._stage_label(name)
+                # a fused chain's output feeds the TAIL's successors
+                out_of, succs = ((chain[-1], net.successors(chain[-1]))
+                                 if chain else (name, succs))
+                (x,) = _pop_in(name)
+                if x is _SKIP:
+                    out = _SKIP
+                else:
+                    out = self._stage_call(name)(x)
+                    # conformance vocabulary: chunk ci traversed this stage
+                    # (fused chains report "a+b" — every member applied)
+                    self.rec.instant("stage", "csp", stage=label, ci=ci)
+                    self.stats.donation.setdefault(label, [0, 0])
+                for s in succs:
+                    wires[(out_of, s)] = out
+            elif p.kind is Kind.REDUCER:
+                xs = [v for v in _pop_in(name) if v is not _SKIP]
+                if p.distribution is Distribution.COMBINE:
+                    # carry the fold across chunks (same float association as
+                    # the fused whole-batch fold); downstream sees the final
+                    # accumulator once, on the last chunk — exactly fused
+                    carry = self._combine_carry.get(name)
+                    if carry is None:
+                        acc = self._stage_call(name)(*xs)
+                    else:
+                        acc = self._combine_carry_call(name)(carry, *xs)
+                    if final:
+                        self._combine_carry.pop(name, None)
+                        out = acc
+                    else:
+                        self._combine_carry[name] = acc
+                        out = _SKIP
+                else:  # MERGE (all-skip when e.g. every lane sat out a chunk)
+                    if not xs:
+                        out = _SKIP
+                    else:
+                        out = xs[0] if len(xs) == 1 else _fan_merge(xs)
+                for s in succs:
+                    wires[(name, s)] = out
+            elif p.kind is Kind.COLLECT:
+                xs = [v for v in _pop_in(name) if v is not _SKIP]
+                if not xs:  # upstream COMBINE still accumulating
+                    continue
+                x = xs[0] if len(xs) == 1 else _fan_merge(xs)
+                if p.jit_combine:
+                    collect_streams[name] = x
+                else:
+                    host_streams[name] = x
+        return collect_streams, host_streams, lanes_used
+
+    # -- retirement (the only synchronisation point) -------------------------
+    def _retire(self, entry, host_accs) -> None:
+        ci, chunk_items, lanes_used, host_streams, done = entry
+        with self.rec.span("retire", "stream", ci=ci):
+            # Collect is the CSP sink: wait for every kernel queued up to
+            # this chunk's dispatch (later chunks keep running behind it)
+            if done is not None:
+                done.synchronize()
+            for name, stream in host_streams.items():
+                self.rec.instant("collect", "csp", collect=name, ci=ci)
+                host_accs[name] = fold_host(self.net.procs[name],
+                                            host_accs[name], stream)
+        self.stats.chunks_done += 1
+        self.stats.items_done += chunk_items
+        for lane in lanes_used:
+            self._outstanding[lane] -= 1
+
+    def run(self, batch):
+        """Stream ``batch`` through the network; returns the Collect dict."""
+        leaves = [l for l in pytree.tree_leaves(batch)
+                  if isinstance(l, torch.Tensor)]
+        if not leaves:
+            raise NetworkError("run: empty batch")
+        plan = microbatch_plan(leaves[0].shape[0], self.mb)
+        self._check_fan_divisibility(plan)
+        self.stats = self._new_stats(leaves[0].shape[0], len(plan))
+        self._outstanding = [0] * self.lanes
+        self._combine_carry = {}
+        jit_accs: dict[str, Any] = {}
+        host_accs = {p.name: to_device(copy.deepcopy(p.init), self.cn.device)
+                     for p in self.net.collects() if not p.jit_combine}
+        return self._drive(plan, batch, jit_accs, host_accs)
+
+    def _drive(self, plan, batch, jit_accs, host_accs):
+        rec = self.rec
+        cuda = self.cn.device.type == "cuda"
+        in_flight: deque = deque()
+        for ci, (lo, hi) in enumerate(plan):
+            if len(in_flight) >= self.depth:  # backpressure BEFORE dispatch:
+                self.stats.stalls += 1       # ≤ `depth` chunks unretired
+                with rec.span("stall", "stream", ci=ci):
+                    self._retire(in_flight.popleft(), host_accs)
+            chunk = slice_microbatch(batch, lo, hi)
+            with rec.span("dispatch", "stream", ci=ci):
+                streams, host_streams, lanes_used = self._dispatch_chunk(
+                    ci, chunk, final=ci == len(plan) - 1)
+                for name, x in streams.items():
+                    rec.instant("collect", "csp", collect=name, ci=ci)
+                    if name not in jit_accs:  # first chunk: fold with init
+                        jit_accs[name] = self._stage_call(name)(x)
+                    else:  # later chunks: carry fold — linear item order
+                        jit_accs[name] = self._carry_call(name)(
+                            jit_accs[name], x)
+            # the chunk is done when the stream reaches this event
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
+            in_flight.append((ci, hi - lo, lanes_used, host_streams, done))
+            rec.counter("in_flight", len(in_flight), "stream")
+        while in_flight:
+            self._retire(in_flight.popleft(), host_accs)
+
+        out: dict[str, Any] = {}
+        for p in self.net.collects():
+            val = jit_accs[p.name] if p.jit_combine else host_accs[p.name]
+            out[p.name] = p.finalise(val) if p.finalise else val
+        return out
+
+
+# ==========================================================================
+# CSP abstract models of the two schedules (paper §6.1.1 turned on ourselves)
+# ==========================================================================
+
+def _functional_tags(net: Network, fused: bool = False) -> list:
+    """The symbolic stage chain every item traverses, in topological order.
+
+    With ``fused=True`` consecutive stages that the executor fuses
+    (:func:`fused_chains`) collapse into one *tuple* tag — the CSP worker
+    applies each component in order (:mod:`.csp` nests tuple tags), so a
+    fused stage is, observably, exactly the composition of its members.
+    """
+    def _tag(n):
+        return net.procs[n].tag or n
+
+    if not fused:
+        return [_tag(n) for n in net.toposort()
+                if net.procs[n].kind in (Kind.WORKER, Kind.ENGINE)]
+    head_of = {c[0]: c for c in fused_chains(net)}
+    members = {n for c in head_of.values() for n in c[1:]}
+    tags: list = []
+    for n in net.toposort():
+        if net.procs[n].kind not in (Kind.WORKER, Kind.ENGINE) or n in members:
+            continue
+        chain = head_of.get(n)
+        tags.append(tuple(_tag(m) for m in chain) if chain else _tag(n))
+    return tags
+
+
+def synchronous_abstract_model(net: Network, name: str = "sync") -> Network:
+    """CSP model of the fused / sequential schedule: one chain of stages —
+    every chunk passes stage k before any chunk enters stage k+1 needn't
+    hold, but there is a single lane, so chunks stay strictly ordered."""
+    tags = _functional_tags(net)
+    m = Network(f"{net.name}/{name}")
+    m.add(Emit(lambda i: i, name="emit"))
+    for k, tag in enumerate(tags):
+        m.add(Worker(lambda x: x, name=f"s{k}", tag=tag))
+    m.add(Collect(lambda a, x: a, name="collect"))
+    return m
+
+
+def streaming_abstract_model(net: Network, lanes: int = 2,
+                             name: str = "stream",
+                             fused: bool = False) -> Network:
+    """CSP model of the streaming schedule: chunks are items, OneFanAny
+    assigns each to any free lane (work stealing), each lane is the full
+    stage chain, AnyFanOne merges lanes into the Collect.
+
+    ``trace_equivalent(streaming_abstract_model(net), \
+synchronous_abstract_model(net))`` is the refinement obligation the executor
+    must meet: same guaranteed termination, same collected outcome on every
+    interleaving.
+
+    ``fused=True`` models the executor's chain-fused schedule: each fused
+    run becomes ONE lane worker carrying the tuple of its members' tags, and
+    the CSP worker applies the tags in order — so the fused schedule's
+    outcomes are the same nested compositions as the synchronous model's,
+    and ``trace_equivalent`` still holds (the fusion is observationally
+    invisible, which is exactly the license to perform it)."""
+    tags = _functional_tags(net, fused=fused)
+    m = Network(f"{net.name}/{name}[{lanes}]{'/fused' if fused else ''}")
+    m.add(Emit(lambda i: i, name="emit"),
+          OneFanAny(destinations=lanes, name="ofa"))
+    m.procs["afo"] = AnyFanOne(sources=lanes, name="afo")
+    for lane in range(lanes):
+        prev = "ofa"
+        for k, tag in enumerate(tags):
+            wn = f"l{lane}s{k}"
+            m.procs[wn] = Worker(lambda x: x, name=wn, tag=tag)
+            m.connect(prev, wn)
+            prev = wn
+        m.connect(prev, "afo")
+    m._tail = "afo"
+    m.add(Collect(lambda a, x: a, name="collect"))
+    return m

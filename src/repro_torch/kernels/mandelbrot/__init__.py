@@ -1,0 +1,2 @@
+"""mandelbrot kernel package."""
+from . import ops, ref  # noqa: F401

@@ -1,0 +1,2 @@
+"""stencil kernel package."""
+from . import ops, ref  # noqa: F401
