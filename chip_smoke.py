@@ -19,15 +19,33 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    tol 1e-6), which must land within 1e-3 of the true solutions;
 5. model-checks the Monte-Carlo pi farm with ``csp.check``, then estimates pi
    from 256 x 10^6 points in the three modes, which must agree exactly, and
-   prints a logged run's netlog report.
+   prints a logged run's netlog report;
+6. runs ``Model.forward`` of the full-width qwen2-0.5b (24 layers, random
+   weights from seed 0) on a (4, 2048) batch of seeded tokens: in bf16 (the
+   default config) the logits must be finite; in float32 its logits at
+   positions 1023 and 1024 must agree within 3e-3 with ``prefill`` of the
+   first 1024 tokens and one ``decode_step`` (the reference's
+   forward-against-decode gate, which holds the flash-kernel path against
+   the KV-cache path); every forward must launch the flash kernel once per
+   layer;
+7. serves 8 requests through ``python -m repro_torch.launch.serve``'s
+   ``main`` (full-width qwen2-0.5b, 4 slots, max_len 128, max_new 16): every
+   request must complete with its token count and exactly one join and one
+   leave; it prints tokens/s, TTFT and TPOT, and how many requests give the
+   same tokens decoded alone in a one-slot engine (printed, not gated).
 
-Kernel launch counts are reset just before phase 2 and read after phase 5:
+Phase 1 also holds the flash-attention kernel against its plain version on
+the forward's shape (B=4, H=14, K=2, S=2048, D=64, bf16) and on the
+reference tests' shapes in float32 and bf16, and times it beside
+``scaled_dot_product_attention`` (the yardstick; the port never calls it).
+
+Kernel launch counts are reset just before phase 2 and read after phase 7:
 each kernel must have been launched by the main path.  One more fused run
-of the farm and of the pipeline is then traced with ``torch.profiler`` to
-print the device's busy time and idle share.  The last two lines
-are a JSON summary of the kernels and ``{"ok": true, "device": ...}``.  Any
-failure raises and the script exits non-zero; so does a machine without a
-CUDA device, where nothing is printed on standard output.
+of the farm, of the pipeline and one more bf16 forward are then traced with
+``torch.profiler`` to print the device's busy time and idle share.  The last
+two lines are a JSON summary of the kernels and ``{"ok": true, "device":
+...}``.  Any failure raises and the script exits non-zero; so does a machine
+without a CUDA device, where nothing is printed on standard output.
 """
 
 from __future__ import annotations
@@ -44,9 +62,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 F32_PEAK = 67e12      # H100 SXM f32 FLOP/s outside the tensor cores
+BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor-core FLOP/s
 HBM_RATE = 3.35e12    # H100 SXM device-memory bytes/s
 L2_BYTES = 50 * 2**20
 SLEEP_CYCLES = 200_000_000  # ~100 ms at the H100's ~2 GHz clock
+LAUNCH_PREFILL_CHUNK = 8    # LocalDecodeBackend's default prefill_chunk
 
 
 class SmokeFailure(RuntimeError):
@@ -117,8 +137,8 @@ def host_cost_us(torch, fn, calls_per_fn: int, reps: int = 5) -> float:
 
 def profile_run(torch, label: str, fn) -> None:
     """One run under ``torch.profiler``: its wall, the device's busy time
-    (kernels and copies) and idle share, and the host ops that took most
-    time."""
+    (kernels and copies) and idle share, the host ops that took most time
+    and the device kernels that took most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -138,11 +158,18 @@ def profile_run(torch, label: str, fn) -> None:
           "host ops: " + ", ".join(
               f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
               for e in top))
+    dev = sorted((e for e in avgs if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:4]
+    print(f"[profile] {label}: top device kernels: " + ", ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+        for e in dev))
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float,
+          peak: float = F32_PEAK) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -248,6 +275,65 @@ def check_stencil(torch, dev) -> dict:
                      "max_abs_err": err, "ms": t["kernel"],
                      "plain_ms": t["plain"], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": t["library"]}
+    return entry
+
+
+def check_flash(torch, dev) -> dict:
+    """The flash kernel against its plain version: the forward's shape and
+    the reference tests' shapes, f32 and bf16; times at the forward's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator().manual_seed(0)
+    path = (4, 14, 2, 2048, 2048, 64)  # qwen2-0.5b: GQA group of 7, D=64
+    shapes = [path, (1, 4, 2, 64, 64, 32), (2, 8, 1, 96, 96, 64),
+              (2, 4, 4, 128, 128, 32), (1, 2, 2, 33, 33, 16),  # ragged
+              (2, 4, 2, 1, 80, 32)]                             # decode
+    entry = None
+    for dtype in (torch.bfloat16, torch.float32):
+        # bf16: the plain version rounds its probabilities to bf16 before
+        # the PV product (as the JAX oracle does), the kernel keeps them in
+        # f32 -- hence the reference's looser bf16 gate
+        tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+        for B, H, K, Sq, Sk, D in shapes:
+            q = (torch.randn(B, H, Sq, D, generator=g) * 0.3).to(dtype).to(dev)
+            k = (torch.randn(B, K, Sk, D, generator=g) * 0.3).to(dtype).to(dev)
+            v = torch.randn(B, K, Sk, D, generator=g).to(dtype).to(dev)
+            got = ops.mha(q, k, v, causal=True)
+            want = ref.mha(q, k, v, causal=True)
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= tol, f"flash ({B}, {H}, {K}, {Sq}, {Sk}, {D}) "
+                              f"{dtype}: max |diff| {err} > {tol}")
+            print(f"[kernel] flash_attention B={B} H={H} K={K} Sq={Sq} "
+                  f"Sk={Sk} D={D} {str(dtype)[6:]}: max|diff| {err:.3e} "
+                  f"(gate {tol})")
+            if (B, H, K, Sq, Sk, D) != path or dtype != torch.bfloat16:
+                continue
+            t = timed_turns(
+                torch, {"plain": lambda: ref.mha(q, k, v, causal=True),
+                        "kernel": lambda: ops.mha(q, k, v, causal=True),
+                        "library": lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, enable_gqa=True)},
+                {"plain": 3, "kernel": 10, "library": 10},
+                flush=flush_buf.zero_)
+            pairs = B * H * sum(min(Sk, i + Sk - Sq + 1) for i in range(Sq))
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            bound_ms, bound_by = bound(4.0 * D * pairs, nbytes, BF16_PEAK)
+            print(f"[kernel] flash_attention path shape bf16: kernel "
+                  f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+                  f"library(sdpa) {t['library']:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; {4.0 * D * pairs:.3e} "
+                  f"causal FLOP at the bf16 peak), roofline "
+                  f"{bound_ms / t['kernel']:.1%}")
+            entry = {"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/"
+                                 "kernel.py:32",
+                     "max_abs_err": err, "ms": t["kernel"],
+                     "plain_ms": t["plain"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": t["library"]}
+    del flush_buf
     return entry
 
 
@@ -366,6 +452,131 @@ def run_pi(torch, counts, instances, points):
     print(netlog.report(cn))
 
 
+# -- phases 6-7: the dense decoder LM ------------------------------------------------
+
+def run_forward(torch, dev, counts, batch, seq):
+    """Full-width qwen2-0.5b ``Model.forward`` on (batch, seq) tokens: bf16
+    finite, f32 against prefill + decode, one flash launch per layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("qwen2-0.5b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[lm] {cfg.name}: {model.param_count(params) / 1e6:.1f} M "
+          f"params ({cfg.param_dtype}), {cfg.n_layers} layers, d={cfg.d_model}"
+          f", {cfg.n_heads}/{cfg.n_kv_heads} heads, init "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    g = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g,
+                         device=dev, dtype=torch.int32)
+
+    def forward(m):
+        before = counts()["flash_attention"]
+        logits, _ = m.forward(params, toks)
+        launched = counts()["flash_attention"] - before
+        check(launched == cfg.n_layers, f"forward launched the flash kernel "
+                                        f"{launched} times, not {cfg.n_layers}")
+        return logits
+
+    walls = []
+    with torch.inference_mode():
+        for _ in range(4):  # the first warms cuBLAS up
+            t0 = time.perf_counter()
+            logits = forward(model)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        check(logits.shape == (batch, seq, cfg.vocab)
+              and logits.dtype == torch.bfloat16,
+              f"bf16 forward: logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()), "bf16 forward: non-finite")
+        del logits
+        fwd_ms = statistics.median(walls[1:])
+        print(f"[lm] forward bf16 ({batch}, {seq}): {fwd_ms:.1f} ms median "
+              f"of 3 (first {walls[0]:.1f} ms), "
+              f"{batch * seq / fwd_ms * 1e3:.0f} tok/s; finite logits; "
+              f"{cfg.n_layers} flash launches per forward")
+
+        m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
+        half = seq // 2
+        t0 = time.perf_counter()
+        full = forward(m32)[:, half - 1:half + 1].clone()
+        torch.cuda.synchronize()
+        f32_ms = (time.perf_counter() - t0) * 1e3
+        logits_p, cache = m32.prefill(params, toks[:, :half],
+                                      max_len=half + 1)
+        logits_d, _ = m32.decode_step(params, cache,
+                                      toks[:, half:half + 1])
+        err_p = float((logits_p[:, -1] - full[:, 0]).abs().max())
+        err_d = float((logits_d[:, -1] - full[:, 1]).abs().max())
+        del logits_p, cache
+        check(err_p < 3e-3 and err_d < 3e-3,
+              f"f32 forward vs prefill+decode: {err_p}, {err_d} >= 3e-3")
+        print(f"[lm] forward f32 ({batch}, {seq}) {f32_ms:.1f} ms: logits at "
+              f"{half - 1}/{half} vs prefill({half}) + decode_step: max|diff| "
+              f"{err_p:.2e} / {err_d:.2e} (gate 3e-3)")
+    return model, params, toks
+
+
+def run_serve(torch, model, params, counts):
+    """The launcher's defaults through its ``main``: 8 requests, 4 slots,
+    max_len 128, max_new 16, on the card."""
+    from repro_torch.core import trace
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import LocalDecodeBackend, ServeEngine
+    before = counts()
+    rec = trace.enable(host="serve")  # the engine's decode/prefill spans
+    try:
+        with torch.inference_mode():
+            done = launcher.main(["--arch", model.cfg.name])
+        spans = [e for e in rec.events() if e.kind == "span"]
+    finally:
+        trace.disable()
+    launched = {k: v - before[k] for k, v in counts().items()}
+    reqs = launcher.requests(8, model.cfg.vocab, 16)
+    want = {r.rid: r.max_new for r in reqs}
+    check(sorted(r.rid for r in done) == sorted(want),
+          f"serve: completed {sorted(r.rid for r in done)}")
+    for r in done:
+        check(len(r.tokens) == want[r.rid] and r.finish_reason == "length",
+              f"serve: request {r.rid} gave {len(r.tokens)} tokens "
+              f"({r.finish_reason}), wanted {want[r.rid]}")
+        check([e.kind for e in r.slot_events] == ["join", "leave"],
+              f"serve: request {r.rid} slot events {r.slot_events}")
+    toks = sum(len(r.tokens) for r in done)
+    span = (max(r.finished_at for r in done)
+            - min(r.submitted_at for r in done))
+    ttft = sorted(r.ttft * 1e3 for r in done)
+    tpot = sorted(r.tpot * 1e3 for r in done if len(r.tokens) > 1)
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, int(len(xs) * q / 100.0))]
+
+    decode = sorted(e.dur * 1e3 for e in spans if e.name == "decode_chunk")
+    prefill = sorted(e.dur * 1e3 for e in spans if e.name == "prefill")
+    print(f"[serve] engine spans: decode step p50 {pct(decode, 50):.2f} ms "
+          f"p99 {pct(decode, 99):.2f} ms over {len(decode)} steps; prefill "
+          f"chunk ({LAUNCH_PREFILL_CHUNK} single-token steps) p50 "
+          f"{pct(prefill, 50):.2f} ms over {len(prefill)} chunks")
+    same = 0
+    with torch.inference_mode():
+        for r in reqs:  # each request alone in a one-slot engine
+            eng = ServeEngine(LocalDecodeBackend(model, params, n_slots=1,
+                                                 max_len=128))
+            eng.submit(r)
+            eng.run_until_drained()
+            same += eng.poll(r.rid).tokens == next(
+                d.tokens for d in done if d.rid == r.rid)
+    print(f"[serve] {len(done)} requests complete, {toks} tokens in "
+          f"{span * 1e3:.1f} ms: {toks / span:.1f} tok/s; ttft p50 "
+          f"{pct(ttft, 50):.1f} ms p99 {pct(ttft, 99):.1f} ms; tpot p50 "
+          f"{pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} ms; launches "
+          f"{launched}; {same}/{len(reqs)} requests give the same tokens "
+          "decoded alone (n_slots=1; not gated)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -374,6 +585,7 @@ def main() -> int:
     from repro_torch.kernels import _build, launch_counts, \
         reset_launch_counts
 
+    t_start = time.perf_counter()
     card = gpu_name_and_power()
     print(f"gpu: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -383,7 +595,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["mandelbrot", "stencil"])
+    logs = _build.build_all(["mandelbrot", "stencil", "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -392,21 +604,34 @@ def main() -> int:
 
     W, H, BANDS, ITERS = 4096, 2048, 64, 1000
     entries = [check_mandelbrot(torch, dev, W, H, BANDS, ITERS),
-               check_stencil(torch, dev)]
+               check_stencil(torch, dev), check_flash(torch, dev)]
 
     reset_launch_counts()  # the main path starts here
     farm = run_farm(torch, launch_counts, W, H, BANDS, ITERS)
     pipeline = run_pipeline(torch, dev, launch_counts, 16, 2048)
     run_jacobi(torch, dev, launch_counts, 4, 4096, 4, 1e-6)
     run_pi(torch, launch_counts, 256, 10**6)
+    model, params, toks = run_forward(torch, dev, launch_counts, 4, 2048)
+    run_serve(torch, model, params, launch_counts)
     launched = launch_counts()
 
-    # where the time goes: one more fused run of each kernel workload
+    # where the time goes: one more fused run of each kernel workload, one
+    # more forward and one decode step of the served model
+    import numpy as np
     from repro_torch.core import build
+    from repro_torch.serve import LocalDecodeBackend
     profile_run(torch, "mandelbrot fused", lambda: build(farm).run(
         instances=BANDS))
     profile_run(torch, "image fused", lambda: build(pipeline).run(
         instances=16))
+    with torch.inference_mode():
+        profile_run(torch, "qwen2-0.5b forward bf16 (4, 2048)",
+                    lambda: model.forward(params, toks))
+        backend = LocalDecodeBackend(model, params, n_slots=4, max_len=128)
+        last, adv = np.arange(1, 5, dtype=np.int32), np.ones(4, bool)
+        backend.decode(last, adv)  # warm-up
+        profile_run(torch, "qwen2-0.5b decode step (4 slots)",
+                    lambda: backend.decode(last, adv))
 
     for e in entries:
         e["launches"] = launched[e["name"]]
@@ -415,6 +640,7 @@ def main() -> int:
         f"{e['name']} launches={e['launches']} check="
         f"{'exact' if e['max_abs_err'] == 0 else e['max_abs_err']}"
         for e in entries))
+    print(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,0 +1,19 @@
+"""gemma-2b — 18L d=2048 8H MQA (kv=1) d_ff=16384 vocab=256000, GeGLU,
+head_dim=256, embeddings scaled by sqrt(d) and tied.  [arXiv:2403.08295; hf]"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-2b",
+    family="dense",
+    n_layers=18,
+    d_model=2048,
+    n_heads=8,
+    n_kv_heads=1,
+    d_ff=16384,
+    vocab=256000,
+    head_dim=256,
+    act="geglu",
+    tied_embeddings=True,
+    embed_scale=True,
+)

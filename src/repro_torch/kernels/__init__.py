@@ -6,17 +6,23 @@ the wrapper runs for a CPU tensor), ``kernel`` (the ctypes binding of
 launches).
 """
 
-from . import mandelbrot, stencil  # noqa: F401
+from . import flash_attention, mandelbrot, stencil  # noqa: F401
 
-__all__ = ["mandelbrot", "stencil", "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "mandelbrot", "stencil", "launch_counts",
+           "reset_launch_counts"]
+
+
+def _wrappers() -> dict:
+    return {"mandelbrot": mandelbrot.ops.mandelbrot,
+            "stencil": stencil.ops.stencil2d,
+            "flash_attention": flash_attention.ops.mha}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {"mandelbrot": mandelbrot.ops.mandelbrot.launches,
-            "stencil": stencil.ops.stencil2d.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    mandelbrot.ops.mandelbrot.launches = 0
-    stencil.ops.stencil2d.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0

@@ -1,0 +1,351 @@
+"""Neural building blocks of the decoder LMs, in PyTorch.
+
+The same functions as the JAX package's ``models/layers.py`` on plain dicts
+of tensors with the same leaf names, so a parameter tree carries across leaf
+by leaf.  Activation annotations route through :mod:`..parallel.axes` (a
+rank check on one device).  Full-sequence attention on a CUDA tensor runs
+the hand-written flash kernel; the KV-cache branch stays plain tensor code,
+as the JAX package leaves it outside any kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import ops as fops, ref as fref
+from ..parallel.axes import act
+
+# --------------------------------------------------------------------------
+# init helpers (weights drawn on the generator's device)
+# --------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, dtype,
+               scale: Optional[float] = None, *, stack: int = 0):
+    """N(0, 1) * scale, scale 1/sqrt(fan-in) by default; ``stack`` > 0
+    prepends a layer axis of that length (the stacked segments)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    full = ((stack,) if stack else ()) + tuple(shape)
+    return (torch.randn(full, generator=gen, device=gen.device)
+            * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype):
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * 0.02).to(dtype)
+
+
+def _const(shape, value, dtype, device, stack: int = 0):
+    full = ((stack,) if stack else ()) + tuple(shape)
+    return torch.full(full, value, dtype=dtype, device=device)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device, stack: int = 0) -> dict:
+    return {"scale": _const((d,), 1.0, dtype, device, stack)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device, stack: int = 0) -> dict:
+    return {"scale": _const((d,), 1.0, dtype, device, stack),
+            "bias": _const((d,), 0.0, dtype, device, stack)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def norm(kind: str):
+    return {"rmsnorm": (rmsnorm_init, rmsnorm),
+            "layernorm": (layernorm_init, layernorm)}[kind]
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings (standard, fractional, and M-RoPE)
+# --------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, rot_dim: int, theta: float,
+                sections: Optional[tuple] = None) -> tuple:
+    """positions: (B, S) int — or (B, S, 3) for M-RoPE with ``sections``
+    (t, h, w) summing to rot_dim // 2.  Returns cos, sin: (B, S, rot_dim/2),
+    float32."""
+    half = rot_dim // 2
+    expo = torch.arange(0, half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv = 1.0 / torch.pow(theta, expo)  # f32, no host-to-device copy
+    if sections is None:
+        ang = positions.float()[..., None] * inv  # (B, S, half)
+    else:
+        if sum(sections) != half:
+            raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                             f"{half}")
+        # frequency block i rotates by position stream i (t, h, w)
+        parts, lo = [], 0
+        for i, n in enumerate(sections):
+            parts.append(positions[..., i:i + 1].float() * inv[lo:lo + n])
+            lo += n
+        ang = torch.cat(parts, dim=-1)  # (B, S, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rot_dim: int) -> torch.Tensor:
+    """x: (B, S, H, hd); rotate the first rot_dim dims (half-split layout)
+    in float32, then cast back to x's dtype."""
+    rot, rest = x[..., :rot_dim], x[..., rot_dim:]
+    half = rot_dim // 2
+    x1f, x2f = rot[..., :half].float(), rot[..., half:].float()
+    c = cos[:, :, None, :].float()
+    s = sin[:, :, None, :].float()
+    r1 = x1f * c - x2f * s
+    r2 = x2f * c + x1f * s
+    return torch.cat([r1.to(x.dtype), r2.to(x.dtype), rest], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA, optional KV cache, flash kernel dispatch)
+# --------------------------------------------------------------------------
+
+def attention_init(gen: torch.Generator, cfg, dtype, stack: int = 0) -> dict:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {
+        "wq": dense_init(gen, (D, H * hd), dtype, stack=stack),
+        "wk": dense_init(gen, (D, K * hd), dtype, stack=stack),
+        "wv": dense_init(gen, (D, K * hd), dtype, stack=stack),
+        "wo": dense_init(gen, (H * hd, D), dtype,
+                         scale=1.0 / math.sqrt(H * hd), stack=stack),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
+            p[name] = _const((width,), 0.0, dtype, gen.device, stack)
+    return p
+
+
+def _sdpa(q, k, v, *, causal: bool, attn_chunk: int = 0) -> torch.Tensor:
+    """q: (B,S,H,hd); k,v: (B,T,K,hd) → (B,S,H,hd).  BHSD under the hood.
+
+    On a CUDA tensor every full-sequence attention runs the flash kernel,
+    whatever ``use_pallas`` and ``attn_chunk`` say: in the JAX package those
+    two choose among its plain paths (and its TPU kernel), so on the card the
+    kernel is the one path.  On the CPU the plain versions run as the JAX
+    package runs them: chunked when ``attn_chunk`` is set, else dense (its
+    Pallas kernel computes the same function)."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if q.device.type == "cuda":
+        ot = fops.mha(qt, kt, vt, causal=causal)
+    elif attn_chunk:
+        ot = fref.mha_chunked(qt, kt, vt, causal=causal, chunk=attn_chunk)
+    else:
+        ot = fops.mha(qt, kt, vt, causal=causal)
+    return ot.transpose(1, 2)
+
+
+def _write_rows(buf: torch.Tensor, new: torch.Tensor,
+                start: torch.Tensor) -> None:
+    """``buf[b, start[b]:start[b] + S] = new[b]`` for every row b, in place.
+
+    ``start`` is clamped to ``[0, T - S]`` as ``dynamic_update_slice`` clamps
+    it, and stays on the device (no host read of the cache index)."""
+    B, S = new.shape[:2]
+    T = buf.shape[1]
+    lo = start.clamp(0, T - S).long()
+    pos = lo[:, None] + torch.arange(S, device=buf.device)[None, :]
+    rows = torch.arange(B, device=buf.device)[:, None].expand(B, S)
+    buf[rows, pos] = new.to(buf.dtype)
+
+
+def attention(p: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
+              causal: bool = True, cache: Optional[dict] = None,
+              kv_input: Optional[torch.Tensor] = None,
+              mrope: bool = False, advance: Optional[torch.Tensor] = None):
+    """Self (or cross, via ``kv_input``) attention.
+
+    With ``cache`` (decode): write this step's k/v at the *per-row*
+    ``cache["index"]`` and attend over each row's valid prefix.  ``advance``
+    (B,) bool selects which rows move their index (continuous batching: an
+    inactive row writes at its index without moving it, so it rewrites in
+    place).  The k/v buffers of the cache are updated in place (the JAX
+    package returns new ones); the index is a new tensor in the returned
+    cache.  Returns (out, new_cache).
+    """
+    B, S, D = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if kv_input is None else kv_input
+    q = x @ p["wq"].to(x.dtype)
+    k = src @ p["wk"].to(x.dtype)
+    v = src @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, -1, K, hd)
+    v = v.reshape(B, -1, K, hd)
+    q = act(q, "batch", "seq", "heads", None)
+    k = act(k, "batch", "seq", "heads", None)
+    if kv_input is None:  # RoPE only for self-attention
+        rot = int(cfg.hd * cfg.rope_fraction) // 2 * 2
+        if rot:
+            sections = cfg.mrope_sections if mrope else None
+            cos, sin = rope_angles(positions, rot, cfg.rope_theta, sections)
+            q = apply_rope(q, cos, sin, rot)
+            k = apply_rope(k, cos, sin, rot)
+    new_cache = None
+    if cache is not None:
+        idx = cache["index"]  # (B,) per-row write position
+        if advance is None:
+            advance = torch.ones((B,), dtype=torch.bool, device=x.device)
+        step = torch.where(advance.to(x.device), S, 0).to(idx.dtype)
+        new_idx = idx + step
+        if cfg.kv_quant:
+            kq, ks = _kv_quantize(k)
+            vq, vs = _kv_quantize(v)
+            for name, new in (("k", kq), ("v", vq), ("k_scale", ks),
+                              ("v_scale", vs)):
+                _write_rows(cache[name], new, idx)
+            new_cache = {"k": cache["k"], "v": cache["v"],
+                         "k_scale": cache["k_scale"],
+                         "v_scale": cache["v_scale"], "index": new_idx}
+            k = _kv_dequantize(cache["k"], cache["k_scale"], x.dtype)
+            v = _kv_dequantize(cache["v"], cache["v_scale"], x.dtype)
+        else:
+            _write_rows(cache["k"], k, idx)
+            _write_rows(cache["v"], v, idx)
+            new_cache = {"k": cache["k"], "v": cache["v"], "index": new_idx}
+            k, v = cache["k"], cache["v"]
+        # per-row causality: row b's queries sit at positions idx_b + [0,S).
+        # GQA via a grouped einsum — never materialise repeated KV.
+        T = k.shape[1]
+        group = H // K
+        qg = q.reshape(B, S, K, group, hd)
+        logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                              k.float()) * (hd ** -0.5)
+        ki = torch.arange(T, device=x.device)[None, None, None, None, :]
+        qi = (idx.to(x.device)[:, None, None, None, None]
+              + torch.arange(S, device=x.device)[None, None, None, :, None])
+        logits = logits.masked_fill(~(ki <= qi), float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        ot = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(),
+                          v.float())
+        out = ot.reshape(B, S, H, hd).to(x.dtype)
+    else:
+        out = _sdpa(q, k, v, causal=causal, attn_chunk=cfg.attn_chunk)
+    out = out.reshape(B, S, H * hd)
+    out = out @ p["wo"].to(x.dtype)
+    return act(out, "batch", "seq", "d"), new_cache
+
+
+def attention_cache(cfg, batch: int, max_len: int, dtype, device,
+                    stack: int = 0) -> dict:
+    K, hd = cfg.n_kv_heads, cfg.hd
+    lead = (stack,) if stack else ()
+
+    def zeros(shape, dt):
+        return torch.zeros(lead + shape, dtype=dt, device=device)
+
+    if cfg.kv_quant:  # int8 payload + per-(pos, head) scale: ~2x smaller
+        return {
+            "k": zeros((batch, max_len, K, hd), torch.int8),
+            "v": zeros((batch, max_len, K, hd), torch.int8),
+            "k_scale": zeros((batch, max_len, K), torch.float32),
+            "v_scale": zeros((batch, max_len, K), torch.float32),
+            "index": zeros((batch,), torch.int32),
+        }
+    return {
+        "k": zeros((batch, max_len, K, hd), dtype),
+        "v": zeros((batch, max_len, K, hd), dtype),
+        "index": zeros((batch,), torch.int32),
+    }
+
+
+def _kv_quantize(x: torch.Tensor):
+    """x: (B, S, K, hd) → int8 payload + (B, S, K) scale."""
+    xf = x.float()
+    scale = torch.amax(torch.abs(xf), dim=-1) / 127.0
+    scale = torch.clamp_min(scale, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg, dtype, d_ff: Optional[int] = None,
+             stack: int = 0) -> dict:
+    D = cfg.d_model
+    Ff = d_ff if d_ff is not None else cfg.d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        return {
+            "gate": dense_init(gen, (D, Ff), dtype, stack=stack),
+            "up": dense_init(gen, (D, Ff), dtype, stack=stack),
+            "down": dense_init(gen, (Ff, D), dtype,
+                               scale=1.0 / math.sqrt(Ff), stack=stack),
+        }
+    return {  # plain gelu MLP (whisper)
+        "up": dense_init(gen, (D, Ff), dtype, stack=stack),
+        "up_b": _const((Ff,), 0.0, dtype, gen.device, stack),
+        "down": dense_init(gen, (Ff, D), dtype, scale=1.0 / math.sqrt(Ff),
+                           stack=stack),
+        "down_b": _const((D,), 0.0, dtype, gen.device, stack),
+    }
+
+
+def mlp(p: dict, cfg, x: torch.Tensor, *, act_fn: Optional[str] = None):
+    kind = act_fn or cfg.act
+    if kind in ("swiglu", "geglu"):
+        g = act(x @ p["gate"].to(x.dtype), "batch", "seq", "ff")
+        u = act(x @ p["up"].to(x.dtype), "batch", "seq", "ff")
+        h = (F.silu(g) if kind == "swiglu"
+             else F.gelu(g, approximate="tanh")) * u
+        out = h @ p["down"].to(x.dtype)
+    else:
+        h = act(x @ p["up"].to(x.dtype), "batch", "seq", "ff") \
+            + p["up_b"].to(x.dtype)
+        h = F.gelu(h, approximate="tanh")
+        out = h @ p["down"].to(x.dtype) + p["down_b"].to(x.dtype)
+    return act(out, "batch", "seq", "d")
+
+
+# --------------------------------------------------------------------------
+# embedding / unembedding
+# --------------------------------------------------------------------------
+
+def embedding_init(gen: torch.Generator, cfg, dtype) -> dict:
+    p = {"embed": embed_init(gen, (cfg.vocab, cfg.d_model), dtype)}
+    if not cfg.tied_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype)
+    return p
+
+
+def embed(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    x = p["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    if cfg.embed_scale:  # the scale rounds to x's dtype first, as in JAX
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    return act(x, "batch", "seq", "d")
+
+
+def unembed(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    w = p["embed"].T if cfg.tied_embeddings else p["lm_head"]
+    return act(x @ w.to(x.dtype), "batch", "seq", "vocab")

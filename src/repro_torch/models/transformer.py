@@ -1,0 +1,244 @@
+"""Decoder LM of the dense and VLM families, in PyTorch.
+
+The JAX package's ``models/transformer.py`` for the families whose blocks
+are all attention + MLP.  A model is a sequence of *segments*, homogeneous
+runs of one block kind whose parameters are stacked on a leading layer axis
+``(L, ...)`` as the reference's ``vmap`` init makes them; a Python loop
+indexes that axis where the reference runs ``lax.scan``.
+
+Entry points::
+
+    init_params(cfg, gen)                         -> params
+    forward(cfg, params, tokens, ...)             -> (logits, aux)
+    init_cache(cfg, batch, max_len, device)       -> cache
+    decode_step(cfg, params, cache, tokens, ...)  -> (logits, cache)
+    prefill(cfg, params, tokens, max_len)         -> (logits, cache)
+    reset_slot(cfg, cache, slot)                  -> cache
+
+The moe, ssm and hybrid families come with the slices that port their
+kernels (``moe_gmm``, ``ssd_scan``); the training loss, remat and
+``scan_layers`` come with the training slice.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import torch
+import torch.utils._pytree as pytree
+
+from . import layers
+
+__all__ = ["structure", "init_params", "forward", "hidden_states",
+           "init_cache", "decode_step", "prefill", "reset_slot",
+           "param_count"]
+
+_LATER = {
+    "moe": "the MoE slice (with the moe_gmm kernel)",
+    "ssm": "the mamba2 slice (with the ssd_scan kernel)",
+    "hybrid": "the mamba2 slice (with the ssd_scan kernel)",
+    "audio": "the encoder-decoder slice",
+}
+
+
+def _check_family(cfg) -> None:
+    if cfg.family in _LATER:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; it comes "
+            f"with {_LATER[cfg.family]}")
+
+
+# --------------------------------------------------------------------------
+# segment structure per family
+# --------------------------------------------------------------------------
+
+def structure(cfg) -> list[tuple[str, int]]:
+    """Returns [(block_kind, count), ...] covering cfg.n_layers."""
+    L = cfg.n_layers
+    if cfg.family in ("dense", "vlm"):
+        return [("attn", L)]
+    if cfg.family == "moe":
+        if cfg.moe.layer0_dense:
+            return [("attn", 1), ("attn_moe", L - 1)]
+        return [("attn_moe", L)]
+    if cfg.family == "ssm":
+        return [("mamba", L)]
+    if cfg.family == "hybrid":
+        segs: list[tuple[str, int]] = []
+        period = cfg.hybrid.period
+        remaining = L
+        while remaining > 0:
+            run = min(period, remaining)
+            segs.append(("mamba", run))
+            remaining -= run
+            if remaining > 0 or run == period:
+                segs.append(("shared_attn", 1))
+        return segs
+    raise ValueError(f"unknown family {cfg.family!r} (audio → encdec)")
+
+
+# --------------------------------------------------------------------------
+# blocks
+# --------------------------------------------------------------------------
+
+def _block_init(gen, cfg, dtype, stack: int) -> dict:
+    """An attention + MLP block, its leaves stacked ``stack`` deep."""
+    ninit, _ = layers.norm(cfg.norm)
+    return {
+        "norm1": ninit(cfg.d_model, dtype, gen.device, stack),
+        "attn": layers.attention_init(gen, cfg, dtype, stack),
+        "norm2": ninit(cfg.d_model, dtype, gen.device, stack),
+        "mlp": layers.mlp_init(gen, cfg, dtype, stack=stack),
+    }
+
+
+def _block_apply(p: dict, cfg, x, positions, cache=None, advance=None):
+    """Returns (x, new_cache)."""
+    _, napply = layers.norm(cfg.norm)
+    nfn = functools.partial(napply, eps=cfg.norm_eps)
+    h = nfn(p["norm1"], x)
+    a_out, new_cache = layers.attention(
+        p["attn"], cfg, h, positions=positions, causal=True, cache=cache,
+        mrope=cfg.mrope, advance=advance)
+    x = x + a_out
+    f = layers.mlp(p["mlp"], cfg, nfn(p["norm2"], x))
+    return x + f, new_cache
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked segment: views of every leaf."""
+    return pytree.tree_map(lambda leaf: leaf[i], tree)
+
+
+def _n_layers(tree) -> int:
+    return pytree.tree_leaves(tree)[0].shape[0]
+
+
+# --------------------------------------------------------------------------
+# params
+# --------------------------------------------------------------------------
+
+def init_params(cfg, gen: torch.Generator) -> dict:
+    """Seeded weights on ``gen``'s device, in ``cfg.param_dtype``."""
+    _check_family(cfg)
+    dtype = getattr(torch, cfg.param_dtype)
+    ninit, _ = layers.norm(cfg.norm)
+    params: dict[str, Any] = {
+        "embedding": layers.embedding_init(gen, cfg, dtype),
+        "final_norm": ninit(cfg.d_model, dtype, gen.device),
+        "segments": [_block_init(gen, cfg, dtype, count)
+                     for _, count in structure(cfg)],
+    }
+    return params
+
+
+def param_count(params) -> int:
+    return sum(int(x.numel()) for x in pytree.tree_leaves(params))
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def _positions(cfg, tokens, offset=0):
+    """(B, S) int32 positions ``offset + [0, S)``; ``offset`` is an int or a
+    (B,) tensor of per-row offsets (continuous batching).  M-RoPE gets
+    (B, S, 3) with the (t, h, w) streams equal (text only)."""
+    B, S = tokens.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
+    if isinstance(offset, torch.Tensor):  # stays on the device
+        off = offset.to(torch.int32)
+        pos = pos + (off[:, None] if off.ndim == 1 else off)
+    else:
+        pos = pos + offset
+    pos = pos.expand(B, S)
+    if cfg.mrope:
+        pos = pos[..., None].expand(B, S, 3)
+    return pos
+
+
+def hidden_states(cfg, params, tokens, *, positions=None,
+                  input_embeds=None):
+    """Backbone up to (and including) the final norm: (B,S,D), aux."""
+    _check_family(cfg)
+    x = (layers.embed(params["embedding"], cfg, tokens)
+         if input_embeds is None else input_embeds)
+    pos = _positions(cfg, tokens) if positions is None else positions
+    for seg_p in params["segments"]:
+        for i in range(_n_layers(seg_p)):
+            x, _ = _block_apply(_layer(seg_p, i), cfg, x, pos)
+    _, napply = layers.norm(cfg.norm)
+    x = napply(params["final_norm"], x, eps=cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(cfg, params, tokens, *, positions=None, input_embeds=None):
+    """Full-sequence forward (scoring a prompt: a prefill without a cache).
+
+    Returns (logits, aux_loss); aux is 0 for these families."""
+    x, aux = hidden_states(cfg, params, tokens, positions=positions,
+                           input_embeds=input_embeds)
+    return layers.unembed(params["embedding"], cfg, x), aux
+
+
+# --------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# --------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, device) -> dict:
+    """Zero KV cache in ``cfg.compute_dtype``: leaves (L, B, ...) per
+    stacked segment, plus the per-row ``step`` counter."""
+    _check_family(cfg)
+    dtype = getattr(torch, cfg.compute_dtype)
+    return {"segments": [layers.attention_cache(cfg, batch, max_len, dtype,
+                                                device, stack=count)
+                         for _, count in structure(cfg)],
+            "step": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def decode_step(cfg, params, cache, tokens, *, positions=None, advance=None):
+    """tokens: (B, S_step) (S_step=1 for pure decode).  Returns
+    (logits, new_cache).  ``advance`` (B,) bool: continuous-batching rows.
+
+    The k/v buffers are written in place (see :func:`layers.attention`), so
+    the new cache shares them with ``cache``."""
+    _check_family(cfg)
+    x = layers.embed(params["embedding"], cfg, tokens)
+    pos = (_positions(cfg, tokens, offset=cache["step"])
+           if positions is None else positions)
+    B, S = tokens.shape[:2]
+    adv = (torch.ones((B,), dtype=torch.bool, device=tokens.device)
+           if advance is None else advance.to(tokens.device))
+    new_cache: dict[str, Any] = {
+        "segments": [],
+        "step": cache["step"] + torch.where(adv, S, 0).to(torch.int32)}
+    for seg_p, seg_c in zip(params["segments"], cache["segments"]):
+        indices = []
+        for i in range(_n_layers(seg_p)):
+            x, nc = _block_apply(_layer(seg_p, i), cfg, x, pos,
+                                 cache=_layer(seg_c, i), advance=adv)
+            indices.append(nc["index"])
+        new_seg = dict(seg_c)
+        new_seg["index"] = torch.stack(indices)
+        new_cache["segments"].append(new_seg)
+    _, napply = layers.norm(cfg.norm)
+    x = napply(params["final_norm"], x, eps=cfg.norm_eps)
+    return layers.unembed(params["embedding"], cfg, x), new_cache
+
+
+def prefill(cfg, params, tokens, max_len: int):
+    """Process the prompt, building the cache.  Returns (logits, cache)."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    return decode_step(cfg, params, cache, tokens)
+
+
+def reset_slot(cfg, cache, slot: int):
+    """Zero one batch row of the cache (slot reuse in continuous batching),
+    in place.  Cache leaves are (L, B, ...) for stacked segments, so the
+    batch axis is 1."""
+    for seg_c in cache["segments"]:
+        for leaf in pytree.tree_leaves(seg_c):
+            leaf[:, slot] = 0
+    cache["step"][slot] = 0
+    return cache

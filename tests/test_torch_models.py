@@ -1,0 +1,250 @@
+"""The port's dense and VLM decoders against the JAX package's, on the CPU.
+
+For each reduced architecture of the families the port carries (gemma-2b:
+GeGLU and embedding scale; glm4-9b: partial rotary; qwen2-0.5b: QKV bias
+and GQA; qwen2-vl-2b: M-RoPE; yi-34b: untied head), the JAX package's
+weights, drawn from ``PRNGKey(0)``, cross to the port through
+``params_from_numpy``, and the same numpy-seeded tokens go through both.
+The JAX forward runs with ``use_pallas=True``, its flash kernel in interpret
+mode.  The reduced configs are float32, so logits must agree within 1e-4;
+``decode_matches_forward`` keeps the reference's own 3e-3 gate.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS, get_config as jget_config
+from repro.models import Model as JModel
+from repro.models import transformer as jtransformer
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.interop import params_from_numpy
+from repro_torch.models import Model
+from repro_torch.models import transformer
+
+PORTED = ["gemma-2b", "glm4-9b", "qwen2-0.5b", "qwen2-vl-2b", "yi-34b"]
+TOL = 1e-4
+
+
+def _pair(arch, **overrides):
+    """(JAX model, JAX params, port model, port params) on the same
+    weights."""
+    jcfg = dataclasses.replace(jget_config(arch, reduced=True),
+                               use_pallas=True, **overrides)
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **overrides)
+    jm, m = JModel(jcfg), Model(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    p = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu",
+                          like=m.init(device="cpu"))
+    return jm, jp, m, p
+
+
+def _tokens(shape, seed=0, vocab=200):
+    return np.random.default_rng(seed).integers(0, vocab, shape,
+                                                dtype=np.int32)
+
+
+def _np(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+def _cache_close(jcache, cache):
+    ours = params_from_numpy(jax.tree_util.tree_map(np.asarray, jcache),
+                             "cpu", like=cache)
+    for a, b in zip(torch.utils._pytree.tree_leaves(ours),
+                    torch.utils._pytree.tree_leaves(cache)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=TOL, atol=TOL)
+
+
+# --------------------------------------------------------------------------
+# configs: the port's copy is the reference's
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", sorted(JARCHS))
+def test_configs_and_structure_match_reference(arch):
+    assert sorted(ARCHS) == sorted(JARCHS)
+    for reduced in (False, True):
+        ours = dataclasses.asdict(get_config(arch, reduced=reduced))
+        theirs = dataclasses.asdict(jget_config(arch, reduced=reduced))
+        assert ours == theirs
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    if cfg.family != "audio":  # the encoder-decoder has no segments
+        assert transformer.structure(cfg) == jtransformer.structure(jcfg)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+                                  "zamba2-1.2b", "whisper-tiny"])
+def test_unported_families_name_their_slice(arch):
+    cfg = get_config(arch, reduced=True)
+    with pytest.raises(NotImplementedError, match="slice"):
+        Model(cfg).init(device="cpu")
+
+
+# --------------------------------------------------------------------------
+# the same weights, the same logits
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", PORTED)
+class TestAgainstJax:
+    def test_forward_matches_jax_pallas(self, arch):
+        jm, jp, m, p = _pair(arch)
+        toks = _tokens((2, 24))
+        jl, _ = jm.forward(jp, jnp.asarray(toks))
+        logits, aux = m.forward(p, torch.from_numpy(toks))
+        assert logits.shape == (2, 24, m.cfg.vocab) and float(aux) == 0.0
+        np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL, atol=TOL)
+
+    def test_prefill_and_decode_match_jax(self, arch):
+        jm, jp, m, p = _pair(arch)
+        toks = _tokens((2, 16), seed=1)
+        jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :12]), max_len=24)
+        logits, cache = m.prefill(p, torch.from_numpy(toks[:, :12]),
+                                  max_len=24)
+        np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL, atol=TOL)
+        _cache_close(jc, cache)
+        for t in range(12, 16):
+            jl, jc = jm.decode_step(jp, jc, jnp.asarray(toks[:, t:t + 1]))
+            logits, cache = m.decode_step(p, cache,
+                                          torch.from_numpy(toks[:, t:t + 1]))
+            np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL,
+                                       atol=TOL)
+        _cache_close(jc, cache)
+
+    def test_decode_matches_forward(self, arch):
+        """The reference's own gate, inside the port: prefill + one decode
+        step reproduce the full-sequence forward."""
+        m = Model(get_config(arch, reduced=True))
+        params = m.init(seed=0, device="cpu")
+        toks = torch.from_numpy(_tokens((2, 24), seed=2))
+        full, _ = m.forward(params, toks)
+        logits_p, cache = m.prefill(params, toks[:, :12], max_len=32)
+        err = float((logits_p[:, -1] - full[:, 11]).abs().max())
+        assert err < 3e-3, f"prefill diverges from forward: {err}"
+        logits_d, cache = m.decode_step(params, cache, toks[:, 12:13])
+        err = float((logits_d[:, -1] - full[:, 12]).abs().max())
+        assert err < 3e-3, f"decode diverges from forward: {err}"
+
+    def test_frozen_row_unchanged(self, arch):
+        """Continuous-batching contract: advance=False freezes a row's step
+        and index; decoding that row later equals decoding it from the
+        untouched cache."""
+        m = Model(get_config(arch, reduced=True))
+        params = m.init(seed=0, device="cpu")
+        t = torch.tensor([[3], [5]], dtype=torch.int32)
+        _, c1 = m.decode_step(params, m.init_cache(2, 16, device="cpu"), t,
+                              advance=torch.tensor([True, False]))
+        assert c1["step"].tolist() == [1, 0]
+        assert c1["segments"][0]["index"][:, 1].eq(0).all()
+        l_after, _ = m.decode_step(params, c1, t,
+                                   advance=torch.tensor([False, True]))
+        l_ref, _ = m.decode_step(params, m.init_cache(2, 16, device="cpu"),
+                                 t, advance=torch.tensor([False, True]))
+        np.testing.assert_allclose(_np(l_after[1]), _np(l_ref[1]),
+                                   rtol=2e-4, atol=2e-4)
+
+    def test_frozen_rows_match_jax(self, arch):
+        """Per-row offsets and advance masks give the JAX package's logits
+        and cache, step after step."""
+        jm, jp, m, p = _pair(arch)
+        jc, cache = jm.init_cache(3, 16), m.init_cache(3, 16, device="cpu")
+        masks = [[True, False, True], [False, True, True],
+                 [True, True, False]]
+        for i, mask in enumerate(masks):
+            toks = _tokens((3, 1), seed=10 + i)
+            jl, jc = jm.decode_step(jp, jc, jnp.asarray(toks),
+                                    advance=jnp.asarray(mask))
+            logits, cache = m.decode_step(p, cache, torch.from_numpy(toks),
+                                          advance=torch.tensor(mask))
+            np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL,
+                                       atol=TOL)
+        _cache_close(jc, cache)
+
+    def test_reset_slot_matches_jax(self, arch):
+        jm, jp, m, p = _pair(arch)
+        toks = _tokens((2, 5), seed=3)
+        _, jc = jm.prefill(jp, jnp.asarray(toks), max_len=8)
+        _, cache = m.prefill(p, torch.from_numpy(toks), max_len=8)
+        jc = jm.reset_slot(jc, 1)
+        cache = m.reset_slot(cache, 1)
+        assert cache["step"].tolist() == [5, 0]
+        assert all(leaf[:, 1].eq(0).all() for leaf in
+                   torch.utils._pytree.tree_leaves(cache["segments"]))
+        _cache_close(jc, cache)
+
+
+# --------------------------------------------------------------------------
+# int8 KV cache
+# --------------------------------------------------------------------------
+
+class TestKVQuant:
+    def test_greedy_decode_identical(self):
+        """The reference's check: the int8 cache leaves greedy decoding
+        unchanged."""
+        cfg = get_config("qwen2-0.5b", reduced=True)
+        m = Model(cfg)
+        mq = Model(dataclasses.replace(cfg, kv_quant=True))
+        params = m.init(seed=0, device="cpu")
+        toks = torch.from_numpy(_tokens((2, 8), seed=4, vocab=cfg.vocab))
+
+        def gen(model, n=8):
+            logits, cache = model.prefill(params, toks, max_len=32)
+            t = model.greedy_token(logits)
+            out = []
+            for _ in range(n):
+                out.append(t.clone())
+                logits, cache = model.decode_step(params, cache, t[:, None])
+                t = model.greedy_token(logits)
+            return torch.stack(out)
+
+        assert torch.equal(gen(m), gen(mq))
+
+    def test_quantised_cache_matches_jax(self):
+        jm, jp, m, p = _pair("qwen2-0.5b", kv_quant=True)
+        toks = _tokens((2, 10), seed=5)
+        jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :8]), max_len=16)
+        logits, cache = m.prefill(p, torch.from_numpy(toks[:, :8]),
+                                  max_len=16)
+        np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL, atol=TOL)
+        assert cache["segments"][0]["k"].dtype == torch.int8
+        for t in (8, 9):
+            jl, jc = jm.decode_step(jp, jc, jnp.asarray(toks[:, t:t + 1]))
+            logits, cache = m.decode_step(p, cache,
+                                          torch.from_numpy(toks[:, t:t + 1]))
+            np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL,
+                                       atol=TOL)
+
+
+# --------------------------------------------------------------------------
+# the facade and the weight carrier
+# --------------------------------------------------------------------------
+
+def test_init_is_seeded_and_stacked():
+    cfg = get_config("qwen2-0.5b", reduced=True)
+    m = Model(cfg)
+    a, b = m.init(seed=3, device="cpu"), m.init(seed=3, device="cpu")
+    for x, y in zip(torch.utils._pytree.tree_leaves(a),
+                    torch.utils._pytree.tree_leaves(b)):
+        assert torch.equal(x, y)
+    wq = a["segments"][0]["attn"]["wq"]
+    assert wq.shape == (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.hd)
+    assert m.param_count(a) == sum(
+        int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(
+            JModel(jget_config("qwen2-0.5b", reduced=True)).init(
+                jax.random.PRNGKey(0))))
+
+
+def test_params_from_numpy_checks_structure_and_shapes():
+    m = Model(get_config("qwen2-0.5b", reduced=True))
+    like = m.init(device="cpu")
+    tree = torch.utils._pytree.tree_map(lambda t: t.numpy(), like)
+    tree["segments"][0]["attn"]["wq"] = np.zeros((1, 2, 3), np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        params_from_numpy(tree, "cpu", like=like)
+    del tree["segments"][0]["attn"]["wq"]
+    with pytest.raises(ValueError, match="structure"):
+        params_from_numpy(tree, "cpu", like=like)
