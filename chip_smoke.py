@@ -32,20 +32,37 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    ``main`` (full-width qwen2-0.5b, 4 slots, max_len 128, max_new 16): every
    request must complete with its token count and exactly one join and one
    leave; it prints tokens/s, TTFT and TPOT, and how many requests give the
-   same tokens decoded alone in a one-slot engine (printed, not gated).
+   same tokens decoded alone in a one-slot engine (printed, not gated);
+8. runs ``Model.forward`` of the full-width mamba2-2.7b (64 Mamba2 layers)
+   and zamba2-1.2b (38 Mamba2 layers and one shared attention block applied
+   6 times) on (4, 2048) seeded tokens, with the checks of phase 6: finite
+   bf16 logits, f32 logits against ``prefill`` of 1024 tokens (which runs
+   the SSD kernel and hands its final state to the decode recurrence) and
+   one ``decode_step`` within 3e-3, and each forward launching the SSD
+   kernel once per Mamba2 layer (64; 38) and the flash kernel once per
+   shared-block application (0; 6);
+9. serves mamba2-2.7b through the launcher's ``main`` as in phase 7.
+   Serving launches no kernel: the engine feeds prompts one token a step,
+   so every Mamba2 layer takes the O(1) decode recurrence and every
+   attention layer the KV-cache einsums, as in the JAX package.
 
 Phase 1 also holds the flash-attention kernel against its plain version on
 the forward's shape (B=4, H=14, K=2, S=2048, D=64, bf16) and on the
 reference tests' shapes in float32 and bf16, and times it beside
-``scaled_dot_product_attention`` (the yardstick; the port never calls it).
+``scaled_dot_product_attention`` (the yardstick; the port never calls it);
+and the SSD-scan kernel, y and final state, on the mamba2 and zamba2
+forwards' shapes, the reference tests' shapes, a ragged S and G = H (no
+PyTorch call computes the scan, so it has no yardstick).
 
-Kernel launch counts are reset just before phase 2 and read after phase 7:
+Kernel launch counts are reset just before phase 2 and read after phase 9:
 each kernel must have been launched by the main path.  One more fused run
-of the farm, of the pipeline and one more bf16 forward are then traced with
-``torch.profiler`` to print the device's busy time and idle share.  The last
-two lines are a JSON summary of the kernels and ``{"ok": true, "device":
-...}``.  Any failure raises and the script exits non-zero; so does a machine
-without a CUDA device, where nothing is printed on standard output.
+of the farm, of the pipeline, one more bf16 forward and one decode step of
+qwen2-0.5b and of mamba2-2.7b, and one more zamba2-1.2b forward are then
+traced with ``torch.profiler`` to print the device's busy time and idle
+share.  The last two lines are a JSON
+summary of the kernels and ``{"ok": true, "device": ...}``.  Any failure
+raises and the script exits non-zero; so does a machine without a CUDA
+device, where nothing is printed on standard output.
 """
 
 from __future__ import annotations
@@ -337,6 +354,87 @@ def check_flash(torch, dev) -> dict:
     return entry
 
 
+def ssd_work(b, S, H, P, G, N, chunk=64) -> float:
+    """FLOP of the SSD scan: C·Bᵀ once per group over the causal pairs of
+    each chunk, W·x over the same pairs per head, C·h and the state update
+    N·P multiply-adds a step per head."""
+    rows = [chunk] * (S // chunk) + ([S % chunk] if S % chunk else [])
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    return 2.0 * b * G * N * pairs + b * H * (2.0 * P * pairs
+                                              + 4.0 * N * P * S)
+
+
+def check_ssd(torch, dev) -> dict:
+    """The SSD kernel against its plain version, y and the final state: the
+    mamba2 and zamba2 forwards' shapes, the reference tests' shapes, ragged
+    S and G = H; times at the mamba2 forward's shape."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator().manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    path = (4, 2048, 80, 64, 1, 128)  # (batch, S, H, P, G, N) of mamba2-2.7b
+    zamba = (4, 2048, 64, 64, 1, 64)
+    ref_shape = (1, 64, 2, 8, 2, 4)   # tests/test_kernels.py: BH 2, own B, C
+    # (shape, dtype, chunk of the plain version, (rtol, atol)).  bf16: both
+    # sides sum in f32 and round y to bf16 once, so a rounding flip costs one
+    # ulp (2^-8 of |y|); the f32 state is then held to 2e-4
+    cases = [(path, bf16, 64, (1e-2, 5e-2)), (zamba, bf16, 64, (1e-2, 5e-2)),
+             (path, f32, 64, (2e-4, 2e-4)), (zamba, f32, 64, (2e-4, 2e-4)),
+             (ref_shape, f32, 16, (1e-4, 1e-5)),
+             (ref_shape, f32, 32, (1e-4, 1e-5)),
+             ((1, 2047, 80, 64, 1, 128), bf16, 64, (1e-2, 5e-2)),  # ragged
+             ((2, 33, 4, 16, 4, 16), f32, 16, (2e-4, 2e-4)),       # ragged
+             ((2, 256, 8, 64, 8, 128), f32, 64, (2e-4, 2e-4))]     # G = H
+    entry = None
+    for shape, dtype, chunk, (rtol, atol) in cases:
+        b, S, H, P, G, N = shape
+        x = torch.randn(b, S, H, P, generator=g).to(dtype).to(dev)
+        dt = (torch.rand(b, S, H, generator=g) * 0.1).to(dev)
+        A = (-torch.rand(H, generator=g) - 0.1).to(dev)
+        B = (torch.randn(b, S, G, N, generator=g) * 0.3).to(dtype).to(dev)
+        C = (torch.randn(b, S, G, N, generator=g) * 0.3).to(dtype).to(dev)
+        y, hT = ops.ssd(x, dt, A, B, C, chunk=chunk, return_state=True)
+        want_y, want_h = ref.ssd(x, dt, A, B, C, chunk=chunk,
+                                 return_state=True)
+        err = float((y.float() - want_y.float()).abs().max())
+        err_h = float((hT - want_h).abs().max())
+        htol = (rtol, atol) if dtype == f32 else (2e-4, 2e-4)
+        for got, want, (rt, at), what in ((y.float(), want_y.float(),
+                                           (rtol, atol), "y"),
+                                          (hT, want_h, htol, "hT")):
+            excess = float(((got - want).abs()
+                            - (at + rt * want.abs())).max())
+            check(excess <= 0, f"ssd {shape} {dtype} chunk {chunk}: {what} "
+                               f"outside rtol {rt} / atol {at} by {excess}")
+        print(f"[kernel] ssd_scan batch={b} S={S} H={H} P={P} G={G} N={N} "
+              f"{str(dtype)[6:]}: max|diff| y {err:.3e} (rtol {rtol}, atol "
+              f"{atol}), hT {err_h:.3e} (rtol {htol[0]}, atol {htol[1]})")
+        del y, hT, want_y, want_h
+        if shape != path or dtype != bf16:
+            continue
+        t = timed_turns(
+            torch, {"plain": lambda: ref.ssd(x, dt, A, B, C),
+                    "kernel": lambda: ops.ssd(x, dt, A, B, C)},
+            {"plain": 3, "kernel": 10}, flush=flush_buf.zero_)
+        flops = ssd_work(*shape)
+        nbytes = (2 * x.numel() + B.numel() + C.numel()) * x.element_size() \
+            + (dt.numel() + A.numel()) * 4
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        print(f"[kernel] ssd_scan path shape bf16: kernel {t['kernel']:.4f} "
+              f"ms, plain {t['plain']:.4f} ms, library none, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
+              f"{flops:.3e} FLOP at the bf16 peak), roofline "
+              f"{bound_ms / t['kernel']:.1%}")
+        entry = {"name": "ssd_scan", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "replaces": "src/repro/kernels/ssd_scan/kernel.py:25",
+                 "max_abs_err": err, "ms": t["kernel"],
+                 "plain_ms": t["plain"], "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None}
+    del flush_buf
+    return entry
+
+
 # -- phases 2-5: the main path ----------------------------------------------------
 
 def three_modes(torch, net, n, mb, counts, kernel):
@@ -452,33 +550,50 @@ def run_pi(torch, counts, instances, points):
     print(netlog.report(cn))
 
 
-# -- phases 6-7: the dense decoder LM ------------------------------------------------
+# -- phases 6-9: the decoder LMs -----------------------------------------------------
 
-def run_forward(torch, dev, counts, batch, seq):
-    """Full-width qwen2-0.5b ``Model.forward`` on (batch, seq) tokens: bf16
-    finite, f32 against prefill + decode, one flash launch per layer."""
+def describe(cfg) -> str:
+    if cfg.ssm is None:
+        return (f"{cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads}/"
+                f"{cfg.n_kv_heads} heads")
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    line = (f"{cfg.n_layers} Mamba2 layers, d={cfg.d_model}, d_inner {di}, "
+            f"{di // s.head_dim} heads of P={s.head_dim}, N={s.d_state}, "
+            f"{s.n_groups} group(s), chunk {s.chunk}")
+    if cfg.hybrid is not None:
+        line += (f", a shared attention block ({cfg.n_heads}/"
+                 f"{cfg.n_kv_heads} heads, d_ff {cfg.hybrid.shared_d_ff}) "
+                 f"every {cfg.hybrid.period}")
+    return line
+
+
+def run_forward(torch, dev, counts, arch, batch, seq, per_forward):
+    """Full-width ``Model.forward`` of ``arch`` on (batch, seq) tokens: bf16
+    finite, f32 against prefill + decode, and exactly ``per_forward``
+    kernel launches per forward (every other kernel: none)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(arch)
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
     print(f"[lm] {cfg.name}: {model.param_count(params) / 1e6:.1f} M "
-          f"params ({cfg.param_dtype}), {cfg.n_layers} layers, d={cfg.d_model}"
-          f", {cfg.n_heads}/{cfg.n_kv_heads} heads, init "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+          f"params ({cfg.param_dtype}), {describe(cfg)}, vocab {cfg.vocab}, "
+          f"init {(time.perf_counter() - t0) * 1e3:.1f} ms")
     g = torch.Generator(device=dev).manual_seed(0)
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g,
                          device=dev, dtype=torch.int32)
+    want = {k: per_forward.get(k, 0) for k in counts()}
 
     def forward(m):
-        before = counts()["flash_attention"]
+        before = counts()
         logits, _ = m.forward(params, toks)
-        launched = counts()["flash_attention"] - before
-        check(launched == cfg.n_layers, f"forward launched the flash kernel "
-                                        f"{launched} times, not {cfg.n_layers}")
+        launched = {k: v - before[k] for k, v in counts().items()}
+        check(launched == want, f"{cfg.name} forward launched {launched}, "
+                                f"not {want}")
         return logits
 
     walls = []
@@ -494,10 +609,10 @@ def run_forward(torch, dev, counts, batch, seq):
         check(bool(torch.isfinite(logits).all()), "bf16 forward: non-finite")
         del logits
         fwd_ms = statistics.median(walls[1:])
-        print(f"[lm] forward bf16 ({batch}, {seq}): {fwd_ms:.1f} ms median "
-              f"of 3 (first {walls[0]:.1f} ms), "
+        print(f"[lm] {cfg.name} forward bf16 ({batch}, {seq}): {fwd_ms:.1f} "
+              f"ms median of 3 (first {walls[0]:.1f} ms), "
               f"{batch * seq / fwd_ms * 1e3:.0f} tok/s; finite logits; "
-              f"{cfg.n_layers} flash launches per forward")
+              f"launches per forward {per_forward}")
 
         m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
         half = seq // 2
@@ -514,9 +629,9 @@ def run_forward(torch, dev, counts, batch, seq):
         del logits_p, cache
         check(err_p < 3e-3 and err_d < 3e-3,
               f"f32 forward vs prefill+decode: {err_p}, {err_d} >= 3e-3")
-        print(f"[lm] forward f32 ({batch}, {seq}) {f32_ms:.1f} ms: logits at "
-              f"{half - 1}/{half} vs prefill({half}) + decode_step: max|diff| "
-              f"{err_p:.2e} / {err_d:.2e} (gate 3e-3)")
+        print(f"[lm] {cfg.name} forward f32 ({batch}, {seq}) {f32_ms:.1f} "
+              f"ms: logits at {half - 1}/{half} vs prefill({half}) + "
+              f"decode_step: max|diff| {err_p:.2e} / {err_d:.2e} (gate 3e-3)")
     return model, params, toks
 
 
@@ -535,6 +650,9 @@ def run_serve(torch, model, params, counts):
     finally:
         trace.disable()
     launched = {k: v - before[k] for k, v in counts().items()}
+    # prompts go in one token a step: decode recurrences and KV-cache
+    # einsums, never a full-sequence kernel (as in the JAX package)
+    check(not any(launched.values()), f"serve launched kernels {launched}")
     reqs = launcher.requests(8, model.cfg.vocab, 16)
     want = {r.rid: r.max_new for r in reqs}
     check(sorted(r.rid for r in done) == sorted(want),
@@ -569,7 +687,8 @@ def run_serve(torch, model, params, counts):
             eng.run_until_drained()
             same += eng.poll(r.rid).tokens == next(
                 d.tokens for d in done if d.rid == r.rid)
-    print(f"[serve] {len(done)} requests complete, {toks} tokens in "
+    print(f"[serve] {model.cfg.name}: {len(done)} requests complete, {toks} "
+          f"tokens in "
           f"{span * 1e3:.1f} ms: {toks / span:.1f} tok/s; ttft p50 "
           f"{pct(ttft, 50):.1f} ms p99 {pct(ttft, 99):.1f} ms; tpot p50 "
           f"{pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} ms; launches "
@@ -595,7 +714,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["mandelbrot", "stencil", "flash_attention"])
+    logs = _build.build_all(["mandelbrot", "stencil", "flash_attention",
+                             "ssd_scan"])
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -604,19 +724,28 @@ def main() -> int:
 
     W, H, BANDS, ITERS = 4096, 2048, 64, 1000
     entries = [check_mandelbrot(torch, dev, W, H, BANDS, ITERS),
-               check_stencil(torch, dev), check_flash(torch, dev)]
+               check_stencil(torch, dev), check_flash(torch, dev),
+               check_ssd(torch, dev)]
 
     reset_launch_counts()  # the main path starts here
     farm = run_farm(torch, launch_counts, W, H, BANDS, ITERS)
     pipeline = run_pipeline(torch, dev, launch_counts, 16, 2048)
     run_jacobi(torch, dev, launch_counts, 4, 4096, 4, 1e-6)
     run_pi(torch, launch_counts, 256, 10**6)
-    model, params, toks = run_forward(torch, dev, launch_counts, 4, 2048)
+    model, params, toks = run_forward(torch, dev, launch_counts,
+                                      "qwen2-0.5b", 4, 2048,
+                                      {"flash_attention": 24})
     run_serve(torch, model, params, launch_counts)
+    ssm = run_forward(torch, dev, launch_counts, "mamba2-2.7b", 4, 2048,
+                      {"ssd_scan": 64})
+    hybrid = run_forward(torch, dev, launch_counts, "zamba2-1.2b", 4, 2048,
+                         {"ssd_scan": 38, "flash_attention": 6})
+    run_serve(torch, ssm[0], ssm[1], launch_counts)
     launched = launch_counts()
 
     # where the time goes: one more fused run of each kernel workload, one
-    # more forward and one decode step of the served model
+    # more forward and one decode step of each served model, one more
+    # zamba2 forward
     import numpy as np
     from repro_torch.core import build
     from repro_torch.serve import LocalDecodeBackend
@@ -625,13 +754,19 @@ def main() -> int:
     profile_run(torch, "image fused", lambda: build(pipeline).run(
         instances=16))
     with torch.inference_mode():
-        profile_run(torch, "qwen2-0.5b forward bf16 (4, 2048)",
-                    lambda: model.forward(params, toks))
-        backend = LocalDecodeBackend(model, params, n_slots=4, max_len=128)
-        last, adv = np.arange(1, 5, dtype=np.int32), np.ones(4, bool)
-        backend.decode(last, adv)  # warm-up
-        profile_run(torch, "qwen2-0.5b decode step (4 slots)",
-                    lambda: backend.decode(last, adv))
+        for m, p, t in ((model, params, toks), ssm):
+            name = m.cfg.name
+            profile_run(torch, f"{name} forward bf16 (4, 2048)",
+                        lambda: m.forward(p, t))
+            backend = LocalDecodeBackend(m, p, n_slots=4, max_len=128)
+            last, adv = np.arange(1, 5, dtype=np.int32), np.ones(4, bool)
+            backend.decode(last, adv)  # warm-up
+            profile_run(torch, f"{name} decode step (4 slots)",
+                        lambda: backend.decode(last, adv))
+            del backend
+        m, p, t = hybrid
+        profile_run(torch, f"{m.cfg.name} forward bf16 (4, 2048)",
+                    lambda: m.forward(p, t))
 
     for e in entries:
         e["launches"] = launched[e["name"]]

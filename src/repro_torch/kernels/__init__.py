@@ -6,16 +6,17 @@ the wrapper runs for a CPU tensor), ``kernel`` (the ctypes binding of
 launches).
 """
 
-from . import flash_attention, mandelbrot, stencil  # noqa: F401
+from . import flash_attention, mandelbrot, ssd_scan, stencil  # noqa: F401
 
-__all__ = ["flash_attention", "mandelbrot", "stencil", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["flash_attention", "mandelbrot", "ssd_scan", "stencil",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _wrappers() -> dict:
     return {"mandelbrot": mandelbrot.ops.mandelbrot,
             "stencil": stencil.ops.stencil2d,
-            "flash_attention": flash_attention.ops.mha}
+            "flash_attention": flash_attention.ops.mha,
+            "ssd_scan": ssd_scan.ops.ssd}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,10 +1,13 @@
-"""Decoder LM of the dense and VLM families, in PyTorch.
+"""Decoder LM of the dense, VLM, SSM and hybrid families, in PyTorch.
 
 The JAX package's ``models/transformer.py`` for the families whose blocks
-are all attention + MLP.  A model is a sequence of *segments*, homogeneous
-runs of one block kind whose parameters are stacked on a leading layer axis
-``(L, ...)`` as the reference's ``vmap`` init makes them; a Python loop
-indexes that axis where the reference runs ``lax.scan``.
+are attention + MLP or Mamba2.  A model is a sequence of *segments*,
+homogeneous runs of one block kind whose parameters are stacked on a
+leading layer axis ``(L, ...)`` as the reference's ``vmap`` init makes
+them; a Python loop indexes that axis where the reference runs
+``lax.scan``.  zamba2's *shared* attention block (one parameter set applied
+every ``period`` layers) sits between mamba segments; its weights live once
+in the tree (``params["shared_block"]``) and its segments are empty.
 
 Entry points::
 
@@ -15,9 +18,8 @@ Entry points::
     prefill(cfg, params, tokens, max_len)         -> (logits, cache)
     reset_slot(cfg, cache, slot)                  -> cache
 
-The moe, ssm and hybrid families come with the slices that port their
-kernels (``moe_gmm``, ``ssd_scan``); the training loss, remat and
-``scan_layers`` come with the training slice.
+The moe family comes with the slice that ports its kernel (``moe_gmm``);
+the training loss, remat and ``scan_layers`` come with the training slice.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
-from . import layers
+from . import layers, mamba
 
 __all__ = ["structure", "init_params", "forward", "hidden_states",
            "init_cache", "decode_step", "prefill", "reset_slot",
@@ -36,10 +38,11 @@ __all__ = ["structure", "init_params", "forward", "hidden_states",
 
 _LATER = {
     "moe": "the MoE slice (with the moe_gmm kernel)",
-    "ssm": "the mamba2 slice (with the ssd_scan kernel)",
-    "hybrid": "the mamba2 slice (with the ssd_scan kernel)",
     "audio": "the encoder-decoder slice",
 }
+
+# cache leaves an attention layer updates in place (the rest are new)
+_IN_PLACE = ("k", "v", "k_scale", "v_scale")
 
 
 def _check_family(cfg) -> None:
@@ -82,22 +85,40 @@ def structure(cfg) -> list[tuple[str, int]]:
 # blocks
 # --------------------------------------------------------------------------
 
-def _block_init(gen, cfg, dtype, stack: int) -> dict:
-    """An attention + MLP block, its leaves stacked ``stack`` deep."""
+def _block_init(gen, cfg, dtype, kind: str, stack: int) -> dict:
+    """A block of ``kind``, its leaves stacked ``stack`` deep (0: one
+    unstacked block, the shared attention)."""
     ninit, _ = layers.norm(cfg.norm)
+    if kind == "mamba":
+        return {"norm1": ninit(cfg.d_model, dtype, gen.device, stack),
+                "mamba": mamba.mamba_init(gen, cfg, dtype, stack)}
+    d_ff = cfg.d_ff
+    if kind == "shared_attn" and cfg.hybrid and cfg.hybrid.shared_d_ff:
+        d_ff = cfg.hybrid.shared_d_ff
     return {
         "norm1": ninit(cfg.d_model, dtype, gen.device, stack),
         "attn": layers.attention_init(gen, cfg, dtype, stack),
         "norm2": ninit(cfg.d_model, dtype, gen.device, stack),
-        "mlp": layers.mlp_init(gen, cfg, dtype, stack=stack),
+        "mlp": layers.mlp_init(gen, cfg, dtype, d_ff=d_ff, stack=stack),
     }
 
 
-def _block_apply(p: dict, cfg, x, positions, cache=None, advance=None):
+def _block_apply(p: dict, cfg, x, positions, kind: str, cache=None,
+                 advance=None):
     """Returns (x, new_cache)."""
     _, napply = layers.norm(cfg.norm)
     nfn = functools.partial(napply, eps=cfg.norm_eps)
     h = nfn(p["norm1"], x)
+    if kind == "mamba":
+        if cache is None:
+            return x + mamba.mamba_apply(p["mamba"], cfg, h), None
+        if h.shape[1] > 1:  # prefill: a fresh full scan hands over its state
+            out, new_cache = mamba.mamba_apply(p["mamba"], cfg, h,
+                                               return_state=True)
+        else:
+            out, new_cache = mamba.mamba_decode_step(p["mamba"], cfg, h,
+                                                     cache, advance=advance)
+        return x + out, new_cache
     a_out, new_cache = layers.attention(
         p["attn"], cfg, h, positions=positions, causal=True, cache=cache,
         mrope=cfg.mrope, advance=advance)
@@ -109,10 +130,6 @@ def _block_apply(p: dict, cfg, x, positions, cache=None, advance=None):
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked segment: views of every leaf."""
     return pytree.tree_map(lambda leaf: leaf[i], tree)
-
-
-def _n_layers(tree) -> int:
-    return pytree.tree_leaves(tree)[0].shape[0]
 
 
 # --------------------------------------------------------------------------
@@ -127,9 +144,15 @@ def init_params(cfg, gen: torch.Generator) -> dict:
     params: dict[str, Any] = {
         "embedding": layers.embedding_init(gen, cfg, dtype),
         "final_norm": ninit(cfg.d_model, dtype, gen.device),
-        "segments": [_block_init(gen, cfg, dtype, count)
-                     for _, count in structure(cfg)],
+        "segments": [],
     }
+    if any(kind == "shared_attn" for kind, _ in structure(cfg)):
+        params["shared_block"] = _block_init(gen, cfg, dtype, "shared_attn",
+                                             0)
+    for kind, count in structure(cfg):
+        params["segments"].append(  # shared weights live in shared_block
+            {} if kind == "shared_attn"
+            else _block_init(gen, cfg, dtype, kind, count))
     return params
 
 
@@ -165,9 +188,12 @@ def hidden_states(cfg, params, tokens, *, positions=None,
     x = (layers.embed(params["embedding"], cfg, tokens)
          if input_embeds is None else input_embeds)
     pos = _positions(cfg, tokens) if positions is None else positions
-    for seg_p in params["segments"]:
-        for i in range(_n_layers(seg_p)):
-            x, _ = _block_apply(_layer(seg_p, i), cfg, x, pos)
+    for (kind, count), seg_p in zip(structure(cfg), params["segments"]):
+        if kind == "shared_attn":
+            x, _ = _block_apply(params["shared_block"], cfg, x, pos, kind)
+            continue
+        for i in range(count):
+            x, _ = _block_apply(_layer(seg_p, i), cfg, x, pos, kind)
     _, napply = layers.norm(cfg.norm)
     x = napply(params["final_norm"], x, eps=cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -176,7 +202,7 @@ def hidden_states(cfg, params, tokens, *, positions=None,
 def forward(cfg, params, tokens, *, positions=None, input_embeds=None):
     """Full-sequence forward (scoring a prompt: a prefill without a cache).
 
-    Returns (logits, aux_loss); aux is 0 for these families."""
+    Returns (logits, aux_loss); aux is 0 for these families (no MoE)."""
     x, aux = hidden_states(cfg, params, tokens, positions=positions,
                            input_embeds=input_embeds)
     return layers.unembed(params["embedding"], cfg, x), aux
@@ -187,14 +213,33 @@ def forward(cfg, params, tokens, *, positions=None, input_embeds=None):
 # --------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
-    """Zero KV cache in ``cfg.compute_dtype``: leaves (L, B, ...) per
-    stacked segment, plus the per-row ``step`` counter."""
+    """Zero cache in ``cfg.compute_dtype`` (the mamba ``h`` state in f32):
+    leaves (L, B, ...) per stacked segment, (B, ...) for each application
+    of the shared attention block, plus the per-row ``step`` counter."""
     _check_family(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
-    return {"segments": [layers.attention_cache(cfg, batch, max_len, dtype,
-                                                device, stack=count)
-                         for _, count in structure(cfg)],
+    segments = []
+    for kind, count in structure(cfg):
+        if kind == "mamba":
+            segments.append(mamba.mamba_cache(cfg, batch, dtype, device,
+                                              stack=count))
+        else:
+            segments.append(layers.attention_cache(
+                cfg, batch, max_len, dtype, device,
+                stack=0 if kind == "shared_attn" else count))
+    return {"segments": segments,
             "step": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _restack(seg_c: dict, layer_caches: list) -> dict:
+    """A stacked segment's new cache from its layers' new caches: the k/v
+    buffers were written in place and stay the segment's own; every other
+    leaf (an index, a mamba state) is stacked anew."""
+    new_seg = dict(seg_c)
+    for name in layer_caches[0]:
+        if name not in _IN_PLACE:
+            new_seg[name] = torch.stack([nc[name] for nc in layer_caches])
+    return new_seg
 
 
 def decode_step(cfg, params, cache, tokens, *, positions=None, advance=None):
@@ -202,7 +247,9 @@ def decode_step(cfg, params, cache, tokens, *, positions=None, advance=None):
     (logits, new_cache).  ``advance`` (B,) bool: continuous-batching rows.
 
     The k/v buffers are written in place (see :func:`layers.attention`), so
-    the new cache shares them with ``cache``."""
+    the new cache shares them with ``cache``.  With S_step > 1 (prefill) a
+    mamba layer runs a fresh full scan from a zero state, whatever its
+    cache and ``advance`` say, as in the JAX package."""
     _check_family(cfg)
     x = layers.embed(params["embedding"], cfg, tokens)
     pos = (_positions(cfg, tokens, offset=cache["step"])
@@ -213,15 +260,19 @@ def decode_step(cfg, params, cache, tokens, *, positions=None, advance=None):
     new_cache: dict[str, Any] = {
         "segments": [],
         "step": cache["step"] + torch.where(adv, S, 0).to(torch.int32)}
-    for seg_p, seg_c in zip(params["segments"], cache["segments"]):
-        indices = []
-        for i in range(_n_layers(seg_p)):
-            x, nc = _block_apply(_layer(seg_p, i), cfg, x, pos,
+    for (kind, count), seg_p, seg_c in zip(
+            structure(cfg), params["segments"], cache["segments"]):
+        if kind == "shared_attn":
+            x, nc = _block_apply(params["shared_block"], cfg, x, pos, kind,
+                                 cache=seg_c, advance=adv)
+            new_cache["segments"].append(nc)
+            continue
+        layer_caches = []
+        for i in range(count):
+            x, nc = _block_apply(_layer(seg_p, i), cfg, x, pos, kind,
                                  cache=_layer(seg_c, i), advance=adv)
-            indices.append(nc["index"])
-        new_seg = dict(seg_c)
-        new_seg["index"] = torch.stack(indices)
-        new_cache["segments"].append(new_seg)
+            layer_caches.append(nc)
+        new_cache["segments"].append(_restack(seg_c, layer_caches))
     _, napply = layers.norm(cfg.norm)
     x = napply(params["final_norm"], x, eps=cfg.norm_eps)
     return layers.unembed(params["embedding"], cfg, x), new_cache
@@ -235,10 +286,13 @@ def prefill(cfg, params, tokens, max_len: int):
 
 def reset_slot(cfg, cache, slot: int):
     """Zero one batch row of the cache (slot reuse in continuous batching),
-    in place.  Cache leaves are (L, B, ...) for stacked segments, so the
-    batch axis is 1."""
-    for seg_c in cache["segments"]:
+    in place.  Cache leaves are (L, B, ...) for stacked segments and
+    (B, ...) for the shared block, so the batch axis is 1 or 0."""
+    for (kind, _), seg_c in zip(structure(cfg), cache["segments"]):
         for leaf in pytree.tree_leaves(seg_c):
-            leaf[:, slot] = 0
+            if kind == "shared_attn":
+                leaf[slot] = 0
+            else:
+                leaf[:, slot] = 0
     cache["step"][slot] = 0
     return cache

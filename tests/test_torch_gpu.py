@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.mandelbrot import ops as mb_ops, ref as mb_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.kernels.stencil import ops as st_ops, ref as st_ref
 
 pytestmark = pytest.mark.gpu
@@ -139,3 +140,137 @@ def test_reduced_forward_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert fa_ops.mha.launches == before + m.cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# -- SSD scan: float32 within 2e-4; bf16 y within rtol 1e-2 / atol 5e-2 (both
+# sides sum in f32 and round y to bf16 once, so a rounding flip costs one
+# bf16 ulp, 2^-8 of |y|); the f32 state within 2e-4 either way ----------------
+
+SSD_SHAPES = [  # (batch, S, H, P, G, N)
+    (4, 2048, 80, 64, 1, 128),  # the mamba2-2.7b forward
+    (4, 2048, 64, 64, 1, 64),   # the zamba2-1.2b forward
+    (1, 64, 2, 8, 2, 4),        # the reference tests' sizes, G = H
+    (2, 33, 4, 16, 4, 16),      # ragged, G = H
+    (1, 2047, 8, 64, 1, 128),   # ragged, long
+    (2, 100, 6, 16, 2, 16),     # 1 < G < H
+]
+
+
+def _ssd_inputs(shape, dtype, device, seed=0):
+    b, S, H, P, G, N = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, S, H, P, generator=g).to(dtype).to(device)
+    dt = (torch.rand(b, S, H, generator=g) * 0.2).to(device)
+    A = (-torch.rand(H, generator=g) - 0.1).to(device)
+    B = (torch.randn(b, S, G, N, generator=g) * 0.3).to(dtype).to(device)
+    C = (torch.randn(b, S, G, N, generator=g) * 0.3).to(dtype).to(device)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(cuda, shape, dtype):
+    x, dt, A, B, C = _ssd_inputs(shape, dtype, cuda, seed=shape[1])
+    before = ssd_ops.ssd.launches
+    y, hT = ssd_ops.ssd(x, dt, A, B, C, return_state=True)
+    want_y, want_h = ssd_ref.ssd(x, dt, A, B, C, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches == before + 1
+    assert y.dtype == dtype and hT.dtype == torch.float32
+    rtol, atol = (1e-2, 5e-2) if dtype == torch.bfloat16 else (2e-4, 2e-4)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(hT, want_h, rtol=2e-4, atol=2e-4)
+    assert torch.equal(ssd_ops.ssd(x, dt, A, B, C), y)  # no state: same y
+
+
+def test_ssd_kernel_reads_model_layout_in_place(cuda):
+    """x, B and C as the model slices them out of one projection, (B, S, ·)
+    views with the row stride of the whole width: read through their
+    strides, nothing copied."""
+    g = torch.Generator().manual_seed(3)
+    b, S, H, P, N = 2, 130, 4, 64, 128
+    xBC = torch.randn(b, S, H * P + 2 * N, generator=g).to(cuda) * 0.3
+    x = xBC[..., :H * P].reshape(b, S, H, P)
+    B = xBC[..., H * P:H * P + N].reshape(b, S, 1, N)
+    C = xBC[..., H * P + N:].reshape(b, S, 1, N)
+    dt = torch.rand(b, S, H, generator=g).to(cuda) * 0.1
+    A = -torch.ones(H, device=cuda)
+    assert not x.is_contiguous()
+    got = ssd_ops.ssd(x, dt, A, B, C)
+    want = ssd_ref.ssd(x, dt, A, B, C)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_card_refuses_without_fallback(cuda):
+    x, dt, A, B, C = _ssd_inputs((1, 16, 2, 8, 1, 4), torch.float32, cuda)
+    before = ssd_ops.ssd.launches
+    with pytest.raises(TypeError, match="float32 or"):
+        ssd_ops.ssd(x.half(), dt, A, B.half(), C.half())
+    with pytest.raises(TypeError, match="dt and A"):
+        ssd_ops.ssd(x, dt.bfloat16(), A, B, C)
+    wide = x.new_zeros(1, 16, 2, 65)
+    with pytest.raises(ValueError, match="P <="):
+        ssd_ops.ssd(wide, dt, A, B, C)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                    B, C)
+    assert ssd_ops.ssd.launches == before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_reduced_ssm_on_card_matches_cpu(cuda, arch):
+    """The reduced mamba2 / zamba2 (float32) on the card, through the SSD
+    kernel (and the flash kernel in the shared block), against the same
+    model on the CPU (plain versions): forward, prefill and one decode
+    step, which starts from the state the kernel handed over."""
+    from repro_torch.models import Model, transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = Model(get_config(arch, reduced=True))
+    params = m.init(seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 70)).astype(np.int32))
+    on_card = torch.utils._pytree.tree_map(lambda t: t.to(cuda), params)
+    n_mamba = sum(c for k, c in transformer.structure(m.cfg) if k == "mamba")
+    n_shared = sum(1 for k, _ in transformer.structure(m.cfg)
+                   if k == "shared_attn")
+    before = ssd_ops.ssd.launches, fa_ops.mha.launches
+    got, _ = m.forward(on_card, toks.to(cuda))
+    torch.cuda.synchronize()
+    assert (ssd_ops.ssd.launches, fa_ops.mha.launches) == (
+        before[0] + n_mamba, before[1] + n_shared)
+    want, _ = m.forward(params, toks)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    lp, cache = m.prefill(on_card, toks[:, :64].to(cuda), max_len=72)
+    ld, _ = m.decode_step(on_card, cache, toks[:, 64:65].to(cuda))
+    wp, wcache = m.prefill(params, toks[:, :64], max_len=72)
+    wd, _ = m.decode_step(params, wcache, toks[:, 64:65])
+    torch.testing.assert_close(lp.cpu(), wp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ld.cpu(), wd, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_reduced_ssm_serving_on_card_matches_one_slot_runs(cuda, arch):
+    """The reduced model (float32) served on the card with 3 slots, slots
+    reused: every request's tokens equal its run alone in a one-slot
+    engine, so the mamba state's slot handling (reset, frozen rows) holds
+    on the card."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import (LocalDecodeBackend, ServeEngine,
+                                   build_decode_model)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, params = build_decode_model(("model", arch, True), device=cuda)
+    reqs = launcher.requests(6, model.cfg.vocab, 8)
+
+    def serve(batch, n_slots):
+        eng = ServeEngine(LocalDecodeBackend(model, params, n_slots=n_slots,
+                                             max_len=32))
+        for r in batch:
+            eng.submit(r)
+        eng.run_until_drained()
+        return {r.rid: eng.poll(r.rid).tokens for r in batch}
+
+    together = serve(reqs, 3)
+    for r in reqs:
+        assert serve([r], 1)[r.rid] == together[r.rid], f"req {r.rid}"

@@ -1,13 +1,15 @@
-"""The port's dense and VLM decoders against the JAX package's, on the CPU.
+"""The port's decoder LMs against the JAX package's, on the CPU.
 
 For each reduced architecture of the families the port carries (gemma-2b:
 GeGLU and embedding scale; glm4-9b: partial rotary; qwen2-0.5b: QKV bias
-and GQA; qwen2-vl-2b: M-RoPE; yi-34b: untied head), the JAX package's
-weights, drawn from ``PRNGKey(0)``, cross to the port through
+and GQA; qwen2-vl-2b: M-RoPE; yi-34b: untied head; mamba2-2.7b: the SSD
+trunk; zamba2-1.2b: mamba segments around a shared attention block), the
+JAX package's weights, drawn from ``PRNGKey(0)``, cross to the port through
 ``params_from_numpy``, and the same numpy-seeded tokens go through both.
-The JAX forward runs with ``use_pallas=True``, its flash kernel in interpret
-mode.  The reduced configs are float32, so logits must agree within 1e-4;
-``decode_matches_forward`` keeps the reference's own 3e-3 gate.
+The JAX forward runs with ``use_pallas=True``, its flash and SSD kernels in
+interpret mode.  The reduced configs are float32, so logits and caches must
+agree within 1e-4; ``decode_matches_forward`` keeps the reference's own
+3e-3 gate.
 """
 
 import dataclasses
@@ -26,7 +28,8 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.models import Model
 from repro_torch.models import transformer
 
-PORTED = ["gemma-2b", "glm4-9b", "qwen2-0.5b", "qwen2-vl-2b", "yi-34b"]
+PORTED = ["gemma-2b", "glm4-9b", "qwen2-0.5b", "qwen2-vl-2b", "yi-34b",
+          "mamba2-2.7b", "zamba2-1.2b"]
 TOL = 1e-4
 
 
@@ -53,6 +56,15 @@ def _np(x):
         else x.float().numpy()
 
 
+def _rows(cfg, cache, slot):
+    """(name, batch row ``slot``) of every cache leaf: the batch axis is 1
+    for a stacked segment and 0 for an application of the shared block."""
+    return [(name, leaf[slot] if kind == "shared_attn" else leaf[:, slot])
+            for (kind, _), seg in zip(transformer.structure(cfg),
+                                      cache["segments"])
+            for name, leaf in seg.items()]
+
+
 def _cache_close(jcache, cache):
     ours = params_from_numpy(jax.tree_util.tree_map(np.asarray, jcache),
                              "cpu", like=cache)
@@ -77,8 +89,7 @@ def test_configs_and_structure_match_reference(arch):
         assert transformer.structure(cfg) == jtransformer.structure(jcfg)
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
-                                  "zamba2-1.2b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "whisper-tiny"])
 def test_unported_families_name_their_slice(arch):
     cfg = get_config(arch, reduced=True)
     with pytest.raises(NotImplementedError, match="slice"):
@@ -115,6 +126,28 @@ class TestAgainstJax:
                                        atol=TOL)
         _cache_close(jc, cache)
 
+    def test_chunked_forward_and_prefill_match_jax(self, arch):
+        """S = 32, a multiple of the reduced SSD chunk (16): the scan
+        carries its state across chunks, and prefill hands the final state
+        to decode."""
+        jm, jp, m, p = _pair(arch)
+        toks = _tokens((2, 34), seed=6)
+        jl, _ = jm.forward(jp, jnp.asarray(toks[:, :32]))
+        logits, _ = m.forward(p, torch.from_numpy(toks[:, :32]))
+        np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL, atol=TOL)
+        jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :32]), max_len=40)
+        logits, cache = m.prefill(p, torch.from_numpy(toks[:, :32]),
+                                  max_len=40)
+        np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL, atol=TOL)
+        _cache_close(jc, cache)
+        for t in (32, 33):
+            jl, jc = jm.decode_step(jp, jc, jnp.asarray(toks[:, t:t + 1]))
+            logits, cache = m.decode_step(p, cache,
+                                          torch.from_numpy(toks[:, t:t + 1]))
+            np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL,
+                                       atol=TOL)
+        _cache_close(jc, cache)
+
     def test_decode_matches_forward(self, arch):
         """The reference's own gate, inside the port: prefill + one decode
         step reproduce the full-sequence forward."""
@@ -139,7 +172,10 @@ class TestAgainstJax:
         _, c1 = m.decode_step(params, m.init_cache(2, 16, device="cpu"), t,
                               advance=torch.tensor([True, False]))
         assert c1["step"].tolist() == [1, 0]
-        assert c1["segments"][0]["index"][:, 1].eq(0).all()
+        # the frozen row's index and mamba state stay put (its k/v are
+        # rewritten in place at the unmoved index)
+        assert all(row.eq(0).all() for name, row in _rows(m.cfg, c1, 1)
+                   if name in ("index", "conv", "h"))
         l_after, _ = m.decode_step(params, c1, t,
                                    advance=torch.tensor([False, True]))
         l_ref, _ = m.decode_step(params, m.init_cache(2, 16, device="cpu"),
@@ -172,8 +208,7 @@ class TestAgainstJax:
         jc = jm.reset_slot(jc, 1)
         cache = m.reset_slot(cache, 1)
         assert cache["step"].tolist() == [5, 0]
-        assert all(leaf[:, 1].eq(0).all() for leaf in
-                   torch.utils._pytree.tree_leaves(cache["segments"]))
+        assert all(row.eq(0).all() for _, row in _rows(m.cfg, cache, 1))
         _cache_close(jc, cache)
 
 
@@ -236,6 +271,41 @@ def test_init_is_seeded_and_stacked():
         int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(
             JModel(jget_config("qwen2-0.5b", reduced=True)).init(
                 jax.random.PRNGKey(0))))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_ssm_trees_match_reference_dtypes(arch):
+    """bf16 weights: the port's parameter and cache trees have the JAX
+    package's key paths, shapes and dtypes (dt_bias, A_log and D_skip stay
+    f32, the ``h`` state is f32 and ``conv`` bf16), the shared block lives
+    once in ``shared_block`` and its segments are empty."""
+    import ml_dtypes
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(jget_config(arch, reduced=True),
+                               param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+    m, jm = Model(cfg), JModel(jcfg)
+    for ours, theirs in ((m.init(device="cpu"),
+                          jm.init(jax.random.PRNGKey(0))),
+                         (m.init_cache(2, 8, device="cpu"),
+                          jm.init_cache(2, 8))):
+        flat = torch.utils._pytree.tree_flatten_with_path
+        got = {torch.utils._pytree.keystr(k): (tuple(v.shape),
+                                               str(v.dtype)[6:])
+               for k, v in flat(ours)[0]}
+        want = {torch.utils._pytree.keystr(k): (
+            tuple(v.shape), "bfloat16" if v.dtype == ml_dtypes.bfloat16
+            else np.dtype(v.dtype).name)
+            for k, v in flat(jax.tree_util.tree_map(np.asarray, theirs))[0]}
+        assert got == want
+    params = m.init(device="cpu")
+    assert params["segments"][0]["mamba"]["A_log"].dtype == torch.float32
+    kinds = [k for k, _ in transformer.structure(cfg)]
+    assert ("shared_block" in params) == ("shared_attn" in kinds)
+    assert all(seg == {} for kind, seg in zip(kinds, params["segments"])
+               if kind == "shared_attn")
 
 
 def test_params_from_numpy_checks_structure_and_shapes():

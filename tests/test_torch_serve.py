@@ -2,10 +2,10 @@
 
 The non-cluster cases of ``tests/test_serve_engine.py`` run on the port's
 ``ToyLM`` (the sequential oracle, eos, ``max_new=0``, duplicates, the
-slot-event audit), and the port's engine over the reduced qwen2-0.5b, fed
-the JAX package's ``PRNGKey(0)`` weights, must give token streams identical
-to the JAX engine's on the same requests.  The launcher runs once with
-``--reduced --device cpu``.
+slot-event audit), and the port's engine over the reduced qwen2-0.5b,
+mamba2-2.7b and zamba2-1.2b, fed the JAX package's ``PRNGKey(0)`` weights,
+must give token streams identical to the JAX engine's on the same requests.
+The launcher runs with ``--reduced --device cpu``.
 """
 
 import dataclasses
@@ -198,11 +198,9 @@ def test_admission_interleavings_each_rid_exactly_once(n_slots, seed):
 # The real model: the same streams as the JAX engine
 # ==========================================================================
 
-@pytest.mark.parametrize("n_slots", [1, 3])
-def test_qwen2_streams_identical_to_jax_engine(n_slots):
-    jmodel, jparams = jbuild_decode_model(("model", "qwen2-0.5b", True))
-    model, like = build_decode_model(("model", "qwen2-0.5b", True),
-                                     device="cpu")
+def _streams_identical_to_jax_engine(arch, n_slots):
+    jmodel, jparams = jbuild_decode_model(("model", arch, True))
+    model, like = build_decode_model(("model", arch, True), device="cpu")
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                "cpu", like=like)
     reqs = serve_launcher.requests(6, model.cfg.vocab, 8)
@@ -221,6 +219,19 @@ def test_qwen2_streams_identical_to_jax_engine(n_slots):
     assert [r.rid for r in eng.completed] == [r.rid for r in jeng.completed]
 
 
+@pytest.mark.parametrize("n_slots", [1, 3])
+def test_qwen2_streams_identical_to_jax_engine(n_slots):
+    _streams_identical_to_jax_engine("qwen2-0.5b", n_slots)
+
+
+@pytest.mark.parametrize("n_slots", [1, 3])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_ssm_streams_identical_to_jax_engine(arch, n_slots):
+    """The mamba state (conv window, f32 ``h``) through slot reuse: each
+    admission resets its slot, and frozen rows keep their state."""
+    _streams_identical_to_jax_engine(arch, n_slots)
+
+
 def test_launcher_runs_reduced_on_cpu(capsys):
     done = serve_launcher.main(["--arch", "qwen2-0.5b", "--reduced",
                                 "--device", "cpu", "--requests", "5",
@@ -235,3 +246,14 @@ def test_launcher_runs_reduced_on_cpu(capsys):
     with pytest.raises(SystemExit):
         serve_launcher.main(["--arch", "qwen2-0.5b", "--reduced",
                              "--device", "cpu", "--hosts", "2"])
+
+
+def test_launcher_serves_mamba2_reduced_on_cpu(capsys):
+    done = serve_launcher.main(["--arch", "mamba2-2.7b", "--reduced",
+                                "--device", "cpu", "--requests", "4",
+                                "--slots", "2", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] mamba2-2.7b (local cpu): 4 requests" in out
+    assert sorted(r.rid for r in done) == list(range(4))
+    assert all([e.kind for e in r.slot_events] == ["join", "leave"]
+               for r in done)
