@@ -44,22 +44,49 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
 9. serves mamba2-2.7b through the launcher's ``main`` as in phase 7.
    Serving launches no kernel: the engine feeds prompts one token a step,
    so every Mamba2 layer takes the O(1) decode recurrence and every
-   attention layer the KV-cache einsums, as in the JAX package.
+   attention layer the KV-cache einsums, as in the JAX package;
+10. frees every earlier model, then runs ``Model.forward`` of the
+   full-width deepseek-moe-16b (28 layers, d=2048, 16/16 heads, 64 routed
+   experts of 1408 with top-6 and 2 shared, layer 0 dense at d_ff 10944,
+   vocab 102400; f32 weights from seed 0, 61 GiB) on (4, 2048) seeded
+   tokens, on the ragged path (``moe_ragged=True``), with the checks of
+   phase 6: finite bf16 logits, f32 logits against ``prefill`` of 1024
+   tokens and one ``decode_step`` within 3e-3 (the ragged path drops
+   nothing), and each forward launching the grouped-matmul kernel 3 times
+   a MoE layer (81) and the flash kernel once a layer (28); then one bf16
+   forward on the capacity path (the config's default, no grouped matmul),
+   timed, with the share of token-choices it drops at capacity factor
+   1.25 (not gated: it is not dropless, so it differs from the ragged
+   path);
+11. serves deepseek-moe-16b on the ragged path through a ``ServeEngine``
+   over ``LocalDecodeBackend`` (4 slots, max_len 128) on phase 10's
+   weights (the launcher's ``main`` would build a second copy) with the
+   checks of phase 7; every decode step launches the grouped matmul 81
+   times and nothing else.
+
+Peak and free device memory are printed after each MoE phase.
 
 Phase 1 also holds the flash-attention kernel against its plain version on
 the forward's shape (B=4, H=14, K=2, S=2048, D=64, bf16) and on the
 reference tests' shapes in float32 and bf16, and times it beside
 ``scaled_dot_product_attention`` (the yardstick; the port never calls it);
-and the SSD-scan kernel, y and final state, on the mamba2 and zamba2
+the SSD-scan kernel, y and final state, on the mamba2 and zamba2
 forwards' shapes, the reference tests' shapes, a ragged S and G = H (no
-PyTorch call computes the scan, so it has no yardstick).
+PyTorch call computes the scan, so it has no yardstick); and the grouped
+expert matmul at deepseek-moe-16b's forward shape (8192 tokens, top-6 of
+64 experts, D 2048 → F 1408, and the down product), with uniform and
+one-expert routing, at a decode step's 24 rows and at the reference tests'
+shapes, timed beside ``torch._grouped_mm`` (the yardstick) at the
+forward's and the decode's shapes.
 
-Kernel launch counts are reset just before phase 2 and read after phase 9:
-each kernel must have been launched by the main path.  One more fused run
-of the farm, of the pipeline, one more bf16 forward and one decode step of
-qwen2-0.5b and of mamba2-2.7b, and one more zamba2-1.2b forward are then
-traced with ``torch.profiler`` to print the device's busy time and idle
-share.  The last two lines are a JSON
+Kernel launch counts are reset just before phase 2 and read after phase 9,
+and reset again just before phase 10 and read after phase 11: each kernel
+must have been launched by one of the two paths.  One more fused run of
+the farm, of the pipeline, one more bf16 forward and one decode step of
+qwen2-0.5b and of mamba2-2.7b, and one more zamba2-1.2b forward are traced
+with ``torch.profiler`` after phase 9, and one bf16 forward and one decode
+step of deepseek-moe-16b after phase 11, to print the device's busy time
+and idle share.  The last two lines are a JSON
 summary of the kernels and ``{"ok": true, "device": ...}``.  Any failure
 raises and the script exits non-zero; so does a machine without a CUDA
 device, where nothing is printed on standard output.
@@ -67,6 +94,7 @@ device, where nothing is printed on standard output.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -435,6 +463,121 @@ def check_ssd(torch, dev) -> dict:
     return entry
 
 
+def gmm_bound(x, eo, w) -> tuple[float, str]:
+    """Bound of one grouped product: 2·rows·D·F operations at the peak of
+    x's type; bytes of x, the routing, the experts this routing hits and y,
+    each once."""
+    rows, D = x.shape
+    F = w.shape[2]
+    hit = int(eo.unique().numel())
+    nbytes = (rows * (D + F) * x.element_size()
+              + eo.numel() * eo.element_size()
+              + hit * D * F * w.element_size())
+    peak = F32_PEAK if x.element_size() == 4 else BF16_PEAK
+    return bound(2.0 * rows * D * F, nbytes, peak)
+
+
+def grouped_mm_call(torch, x, eo, w):
+    """``torch._grouped_mm`` on the same rows sorted by expert, bf16 (the
+    yardstick; the port never calls it), or (None, why not)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "this PyTorch has no torch._grouped_mm"
+    order = torch.argsort(eo, stable=True)
+    xs = x[order].bfloat16().contiguous()
+    counts = torch.zeros(w.shape[0], dtype=torch.long, device=x.device) \
+        .scatter_add_(0, eo.long(), torch.ones_like(eo, dtype=torch.long))
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    wb = w.bfloat16()
+    try:
+        fn(xs, wb, offs=offs)
+        torch.cuda.synchronize()
+    except Exception as exc:  # a refused layout is reported, not fatal
+        return None, f"torch._grouped_mm refused: {exc}"[:200]
+    return (lambda: fn(xs, wb, offs=offs)), ""
+
+
+def check_moe_gmm(torch, dev) -> dict:
+    """The grouped-matmul kernel against its plain version: deepseek-moe-16b's
+    products at its forward shape (8192 tokens, top-6 of 64 experts, D 2048
+    → F 1408 and the down product F → D) with uniform and one-expert
+    routing, a decode step's 24 rows, and the reference tests' shapes;
+    times at the forward's and the decode's shapes."""
+    from repro_torch.kernels.moe_gmm import ops, ref
+    flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator().manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    up, down = (8192, 6, 64, 2048, 1408, 128), (8192, 6, 64, 1408, 2048, 128)
+    dec = (4, 6, 64, 2048, 1408, 128)
+    # (shape (T, k, E, D, F, tile_m), x dtype, routing, timed).  Tolerances:
+    # bf16 rtol 1e-2 and 1e-2 of max|y| (both sides sum in f32 and round y
+    # once: a flip is one bf16 ulp); f32 at D >= 1408 rtol 1e-4 and 1e-4 of
+    # max|y| (sums of 2048 products in another order); the reference
+    # tests' shapes rtol = atol = 1e-5, their own gate
+    cases = [(up, bf16, "uniform", True), (down, bf16, "uniform", True),
+             (up, f32, "uniform", False), (down, f32, "uniform", False),
+             (up, bf16, "one expert", False), (dec, bf16, "uniform", True),
+             ((4, 6, 64, 1408, 2048, 128), bf16, "uniform", False),
+             ((64, 1, 4, 16, 32, 16), f32, "uniform", False),
+             ((200, 1, 8, 32, 64, 16), f32, "uniform", False),
+             ((33, 1, 2, 8, 16, 8), f32, "uniform", False),
+             ((32, 1, 4, 8, 16, 8), f32, "one expert", False)]
+    entry = None
+    for (T, k, E, D, F, tile), dtype, routing, timed in cases:
+        x = torch.randn(T * k, D, generator=g).to(dtype).to(dev)
+        eo = torch.randint(0, E, (T * k,), generator=g)
+        if routing == "one expert":
+            eo.fill_(E // 2)
+        eo = eo.to(dev)
+        w = (torch.randn(E, D, F, generator=g) / D ** 0.5).to(dev)
+        got = ops.moe_apply(x, eo, w, tile_m=tile)
+        want = ref.gmm(x, eo, w)
+        scale = float(want.float().abs().max())
+        rtol, atol = ((1e-2, 1e-2 * scale) if dtype == bf16 else
+                      (1e-5, 1e-5) if D <= 32 else (1e-4, 1e-4 * scale))
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        excess = float((diff - (atol + rtol * want.float().abs())).max())
+        check(excess <= 0, f"moe_gmm T={T} k={k} E={E} D={D} F={F} {dtype} "
+                           f"{routing}: outside rtol {rtol} / atol {atol} "
+                           f"by {excess}")
+        print(f"[kernel] moe_gmm rows={T * k} ({T} x top-{k}) E={E} D={D} "
+              f"F={F} tile_m={tile} x {str(dtype)[6:]}, w float32, "
+              f"{routing}: max|diff| {err:.3e} (rtol {rtol:.0e}, atol "
+              f"{atol:.3e})")
+        del got, want, diff
+        if not timed:
+            continue
+        lib, why = grouped_mm_call(torch, x, eo, w)
+        fns = {"plain": lambda: ref.gmm(x, eo, w),
+               "kernel": lambda: ops.moe_apply(x, eo, w)}
+        if lib is not None:
+            fns["library"] = lib
+        t = timed_turns(torch, fns, {"plain": 3, "kernel": 5, "library": 10},
+                        flush=flush_buf.zero_)
+        bound_ms, bound_by = gmm_bound(x, eo, w)
+        flops = 2.0 * T * k * D * F
+        print(f"[kernel] moe_gmm rows={T * k} D={D} F={F} bf16: kernel "
+              f"{t['kernel']:.4f} ms ({flops / t['kernel'] / 1e9:.1f} "
+              f"TFLOP/s), plain {t['plain']:.4f} ms, library"
+              + (f"(torch._grouped_mm, bf16 w) {t['library']:.4f} ms"
+                 if lib is not None else f" none ({why})")
+              + f", bound {bound_ms:.4f} ms ({bound_by}; {flops:.3e} FLOP, "
+              f"{int(eo.unique().numel())} experts hit), roofline "
+              f"{bound_ms / t['kernel']:.1%}")
+        if entry is None:  # the forward's gate/up product
+            entry = {"name": "moe_gmm", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+                     "replaces": "src/repro/kernels/moe_gmm/kernel.py:25",
+                     "max_abs_err": err, "ms": t["kernel"],
+                     "plain_ms": t["plain"], "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "library_ms": t.get("library")}
+        del lib, fns
+    del flush_buf
+    return entry
+
+
 # -- phases 2-5: the main path ----------------------------------------------------
 
 def three_modes(torch, net, n, mb, counts, kernel):
@@ -553,6 +696,14 @@ def run_pi(torch, counts, instances, points):
 # -- phases 6-9: the decoder LMs -----------------------------------------------------
 
 def describe(cfg) -> str:
+    if cfg.moe is not None:
+        m = cfg.moe
+        return (f"{cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads}/"
+                f"{cfg.n_kv_heads} heads, {m.n_experts} routed experts of "
+                f"{m.d_expert} (top-{m.top_k}) + {m.n_shared} shared"
+                + (f", layer 0 dense d_ff {cfg.d_ff}" if m.layer0_dense
+                   else "")
+                + (", ragged path" if cfg.moe_ragged else ", capacity path"))
     if cfg.ssm is None:
         return (f"{cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads}/"
                 f"{cfg.n_kv_heads} heads")
@@ -568,14 +719,16 @@ def describe(cfg) -> str:
     return line
 
 
-def run_forward(torch, dev, counts, arch, batch, seq, per_forward):
-    """Full-width ``Model.forward`` of ``arch`` on (batch, seq) tokens: bf16
-    finite, f32 against prefill + decode, and exactly ``per_forward``
-    kernel launches per forward (every other kernel: none)."""
+def run_forward(torch, dev, counts, arch, batch, seq, per_forward,
+                **overrides):
+    """Full-width ``Model.forward`` of ``arch`` (its config with
+    ``overrides``) on (batch, seq) tokens: bf16 finite, f32 against
+    prefill + decode, and exactly ``per_forward`` kernel launches per
+    forward (every other kernel: none)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **overrides)
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
@@ -617,11 +770,13 @@ def run_forward(torch, dev, counts, arch, batch, seq, per_forward):
         m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
         half = seq // 2
         t0 = time.perf_counter()
-        full = forward(m32)[:, half - 1:half + 1].clone()
+        with routing_recorder(cfg) as routes_full:
+            full = forward(m32)[:, half - 1:half + 1].clone()
         torch.cuda.synchronize()
         f32_ms = (time.perf_counter() - t0) * 1e3
-        logits_p, cache = m32.prefill(params, toks[:, :half],
-                                      max_len=half + 1)
+        with routing_recorder(cfg) as routes_prefill:
+            logits_p, cache = m32.prefill(params, toks[:, :half],
+                                          max_len=half + 1)
         logits_d, _ = m32.decode_step(params, cache,
                                       toks[:, half:half + 1])
         err_p = float((logits_p[:, -1] - full[:, 0]).abs().max())
@@ -632,28 +787,103 @@ def run_forward(torch, dev, counts, arch, batch, seq, per_forward):
         print(f"[lm] {cfg.name} forward f32 ({batch}, {seq}) {f32_ms:.1f} "
               f"ms: logits at {half - 1}/{half} vs prefill({half}) + "
               f"decode_step: max|diff| {err_p:.2e} / {err_d:.2e} (gate 3e-3)")
+        if routes_full:
+            compare_routes(cfg, routes_full, routes_prefill, batch, half)
     return model, params, toks
 
 
-def run_serve(torch, model, params, counts):
-    """The launcher's defaults through its ``main``: 8 requests, 4 slots,
-    max_len 128, max_new 16, on the card."""
+@contextlib.contextmanager
+def routing_recorder(cfg):
+    """Records each ragged MoE layer's top-k expert choices, (tokens, k),
+    while the block runs (an empty list for other models)."""
+    from repro_torch.models import moe
+    routes: list = []
+    if cfg.moe is None or not cfg.moe_ragged:
+        yield routes
+        return
+    ragged = moe.moe_apply_ragged
+
+    def recording(p, cfg_, x):
+        logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
+        routes.append(routed_experts(logits, cfg_.moe.top_k))
+        return ragged(p, cfg_, x)
+
+    moe.moe_apply_ragged = recording
+    try:
+        yield routes
+    finally:
+        moe.moe_apply_ragged = ragged
+
+
+def routed_experts(logits, k):
+    """The routed experts, in ascending order (softmax keeps the order of
+    the logits, so the top-k of either is the same set)."""
+    return logits.topk(k, dim=-1).indices.sort(dim=-1).values
+
+
+def compare_routes(cfg, full, prefill, batch, half) -> None:
+    """How many tokens of the first ``half`` positions the f32 forward and
+    the f32 prefill route to different expert sets, by MoE layer (not
+    gated: a near-tie of the k-th and (k+1)-th router logits flips with
+    the order of a sum)."""
+    k = cfg.moe.top_k
+    per_layer = [int((f.reshape(batch, -1, k)[:, :half]
+                      != p.reshape(batch, half, k)).any(-1).sum())
+                 for f, p in zip(full, prefill)]
+    last = [int((f.reshape(batch, -1, k)[:, half - 1]
+                 != p.reshape(batch, half, k)[:, -1]).any(-1).sum())
+            for f, p in zip(full, prefill)]
+    print(f"[lm] {cfg.name} routing f32, forward vs prefill({half}): "
+          f"{sum(per_layer)} of {batch * half * len(per_layer)} token "
+          f"routings differ over {len(per_layer)} MoE layers (by layer "
+          f"{per_layer}); at position {half - 1}: {sum(last)} "
+          f"(by layer {last})")
+
+
+def run_serve(torch, model, params, counts, per_decode=None,
+              launcher_main=True):
+    """The launcher's defaults: 8 requests, 4 slots, max_len 128, max_new
+    16, on the card, through the launcher's ``main`` (which builds its own
+    weights) or, with ``launcher_main=False``, through a ``ServeEngine``
+    over ``LocalDecodeBackend`` on the given model and weights.  Every
+    ``decode_step`` call must launch exactly ``per_decode`` kernels (every
+    other kernel: none)."""
     from repro_torch.core import trace
     from repro_torch.launch import serve as launcher
     from repro_torch.serve import LocalDecodeBackend, ServeEngine
+    reqs = launcher.requests(8, model.cfg.vocab, 16)
     before = counts()
     rec = trace.enable(host="serve")  # the engine's decode/prefill spans
     try:
         with torch.inference_mode():
-            done = launcher.main(["--arch", model.cfg.name])
+            if launcher_main:
+                done = launcher.main(["--arch", model.cfg.name])
+            else:
+                t0 = time.perf_counter()
+                with ServeEngine(LocalDecodeBackend(
+                        model, params, n_slots=4, max_len=128)) as eng:
+                    for r in reqs:
+                        eng.submit(r)
+                    done = eng.run_until_drained()
+                print(f"[serve] {model.cfg.name} (ServeEngine over "
+                      f"LocalDecodeBackend, 4 slots, max_len 128): "
+                      f"{time.perf_counter() - t0:.2f} s wall")
         spans = [e for e in rec.events() if e.kind == "span"]
     finally:
         trace.disable()
     launched = {k: v - before[k] for k, v in counts().items()}
-    # prompts go in one token a step: decode recurrences and KV-cache
-    # einsums, never a full-sequence kernel (as in the JAX package)
-    check(not any(launched.values()), f"serve launched kernels {launched}")
-    reqs = launcher.requests(8, model.cfg.vocab, 16)
+    # prompts go in one token a step (a prefill chunk is
+    # LAUNCH_PREFILL_CHUNK decode steps): decode recurrences and KV-cache
+    # einsums, never a full-sequence kernel (as in the JAX package); a MoE
+    # layer on the ragged path launches the grouped matmul 3 times a step
+    n_steps = (sum(e.name == "decode_chunk" for e in spans)
+               + LAUNCH_PREFILL_CHUNK * sum(e.name == "prefill"
+                                            for e in spans))
+    want_launched = {k: (per_decode or {}).get(k, 0) * n_steps
+                     for k in launched}
+    check(launched == want_launched,
+          f"serve launched kernels {launched} over {n_steps} decode steps, "
+          f"not {want_launched}")
     want = {r.rid: r.max_new for r in reqs}
     check(sorted(r.rid for r in done) == sorted(want),
           f"serve: completed {sorted(r.rid for r in done)}")
@@ -696,6 +926,64 @@ def run_serve(torch, model, params, counts):
           "decoded alone (n_slots=1; not gated)")
 
 
+def memory(torch, label: str) -> None:
+    free, total = torch.cuda.mem_get_info()
+    print(f"[memory] {label}: peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, free "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB")
+
+
+def run_capacity_forward(torch, model, params, toks, counts, per_forward):
+    """One bf16 forward of the same weights on the capacity path (the
+    config's default): its time, exactly ``per_forward`` kernel launches
+    (no grouped matmul), and the share of token-choices it dropped at its
+    capacity factor (counted in a second run, whose per-layer reads would
+    disturb the timing)."""
+    import dataclasses
+    from repro_torch.models import Model, moe
+    cap = Model(dataclasses.replace(model.cfg, moe_ragged=False))
+    n_moe = model.cfg.n_layers - int(model.cfg.moe.layer0_dense)
+    want = {k: per_forward.get(k, 0) for k in counts()}
+    with torch.inference_mode():
+        walls = []
+        for _ in range(2):  # the first warms up
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, aux = cap.forward(params, toks)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launched = {k: v - before[k] for k, v in counts().items()}
+            check(launched == want, f"capacity forward launched {launched}, "
+                                    f"not {want}")
+        check(bool(torch.isfinite(logits).all()), "capacity forward: "
+                                                  "non-finite logits")
+        del logits
+        kept, choices = [], []
+        dispatch_combine = moe._dispatch_combine
+
+        def counting(probs, k, C):
+            out = dispatch_combine(probs, k, C)
+            kept.append(out[0].sum())
+            choices.append(probs.shape[0] * probs.shape[1] * k)
+            return out
+
+        moe._dispatch_combine = counting
+        try:
+            cap.forward(params, toks)
+        finally:
+            moe._dispatch_combine = dispatch_combine
+    check(len(kept) == n_moe, f"capacity forward: {len(kept)} MoE layers")
+    dropped = 1.0 - float(torch.stack(kept).sum()) / sum(choices)
+    C = moe.capacity(model.cfg.moe, toks.shape[1])
+    print(f"[lm] {model.cfg.name} forward bf16 {tuple(toks.shape)}, capacity "
+          f"path (C={C} a batch row and expert, capacity factor "
+          f"{model.cfg.moe.capacity_factor}): {walls[1]:.1f} ms (first "
+          f"{walls[0]:.1f} ms), aux {float(aux):.4f}; dropped "
+          f"{dropped:.2%} of the token-choices over {n_moe} MoE layers "
+          "(not gated: not dropless, so it differs from the ragged path)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -715,7 +1003,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build_all(["mandelbrot", "stencil", "flash_attention",
-                             "ssd_scan"])
+                             "ssd_scan", "moe_gmm"])
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -725,7 +1013,7 @@ def main() -> int:
     W, H, BANDS, ITERS = 4096, 2048, 64, 1000
     entries = [check_mandelbrot(torch, dev, W, H, BANDS, ITERS),
                check_stencil(torch, dev), check_flash(torch, dev),
-               check_ssd(torch, dev)]
+               check_ssd(torch, dev), check_moe_gmm(torch, dev)]
 
     reset_launch_counts()  # the main path starts here
     farm = run_farm(torch, launch_counts, W, H, BANDS, ITERS)
@@ -768,8 +1056,38 @@ def main() -> int:
         profile_run(torch, f"{m.cfg.name} forward bf16 (4, 2048)",
                     lambda: m.forward(p, t))
 
+    # the MoE path needs the card's memory: free every earlier model first
+    del farm, pipeline, model, params, toks, ssm, hybrid, m, p, t
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    memory(torch, "before the MoE phases")
+    reset_launch_counts()  # the MoE path starts here
+    moe_model, moe_params, moe_toks = run_forward(
+        torch, dev, launch_counts, "deepseek-moe-16b", 4, 2048,
+        {"moe_gmm": 81, "flash_attention": 28}, moe_ragged=True)
+    memory(torch, "phase 10, deepseek-moe-16b forwards (ragged)")
+    run_capacity_forward(torch, moe_model, moe_params, moe_toks,
+                         launch_counts, {"flash_attention": 28})
+    memory(torch, "phase 10, deepseek-moe-16b forward (capacity)")
+    run_serve(torch, moe_model, moe_params, launch_counts,
+              per_decode={"moe_gmm": 81}, launcher_main=False)
+    memory(torch, "phase 11, deepseek-moe-16b serving")
+    moe_launched = launch_counts()
+    with torch.inference_mode():
+        profile_run(torch, "deepseek-moe-16b forward bf16 (4, 2048), ragged",
+                    lambda: moe_model.forward(moe_params, moe_toks))
+        backend = LocalDecodeBackend(moe_model, moe_params, n_slots=4,
+                                     max_len=128)
+        last, adv = np.arange(1, 5, dtype=np.int32), np.ones(4, bool)
+        backend.decode(last, adv)  # warm-up
+        profile_run(torch, "deepseek-moe-16b decode step (4 slots), ragged",
+                    lambda: backend.decode(last, adv))
+        del backend
+
     for e in entries:
-        e["launches"] = launched[e["name"]]
+        e["launches"] = launched[e["name"]] + moe_launched[e["name"]]
         check(e["launches"] > 0, f"{e['name']}: never launched on the path")
     print("kernels: " + "; ".join(
         f"{e['name']} launches={e['launches']} check="

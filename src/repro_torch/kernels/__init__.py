@@ -6,17 +6,19 @@ the wrapper runs for a CPU tensor), ``kernel`` (the ctypes binding of
 launches).
 """
 
-from . import flash_attention, mandelbrot, ssd_scan, stencil  # noqa: F401
+from . import (flash_attention, mandelbrot, moe_gmm, ssd_scan,  # noqa: F401
+               stencil)
 
-__all__ = ["flash_attention", "mandelbrot", "ssd_scan", "stencil",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "mandelbrot", "moe_gmm", "ssd_scan",
+           "stencil", "launch_counts", "reset_launch_counts"]
 
 
 def _wrappers() -> dict:
     return {"mandelbrot": mandelbrot.ops.mandelbrot,
             "stencil": stencil.ops.stencil2d,
             "flash_attention": flash_attention.ops.mha,
-            "ssd_scan": ssd_scan.ops.ssd}
+            "ssd_scan": ssd_scan.ops.ssd,
+            "moe_gmm": moe_gmm.ops.moe_apply}
 
 
 def launch_counts() -> dict[str, int]:

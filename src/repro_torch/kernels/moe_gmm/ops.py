@@ -1,0 +1,110 @@
+"""Public grouped-matmul op: sort and pad the tokens by expert, run the
+CUDA kernel, unsort.  The contract is what the MoE layer's ragged path
+needs.
+
+On the card the kernel runs or the call raises; nothing falls back to the
+plain version.  The routing stays on the device without a host sync: the
+padded capacity ``(⌈T / tile_m⌉ + E) · tile_m`` is a Python int, the
+per-expert counts come from ``scatter_add_`` (``bincount`` on CUDA reads
+its maximum back to the host), and the number of valid rows of each tile
+is computed beside the tile's expert, so the kernel skips the padding.
+The weights are rounded to x's dtype before the product (the kernel does
+it in registers, the plain version with an explicit cast), so a float32
+``w`` and a bfloat16 ``x`` give the numbers of ``w.to(x.dtype)``.
+``moe_apply.launches`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernel, ref
+
+__all__ = ["sort_by_expert", "moe_apply"]
+
+
+def sort_by_expert(x: torch.Tensor, expert_of: torch.Tensor, n_expert: int,
+                   tile_m: int):
+    """Sort tokens by expert and pad each group to a tile_m multiple.
+
+    Returns ``(x_padded, tile_expert, (order, slot), valid, tile_rows)``:
+    ``x_padded`` (cap, ...) holds sorted token ``i`` (``x[order[i]]``) at
+    row ``slot[i]`` and zeros elsewhere; ``valid`` (cap,) marks the token
+    rows; ``tile_expert`` (cap / tile_m,) int32 is the expert owning each
+    row tile (padding tiles past the last group take ``n_expert - 1``) and
+    ``tile_rows`` (cap / tile_m,) int32 the number of token rows at the
+    head of each tile.  The first four are the JAX package's
+    ``sort_by_expert``; ``tile_rows`` is what lets the kernel skip the
+    padding."""
+    T = x.shape[0]
+    dev = x.device
+    e = expert_of.long()
+    order = torch.argsort(e, stable=True)
+    sorted_e = e[order]
+    counts = torch.zeros(n_expert, dtype=torch.long, device=dev) \
+        .scatter_add_(0, e, torch.ones_like(e))
+    padded = (counts + tile_m - 1) // tile_m * tile_m
+    cap = ((T + tile_m - 1) // tile_m + n_expert) * tile_m
+    padded_end = torch.cumsum(padded, 0)
+    padded_start = padded_end - padded
+    group_start = torch.cumsum(counts, 0) - counts
+    slot = padded_start[sorted_e] + torch.arange(T, device=dev) \
+        - group_start[sorted_e]
+    x_p = x.new_zeros((cap,) + tuple(x.shape[1:]))
+    x_p[slot] = x[order]
+    # index_fill_ takes the value as a scalar: ``valid[slot] = True`` would
+    # copy it from the host and synchronise
+    valid = torch.zeros((cap,), dtype=torch.bool, device=dev) \
+        .index_fill_(0, slot, True)
+    tile_row = torch.arange(cap // tile_m, device=dev) * tile_m
+    tile_expert = torch.searchsorted(padded_end, tile_row, right=True) \
+        .clamp_(max=n_expert - 1)
+    tile_rows = (counts[tile_expert] - (tile_row - padded_start[tile_expert])
+                 ).clamp_(0, tile_m)
+    return (x_p, tile_expert.to(torch.int32), (order, slot), valid,
+            tile_rows.to(torch.int32))
+
+
+def moe_apply(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor, *,
+              tile_m: int = 128) -> torch.Tensor:
+    """Per-token expert matmul.  x: (T, D); expert_of: (T,) int in
+    [0, E); w: (E, D, F).  Returns (T, F) in x's dtype, summed in float32
+    with w rounded to x's dtype.
+
+    A CPU tensor takes the plain version (:func:`ref.gmm`).  A CUDA tensor
+    is sorted and padded by :func:`sort_by_expert`, multiplied by the
+    kernel (f32 or bf16 x, f32 or bf16 w, w contiguous) and unsorted by a
+    gather of the token rows; the padded rows of the kernel's output are
+    never written and never read."""
+    if x.ndim != 2 or expert_of.ndim != 1 or w.ndim != 3 \
+            or expert_of.shape[0] != x.shape[0] or w.shape[1] != x.shape[1]:
+        raise ValueError(f"moe_apply: x (T, D), expert_of (T,) and w "
+                         f"(E, D, F) required, got {tuple(x.shape)}, "
+                         f"{tuple(expert_of.shape)}, {tuple(w.shape)}")
+    if expert_of.dtype.is_floating_point or expert_of.dtype == torch.bool:
+        raise TypeError(f"moe_apply: expert_of must be an integer tensor, "
+                        f"got {expert_of.dtype}")
+    if x.device.type == "cpu":
+        return ref.gmm(x, expert_of, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_apply: unsupported device {x.device}")
+    if expert_of.device != x.device or w.device != x.device:
+        raise ValueError("moe_apply: x, expert_of and w must lie on one "
+                         "device")
+    if x.dtype not in kernel.DTYPES or w.dtype not in kernel.DTYPES:
+        raise TypeError(f"moe_apply: the CUDA kernel takes x and w in "
+                        f"float32 or bfloat16, got {x.dtype}, {w.dtype}")
+    if not w.is_contiguous():
+        raise ValueError("moe_apply: the CUDA kernel needs w contiguous")
+    T = x.shape[0]
+    E, F = w.shape[0], w.shape[2]
+    x_p, tile_expert, (order, slot), _, tile_rows = sort_by_expert(
+        x, expert_of, E, tile_m)
+    y_p = torch.empty((x_p.shape[0], F), dtype=x.dtype, device=x.device)
+    kernel.launch(x_p, tile_expert, tile_rows, w, y_p, tile_m)
+    moe_apply.launches += 1
+    y = torch.empty((T, F), dtype=x.dtype, device=x.device)
+    return y.index_copy_(0, order, y_p[slot])
+
+
+moe_apply.launches = 0

@@ -1,4 +1,4 @@
-"""Decoder LMs of the port (dense and VLM families so far)."""
+"""Decoder LMs of the port (dense, VLM, MoE, SSM and hybrid families)."""
 
 from .model import Model  # noqa: F401
 

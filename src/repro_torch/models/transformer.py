@@ -1,10 +1,10 @@
-"""Decoder LM of the dense, VLM, SSM and hybrid families, in PyTorch.
+"""Decoder LM of the dense, VLM, MoE, SSM and hybrid families, in PyTorch.
 
 The JAX package's ``models/transformer.py`` for the families whose blocks
-are attention + MLP or Mamba2.  A model is a sequence of *segments*,
-homogeneous runs of one block kind whose parameters are stacked on a
-leading layer axis ``(L, ...)`` as the reference's ``vmap`` init makes
-them; a Python loop indexes that axis where the reference runs
+are attention + MLP, attention + MoE or Mamba2.  A model is a sequence of
+*segments*, homogeneous runs of one block kind whose parameters are stacked
+on a leading layer axis ``(L, ...)`` as the reference's ``vmap`` init
+makes them; a Python loop indexes that axis where the reference runs
 ``lax.scan``.  zamba2's *shared* attention block (one parameter set applied
 every ``period`` layers) sits between mamba segments; its weights live once
 in the tree (``params["shared_block"]``) and its segments are empty.
@@ -18,8 +18,9 @@ Entry points::
     prefill(cfg, params, tokens, max_len)         -> (logits, cache)
     reset_slot(cfg, cache, slot)                  -> cache
 
-The moe family comes with the slice that ports its kernel (``moe_gmm``);
-the training loss, remat and ``scan_layers`` come with the training slice.
+A MoE layer adds its load-balancing aux loss to ``forward``'s second
+output; the decode step drops it, as the reference's does.  The training
+loss, remat and ``scan_layers`` come with the training slice.
 """
 
 from __future__ import annotations
@@ -30,14 +31,13 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
-from . import layers, mamba
+from . import layers, mamba, moe
 
 __all__ = ["structure", "init_params", "forward", "hidden_states",
            "init_cache", "decode_step", "prefill", "reset_slot",
            "param_count"]
 
 _LATER = {
-    "moe": "the MoE slice (with the moe_gmm kernel)",
     "audio": "the encoder-decoder slice",
 }
 
@@ -92,39 +92,47 @@ def _block_init(gen, cfg, dtype, kind: str, stack: int) -> dict:
     if kind == "mamba":
         return {"norm1": ninit(cfg.d_model, dtype, gen.device, stack),
                 "mamba": mamba.mamba_init(gen, cfg, dtype, stack)}
-    d_ff = cfg.d_ff
-    if kind == "shared_attn" and cfg.hybrid and cfg.hybrid.shared_d_ff:
-        d_ff = cfg.hybrid.shared_d_ff
-    return {
+    p = {
         "norm1": ninit(cfg.d_model, dtype, gen.device, stack),
         "attn": layers.attention_init(gen, cfg, dtype, stack),
         "norm2": ninit(cfg.d_model, dtype, gen.device, stack),
-        "mlp": layers.mlp_init(gen, cfg, dtype, d_ff=d_ff, stack=stack),
     }
+    if kind == "attn_moe":
+        p["moe"] = moe.moe_init(gen, cfg, dtype, stack)
+        return p
+    d_ff = cfg.d_ff
+    if kind == "shared_attn" and cfg.hybrid and cfg.hybrid.shared_d_ff:
+        d_ff = cfg.hybrid.shared_d_ff
+    p["mlp"] = layers.mlp_init(gen, cfg, dtype, d_ff=d_ff, stack=stack)
+    return p
 
 
 def _block_apply(p: dict, cfg, x, positions, kind: str, cache=None,
                  advance=None):
-    """Returns (x, new_cache)."""
+    """Returns (x, aux, new_cache); aux is the MoE layer's load-balancing
+    loss (None for every other kind)."""
     _, napply = layers.norm(cfg.norm)
     nfn = functools.partial(napply, eps=cfg.norm_eps)
     h = nfn(p["norm1"], x)
     if kind == "mamba":
         if cache is None:
-            return x + mamba.mamba_apply(p["mamba"], cfg, h), None
+            return x + mamba.mamba_apply(p["mamba"], cfg, h), None, None
         if h.shape[1] > 1:  # prefill: a fresh full scan hands over its state
             out, new_cache = mamba.mamba_apply(p["mamba"], cfg, h,
                                                return_state=True)
         else:
             out, new_cache = mamba.mamba_decode_step(p["mamba"], cfg, h,
                                                      cache, advance=advance)
-        return x + out, new_cache
+        return x + out, None, new_cache
     a_out, new_cache = layers.attention(
         p["attn"], cfg, h, positions=positions, causal=True, cache=cache,
         mrope=cfg.mrope, advance=advance)
     x = x + a_out
-    f = layers.mlp(p["mlp"], cfg, nfn(p["norm2"], x))
-    return x + f, new_cache
+    h2 = nfn(p["norm2"], x)
+    if kind == "attn_moe":
+        f, aux = moe.moe_apply(p["moe"], cfg, h2)
+        return x + f, aux, new_cache
+    return x + layers.mlp(p["mlp"], cfg, h2), None, new_cache
 
 
 def _layer(tree, i: int):
@@ -183,26 +191,30 @@ def _positions(cfg, tokens, offset=0):
 
 def hidden_states(cfg, params, tokens, *, positions=None,
                   input_embeds=None):
-    """Backbone up to (and including) the final norm: (B,S,D), aux."""
+    """Backbone up to (and including) the final norm: (B,S,D), and the sum
+    of the MoE layers' aux losses (f32, 0 without MoE layers)."""
     _check_family(cfg)
     x = (layers.embed(params["embedding"], cfg, tokens)
          if input_embeds is None else input_embeds)
     pos = _positions(cfg, tokens) if positions is None else positions
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, count), seg_p in zip(structure(cfg), params["segments"]):
-        if kind == "shared_attn":
-            x, _ = _block_apply(params["shared_block"], cfg, x, pos, kind)
-            continue
-        for i in range(count):
-            x, _ = _block_apply(_layer(seg_p, i), cfg, x, pos, kind)
+        layer_params = ([params["shared_block"]] if kind == "shared_attn"
+                        else [_layer(seg_p, i) for i in range(count)])
+        for lp in layer_params:
+            x, aux, _ = _block_apply(lp, cfg, x, pos, kind)
+            if aux is not None:
+                aux_total = aux_total + aux
     _, napply = layers.norm(cfg.norm)
     x = napply(params["final_norm"], x, eps=cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def forward(cfg, params, tokens, *, positions=None, input_embeds=None):
     """Full-sequence forward (scoring a prompt: a prefill without a cache).
 
-    Returns (logits, aux_loss); aux is 0 for these families (no MoE)."""
+    Returns (logits, aux_loss); aux sums the MoE layers' load-balancing
+    losses, and is 0 for the families without MoE layers."""
     x, aux = hidden_states(cfg, params, tokens, positions=positions,
                            input_embeds=input_embeds)
     return layers.unembed(params["embedding"], cfg, x), aux
@@ -263,14 +275,14 @@ def decode_step(cfg, params, cache, tokens, *, positions=None, advance=None):
     for (kind, count), seg_p, seg_c in zip(
             structure(cfg), params["segments"], cache["segments"]):
         if kind == "shared_attn":
-            x, nc = _block_apply(params["shared_block"], cfg, x, pos, kind,
-                                 cache=seg_c, advance=adv)
+            x, _, nc = _block_apply(params["shared_block"], cfg, x, pos,
+                                    kind, cache=seg_c, advance=adv)
             new_cache["segments"].append(nc)
             continue
         layer_caches = []
         for i in range(count):
-            x, nc = _block_apply(_layer(seg_p, i), cfg, x, pos, kind,
-                                 cache=_layer(seg_c, i), advance=adv)
+            x, _, nc = _block_apply(_layer(seg_p, i), cfg, x, pos, kind,
+                                    cache=_layer(seg_c, i), advance=adv)
             layer_caches.append(nc)
         new_cache["segments"].append(_restack(seg_c, layer_caches))
     _, napply = layers.norm(cfg.norm)

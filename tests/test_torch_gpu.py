@@ -13,6 +13,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.mandelbrot import ops as mb_ops, ref as mb_ref
+from repro_torch.kernels.moe_gmm import (kernel as gmm_kernel,
+                                          ops as gmm_ops, ref as gmm_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.kernels.stencil import ops as st_ops, ref as st_ref
 
@@ -272,5 +274,154 @@ def test_reduced_ssm_serving_on_card_matches_one_slot_runs(cuda, arch):
         return {r.rid: eng.poll(r.rid).tokens for r in batch}
 
     together = serve(reqs, 3)
+    for r in reqs:
+        assert serve([r], 1)[r.rid] == together[r.rid], f"req {r.rid}"
+
+
+
+# -- moe_gmm: float32 within rtol 1e-4 and 1e-4 of max|y| at D = 2048 (the
+# reference's rtol = atol = 1e-5 at its own shapes), bf16 within 1e-2 (both
+# sides sum in f32 and round y to bf16 once: a flip costs one bf16 ulp) ------
+
+GMM_SHAPES = [  # (T tokens, k, E, D, F, tile_m)
+    (512, 6, 64, 2048, 1408, 128),  # deepseek-moe-16b's gate/up, cut in T
+    (512, 6, 64, 1408, 2048, 128),  # ... and its down
+    (4, 6, 64, 2048, 1408, 128),    # a decode step of 4 slots
+    (64, 1, 4, 16, 32, 16), (200, 1, 8, 32, 64, 16),
+    (33, 1, 2, 8, 16, 8),           # the reference tests' shapes
+    (100, 2, 16, 72, 40, 48),       # ragged D, F and tile_m
+]
+
+
+def _gmm_inputs(shape, x_dtype, w_dtype, device, skew=False, seed=0):
+    T, k, E, D, F, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T * k, D, generator=g).to(x_dtype).to(device)
+    eo = torch.randint(0, E, (T * k,), generator=g)
+    if skew:
+        eo.fill_(E // 2)  # every row to one expert, the rest empty
+    w = (torch.randn(E, D, F, generator=g) / D ** 0.5).to(w_dtype)
+    return x, eo.to(device), w.to(device)
+
+
+def _gmm_tol(shape, x_dtype, want):
+    if x_dtype == torch.bfloat16:
+        return 1e-2, 1e-2 * float(want.float().abs().max())
+    if shape[3] <= 32:
+        return 1e-5, 1e-5
+    return 1e-4, 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", GMM_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("skew", [False, True])
+def test_moe_gmm_kernel_matches_plain(cuda, shape, x_dtype, w_dtype, skew):
+    x, eo, w = _gmm_inputs(shape, x_dtype, w_dtype, cuda, skew=skew)
+    before = gmm_ops.moe_apply.launches
+    got = gmm_ops.moe_apply(x, eo, w, tile_m=shape[5])
+    want = gmm_ref.gmm(x, eo, w)
+    torch.cuda.synchronize()
+    assert gmm_ops.moe_apply.launches == before + 1
+    assert got.dtype == x_dtype and got.shape == want.shape
+    rtol, atol = _gmm_tol(shape, x_dtype, want)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_moe_gmm_padding_is_never_read_or_written(cuda):
+    """NaN in every padded row of x stays out of y, and the kernel writes
+    the token rows of its output only."""
+    x, eo, w = _gmm_inputs((300, 2, 8, 256, 192, 128), torch.bfloat16,
+                           torch.float32, cuda, seed=5)
+    x_p, te, (order, slot), valid, rows = gmm_ops.sort_by_expert(
+        x, eo, 8, 128)
+    x_p[~valid] = float("nan")
+    y_p = torch.full((x_p.shape[0], 192), float("nan"), dtype=x.dtype,
+                     device=cuda)
+    gmm_kernel.launch(x_p, te, rows, w, y_p, 128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y_p[valid]).all())
+    assert bool(torch.isnan(y_p[~valid]).all())
+    want = gmm_ref.gmm(x, eo, w)
+    got = torch.empty_like(want).index_copy_(0, order, y_p[slot])
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2 * float(want.float().abs().max()))
+
+
+def test_moe_gmm_card_refuses_without_fallback(cuda):
+    x, eo, w = _gmm_inputs((16, 2, 4, 32, 16, 16), torch.float32,
+                           torch.float32, cuda)
+    before = gmm_ops.moe_apply.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gmm_ops.moe_apply(x.half(), eo, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_ops.moe_apply(x, eo, w.transpose(1, 2).contiguous()
+                          .transpose(1, 2))
+    with pytest.raises(ValueError, match="one device"):
+        gmm_ops.moe_apply(x, eo.cpu(), w)
+    assert gmm_ops.moe_apply.launches == before
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"])
+def test_reduced_moe_on_card_matches_cpu(cuda, arch):
+    """The reduced MoE model (float32) on its ragged path on the card,
+    three kernel launches a MoE layer, against the same model on the CPU:
+    forward (logits and aux), prefill and one decode step."""
+    import dataclasses
+    from repro_torch.models import Model, transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = Model(dataclasses.replace(get_config(arch, reduced=True),
+                                  moe_ragged=True))
+    params = m.init(seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (2, 40)).astype(np.int32))
+    on_card = torch.utils._pytree.tree_map(lambda t: t.to(cuda), params)
+    n_moe = sum(c for k, c in transformer.structure(m.cfg)
+                if k == "attn_moe")
+    before = gmm_ops.moe_apply.launches
+    got, aux = m.forward(on_card, toks.to(cuda))
+    torch.cuda.synchronize()
+    assert gmm_ops.moe_apply.launches == before + 3 * n_moe
+    want, want_aux = m.forward(params, toks)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+    lp, cache = m.prefill(on_card, toks[:, :32].to(cuda), max_len=40)
+    ld, _ = m.decode_step(on_card, cache, toks[:, 32:33].to(cuda))
+    wp, wcache = m.prefill(params, toks[:, :32], max_len=40)
+    wd, _ = m.decode_step(params, wcache, toks[:, 32:33])
+    torch.testing.assert_close(lp.cpu(), wp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ld.cpu(), wd, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"])
+def test_reduced_moe_serving_on_card_matches_one_slot_runs(cuda, arch):
+    """The reduced MoE model (float32) served on the card on its ragged
+    path with 3 slots, slots reused: every request's tokens equal its run
+    alone in a one-slot engine, and every decode step launches the kernel
+    three times a MoE layer."""
+    import dataclasses
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import Model
+    from repro_torch.serve import (LocalDecodeBackend, ServeEngine,
+                                   build_decode_model)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base, params = build_decode_model(("model", arch, True), device=cuda)
+    model = Model(dataclasses.replace(base.cfg, moe_ragged=True))
+    reqs = launcher.requests(6, model.cfg.vocab, 8)
+
+    def serve(batch, n_slots):
+        eng = ServeEngine(LocalDecodeBackend(model, params, n_slots=n_slots,
+                                             max_len=32))
+        for r in batch:
+            eng.submit(r)
+        eng.run_until_drained()
+        return {r.rid: eng.poll(r.rid).tokens for r in batch}
+
+    before = gmm_ops.moe_apply.launches
+    together = serve(reqs, 3)
+    assert gmm_ops.moe_apply.launches > before
     for r in reqs:
         assert serve([r], 1)[r.rid] == together[r.rid], f"req {r.rid}"

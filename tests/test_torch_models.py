@@ -3,10 +3,14 @@
 For each reduced architecture of the families the port carries (gemma-2b:
 GeGLU and embedding scale; glm4-9b: partial rotary; qwen2-0.5b: QKV bias
 and GQA; qwen2-vl-2b: M-RoPE; yi-34b: untied head; mamba2-2.7b: the SSD
-trunk; zamba2-1.2b: mamba segments around a shared attention block), the
-JAX package's weights, drawn from ``PRNGKey(0)``, cross to the port through
-``params_from_numpy``, and the same numpy-seeded tokens go through both.
-The JAX forward runs with ``use_pallas=True``, its flash and SSD kernels in
+trunk; zamba2-1.2b: mamba segments around a shared attention block;
+deepseek-moe-16b: a dense layer 0, then fine-grained routed experts beside
+shared experts, with normalised top-k gates; phi3.5-moe: top-2 routing and
+GQA), the JAX package's weights, drawn from ``PRNGKey(0)``, cross to the
+port through ``params_from_numpy``, and the same numpy-seeded tokens go
+through both.  The MoE archs run both paths: the capacity path (their
+default) and, with ``/ragged``, the grouped-matmul path.  The JAX forward
+runs with ``use_pallas=True``, its flash, SSD and gmm kernels in
 interpret mode.  The reduced configs are float32, so logits and caches must
 agree within 1e-4; ``decode_matches_forward`` keeps the reference's own
 3e-3 gate.
@@ -28,14 +32,29 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.models import Model
 from repro_torch.models import transformer
 
+MOE = ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"]
 PORTED = ["gemma-2b", "glm4-9b", "qwen2-0.5b", "qwen2-vl-2b", "yi-34b",
-          "mamba2-2.7b", "zamba2-1.2b"]
+          "mamba2-2.7b", "zamba2-1.2b", *MOE, *(f"{a}/ragged" for a in MOE)]
 TOL = 1e-4
 
 
-def _pair(arch, **overrides):
+def _variant(arch_id):
+    """(arch, config overrides) of a ``PORTED`` id: ``<arch>/ragged`` is the
+    MoE arch on its ragged grouped-matmul path."""
+    arch, _, path = arch_id.partition("/")
+    return arch, ({"moe_ragged": True} if path == "ragged" else {})
+
+
+def _config(arch_id):
+    arch, overrides = _variant(arch_id)
+    return dataclasses.replace(get_config(arch, reduced=True), **overrides)
+
+
+def _pair(arch_id, **overrides):
     """(JAX model, JAX params, port model, port params) on the same
     weights."""
+    arch, variant = _variant(arch_id)
+    overrides = {**variant, **overrides}
     jcfg = dataclasses.replace(jget_config(arch, reduced=True),
                                use_pallas=True, **overrides)
     cfg = dataclasses.replace(get_config(arch, reduced=True), **overrides)
@@ -89,7 +108,7 @@ def test_configs_and_structure_match_reference(arch):
         assert transformer.structure(cfg) == jtransformer.structure(jcfg)
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_unported_families_name_their_slice(arch):
     cfg = get_config(arch, reduced=True)
     with pytest.raises(NotImplementedError, match="slice"):
@@ -105,10 +124,14 @@ class TestAgainstJax:
     def test_forward_matches_jax_pallas(self, arch):
         jm, jp, m, p = _pair(arch)
         toks = _tokens((2, 24))
-        jl, _ = jm.forward(jp, jnp.asarray(toks))
+        jl, jaux = jm.forward(jp, jnp.asarray(toks))
         logits, aux = m.forward(p, torch.from_numpy(toks))
-        assert logits.shape == (2, 24, m.cfg.vocab) and float(aux) == 0.0
+        assert logits.shape == (2, 24, m.cfg.vocab)
+        assert aux.dtype == torch.float32 and aux.ndim == 0
+        assert (float(aux) > 0) == (m.cfg.family == "moe")
         np.testing.assert_allclose(_np(logits), _np(jl), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=TOL,
+                                   atol=TOL)
 
     def test_prefill_and_decode_match_jax(self, arch):
         jm, jp, m, p = _pair(arch)
@@ -151,7 +174,7 @@ class TestAgainstJax:
     def test_decode_matches_forward(self, arch):
         """The reference's own gate, inside the port: prefill + one decode
         step reproduce the full-sequence forward."""
-        m = Model(get_config(arch, reduced=True))
+        m = Model(_config(arch))
         params = m.init(seed=0, device="cpu")
         toks = torch.from_numpy(_tokens((2, 24), seed=2))
         full, _ = m.forward(params, toks)
@@ -166,7 +189,7 @@ class TestAgainstJax:
         """Continuous-batching contract: advance=False freezes a row's step
         and index; decoding that row later equals decoding it from the
         untouched cache."""
-        m = Model(get_config(arch, reduced=True))
+        m = Model(_config(arch))
         params = m.init(seed=0, device="cpu")
         t = torch.tensor([[3], [5]], dtype=torch.int32)
         _, c1 = m.decode_step(params, m.init_cache(2, 16, device="cpu"), t,
@@ -210,6 +233,21 @@ class TestAgainstJax:
         assert cache["step"].tolist() == [5, 0]
         assert all(row.eq(0).all() for _, row in _rows(m.cfg, cache, 1))
         _cache_close(jc, cache)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_ragged_equals_dropless_capacity(arch):
+    """The forward half of the reference's ``TestRaggedMoE``: at the
+    reduced capacity factor the capacity path drops nothing, so the ragged
+    grouped-matmul path gives its logits (the gradients wait for the
+    training slice)."""
+    cfg = get_config(arch, reduced=True)
+    m1, m2 = Model(cfg), Model(dataclasses.replace(cfg, moe_ragged=True))
+    params = m1.init(seed=0, device="cpu")
+    toks = torch.from_numpy(_tokens((2, 24), seed=7))
+    l1, _ = m1.forward(params, toks)
+    l2, _ = m2.forward(params, toks)
+    assert float((l1 - l2).abs().max()) < 1e-4
 
 
 # --------------------------------------------------------------------------

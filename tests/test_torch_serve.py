@@ -3,9 +3,10 @@
 The non-cluster cases of ``tests/test_serve_engine.py`` run on the port's
 ``ToyLM`` (the sequential oracle, eos, ``max_new=0``, duplicates, the
 slot-event audit), and the port's engine over the reduced qwen2-0.5b,
-mamba2-2.7b and zamba2-1.2b, fed the JAX package's ``PRNGKey(0)`` weights,
-must give token streams identical to the JAX engine's on the same requests.
-The launcher runs with ``--reduced --device cpu``.
+mamba2-2.7b, zamba2-1.2b, deepseek-moe-16b and phi3.5-moe (the MoE archs on
+both of their paths), fed the JAX package's ``PRNGKey(0)`` weights, must
+give token streams identical to the JAX engine's on the same requests.  The
+launcher runs with ``--reduced --device cpu``.
 """
 
 import dataclasses
@@ -16,12 +17,14 @@ import numpy as np
 import pytest
 from _hypothesis_compat import given, settings, st
 
+from repro.models import Model as JModel
 from repro.serve import (LocalDecodeBackend as JLocalDecodeBackend,
                          Request as JRequest, ServeEngine as JServeEngine,
                          build_decode_model as jbuild_decode_model)
 from repro_torch.core.trace import CountingClock, TraceRecorder
 from repro_torch.interop import params_from_numpy
 from repro_torch.launch import serve as serve_launcher
+from repro_torch.models import Model
 from repro_torch.serve import (LocalDecodeBackend, Request, Response,
                                ServeEngine, build_decode_model)
 from repro_torch.serve.engine import ClusterDecodeBackend, make_decode_farm
@@ -198,9 +201,12 @@ def test_admission_interleavings_each_rid_exactly_once(n_slots, seed):
 # The real model: the same streams as the JAX engine
 # ==========================================================================
 
-def _streams_identical_to_jax_engine(arch, n_slots):
+def _streams_identical_to_jax_engine(arch, n_slots, **overrides):
     jmodel, jparams = jbuild_decode_model(("model", arch, True))
     model, like = build_decode_model(("model", arch, True), device="cpu")
+    if overrides:  # another path through the same weights
+        jmodel = JModel(dataclasses.replace(jmodel.cfg, **overrides))
+        model = Model(dataclasses.replace(model.cfg, **overrides))
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                "cpu", like=like)
     reqs = serve_launcher.requests(6, model.cfg.vocab, 8)
@@ -232,6 +238,17 @@ def test_ssm_streams_identical_to_jax_engine(arch, n_slots):
     _streams_identical_to_jax_engine(arch, n_slots)
 
 
+@pytest.mark.parametrize("n_slots", [1, 3])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_streams_identical_to_jax_engine(arch, ragged, n_slots):
+    """Both MoE paths: the capacity path (the configs' default) and the
+    ragged grouped-matmul path, through slot reuse and frozen rows."""
+    _streams_identical_to_jax_engine(
+        arch, n_slots, **({"moe_ragged": True} if ragged else {}))
+
+
 def test_launcher_runs_reduced_on_cpu(capsys):
     done = serve_launcher.main(["--arch", "qwen2-0.5b", "--reduced",
                                 "--device", "cpu", "--requests", "5",
@@ -254,6 +271,17 @@ def test_launcher_serves_mamba2_reduced_on_cpu(capsys):
                                 "--slots", "2", "--max-new", "4"])
     out = capsys.readouterr().out
     assert "[serve] mamba2-2.7b (local cpu): 4 requests" in out
+    assert sorted(r.rid for r in done) == list(range(4))
+    assert all([e.kind for e in r.slot_events] == ["join", "leave"]
+               for r in done)
+
+
+def test_launcher_serves_deepseek_moe_reduced_on_cpu(capsys):
+    done = serve_launcher.main(["--arch", "deepseek-moe-16b", "--reduced",
+                                "--device", "cpu", "--requests", "4",
+                                "--slots", "2", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] deepseek-moe-16b (local cpu): 4 requests" in out
     assert sorted(r.rid for r in done) == list(range(4))
     assert all([e.kind for e in r.slot_events] == ["join", "leave"]
                for r in done)
