@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` launchers and is compiled
 on its own into ``build/kernels/<name>-<hash>.so`` at the repository root,
-where ``<hash>`` covers the source and the compiler flags, so an edited
-kernel never loads a stale library.  The library is opened with ``ctypes``;
+where ``<hash>`` covers the source, every ``csrc`` header it includes (with
+``#include "..."``, followed through the headers' own includes) and the
+compiler flags, so an edited kernel or header never loads a stale library.  The library is opened with ``ctypes``;
 nothing here includes PyTorch's headers, which keeps a build to seconds.
 
 Nothing is compiled when this module is imported: :func:`load` builds on the
@@ -16,13 +17,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc", "library_path",
-           "build_all", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc", "sources",
+           "library_path", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -47,11 +49,34 @@ def nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another header, each once, in the order first reached."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():  # a header outside csrc is the toolkit's
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by its sources (the file
+    and its headers) and the flags."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

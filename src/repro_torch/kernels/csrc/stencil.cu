@@ -22,13 +22,18 @@
 //   edges itself, so any H and W work without a copy.
 // * A warp reads and writes 32 consecutive pixels of a row: coalesced
 //   global traffic and conflict-free shared-memory reads.
-// * The taps come by value in a struct of 25 floats (kernel parameter
-//   space), and zero taps are skipped as the TPU kernel skips them.
-//   Products and sums are rounded on their own (__fmul_rn / __fadd_rn) in
-//   (dr, dc) order, the plain PyTorch version's order, so the two agree
-//   exactly.
-// * Templated on K in {3, 5} and on the element type, so the tap loops
-//   unroll and bf16 converts on load and rounds to nearest on store.
+// * For k <= 9 the taps come by value in a struct of 81 floats (kernel
+//   parameter space), and the kernel is templated on K in {1, 3, 5, 7, 9}
+//   and on the element type, so the tap loops unroll and bf16 converts on
+//   load and rounds to nearest on store.
+// * Any larger odd k takes a runtime-k kernel: the taps sit in a small
+//   device buffer that the wrapper fills from the host tuple (a
+//   host-to-device copy; nothing is read back), and each thread reads its
+//   window from device memory through the L1 cache, so no halo tile has to
+//   fit in shared memory whatever k is.
+// * Zero taps are skipped as the TPU kernel skips them.  Products and sums
+//   are rounded on their own (__fmul_rn / __fadd_rn) in (dr, dc) order, the
+//   plain PyTorch version's order, so every k agrees exactly.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -40,8 +45,10 @@ constexpr int kTileW = 32;
 constexpr int kTileH = 32;
 constexpr int kThreadsY = 8;  // each thread computes kTileH / kThreadsY rows
 
+constexpr int kMaxStaticK = 9;  // larger k takes the runtime-k kernel
+
 struct Taps {
-  float w[25];
+  float w[kMaxStaticK * kMaxStaticK];
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -95,6 +102,33 @@ __global__ void stencil_kernel(const T* __restrict__ img, T* __restrict__ out,
   }
 }
 
+// Any odd k: taps (k * k floats, row-major) in device memory, the window
+// read from device memory (zero outside the image), one thread a pixel.
+template <typename T>
+__global__ void stencil_any_k_kernel(const T* __restrict__ img,
+                                     T* __restrict__ out, int height,
+                                     int width, int k,
+                                     const float* __restrict__ taps) {
+  const int h = k / 2;
+  const int col = blockIdx.x * kTileW + threadIdx.x;
+  const int row = blockIdx.y * kThreadsY + threadIdx.y;
+  if (col >= width || row >= height) return;
+  float acc = 0.0f;
+  for (int dr = 0; dr < k; ++dr) {
+    const int gr = row + dr - h;
+    for (int dc = 0; dc < k; ++dc) {
+      const float w = taps[dr * k + dc];
+      if (w == 0.0f) continue;
+      const int gc = col + dc - h;
+      float v = 0.0f;
+      if (gr >= 0 && gr < height && gc >= 0 && gc < width)
+        v = to_f32(img[(size_t)gr * width + gc]);
+      acc = __fadd_rn(acc, __fmul_rn(w, v));
+    }
+  }
+  store(&out[(size_t)row * width + col], acc);
+}
+
 template <int K, typename T>
 cudaError_t launch(const void* img, void* out, int height, int width,
                    const Taps& taps, cudaStream_t stream) {
@@ -106,26 +140,59 @@ cudaError_t launch(const void* img, void* out, int height, int width,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_static(int k, const void* img, void* out, int height,
+                          int width, const Taps& t, cudaStream_t s) {
+  switch (k) {
+    case 1: return launch<1, T>(img, out, height, width, t, s);
+    case 3: return launch<3, T>(img, out, height, width, t, s);
+    case 5: return launch<5, T>(img, out, height, width, t, s);
+    case 7: return launch<7, T>(img, out, height, width, t, s);
+    case 9: return launch<9, T>(img, out, height, width, t, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_any_k(int k, const void* img, void* out, int height,
+                         int width, const float* taps, cudaStream_t s) {
+  const dim3 block(kTileW, kThreadsY);
+  const dim3 grid((width + kTileW - 1) / kTileW,
+                  (height + kThreadsY - 1) / kThreadsY);
+  stencil_any_k_kernel<T><<<grid, block, 0, s>>>((const T*)img, (T*)out,
+                                                 height, width, k, taps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  taps: k * k floats in host memory,
-// row-major; copied into the kernel's parameters.
+// Returns the largest k whose taps go by value (larger k need taps_dev).
+extern "C" int stencil2d_max_static_k() { return kMaxStaticK; }
+
+// dtype: 0 = float32, 1 = bfloat16; k odd.  For k <= stencil2d_max_static_k()
+// `taps` holds the k * k floats in host memory, row-major, copied into the
+// kernel's parameters; for larger k `taps_dev` holds them in device memory
+// (`taps` is then not read).
 extern "C" int stencil2d_launch(const void* img, void* out, int height,
                                 int width, int k, int dtype,
-                                const float* taps, int device, void* stream) {
-  if ((k != 3 && k != 5) || (dtype != 0 && dtype != 1))
+                                const float* taps, const float* taps_dev,
+                                int device, void* stream) {
+  if (k < 1 || k % 2 == 0 || (dtype != 0 && dtype != 1) ||
+      (k > kMaxStaticK && taps_dev == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k > kMaxStaticK)
+    return (int)(dtype == 0 ? launch_any_k<float>(k, img, out, height, width,
+                                                  taps_dev, s)
+                            : launch_any_k<__nv_bfloat16>(
+                                  k, img, out, height, width, taps_dev, s));
   Taps t{};
   for (int i = 0; i < k * k; ++i) t.w[i] = taps[i];
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k == 3)
-    err = dtype == 0 ? launch<3, float>(img, out, height, width, t, s)
-                     : launch<3, __nv_bfloat16>(img, out, height, width, t, s);
-  else
-    err = dtype == 0 ? launch<5, float>(img, out, height, width, t, s)
-                     : launch<5, __nv_bfloat16>(img, out, height, width, t, s);
+  err = dtype == 0
+            ? launch_static<float>(k, img, out, height, width, t, s)
+            : launch_static<__nv_bfloat16>(k, img, out, height, width, t, s);
   return (int)err;
 }
 

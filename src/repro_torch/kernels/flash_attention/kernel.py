@@ -13,6 +13,12 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
+def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether ``csrc/flash_attention.cu`` runs this call on the tensor
+    cores (else on the f32 FMA units); the C code owns the rule."""
+    return bool(_lib().flash_attention_tensor_cores(DTYPES[dtype], head_dim))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.flash_attention_launch.argtypes is None:
@@ -23,6 +29,10 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = _c_int
         lib.flash_attention_error_string.argtypes = [_c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_tensor_cores.argtypes = [_c_int, _c_int]
+        lib.flash_attention_tensor_cores.restype = _c_int
+        lib.flash_attention_unaligned_rows.argtypes = []
+        lib.flash_attention_unaligned_rows.restype = _c_int
     return lib
 
 
@@ -31,7 +41,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Write attention of the CUDA tensors q (B, H, Sq, D), k and v
     (B, K, Sk, D) into ``o`` (q's shape and dtype), on the current stream.
     Each tensor is read through its strides; its last axis must be
-    contiguous.  Raises if the launch is refused."""
+    contiguous.  Raises ValueError, with nothing launched, on rows the
+    tensor-core path cannot copy (see ``flash_attention_launch``), and
+    RuntimeError if the launch is refused otherwise."""
     lib = _lib()
     B, H, Sq, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
@@ -41,6 +53,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, H // K,
         Sq, Sk, D, int(causal), float(scale), DTYPES[q.dtype], strides,
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    if err == lib.flash_attention_unaligned_rows():
+        raise ValueError(
+            lib.flash_attention_error_string(err).decode()
+            + f"; got strides {[t.stride() for t in (q, k, v, o)]}, base "
+            f"addresses mod 16 {[t.data_ptr() % 16 for t in (q, k, v, o)]}")
     if err:
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())

@@ -4,7 +4,12 @@ version for CPU tensors.
 On the card the kernel runs or the call raises; nothing falls back to the
 plain version.  The kernel masks the ragged ends of Sq and Sk itself and
 reads every operand through its strides, so this wrapper pads and copies
-nothing (the TPU wrapper pads both lengths to block multiples).
+nothing (the TPU wrapper pads both lengths to block multiples).  bf16 at
+head dims up to 128 runs on the tensor cores, whose 16-byte copies need
+16-byte aligned rows: the launch raises ValueError on a tensor that has
+none, before the kernel runs.  The
+CUDA branch refuses inputs that require grad while grad mode is on (the
+kernel has no backward yet); the CPU branch is differentiable.
 ``mha.launches`` counts the kernel launches.
 """
 
@@ -14,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import _autograd
 from . import kernel, ref
 
 __all__ = ["mha"]
@@ -53,6 +59,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("mha: the CUDA kernel needs the head dim "
                          "contiguous (stride 1)")
+    _autograd.refuse_grad("mha", q, k, v)
     o = torch.empty_like(q)  # keeps q's layout, e.g. the model's (B, S, H, D)
     kernel.launch(q, k, v, o, causal=causal, scale=scale)
     mha.launches += 1

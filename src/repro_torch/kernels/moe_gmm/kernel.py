@@ -16,8 +16,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("moe_gmm")
     if lib.moe_gmm_launch.argtypes is None:
         lib.moe_gmm_launch.argtypes = [
-            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
-            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+            _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+            _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
             _c_void_p]
         lib.moe_gmm_launch.restype = _c_int
         lib.moe_gmm_error_string.argtypes = [_c_int]
@@ -26,19 +26,23 @@ def _lib() -> ctypes.CDLL:
 
 
 def launch(x: torch.Tensor, tile_expert: torch.Tensor,
-           tile_rows: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
-           tile_m: int) -> None:
-    """Write the valid rows of the grouped product of the contiguous CUDA
-    tensors x (n_tiles·tile_m, D) and w (E, D, F) into ``y``
-    (n_tiles·tile_m, F, x's dtype), tile t through expert
-    ``tile_expert[t]`` for its first ``tile_rows[t]`` rows (both int32),
-    on the current stream.  Raises if the launch is refused (also for more
-    than 65,535 row blocks: row tiles times 64-row slices of a tile)."""
+           tile_rows: torch.Tensor, row_src: torch.Tensor, w: torch.Tensor,
+           y: torch.Tensor, tile_m: int) -> None:
+    """The grouped product over a padded row space of
+    ``len(tile_expert) · tile_m`` rows, row tile t through expert
+    ``tile_expert[t]`` for its first ``tile_rows[t]`` rows, on the current
+    stream: valid padded row i reads row ``row_src[i]`` of x (T, D) and
+    writes that row of y (T, F) (the three int32).  w is (E, D, F); all
+    contiguous CUDA tensors, y in x's dtype.  bf16 x runs on the tensor
+    cores (f32 w rounded to bf16 as it is staged into shared memory), f32 x
+    on the FMA units.  The grid is one-dimensional, so any number of row
+    tiles launches.  Raises if the launch is refused."""
     lib = _lib()
     E, D, F = w.shape
     err = lib.moe_gmm_launch(
         x.data_ptr(), tile_expert.data_ptr(), tile_rows.data_ptr(),
-        w.data_ptr(), y.data_ptr(), tile_expert.shape[0], tile_m, E, D, F,
+        row_src.data_ptr(), w.data_ptr(), y.data_ptr(), tile_expert.shape[0],
+        tile_m, E, D, F,
         DTYPES[x.dtype], DTYPES[w.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:

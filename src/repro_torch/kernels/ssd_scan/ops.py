@@ -4,7 +4,9 @@ CPU tensors.
 On the card the kernel runs or the call raises; nothing falls back to the
 plain version, also when the final state is asked for (the kernel writes
 it, where the JAX package's TPU kernel returns none and its prefill takes
-the jnp path).  The kernel forms the log-decays dt·A itself, reads B and C
+the jnp path).  The CUDA branch refuses inputs that require grad while
+grad mode is on (the kernel has no backward yet); the CPU branch is
+differentiable.  The kernel forms the log-decays dt·A itself, reads B and C
 by group and every operand through its strides, and masks a ragged last
 chunk, so this wrapper broadcasts, pads and copies nothing.
 ``ssd.launches`` counts the kernel launches.
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _autograd
 from . import kernel, ref
 
 __all__ = ["ssd"]
@@ -65,6 +68,7 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, return_state: bool = False):
     if any(t.stride(3) != 1 for t in (x, B, C)) or not A.is_contiguous():
         raise ValueError("ssd: the CUDA kernel needs the P and N axes of x, "
                          "B, C contiguous (stride 1) and A contiguous")
+    _autograd.refuse_grad("ssd", x, dt, A, B, C)
     y = torch.empty((b, S, H, P), dtype=x.dtype, device=x.device)
     hT = (torch.empty((b * H, N, P), dtype=torch.float32, device=x.device)
           if return_state else None)

@@ -2,13 +2,17 @@
 for a CPU tensor.
 
 On the card the kernel runs or the call raises; nothing falls back to the
-plain version.  ``stencil2d.launches`` counts the kernel launches.
+plain version.  The kernel takes every odd k, as the plain version does.
+The CUDA branch refuses an image that requires grad while grad mode is on
+(the kernel has no backward yet); the CPU branch is differentiable.
+``stencil2d.launches`` counts the kernel launches.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import _autograd
 from . import kernel, ref
 from .ref import taps_of
 
@@ -33,11 +37,9 @@ def stencil2d(img: torch.Tensor, taps) -> torch.Tensor:
         return ref.stencil2d(img, taps)
     if img.device.type != "cuda":
         raise ValueError(f"stencil2d: unsupported device {img.device}")
-    if len(taps) not in kernel.SIZES:
-        raise ValueError(f"stencil2d: the CUDA kernel takes k in "
-                         f"{kernel.SIZES}, got k={len(taps)}")
     if not img.is_contiguous():
         raise ValueError("stencil2d: the CUDA kernel needs a contiguous image")
+    _autograd.refuse_grad("stencil2d", img)
     out = torch.empty_like(img)
     kernel.launch(img, out, taps)
     stencil2d.launches += 1

@@ -88,7 +88,7 @@ def _to_torch(a: np.ndarray, dtype) -> torch.Tensor:
 
 class TestStencil:
     @pytest.mark.parametrize("hw", [(64, 64), (100, 96), (33, 128), (8, 8)])
-    @pytest.mark.parametrize("k", [3, 5])
+    @pytest.mark.parametrize("k", [3, 5, 7])
     @pytest.mark.parametrize("dtype", ["f32", "bf16"])
     def test_vs_jax(self, hw, k, dtype):
         rng = np.random.default_rng([*hw, k, dtype == "bf16"])
@@ -100,6 +100,27 @@ class TestStencil:
         ours = st_ops.stencil2d(_to_torch(img, dtype), kern)
         assert ours.dtype == (torch.bfloat16 if dtype == "bf16"
                               else torch.float32)
+        tol = 2e-2 if dtype == "bf16" else 1e-4
+        np.testing.assert_allclose(ours.float().numpy(),
+                                   np.asarray(theirs, np.float32),
+                                   rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("hw", [(64, 64), (33, 40), (5, 7)])
+    @pytest.mark.parametrize("k", [1, 7, 9])
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_any_odd_k_vs_jax_op(self, hw, k, dtype):
+        """Every odd k against the JAX package's op on its plain path
+        (``use_pallas=False``): the card takes any odd k since the runtime-k
+        kernel, and the CPU path always did.  (The JAX Pallas kernel is
+        compared above at k = 3, 5, 7; at k = 1 its zero halo slices the
+        whole neighbour tile and it returns zeros, a reference behaviour.)"""
+        rng = np.random.default_rng([*hw, k])
+        img = rng.normal(size=hw).astype(np.float32)
+        kern = rng.normal(size=(k, k)).astype(np.float32)
+        jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+        theirs = jst_ops.stencil2d(jnp.asarray(img, jdt), jnp.asarray(kern),
+                                   use_pallas=False)
+        ours = st_ops.stencil2d(_to_torch(img, dtype), kern)
         tol = 2e-2 if dtype == "bf16" else 1e-4
         np.testing.assert_allclose(ours.float().numpy(),
                                    np.asarray(theirs, np.float32),

@@ -121,6 +121,34 @@ def test_padded_pipeline_equals_oracle(T, D, F, E, tile):
         rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("T,D,F,E,tile", CASES)
+def test_kernel_branch_routing_equals_oracle(T, D, F, E, tile):
+    """The CUDA branch's routing on CPU tensors, with the tiled contract
+    standing in for the launch: valid padded row i reads x's row
+    ``row_src[i]`` and writes y's; the padding rows are neither read nor
+    written (their ``row_src`` is never set), and every token's row of y is
+    written once, with the oracle's numbers."""
+    x, eo, w = _inputs(T, D, F, E)
+    xt, et, wt = _t(x, eo, w)
+    seen = []
+
+    def launch(x_, tile_expert, tile_rows, row_src, w_, y, tile_m):
+        valid = (torch.arange(row_src.shape[0]) % tile_m
+                 < tile_rows.long().repeat_interleave(tile_m))
+        src = row_src.long()[valid]
+        seen.append(src)
+        x_p = torch.full((row_src.shape[0], x_.shape[1]), float("nan"))
+        x_p[valid] = x_[src]
+        full = ref.gmm_tiled_ref(x_p, tile_expert, w_, tile_m)
+        y.fill_(float("nan"))
+        y[src] = full[valid]
+
+    got = ops._routed_product(xt, et, wt, tile, launch)
+    assert sorted(seen[0].tolist()) == list(range(T))  # each token once
+    np.testing.assert_allclose(got.numpy(), ref.gmm(xt, et, wt).numpy(),
+                               rtol=TOL, atol=TOL)
+
+
 def test_gmm_rounds_weights_to_x_dtype():
     """bf16 tokens with f32 weights give the numbers of casting the
     weights to bf16 first (what the kernel does in registers)."""
