@@ -75,8 +75,10 @@ cross-attention's shapes (Sq = 1 and 1 < Sq < Sk), in float32 (the FMA
 path) and bf16 (the tensor cores), timed at both forward shapes beside
 ``scaled_dot_product_attention`` (the yardstick; the port never calls it);
 the SSD-scan kernel, y and final state, on the mamba2 and zamba2
-forwards' shapes, the reference tests' shapes, a ragged S and G = H (no
-PyTorch call computes the scan, so it has no yardstick); and the grouped
+forwards' shapes, the reference tests' shapes, a ragged S, G = H, and P >
+64 and N > 128 (split by the op into several launches), bf16 (the tensor
+cores) also to gates scaled to the output (no PyTorch call computes the
+scan, so it has no yardstick); and the grouped
 expert matmul at deepseek-moe-16b's forward shape (8192 tokens, top-6 of
 64 experts, D 2048 → F 1408, and the down product), with uniform and
 one-expert routing, at a decode step's 24 rows, at the reference tests'
@@ -85,9 +87,9 @@ beside ``torch._grouped_mm`` (the yardstick) at the forward's and the
 decode's shapes, both as the op (routing included) and as the kernel's
 launch alone on the sorted rows (what ``torch._grouped_mm`` is timed on).
 It counts the tensor-core instructions (HMMA/HGMMA lines of ``cuobjdump
--sass``) in the flash and grouped-matmul libraries, which must be above 0,
-and checks that each of the four kernel ops raises under grad mode for an
-input that requires grad, before any launch.
+-sass``) in the flash, grouped-matmul and SSD libraries, which must be
+above 0, and checks that each of the four kernel ops raises under grad mode
+for an input that requires grad, before any launch.
 
 Kernel launch counts are reset just before phase 2 and read after phase 9,
 and reset again just before phase 10 and read after phase 11: each kernel
@@ -193,7 +195,7 @@ def host_cost_us(torch, fn, calls_per_fn: int, reps: int = 5) -> float:
 # the port's kernels by the names of their CUDA functions
 KERNEL_SYMBOLS = {"flash_attention": ("flash_mma_kernel<", "flash_kernel<"),
                   "moe_gmm": ("gmm_mma_kernel<", "gmm_kernel<"),
-                  "ssd_scan": ("ssd_kernel<",),
+                  "ssd_scan": ("ssd_mma_kernel<", "ssd_kernel<"),
                   "stencil": ("stencil_kernel<", "stencil_any_k_kernel<"),
                   "mandelbrot": ("mandelbrot_kernel",)}
 
@@ -367,11 +369,11 @@ def check_stencil(torch, dev) -> dict:
 # Flash gates scaled to the output they compare.  Near-uniform softmax over
 # ~1,000 keys leaves |o| ~ 0.03, below the absolute 5e-2: a kernel that
 # dropped a kv tile or mis-scaled a rescale would pass that alone.
-FLASH_REL_MAX = 2e-2  # max |got - want| / max |want|
-FLASH_REL_RMS = 1e-2  # ||got - want|| / ||want||
+REL_MAX = 2e-2  # max |got - want| / max |want| (bf16 flash and SSD)
+REL_RMS = 1e-2  # ||got - want|| / ||want||
 
 
-def flash_errors(got, want) -> tuple:
+def scaled_errors(got, want) -> tuple:
     """(max |got - want|, max |want|, ||got - want|| / ||want||), in f32."""
     got, want = got.float(), want.float()
     diff = got - want
@@ -414,23 +416,23 @@ def check_flash(torch, dev) -> dict:
             v = torch.randn(B, K, Sk, D, generator=g).to(dtype).to(dev)
             got = ops.mha(q, k, v, causal=causal)
             want = ref.mha(q, k, v, causal=causal)
-            err, scale, rel_rms = flash_errors(got, want)
+            err, scale, rel_rms = scaled_errors(got, want)
             del got, want
             name = (f"flash ({B}, {H}, {K}, {Sq}, {Sk}, {D}) causal={causal} "
                     f"{dtype}")
             check(err <= tol, f"{name}: max |diff| {err} > {tol}")
-            check(err <= FLASH_REL_MAX * scale,
-                  f"{name}: max |diff| {err} > {FLASH_REL_MAX} x max|want| "
+            check(err <= REL_MAX * scale,
+                  f"{name}: max |diff| {err} > {REL_MAX} x max|want| "
                   f"{scale}")
-            check(rel_rms <= FLASH_REL_RMS,
-                  f"{name}: |got - want| / |want| {rel_rms} > {FLASH_REL_RMS}")
+            check(rel_rms <= REL_RMS,
+                  f"{name}: |got - want| / |want| {rel_rms} > {REL_RMS}")
             route = ("tensor cores" if kernel.tensor_core_path(dtype, D)
                      else "FMA")
             print(f"[kernel] flash_attention B={B} H={H} K={K} Sq={Sq} "
                   f"Sk={Sk} D={D} {str(dtype)[6:]} causal={causal} "
                   f"({route}): max|diff| {err:.3e} (gates {tol} and "
-                  f"{FLASH_REL_MAX} x max|want| {scale:.3e}), |got - want| / "
-                  f"|want| {rel_rms:.3e} (gate {FLASH_REL_RMS})")
+                  f"{REL_MAX} x max|want| {scale:.3e}), |got - want| / "
+                  f"|want| {rel_rms:.3e} (gate {REL_RMS})")
             shape = (B, H, K, Sq, Sk, D)
             if shape not in (path, deepseek) or dtype != torch.bfloat16:
                 continue
@@ -478,7 +480,10 @@ def ssd_work(b, S, H, P, G, N, chunk=64) -> float:
 def check_ssd(torch, dev) -> dict:
     """The SSD kernel against its plain version, y and the final state: the
     mamba2 and zamba2 forwards' shapes, the reference tests' shapes, ragged
-    S and G = H; times at the mamba2 forward's shape."""
+    S, G = H, and P > 64 and N > 128 (several launches a call); times at
+    the mamba2 forward's shape.  bf16 y is also held to gates scaled to the
+    output (as flash is): max |diff| <= 2e-2 max |want| and ||diff|| <=
+    1e-2 ||want||."""
     from repro_torch.kernels.ssd_scan import ops, ref
     flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
@@ -495,7 +500,12 @@ def check_ssd(torch, dev) -> dict:
              (ref_shape, f32, 32, (1e-4, 1e-5)),
              ((1, 2047, 80, 64, 1, 128), bf16, 64, (1e-2, 5e-2)),  # ragged
              ((2, 33, 4, 16, 4, 16), f32, 16, (2e-4, 2e-4)),       # ragged
-             ((2, 256, 8, 64, 8, 128), f32, 64, (2e-4, 2e-4))]     # G = H
+             ((2, 256, 8, 64, 8, 128), f32, 64, (2e-4, 2e-4)),     # G = H
+             # wider than one launch: P-slices, N-blocks, both
+             ((2, 512, 8, 130, 1, 128), bf16, 64, (1e-2, 5e-2)),
+             ((2, 512, 8, 64, 2, 256), bf16, 64, (1e-2, 5e-2)),
+             ((1, 300, 4, 80, 1, 160), f32, 64, (2e-4, 2e-4)),
+             ((1, 300, 4, 80, 1, 160), bf16, 64, (1e-2, 5e-2))]
     entry = None
     for shape, dtype, chunk, (rtol, atol) in cases:
         b, S, H, P, G, N = shape
@@ -504,7 +514,11 @@ def check_ssd(torch, dev) -> dict:
         A = (-torch.rand(H, generator=g) - 0.1).to(dev)
         B = (torch.randn(b, S, G, N, generator=g) * 0.3).to(dtype).to(dev)
         C = (torch.randn(b, S, G, N, generator=g) * 0.3).to(dtype).to(dev)
+        before = ops.ssd.launches
         y, hT = ops.ssd(x, dt, A, B, C, chunk=chunk, return_state=True)
+        pieces = ops.ssd.launches - before
+        check(pieces == -(-P // 64) * -(-N // 128),
+              f"ssd {shape}: {pieces} launches")
         want_y, want_h = ref.ssd(x, dt, A, B, C, chunk=chunk,
                                  return_state=True)
         err = float((y.float() - want_y.float()).abs().max())
@@ -517,9 +531,22 @@ def check_ssd(torch, dev) -> dict:
                             - (at + rt * want.abs())).max())
             check(excess <= 0, f"ssd {shape} {dtype} chunk {chunk}: {what} "
                                f"outside rtol {rt} / atol {at} by {excess}")
+        _, scale, rel_rms = scaled_errors(y, want_y)
+        scaled = ""
+        if dtype == bf16:
+            name = f"ssd {shape} bf16"
+            check(err <= REL_MAX * scale,
+                  f"{name}: max |diff| {err} > {REL_MAX} x max|want| "
+                  f"{scale}")
+            check(rel_rms <= REL_RMS,
+                  f"{name}: |y - want| / |want| {rel_rms} > {REL_RMS}")
+            scaled = (f"; {err / scale:.2%} of max|want| {scale:.3e} (gate "
+                      f"{REL_MAX:.0%}), |y - want| / |want| "
+                      f"{rel_rms:.3e} (gate {REL_RMS})")
         print(f"[kernel] ssd_scan batch={b} S={S} H={H} P={P} G={G} N={N} "
-              f"{str(dtype)[6:]}: max|diff| y {err:.3e} (rtol {rtol}, atol "
-              f"{atol}), hT {err_h:.3e} (rtol {htol[0]}, atol {htol[1]})")
+              f"{str(dtype)[6:]} ({pieces} launch{'es' if pieces > 1 else ''}"
+              f"): max|diff| y {err:.3e} (rtol {rtol}, atol {atol}), hT "
+              f"{err_h:.3e} (rtol {htol[0]}, atol {htol[1]}){scaled}")
         del y, hT, want_y, want_h
         if shape != path or dtype != bf16:
             continue
@@ -1154,7 +1181,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line:
                 print(f"  {name}: {line.strip()}")
-    for name in ("flash_attention", "moe_gmm"):  # their bf16 paths
+    for name in ("flash_attention", "moe_gmm", "ssd_scan"):  # bf16 paths
         n = tensor_core_instructions(torch, name)
         print(f"sass: {name}: {n} tensor-core instructions (HMMA/HGMMA "
               "lines of cuobjdump -sass)")

@@ -11,7 +11,7 @@ from .. import _build
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_P, MAX_N = 64, 128
+MAX_P, MAX_N = 64, 128  # one launch; ops.ssd splits a wider scan
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,9 +33,10 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Write the SSD scan of the CUDA tensors x (batch, S, H, P), dt
     (batch, S, H) f32, A (H,) f32 contiguous, B and C (batch, S, G, N) into
     ``y`` (x's shape and dtype) and, unless it is None, the final state into
-    ``hT`` ((batch·H, N, P) f32, contiguous), on the current stream.  x, dt,
-    B, C and y are read through their strides; the last axis of x, B, C and
-    y must be contiguous.  Raises if the launch is refused."""
+    ``hT`` ((batch·H, N, P) f32, contiguous), on the current stream: bf16
+    on the tensor cores, f32 on the FMA units.  P <= MAX_P, N <= MAX_N.
+    x, dt, B, C and y are read through their strides; the last axis of x,
+    B, C and y must be contiguous.  Raises if the launch is refused."""
     lib = _lib()
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]

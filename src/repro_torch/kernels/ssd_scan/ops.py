@@ -9,6 +9,10 @@ grad mode is on (the kernel has no backward yet); the CPU branch is
 differentiable.  The kernel forms the log-decays dt·A itself, reads B and C
 by group and every operand through its strides, and masks a ragged last
 chunk, so this wrapper broadcasts, pads and copies nothing.
+
+One launch takes P <= ``kernel.MAX_P`` and N <= ``kernel.MAX_N``; a wider
+input runs as several launches (:func:`_pieces`), since the scan's P columns
+are independent and its N rows enter y only through sums over N.
 ``ssd.launches`` counts the kernel launches.
 """
 
@@ -61,20 +65,64 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, return_state: bool = False):
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"ssd: the CUDA kernel takes dt and A in float32, "
                         f"got {dt.dtype}, {A.dtype}")
-    if S == 0 or P > kernel.MAX_P or N > kernel.MAX_N:
-        raise ValueError(f"ssd: the CUDA kernel takes S >= 1, P <= "
-                         f"{kernel.MAX_P} and N <= {kernel.MAX_N}, got S={S}, "
-                         f"P={P}, N={N}")
+    if S == 0:
+        raise ValueError("ssd: the CUDA kernel takes S >= 1, got S=0")
     if any(t.stride(3) != 1 for t in (x, B, C)) or not A.is_contiguous():
         raise ValueError("ssd: the CUDA kernel needs the P and N axes of x, "
                          "B, C contiguous (stride 1) and A contiguous")
     _autograd.refuse_grad("ssd", x, dt, A, B, C)
-    y = torch.empty((b, S, H, P), dtype=x.dtype, device=x.device)
-    hT = (torch.empty((b * H, N, P), dtype=torch.float32, device=x.device)
-          if return_state else None)
-    kernel.launch(x, dt, A, B, C, y, hT)
-    ssd.launches += 1
+    y, hT = _pieces(_launch, x, dt, A, B, C, return_state)
     return (y, hT) if return_state else y
 
 
 ssd.launches = 0
+
+
+def _launch(x, dt, A, B, C, y, hT) -> None:
+    kernel.launch(x, dt, A, B, C, y, hT)
+    ssd.launches += 1
+
+
+def _pieces(run, x, dt, A, B, C, return_state: bool):
+    """y and (with ``return_state``, else None) the final state of the scan,
+    from ``run(x, dt, A, B, C, y, hT)`` calls that each take P <=
+    ``kernel.MAX_P`` and N <= ``kernel.MAX_N`` and write y (x's shape and
+    dtype, through its strides) and hT ((batch·H, N, P) f32, contiguous, or
+    None).
+
+    P wider than one launch: P-slices of x and y, as views (their last axis
+    keeps stride 1); each slice's state goes into its own contiguous buffer
+    and is copied into its columns of hT.  N wider: y is the sum over
+    N-blocks of the scan with B and C cut to the block, since C·Bᵀ and C·h
+    are sums over N and each block of the state evolves alone; the blocks
+    run in f32 (x, B, C cast), their y are summed in f32 and cast to x's
+    dtype once, and hT is the blocks' states side by side.  At P <= MAX_P
+    and N <= MAX_N this is one ``run`` straight into y and hT."""
+    b, S, H, P = x.shape
+    N = B.shape[3]
+    dev = x.device
+    hT = (torch.empty((b * H, N, P), dtype=torch.float32, device=dev)
+          if return_state else None)
+    if N > kernel.MAX_N:
+        xf, y = x.float(), torch.zeros((b, S, H, P), dtype=torch.float32,
+                                       device=dev)
+        for n0 in range(0, N, kernel.MAX_N):
+            n1 = min(N, n0 + kernel.MAX_N)
+            yb, hb = _pieces(run, xf, dt, A, B[..., n0:n1].float(),
+                             C[..., n0:n1].float(), return_state)
+            y += yb
+            if return_state:
+                hT[:, n0:n1] = hb
+        return y.to(x.dtype), hT
+    y = torch.empty((b, S, H, P), dtype=x.dtype, device=dev)
+    if P <= kernel.MAX_P:
+        run(x, dt, A, B, C, y, hT)
+        return y, hT
+    for p0 in range(0, P, kernel.MAX_P):
+        p1 = min(P, p0 + kernel.MAX_P)
+        hp = (torch.empty((b * H, N, p1 - p0), dtype=torch.float32,
+                          device=dev) if return_state else None)
+        run(x[..., p0:p1], dt, A, B, C, y[..., p0:p1], hp)
+        if return_state:
+            hT[:, :, p0:p1] = hp
+    return y, hT

@@ -182,3 +182,63 @@ def test_ops_rejects_misfit_shapes():
         ops.ssd(x, dt[:, :4], A, B, C)
     with pytest.raises(ValueError, match="does not fit"):
         ops.ssd(x, dt, A, B.expand(1, 8, 3, 4), C.expand(1, 8, 3, 4))
+
+
+@pytest.mark.parametrize("P,N", [(80, 160), (80, 256), (130, 160),
+                                 (130, 256), (130, 16), (40, 256)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("groups", ["G1", "GH"])
+def test_kernel_branch_pieces_match_jax_ops(P, N, groups):
+    """The CUDA branch's split of a wide scan into launches of P <= 64 and
+    N <= 128, on CPU tensors with the plain version standing in for the
+    launch: y and the state match the JAX op's plain path (ragged S), and
+    every launch gets a piece it can take, each column of y and row of the
+    state written by the pieces that own it."""
+    H = 2
+    G = 1 if groups == "G1" else H
+    args = _heads(np.random.default_rng(P + N + G), 1, 33, H, P, G, N)
+    calls = []
+
+    def run(x, dt, A, B, C, y, hT):
+        assert x.shape[3] <= 64 and B.shape[3] <= 128 and x.stride(3) == 1
+        assert hT is None or hT.is_contiguous()
+        calls.append((x.shape[3], B.shape[3]))
+        got = ref.ssd(x, dt, A, B, C, return_state=hT is not None)
+        if hT is None:
+            y.copy_(got)
+        else:
+            y.copy_(got[0])
+            hT.copy_(got[1])
+
+    for return_state in (False, True):
+        calls.clear()
+        y, hT = ops._pieces(run, *_t(*args), return_state)
+        assert len(calls) == -(-P // 64) * -(-N // 128)
+        theirs = jops.ssd(*_j(*args), return_state=True)
+        assert y.shape == (1, 33, H, P) and y.dtype == torch.float32
+        _close(y, theirs[0])
+        if return_state:
+            assert hT.shape == (H, N, P) and hT.dtype == torch.float32
+            _close(hT, theirs[1])
+        else:
+            assert hT is None
+
+
+def test_kernel_branch_pieces_cast_wide_n_to_f32_once():
+    """N > 128 in bf16: the blocks run on f32 operands and y is rounded to
+    bf16 once, after the blocks' f32 sum (and not block by block)."""
+    args = _t(*_heads(np.random.default_rng(19), 1, 32, 2, 16, 1, 256))
+    x, B, C = args[0].bfloat16(), args[3].bfloat16(), args[4].bfloat16()
+    dtypes = []
+
+    def run(x_, dt, A, B_, C_, y, hT):
+        dtypes.append((x_.dtype, B_.dtype, C_.dtype, y.dtype))
+        y.copy_(ref.ssd(x_, dt, A, B_, C_))
+
+    y, _ = ops._pieces(run, x, args[1], args[2], B, C, False)
+    assert dtypes == [(torch.float32,) * 4] * 2
+    want = sum(ref.ssd(x.float(), args[1], args[2], B[..., n].float(),
+                       C[..., n].float())
+               for n in (slice(0, 128), slice(128, 256)))
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y, want.bfloat16(), rtol=0, atol=0)
