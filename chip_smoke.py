@@ -66,8 +66,14 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
 
 Peak and free device memory are printed after each MoE phase.
 
-Phase 1 also holds the stencil kernel exact at k = 1, 7, 9 (template
-instances) and 11 (the runtime-k kernel); the flash-attention kernel
+Phase 1 times each Mandelbrot band on its own as well (the fastest and
+slowest band beside the mean) and prints the share of lane-steps that do
+work in the full image's 32-pixel chunks.  It holds the stencil kernel
+exact at k = 1, 7, 9 (template instances) and 11 (the runtime-k kernel),
+in float32, bfloat16 and float16, at widths whose rows are not whole
+16-byte copies (element-wise tile loads), on one pixel and on fewer rows
+than k, and times it on 2048 x 2048 images in the three types (EDGE5 and
+random taps); the flash-attention kernel
 against its plain version on the qwen2 forward's shape (B=4, H=14, K=2,
 S=2048, D=64) and deepseek's (B=4, H=16, K=16, D=128), the reference
 tests' shapes, and without causality at an encoder's (Sq = Sk) and
@@ -109,6 +115,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -277,8 +284,25 @@ def check_mandelbrot(torch, dev, W, H, bands, iters) -> dict:
     bound_ms, bound_by = bound(9.0 * escaped_work / bands,
                                band_h * W * 4)
     host_us = host_cost_us(torch, sweep(ops.mandelbrot), bands)
+    # each band on its own (median of 5 sweeps), so imbalance between bands
+    # shows beside the mean
+    events = [[] for _ in rows0]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for _ in range(5):
+        for evs, r0 in zip(events, rows0):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ops.mandelbrot(band_h, W, row0=r0, **kw)
+            end.record()
+            evs.append((start, end))
+    torch.cuda.synchronize()
+    band_ms = [statistics.median(s.elapsed_time(e) for s, e in evs)
+               for evs in events]
     print(f"[kernel] mandelbrot band ({band_h}, {W}) x {bands} bands, "
-          f"{iters} it: exact; kernel {ms:.4f} ms/band, plain "
+          f"{iters} it: exact; kernel {ms:.4f} ms/band (fastest "
+          f"{min(band_ms):.4f}, slowest {max(band_ms):.4f} ms), plain "
           f"{plain_ms:.3f} ms/band, library none, bound {bound_ms:.4f} ms "
           f"({bound_by}; {9 * escaped_work:.3e} f32 ops over the farm), "
           f"roofline {bound_ms / ms:.1%}; host {host_us:.1f} us/call")
@@ -293,9 +317,14 @@ def check_mandelbrot(torch, dev, W, H, bands, iters) -> dict:
                                  H, W, **kw, device=dev)},
                      {"plain": 1, "kernel": 5})
     fb, fby = bound(9.0 * work, H * W * 4)
+    # a warp's 32 pixels of a row step until the slowest escapes: the share
+    # of those lane-steps that do work
+    chunks = full_k.view(H, W // 32, 32).double()
+    busy = float(chunks.sum() / (32 * chunks.amax(-1).sum()))
     print(f"[kernel] mandelbrot full ({H}, {W}), {iters} it: exact; kernel "
           f"{tf['kernel']:.4f} ms, plain {tf['plain']:.3f} ms, bound "
-          f"{fb:.4f} ms ({fby}), roofline {fb / tf['kernel']:.1%}")
+          f"{fb:.4f} ms ({fby}), roofline {fb / tf['kernel']:.1%}; lanes "
+          f"busy {busy:.1%} of their 32-pixel chunks' steps")
     return {"name": "mandelbrot", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mandelbrot.cu",
             "replaces": "src/repro/kernels/mandelbrot/kernel.py:20",
@@ -311,18 +340,35 @@ def check_stencil(torch, dev) -> dict:
     flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
     entry = None
+    f16 = torch.float16
     cases = [((2048, 2048), 5, torch.float32, EDGE5),
              ((2048, 2048), 3, torch.float32, None),
              ((2048, 2048), 5, torch.bfloat16, None),
              ((2048, 2048), 3, torch.bfloat16, None),
-             ((2047, 2048), 5, torch.float32, None)]
+             ((2047, 2048), 5, torch.float32, None),
+             ((2048, 2048), 5, torch.bfloat16, EDGE5),
+             ((2048, 2048), 5, f16, EDGE5),
+             ((2048, 2048), 5, f16, None)]
     # every odd k is exact against the plain version: 1, 7 and 9 are
-    # template instances, 11 takes the runtime-k kernel (not timed)
-    for (H, W), k, dtype in (((2048, 2048), 1, torch.float32),
-                             ((2048, 2048), 7, torch.float32),
-                             ((2047, 2048), 9, torch.bfloat16),
-                             ((1000, 777), 11, torch.float32)):
-        taps = ops.taps_of(torch.randn(k, k, generator=g))
+    # template instances, 11 takes the runtime-k kernel; rows that are not
+    # whole 16-byte copies (W % 4 for f32, W % 8 for bf16 and f16) take
+    # the element-wise tile loads; one pixel, H < k, and zero taps (the
+    # skipping instance; EDGE5 takes the ring instance) (not timed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    laplace = ((0.0, 1.0, 0.0), (1.0, -4.0, 1.0), (0.0, 1.0, 0.0))
+    for (H, W), k, dtype, taps in (((2048, 2048), 1, f32, None),
+                                   ((2048, 2048), 7, f32, None),
+                                   ((2047, 2048), 9, bf16, None),
+                                   ((1000, 777), 11, f32, None),
+                                   ((2048, 2046), 5, f32, EDGE5),
+                                   ((2047, 2044), 5, f16, None),
+                                   ((1000, 777), 7, f16, None),
+                                   ((1000, 777), 11, f16, None),
+                                   ((1, 1), 5, f32, EDGE5),
+                                   ((3, 2048), 9, f16, None),
+                                   ((2048, 2048), 3, f32, laplace)):
+        if taps is None:
+            taps = ops.taps_of(torch.randn(k, k, generator=g))
         img = torch.randn(H, W, generator=g).to(dtype).to(dev)
         got, want = ops.stencil2d(img, taps), ref.stencil2d(img, taps)
         err = float((got.float() - want.float()).abs().max())
@@ -1178,9 +1224,14 @@ def main() -> int:
                              "ssd_scan", "moe_gmm"])
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = re.sub(r"^_ZN12_GLOBAL__N_1\d+", "",
+                               line.split("'")[1])[:44]
+            elif "registers" in line or re.search(r"[1-9]\d* bytes spill",
+                                                  line):
+                print(f"  {name} {entry}: {line.strip()}")
     for name in ("flash_attention", "moe_gmm", "ssd_scan"):  # bf16 paths
         n = tensor_core_instructions(torch, name)
         print(f"sass: {name}: {n} tensor-core instructions (HMMA/HGMMA "

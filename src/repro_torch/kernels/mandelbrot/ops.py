@@ -24,11 +24,10 @@ def mandelbrot(height: int, width: int, *, x0: float = -2.25,
                device=None) -> torch.Tensor:
     """int32 (H, W) escape counts of the window whose top-left pixel is
     ``(x0, y0 + pixel_delta * row0)`` (``row0`` an int32 scalar tensor, or
-    None for 0)."""
+    None for 0).  ``max_iterations <= 0`` runs no step: all zeros, as in
+    the JAX op."""
     if height <= 0 or width <= 0:
         raise ValueError(f"mandelbrot: empty image {height}x{width}")
-    if max_iterations < 0:
-        raise ValueError(f"mandelbrot: max_iterations={max_iterations} < 0")
     if row0 is not None:
         if row0.dtype != torch.int32 or row0.numel() != 1:
             raise ValueError("mandelbrot: row0 must be one int32 value, got "

@@ -9,7 +9,7 @@ import torch
 from .. import _build
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_STATIC_K = 9  # csrc/stencil.cu: larger odd k read their taps from a
                   # device buffer
 

@@ -20,7 +20,8 @@ __all__ = ["stencil2d", "taps_of"]
 
 
 def stencil2d(img: torch.Tensor, taps) -> torch.Tensor:
-    """2-D same-padding stencil of ``img`` (H, W), float32 or bfloat16.
+    """2-D same-padding stencil of ``img`` (H, W), float32, bfloat16 or
+    float16, summed in float32 and rounded once to the image's type.
 
     ``taps`` is a (k, k) kernel with odd k; pass the host tuple of
     :func:`taps_of` to keep the call free of any device-to-host copy."""
@@ -31,8 +32,8 @@ def stencil2d(img: torch.Tensor, taps) -> torch.Tensor:
         raise ValueError(f"stencil2d: image must be a non-empty (H, W), got "
                          f"{tuple(img.shape)}")
     if img.dtype not in kernel.DTYPES:
-        raise TypeError(f"stencil2d: float32 or bfloat16 image required, "
-                        f"got {img.dtype}")
+        raise TypeError(f"stencil2d: float32 or bfloat16 or float16 image "
+                        f"required, got {img.dtype}")
     if img.device.type == "cpu":
         return ref.stencil2d(img, taps)
     if img.device.type != "cuda":

@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
-from repro_torch.kernels.mandelbrot import ops as mb_ops, ref as mb_ref
+from repro_torch.kernels.mandelbrot import (kernel as mb_kernel,
+                                            ops as mb_ops, ref as mb_ref)
 from repro_torch.kernels.moe_gmm import (kernel as gmm_kernel,
                                           ops as gmm_ops, ref as gmm_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
@@ -44,9 +45,69 @@ def test_mandelbrot_kernel_equals_plain(cuda, hw_row0):
     assert got.is_cuda and torch.equal(got, want)
 
 
+# (name, (H, W), x0, y0, delta, max_iterations): a window wholly inside the
+# set (the main cardioid), one wholly outside, one pixel, a ragged width,
+# and no step at all
+MANDELBROT_WINDOWS = [
+    ("inside", (64, 256), -0.4, -0.2, 0.4 / 256, 300),
+    ("outside", (40, 200), 2.5, 2.5, 0.01, 300),
+    ("one pixel", (1, 1), -0.75, 0.1, 0.01, 1000),
+    ("ragged", (37, 1000), -2.2, -1.15, 3.0 / 1000, 1000),
+    ("zero iterations", (33, 70), -2.2, -1.15, 0.04, 0),
+    ("negative iterations", (33, 70), -2.2, -1.15, 0.04, -3),
+]
+
+
+@pytest.mark.parametrize("window", MANDELBROT_WINDOWS, ids=lambda w: w[0])
+def test_mandelbrot_kernel_windows_equal_plain(cuda, window):
+    name, (H, W), x0, y0, delta, iters = window
+    kw = dict(x0=x0, y0=y0, pixel_delta=delta, max_iterations=iters)
+    got = mb_ops.mandelbrot(H, W, device=cuda, **kw)
+    want = mb_ref.mandelbrot(H, W, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if name == "inside":
+        assert bool((got == iters).all())
+    elif name == "outside":
+        assert bool((got == 1).all())
+    elif iters <= 0:
+        assert not bool(got.any())
+
+
+def test_mandelbrot_kernel_farm_bands_equal_plain(cuda):
+    """All 64 bands of the farm (4096 x 2048, 1000 iterations), each band's
+    top row read on the device, and the full image in one launch."""
+    W, H, bands = 4096, 2048, 64
+    kw = dict(x0=-2.2, y0=-1.15, pixel_delta=3.0 / W, max_iterations=1000)
+    band_h = H // bands
+    got = []
+    for b in range(bands):
+        r0 = torch.tensor(b * band_h, dtype=torch.int32, device=cuda)
+        got.append(mb_ops.mandelbrot(band_h, W, row0=r0, **kw))
+        assert torch.equal(got[-1], mb_ref.mandelbrot(band_h, W, row0=r0,
+                                                      **kw)), f"band {b}"
+    full = mb_ops.mandelbrot(H, W, device=cuda, **kw)
+    assert torch.equal(full, torch.cat(got))
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (1, 33), (3, 31), (5, 64),
+                                (37, 1000), (32, 4096)])
+def test_mandelbrot_kernel_writes_every_pixel_once(cuda, hw):
+    """The kernel's chunk order covers every pixel, for ragged H and W: an
+    output filled with -1 beforehand keeps none of it and equals the plain
+    version."""
+    H, W = hw
+    kw = dict(x0=-2.2, y0=-1.15, pixel_delta=3.0 / W, max_iterations=200)
+    out = torch.full((H, W), -1, dtype=torch.int32, device=cuda)
+    mb_kernel.launch(out, row0=None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mb_ref.mandelbrot(H, W, device=cuda, **kw))
+
+
 @pytest.mark.parametrize("hw", [(2048, 2048), (1000, 777), (8, 8)])
 @pytest.mark.parametrize("k", [1, 3, 5, 7, 9, 11, 15])  # > 9: runtime k
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_stencil_kernel_equals_plain(cuda, hw, k, dtype):
     g = torch.Generator().manual_seed(k)
     img = torch.randn(*hw, generator=g).to(dtype).to(cuda)
@@ -57,6 +118,49 @@ def test_stencil_kernel_equals_plain(cuda, hw, k, dtype):
     torch.cuda.synchronize()
     assert st_ops.stencil2d.launches == before + 1
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+# widths whose rows are not whole 16-byte copies (f32: W % 4, 16-bit: W %
+# 8), one pixel, fewer rows or columns than k, a ragged last tile
+@pytest.mark.parametrize("hw", [(64, 2046), (37, 2044), (130, 129), (1, 1),
+                                (3, 5), (5, 2), (33, 136)])
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_stencil_kernel_edges_equal_plain(cuda, hw, k, dtype):
+    g = torch.Generator().manual_seed(100 + k)
+    img = torch.randn(*hw, generator=g).to(dtype).to(cuda)
+    taps = st_ops.taps_of(torch.randn(k, k, generator=g))
+    got = st_ops.stencil2d(img, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, st_ref.stencil2d(img, taps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_stencil_zero_and_unit_taps_equal_plain(cuda, dtype):
+    """Every tap but the centre -1 (subtracted without a multiply) or +1
+    (multiplied), zero taps (skipped, as the plain version skips them: 0 * inf
+    would be NaN; a ring around a zero centre too) and others, on an image
+    holding signed zeros, infinities and NaN: the same values as the plain
+    version, NaN where it has NaN."""
+    from repro_torch.workloads import EDGE5
+    g = torch.Generator().manual_seed(7)
+    img = torch.randn(70, 264, generator=g)
+    img[3, 5], img[10, 10], img[20, 30] = -0.0, float("inf"), float("nan")
+    img[40, 100:140] = 0.0
+    img = img.to(dtype).to(cuda)
+    mixed = ((1.0, -1.0, 0.0), (-0.0, 2.5, 1.0), (-1.0, 0.0, -1.0))
+    hollow = ((-1.0, -1.0, -1.0), (-1.0, 0.0, -1.0), (-1.0, -1.0, -1.0))
+    for taps in (EDGE5, mixed, hollow, st_ops.taps_of(np.ones((7, 7))),
+                 st_ops.taps_of(-np.ones((9, 9)))):
+        got = st_ops.stencil2d(img, taps)
+        want = st_ref.stencil2d(img, taps)
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), want.isnan())
+        same = torch.where(want.isnan(), torch.zeros_like(want), want)
+        assert torch.equal(torch.where(got.isnan(), torch.zeros_like(got),
+                                       got), same)
 
 
 def test_stencil_card_refuses_without_fallback(cuda):

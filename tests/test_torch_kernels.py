@@ -17,6 +17,7 @@ from repro.kernels.stencil import ops as jst_ops, ref as jst_ref
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.mandelbrot import ops as mb_ops, ref as mb_ref
 from repro_torch.kernels.stencil import ops as st_ops, ref as st_ref
+from repro_torch.workloads import EDGE5
 
 
 # --------------------------------------------------------------------------
@@ -68,6 +69,21 @@ class TestMandelbrot:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             mb_ops.mandelbrot(8, 16)
+
+    @pytest.mark.parametrize("iters", [0, -3])
+    def test_no_step_vs_jax(self, iters):
+        """max_iterations <= 0 runs no step: all zeros, as JAX's
+        ``fori_loop(0, iters)`` gives (its Pallas kernel and its oracle)."""
+        kw = dict(x0=-2.2, y0=-1.15, pixel_delta=0.05, max_iterations=iters)
+        ours = mb_ops.mandelbrot(16, 40, device="cpu", **kw).numpy()
+        for theirs in (jmb_ops.mandelbrot(16, 40, interpret=True, **kw),
+                       jmb_ref.mandelbrot(16, 40, **kw)):
+            np.testing.assert_array_equal(ours, np.asarray(theirs))
+        assert ours.dtype == np.int32 and not ours.any()
+        band = mb_ops.mandelbrot(8, 40, row0=torch.tensor(8,
+                                                          dtype=torch.int32),
+                                 **kw)
+        assert not band.any()
 
     def test_bad_row0_refused(self):
         with pytest.raises(ValueError, match="int32"):
@@ -125,6 +141,44 @@ class TestStencil:
         np.testing.assert_allclose(ours.float().numpy(),
                                    np.asarray(theirs, np.float32),
                                    rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("hw", [(64, 64), (33, 130), (3, 5), (1, 1)])
+    @pytest.mark.parametrize("k", [1, 3, 5, 7])
+    def test_f16_vs_jax(self, hw, k):
+        """float16 images.  The port and JAX's op on its ref path sum in
+        float32 in the same (dr, dc) order and round once to float16: equal.
+        JAX's Pallas kernel (interpret mode, k = 3, 5, 7; at k = 1 it
+        returns zeros, and it refuses a row tile shorter than the halo, both
+        reference behaviours) rounds its float32 sums
+        differently (on float32 images it differs from its own ref by a few
+        float32 ulps), so a float16 result may land one float16 ulp away:
+        rtol 2^-10, atol 2^-14."""
+        rng = np.random.default_rng([*hw, k, 16])
+        img = rng.normal(size=hw).astype(np.float16)
+        kern = rng.normal(size=(k, k)).astype(np.float32)
+        ours = st_ops.stencil2d(torch.from_numpy(img), kern)
+        assert ours.dtype == torch.float16
+        ours = ours.numpy()
+        theirs = jst_ops.stencil2d(jnp.asarray(img), jnp.asarray(kern),
+                                   use_pallas=False)
+        assert theirs.dtype == jnp.float16
+        np.testing.assert_array_equal(ours, np.asarray(theirs))
+        if k > 1 and min(32, hw[0]) >= k // 2:  # its row tile holds the halo
+            pallas = jst_ops.stencil2d(jnp.asarray(img), jnp.asarray(kern),
+                                       tile_h=32, interpret=True)
+            assert pallas.dtype == jnp.float16
+            np.testing.assert_allclose(ours.astype(np.float32),
+                                       np.asarray(pallas, np.float32),
+                                       rtol=2.0 ** -10, atol=2.0 ** -14)
+
+    def test_f16_edge5_vs_jax(self):
+        """The pipeline's EDGE5 taps (24 of -1) on a float16 image."""
+        img = np.random.default_rng(5).normal(size=(48, 72)) \
+            .astype(np.float16)
+        ours = st_ops.stencil2d(torch.from_numpy(img), EDGE5).numpy()
+        theirs = jst_ref.stencil2d(jnp.asarray(img),
+                                   jnp.asarray(EDGE5, jnp.float32))
+        np.testing.assert_array_equal(ours, np.asarray(theirs))
 
     def test_identity_kernel(self):
         img = np.random.default_rng(3).normal(size=(32, 32)).astype(np.float32)
