@@ -20,6 +20,19 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
 5. model-checks the Monte-Carlo pi farm with ``csp.check``, then estimates pi
    from 256 x 10^6 points in the three modes, which must agree exactly, and
    prints a logged run's netlog report;
+12. (run here, after phase 5) drives the cluster runtime on the card: one
+   warm ``ClusterDeployment`` of the farm at phase 2's width each over 2
+   and 4 thread hosts whose tensors stay on the card (``device``) and over
+   2 spawned host processes (``pipe``), 3 batches each, then the image
+   pipeline at phase 3's size cut between its two engines over ``device``
+   and ``pipe``: the partition must refine the network (CSP, both
+   directions), every batch must equal phases 2 and 3 exactly, thread
+   hosts must launch the kernel here once a band (64 ``mandelbrot``, 16
+   ``stencil`` a batch), and each spawned host checks inside its own
+   process that every band launched its own Mandelbrot kernel once and is
+   a CUDA tensor.  It prints the start, cold and warm walls, the bytes
+   crossing the cut a batch and the cluster report; every deployment is
+   closed and every host process gone before phase 6;
 6. runs ``Model.forward`` of the full-width qwen2-0.5b (24 layers, random
    weights from seed 0) on a (4, 2048) batch of seeded tokens: in bf16 (the
    default config) the logits must be finite; in float32 its logits at
@@ -92,12 +105,15 @@ shapes and at 4.3 M rows (past the 65,535 row blocks a grid.y held), timed
 beside ``torch._grouped_mm`` (the yardstick) at the forward's and the
 decode's shapes, both as the op (routing included) and as the kernel's
 launch alone on the sorted rows (what ``torch._grouped_mm`` is timed on).
-It counts the tensor-core instructions (HMMA/HGMMA lines of ``cuobjdump
--sass``) in the flash, grouped-matmul and SSD libraries, which must be
-above 0, and checks that each of the four kernel ops raises under grad mode
+It holds uint8 and int32 2048 x 2048 stencil images (EDGE5 and random
+k = 3 taps, sums out of the type's range both ways) exactly against the
+plain version.  It counts the tensor-core instructions (HMMA/HGMMA lines
+of ``cuobjdump -sass``) in the flash, grouped-matmul and SSD libraries,
+which must be above 0, and checks that each of the four kernel ops raises under grad mode
 for an input that requires grad, before any launch.
 
-Kernel launch counts are reset just before phase 2 and read after phase 9,
+Kernel launch counts are reset just before phase 2 and read after phase 9
+(phase 12's thread hosts count with them),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
 the farm, of the pipeline, one more bf16 forward and one decode step of
@@ -375,6 +391,24 @@ def check_stencil(torch, dev) -> dict:
         check(torch.equal(got, want), f"stencil ({H}, {W}) k={k} {dtype}: "
                                       f"not exact, max |diff| {err}")
         print(f"[kernel] stencil ({H}, {W}) k={k} {str(dtype)[6:]}: exact")
+    # integer images: converted to float32, the float32 kernel, converted
+    # back saturating as XLA does; random images over the type's range, so
+    # EDGE5's sums and random k = 3 taps x 3 leave it both ways (not timed)
+    for dtype in (torch.uint8, torch.int32):
+        info = torch.iinfo(dtype)
+        for k, taps in ((5, EDGE5), (3, ops.taps_of(
+                3.0 * torch.randn(3, 3, generator=g)))):
+            img = torch.randint(info.min, info.max, (2048, 2048), generator=g,
+                                dtype=torch.int64).to(dtype).to(dev)
+            got, want = ops.stencil2d(img, taps), ref.stencil2d(img, taps)
+            sat = (int((want == info.max).sum()), int((want == info.min).sum()))
+            check(got.dtype == dtype and torch.equal(got, want),
+                  f"stencil (2048, 2048) k={k} {dtype}: not exact")
+            check(min(sat) > 0, f"stencil {dtype} k={k}: sums saturate "
+                                f"only one way {sat}")
+            print(f"[kernel] stencil (2048, 2048) k={k} {str(dtype)[6:]}: "
+                  f"exact; {sat[0]} pixels at the type's max, {sat[1]} at "
+                  "its min")
     for (H, W), k, dtype, taps in cases:
         if taps is None:
             taps = ops.taps_of(torch.randn(k, k, generator=g))
@@ -838,7 +872,7 @@ def run_farm(torch, counts, W, H, bands, iters):
           f"mandelbrot farm: image {img.shape} in [{img.min()}, {img.max()}]")
     print(f"[mandelbrot] sequential == fused == streaming: True; image "
           f"{img.shape}, {int((img == iters).sum())} interior pixels")
-    return net
+    return net, img
 
 
 def run_pipeline(torch, dev, counts, n, size):
@@ -861,7 +895,7 @@ def run_pipeline(torch, dev, counts, n, size):
     check(edges > 0, "image pipeline: no edges found")
     print(f"[image] sequential == fused == streaming: True; {n} images of "
           f"{size}x{size}; {edges} edge pixels in image 0")
-    return net
+    return net, outs[0]
 
 
 def run_jacobi(torch, dev, counts, n_systems, n, nodes, tol):
@@ -909,6 +943,123 @@ def run_pi(torch, counts, instances, points):
     cn = build(net)
     cn.run(instances=instances, logged=True)
     print(netlog.report(cn))
+
+
+# -- phase 12: the cluster on the card ------------------------------------------------
+
+def checked_farm(width, height, bands, iterations):
+    """The Mandelbrot farm as a spawned host process rebuilds it, its worker
+    checking inside that process that each band launched the process's own
+    Mandelbrot kernel exactly once and is a CUDA tensor (else the band
+    raises, and the batch fails with ``ClusterError``)."""
+    from repro_torch import workloads
+    from repro_torch.core.dataflow import Kind
+    from repro_torch.kernels.mandelbrot import ops
+    net = workloads.mandelbrot_factory(width, height, bands, iterations)
+    (worker,) = [p for p in net.procs.values() if p.kind is Kind.WORKER]
+    render = worker.fn
+
+    def render_checked(row0):
+        before = ops.mandelbrot.launches
+        row, band = render(row0)
+        if ops.mandelbrot.launches != before + 1 or not band.is_cuda:
+            raise RuntimeError(
+                f"host process: band {int(row0)} launched "
+                f"{ops.mandelbrot.launches - before} kernels, on "
+                f"{band.device}")
+        return row, band
+
+    worker.fn = render_checked
+    return net
+
+
+def run_deployment(torch, label, net, plan, transport, factory, n, batches,
+                   counts, kernel, per_batch, same_as):
+    """One warm ``ClusterDeployment``: refinement, ``batches`` batches each
+    checked by ``same_as`` and by the parent's ``kernel`` launches
+    (``per_batch``), the walls, the pipe's bytes a batch and the cluster
+    report.  Returns the walls in ms (start, then one a batch)."""
+    from repro_torch.cluster import ClusterDeployment, check_refinement
+    from repro_torch.core import netlog
+    refined = check_refinement(net, plan)
+    check(refined, f"[cluster] {label}: partitioned network does not refine")
+    print(f"[cluster] {label}: partitioned [T= unpartitioned (CSP, both "
+          f"directions): {refined}; cut "
+          f"{[f'{c.src}->{c.dst}' for c in plan.cut]}")
+    t0 = time.perf_counter()
+    dep = ClusterDeployment(net, plan=plan, transport=transport,
+                            microbatch_size=16, factory=factory,
+                            timeout_s=300)
+    with dep:
+        walls = [(time.perf_counter() - t0) * 1e3]
+        for b in range(batches):
+            before = counts()[kernel]
+            t0 = time.perf_counter()
+            out = dep.run(instances=n)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launched = counts()[kernel] - before
+            check(same_as(out), f"[cluster] {label}: batch {b} differs "
+                                "from the single-host run")
+            check(launched == per_batch,
+                  f"[cluster] {label}: batch {b} launched {launched} "
+                  f"{kernel} kernels in this process, not {per_batch}")
+            sent = sum(v for r in out.reports
+                       for v in r.metrics.get("sent_bytes", {}).values())
+            print(f"[cluster] {label}: batch {b} "
+                  f"({'cold' if b == 0 else 'warm'}) {walls[-1]:.1f} ms, "
+                  f"exact: True, {kernel} launches here {launched}, cut "
+                  f"bytes {sent}, stage builds "
+                  f"{sum(r.jit_builds for r in out.reports)}")
+        procs = list(dep.controller._procs.values())
+    check(not any(p.is_alive() for p in procs),
+          f"[cluster] {label}: a host process outlived the deployment")
+    print(netlog.cluster_report(dep.plan, out.reports, events=dep.events))
+    print(f"[cluster] {label}: start {walls[0]:.1f} ms, cold batch "
+          f"{walls[1]:.1f} ms, warm batches "
+          f"{', '.join(f'{w:.1f}' for w in walls[2:])} ms")
+    return walls
+
+
+def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
+                      n_img, size):
+    """Phase 12: the farm at phase 2's width over 2 and 4 thread hosts on
+    the card (``device``) and 2 spawned host processes (``pipe``), then the
+    image pipeline at phase 3's size cut between its engines over both."""
+    import multiprocessing
+
+    import numpy as np
+    from repro_torch import workloads
+    from repro_torch.cluster import partition
+    args = (W, H, bands, iters)
+    same_img = lambda out: np.array_equal(  # noqa: E731
+        workloads.assemble(out["collect"]), farm_img)
+    for transport, hosts, factory in (
+            ("device", 2, workloads.mandelbrot_factory),
+            ("device", 4, workloads.mandelbrot_factory),
+            ("pipe", 2, checked_farm)):
+        net = factory(*args)
+        run_deployment(torch, f"mandelbrot {transport} x{hosts}", net,
+                       partition(net, hosts=hosts), transport,
+                       (factory, args), bands, 3, counts, "mandelbrot",
+                       bands if transport == "device" else 0, same_img)
+
+    def same_edges(out):
+        got = out["collector"]
+        return len(got) == len(pipe_outs) and all(
+            np.array_equal(a, b) for a, b in zip(got, pipe_outs))
+
+    factory = (workloads.image_pipeline_factory, (n_img, size))
+    net = factory[0](*factory[1])
+    assignment = {name: 0 for name in net.procs}
+    assignment["engine2"] = assignment["collector"] = 1
+    plan = partition(net, assignment=assignment)
+    for transport in ("device", "pipe"):
+        run_deployment(torch, f"image {transport} x2", net, plan, transport,
+                       factory, n_img, 3, counts, "stencil",
+                       n_img if transport == "device" else 0, same_edges)
+    check(not multiprocessing.active_children(),
+          "[cluster] host processes still running after phase 12")
 
 
 # -- phases 6-9: the decoder LMs -----------------------------------------------------
@@ -1245,10 +1396,13 @@ def main() -> int:
     check_grad_refusal(torch, dev)
 
     reset_launch_counts()  # the main path starts here
-    farm = run_farm(torch, launch_counts, W, H, BANDS, ITERS)
-    pipeline = run_pipeline(torch, dev, launch_counts, 16, 2048)
+    farm, farm_img = run_farm(torch, launch_counts, W, H, BANDS, ITERS)
+    pipeline, edge_maps = run_pipeline(torch, dev, launch_counts, 16, 2048)
     run_jacobi(torch, dev, launch_counts, 4, 4096, 4, 1e-6)
     run_pi(torch, launch_counts, 256, 10**6)
+    run_cluster_phase(torch, launch_counts, farm_img, edge_maps, W, H, BANDS,
+                      ITERS, 16, 2048)
+    del farm_img, edge_maps
     model, params, toks = run_forward(torch, dev, launch_counts,
                                       "qwen2-0.5b", 4, 2048,
                                       {"flash_attention": 24})

@@ -446,17 +446,21 @@ def fold_host(p: ProcessDef, acc, stream):
     return acc
 
 
-def make_emit_batch(net: Network, instances: int, *, device=None):
-    """Materialise the single Emit's output as a stacked batch pytree on
+def make_emit_batch(net: Network, instances: int, *, device=None,
+                    emit: Optional[ProcessDef] = None):
+    """Materialise the single Emit's output (or ``emit``'s, for a network
+    with several, as a cluster partition has) as a stacked batch pytree on
     ``device`` (``None``: the card)."""
     dev = resolve_device(device)
-    emits = net.emits()
-    if len(emits) != 1:
-        raise NetworkError("make_batch requires exactly one Emit")
+    if emit is None:
+        emits = net.emits()
+        if len(emits) != 1:
+            raise NetworkError("make_batch requires exactly one Emit")
+        emit = emits[0]
     if instances <= 0:
         raise NetworkError(f"make_batch needs instances > 0, got {instances}")
     return stack_trees([as_tensor_tree(item, dev)
-                        for item in _emit_items(emits[0], instances)])
+                        for item in _emit_items(emit, instances)])
 
 
 def _fan_split(x, k: int):

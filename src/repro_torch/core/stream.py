@@ -56,6 +56,8 @@ __all__ = [
     "SlotPlan",
     "fused_chains",
     "plan_depth_lanes",
+    "coalesced_capacity",
+    "EmitChunks",
     "StreamStats",
     "StreamExecutor",
     "streaming_abstract_model",
@@ -63,6 +65,12 @@ __all__ = [
 ]
 
 _SKIP = object()  # sentinel: no chunk flowed down this branch
+
+
+class EmitChunks(dict):
+    """Chunk values keyed by Emit process name (cluster partitions feed
+    several boundary-ingress Emits per chunk).  A dedicated type: a plain
+    dict is a legal *pytree batch* and must reach every Emit whole."""
 
 
 # ==========================================================================
@@ -249,6 +257,24 @@ def plan_depth_lanes(net: Network, max_in_flight: Optional[int],
     return depth, n_lanes
 
 
+def coalesced_capacity(depth: int, lanes: int, record_bytes: int,
+                       coalesce_bytes: int, floor: int = 2) -> int:
+    """FIFO slot count for a cut channel whose transport coalesces records.
+
+    With a ``coalesce_bytes`` budget, one queue slot carries
+    ``budget // record_bytes`` records, so the consumer's in-flight appetite
+    (``max(depth, lanes)`` records) fits in proportionally fewer slots —
+    never below the rendezvous floor of 2.  ``floor`` is the transport's
+    uncoalesced default capacity: when records are larger than the budget
+    each ships alone (one record per slot), and the channel gets exactly
+    the uncoalesced sizing ``max(floor, depth, lanes)``."""
+    per_slot = max(1, coalesce_bytes // max(1, record_bytes))
+    if per_slot == 1:
+        return max(floor, depth, lanes)  # degraded: uncoalesced sizing
+    appetite = max(depth, lanes, 2)
+    return max(2, -(-appetite // per_slot))
+
+
 # ==========================================================================
 # The executor
 # ==========================================================================
@@ -278,6 +304,10 @@ class StreamStats:
     # fused-chain composition: one tuple of stage names per linear run that
     # ran as a single per-chunk stage (empty when nothing fused)
     fused: list = dataclasses.field(default_factory=list)
+    # chunk-replay bookkeeping (cluster recovery): how many times this run
+    # was resumed after an interrupted stream, and from which chunk
+    replays: int = 0
+    resumed_at: Optional[int] = None
 
     def donation_summary(self) -> str:
         if not self.donation_enabled:
@@ -295,25 +325,52 @@ class StreamStats:
     def summary(self) -> str:
         req = sum(r for r, _ in self.donation.values())
         hon = sum(h for _, h in self.donation.values())
+        replay = (f", replays={self.replays}@chunk{self.resumed_at}"
+                  if self.replays else "")
         return (f"stream: {self.n_chunks} chunks × ≤{self.microbatch_size} "
                 f"items, depth={self.depth}, lanes={self.lanes}, "
                 f"stalls={self.stalls}, donated={hon}/{req}, "
-                f"fused_chains={len(self.fused)}")
+                f"fused_chains={len(self.fused)}{replay}")
+
+
+@dataclasses.dataclass
+class _ReplayState:
+    """What survives an interrupted streaming run.  Captured when the
+    interruption happened *before* the chunk had any effect (a cluster
+    host's ingress recv failed because its producer host failed): chunks
+    ``< next_ci`` are folded into the accumulators, chunk ``next_ci``
+    onwards never entered the DAG.  A host holding one reports itself
+    *stalled* (a survivor of a peer's failure) rather than failed; resuming
+    from it is the recovery slice's work."""
+
+    next_ci: int          # first chunk that was NOT folded
+    plan: list            # full bounds of the interrupted run
+    jit_accs: dict        # per-Collect fold accumulators
+    host_accs: dict       # per-Collect host-side fold accumulators
+    combine_carry: dict   # per-COMBINE carried accumulators
+    stats: "StreamStats"  # telemetry of the interrupted run
 
 
 class StreamExecutor:
     """Run a :class:`CompiledNetwork` as a pipeline of microbatches."""
 
+    # exception types whose mid-run capture leaves a :class:`_ReplayState`:
+    # raised by _chunk_inputs BEFORE the chunk had any effect (the cluster
+    # PartitionExecutor sets this to its transport error type)
+    _resumable_errors: tuple = ()
+
     def __init__(self, compiled: CompiledNetwork, *, microbatch_size: int,
                  max_in_flight: Optional[int] = None,
-                 lanes: Optional[int] = None, fuse: bool = True):
+                 lanes: Optional[int] = None, fuse: bool = True,
+                 recorder: Optional[_trace.TraceRecorder] = None):
         self.cn = compiled
         self.net = compiled.net
         self.order = compiled.order
         self.mb = microbatch_size
         # observability: the process-default TraceRecorder (disabled unless
-        # trace.enable())
-        self.rec = _trace.current()
+        # trace.enable()) or an explicitly owned one (cluster hosts get one
+        # each, so spans carry the right host even for thread hosts)
+        self.rec = recorder if recorder is not None else _trace.current()
         # depth: bounded in-flight chunks; lanes: work-stealing lane count
         # (explicit OneFanAny branches define it, otherwise as many lanes as
         # chunks can be in flight)
@@ -321,6 +378,7 @@ class StreamExecutor:
             self.net, max_in_flight, lanes)
         self._outstanding = [0] * self.lanes
         self._combine_carry: dict = {}  # per-run COMBINE accumulators
+        self.replay_state: Optional[_ReplayState] = None  # interrupted run
         # per-stage callables persist across runs; jit_builds counts their
         # first builds, so a warm executor stays at the same number
         self._fns: dict = {}
@@ -452,8 +510,9 @@ class StreamExecutor:
             p = net.procs[name]
             succs = net.successors(name)
             if p.kind is Kind.EMIT:
+                out = chunk[name] if isinstance(chunk, EmitChunks) else chunk
                 for s in succs:
-                    wires[(name, s)] = chunk
+                    wires[(name, s)] = out
             elif p.kind is Kind.SPREADER:
                 (x,) = _pop_in(name)
                 if x is _SKIP:
@@ -557,29 +616,70 @@ class StreamExecutor:
                   if isinstance(l, torch.Tensor)]
         if not leaves:
             raise NetworkError("run: empty batch")
-        plan = microbatch_plan(leaves[0].shape[0], self.mb)
+        return self._run_plan(microbatch_plan(leaves[0].shape[0], self.mb),
+                              batch)
+
+    # -- hooks the cluster PartitionExecutor overrides -----------------------
+    def _chunk_inputs(self, ci: int, lo: int, hi: int, batch):
+        """The value(s) the Emit(s) produce for chunk ``ci``."""
+        return slice_microbatch(batch, lo, hi)
+
+    def _forward_egress(self, ci: int, host_streams: dict) -> None:
+        """Ship boundary-collect values (cluster cut channels); base: none."""
+
+    def _local_collects(self) -> list:
+        """The Collects whose folds this executor owns (cluster partitions
+        exclude boundary shims)."""
+        return list(self.net.collects())
+
+    def _run_plan(self, plan, batch, *, start_ci: int = 0):
+        """Fresh run over ``plan[start_ci:]`` (chunk numbering stays aligned
+        with the full batch, so transported chunk ids match the peers')."""
         self._check_fan_divisibility(plan)
-        self.stats = self._new_stats(leaves[0].shape[0], len(plan))
+        self.replay_state = None
+        self.stats = self._new_stats(plan[-1][1] if plan else 0, len(plan))
         self._outstanding = [0] * self.lanes
         self._combine_carry = {}
         jit_accs: dict[str, Any] = {}
         host_accs = {p.name: to_device(copy.deepcopy(p.init), self.cn.device)
-                     for p in self.net.collects() if not p.jit_combine}
-        return self._drive(plan, batch, jit_accs, host_accs)
+                     for p in self._local_collects() if not p.jit_combine}
+        return self._drive(plan, batch, start_ci, jit_accs, host_accs)
 
-    def _drive(self, plan, batch, jit_accs, host_accs):
+    def reset_run_state(self) -> None:
+        """Forget any interrupted run (a controller is starting a fresh
+        batch): resume state and COMBINE carries go.  Subclasses clear
+        whatever per-run buffers they add."""
+        self.replay_state = None
+        self._combine_carry = {}
+
+    def _drive(self, plan, batch, start_ci, jit_accs, host_accs):
         rec = self.rec
         cuda = self.cn.device.type == "cuda"
         in_flight: deque = deque()
-        for ci, (lo, hi) in enumerate(plan):
+        for ci in range(start_ci, len(plan)):
+            lo, hi = plan[ci]
             if len(in_flight) >= self.depth:  # backpressure BEFORE dispatch:
                 self.stats.stalls += 1       # ≤ `depth` chunks unretired
                 with rec.span("stall", "stream", ci=ci):
                     self._retire(in_flight.popleft(), host_accs)
-            chunk = slice_microbatch(batch, lo, hi)
+            try:
+                chunk = self._chunk_inputs(ci, lo, hi, batch)
+            except Exception as e:
+                # the chunk never entered the DAG; whatever is in flight is
+                # complete — retire it so the accumulators are consistent,
+                # and for a resumable failure (a peer died mid-stream) keep
+                # the fold state
+                while in_flight:
+                    self._retire(in_flight.popleft(), host_accs)
+                if isinstance(e, self._resumable_errors):
+                    self.replay_state = _ReplayState(
+                        ci, list(plan), jit_accs, host_accs,
+                        dict(self._combine_carry), self.stats)
+                raise
             with rec.span("dispatch", "stream", ci=ci):
                 streams, host_streams, lanes_used = self._dispatch_chunk(
                     ci, chunk, final=ci == len(plan) - 1)
+                self._forward_egress(ci, host_streams)
                 for name, x in streams.items():
                     rec.instant("collect", "csp", collect=name, ci=ci)
                     if name not in jit_accs:  # first chunk: fold with init
@@ -598,7 +698,7 @@ class StreamExecutor:
             self._retire(in_flight.popleft(), host_accs)
 
         out: dict[str, Any] = {}
-        for p in self.net.collects():
+        for p in self._local_collects():
             val = jit_accs[p.name] if p.jit_combine else host_accs[p.name]
             out[p.name] = p.finalise(val) if p.finalise else val
         return out

@@ -143,7 +143,7 @@ __global__ void __launch_bounds__(kThreads)
 // Blocks a launch uses: the card's resident blocks of this kernel (up to
 // kMaxBlocksPerSM on each SM), and never more than the chunks need.
 int grid_size(int device, unsigned chunks) {
-  static int resident[64] = {0};
+  static std::atomic<int> resident[64];  // zeroed: static storage
   const int r = resident_blocks(mandelbrot_kernel, resident, device, kThreads,
                                 0, kMaxBlocksPerSM);
   const unsigned warps_per_block = kThreads / 32;

@@ -330,7 +330,7 @@ cudaError_t launch(const void* img, void* out, int height, int width,
   using G = Tile<K, T>;
   constexpr int smem = kStages * G::kSize * (int)sizeof(T);
   const auto kernel = stencil_kernel<K, kRing, T>;
-  static int resident[64] = {0};  // this instance's, per device
+  static std::atomic<int> resident[64];  // this instance's, per device
   const int r = resident_blocks(kernel, resident, device, kThreads, smem);
   if (r == 0) return cudaGetLastError();
   const int tiles_x = (width + kTileW - 1) / kTileW;

@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from .. import _autograd
+from .. import _autograd, _launches
 from . import kernel, ref
 
 __all__ = ["mha"]
@@ -62,7 +62,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _autograd.refuse_grad("mha", q, k, v)
     o = torch.empty_like(q)  # keeps q's layout, e.g. the model's (B, S, H, D)
     kernel.launch(q, k, v, o, causal=causal, scale=scale)
-    mha.launches += 1
+    _launches.count(mha)
     return o
 
 

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ...device import resolve_device
+from .. import _launches
 from . import kernel, ref
 
 
@@ -49,7 +50,7 @@ def mandelbrot(height: int, width: int, *, x0: float = -2.25,
     kernel.launch(out, x0=x0, y0=y0, pixel_delta=pixel_delta,
                   max_iterations=max_iterations,
                   row0=None if row0 is None else row0.reshape(()))
-    mandelbrot.launches += 1
+    _launches.count(mandelbrot)
     return out
 
 

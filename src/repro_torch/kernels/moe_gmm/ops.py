@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _autograd
+from .. import _autograd, _launches
 from . import kernel, ref
 
 __all__ = ["route", "sort_by_expert", "moe_apply"]
@@ -126,7 +126,7 @@ def moe_apply(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor, *,
     _autograd.refuse_grad("moe_apply", x, w)
     # the kernel reads x's rows in place: a strided x is copied once
     y = _routed_product(x.contiguous(), expert_of, w, tile_m, kernel.launch)
-    moe_apply.launches += 1
+    _launches.count(moe_apply)
     return y
 
 

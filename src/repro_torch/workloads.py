@@ -17,6 +17,10 @@ methods written on tensors:
 
 Inputs are made with numpy from a seed (:func:`synthetic_images`,
 :func:`jacobi_systems`), so the JAX package can be fed the same ones.
+
+:func:`mandelbrot_factory` and :func:`image_pipeline_factory` are the
+picklable, positional recipes a cluster deployment's spawned host processes
+rebuild the farm and the pipeline from (``factory=(fn, args)``).
 """
 
 from __future__ import annotations
@@ -26,11 +30,16 @@ import torch
 
 from .core import (Collect, DataParallelCollect, Emit, MultiCoreEngine,
                    Network, StencilEngine, narrow)
+from .device import resolve_device
+from .interop import tree_from_numpy
 from .kernels.mandelbrot.ops import mandelbrot
 
-__all__ = ["EDGE5", "GREY", "mandelbrot_farm", "assemble",
-           "synthetic_images", "image_pipeline", "jacobi_systems", "jacobi",
+__all__ = ["EDGE3", "EDGE5", "GREY", "mandelbrot_farm", "mandelbrot_factory",
+           "assemble", "synthetic_images", "image_pipeline",
+           "image_pipeline_factory", "jacobi_systems", "jacobi",
            "monte_carlo_pi"]
+
+EDGE3 = ((-1.0,) * 3, (-1.0, 8.0, -1.0), (-1.0,) * 3)
 
 EDGE5 = ((-1.0,) * 5, (-1.0,) * 5, (-1.0, -1.0, 24.0, -1.0, -1.0),
          (-1.0,) * 5, (-1.0,) * 5)
@@ -68,6 +77,14 @@ def mandelbrot_farm(*, width: int, height: int, bands: int,
         workers=bands, name="mandelbrot")
 
 
+def mandelbrot_factory(width: int, height: int, bands: int,
+                       iterations: int) -> Network:
+    """:func:`mandelbrot_farm` from positional arguments: the recipe a
+    spawned cluster host rebuilds the farm from."""
+    return mandelbrot_farm(width=width, height=height, bands=bands,
+                           iterations=iterations)
+
+
 def assemble(bands: dict) -> np.ndarray:
     """The farm's image from its ``{row0: band}`` collection."""
     return np.concatenate([bands[k] for k in sorted(bands)], axis=0)
@@ -88,10 +105,10 @@ def synthetic_images(n: int, size: int) -> list[np.ndarray]:
     return imgs
 
 
-def image_pipeline(images: list) -> Network:
-    """Emit → StencilEngine(greyscale) → StencilEngine(EDGE5) → Collect;
-    ``images`` are (H, W, 3) float32 tensors, all on one device.
-    The Collect gathers the edge maps as numpy arrays."""
+def image_pipeline(images: list, taps=EDGE5) -> Network:
+    """Emit → StencilEngine(greyscale) → StencilEngine(``taps``, EDGE5 by
+    default) → Collect; ``images`` are (H, W, 3) float32 tensors, all on one
+    device.  The Collect gathers the edge maps as numpy arrays."""
     weights = torch.tensor(GREY, dtype=torch.float32,
                            device=images[0].device)
 
@@ -102,11 +119,20 @@ def image_pipeline(images: list) -> Network:
     net.add(
         Emit(lambda i: images[i], name="emit"),
         StencilEngine(functionMethod=grey, name="engine1"),
-        StencilEngine(convolutionData=EDGE5, name="engine2"),
+        StencilEngine(convolutionData=taps, name="engine2"),
         Collect(lambda acc, x: acc + [x.cpu().numpy()], init=[],
                 name="collector"),
     )
     return net
+
+
+def image_pipeline_factory(n: int, size: int, device=None) -> Network:
+    """:func:`image_pipeline` over :func:`synthetic_images` ``(n, size)``
+    on ``device`` (``None``: the card): the recipe a spawned cluster host
+    rebuilds the pipeline from (the images are deterministic, so every host
+    regenerates the same ones)."""
+    return image_pipeline(tree_from_numpy(synthetic_images(n, size),
+                                          resolve_device(device)))
 
 
 # -- Jacobi on the MultiCoreEngine (§6.2) -------------------------------------

@@ -741,3 +741,94 @@ def test_tensor_core_instructions_in_sass(cuda, name):
                           capture_output=True, text=True, check=True).stdout
     assert sum(("HMMA" in ln or "HGMMA" in ln)
                for ln in sass.splitlines()) > 0
+
+
+# -- integer stencil images: converted to float32, the float32 kernel, and
+# converted back saturating as XLA does (the plain version's conversion) ----
+
+@pytest.mark.parametrize("hw", [(256, 256), (64, 2046), (37, 2044),
+                                (130, 129), (1, 1), (3, 5), (33, 136)])
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.int16,
+                                   torch.int32])
+def test_stencil_int_images_equal_plain(cuda, hw, k, dtype):
+    info = torch.iinfo(dtype)
+    g = torch.Generator().manual_seed(200 + k)
+    img = torch.randint(info.min, info.max, hw, generator=g,
+                        dtype=torch.int64).to(dtype).to(cuda)
+    taps = st_ops.taps_of(3.0 * torch.randn(k, k, generator=g))
+    before = st_ops.stencil2d.launches
+    got = st_ops.stencil2d(img, taps)
+    want = st_ref.stencil2d(img, taps)
+    torch.cuda.synchronize()
+    assert st_ops.stencil2d.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+# -- the cluster on the card -----------------------------------------------
+
+@pytest.mark.parametrize("transport,hosts", [("device", 2), ("device", 4),
+                                             ("pipe", 2)])
+def test_cluster_farm_on_card_equals_sequential(cuda, transport, hosts):
+    """The Mandelbrot farm over thread hosts on the card and over spawned
+    host processes (each with its own CUDA context), three warm batches,
+    bit-identical to the sequential oracle on the card; thread hosts launch
+    the kernel once a band in this process."""
+    from repro_torch import workloads
+    from repro_torch.cluster import ClusterDeployment
+    from repro_torch.core import run_sequential
+    args = (512, 256, 16, 200)
+    net = workloads.mandelbrot_factory(*args)
+    seq = workloads.assemble(run_sequential(net, 16)["collect"])
+    with ClusterDeployment(net, hosts=hosts, transport=transport,
+                           microbatch_size=4, timeout_s=120,
+                           factory=(workloads.mandelbrot_factory, args)
+                           ) as dep:
+        for _ in range(3):
+            before = mb_ops.mandelbrot.launches
+            out = dep.run(instances=16)
+            img = workloads.assemble(out["collect"])
+            assert np.array_equal(img, seq)
+            assert mb_ops.mandelbrot.launches - before == (
+                16 if transport == "device" else 0)
+        assert sum(r.jit_builds for r in out.reports) == 0
+
+
+def test_thread_hosts_launch_concurrently_without_losing_counts(cuda):
+    """4 threads x 32 bands at once on one card: 128 launches counted and
+    every band exact against the plain version."""
+    import sys
+    import threading
+    W, band_h, iters = 1024, 32, 300
+    kw = dict(x0=-2.2, y0=-1.15, pixel_delta=3.0 / W, max_iterations=iters)
+    before = mb_ops.mandelbrot.launches
+    results, errors = {}, []
+    card = torch.cuda.current_device()
+
+    def render(t):
+        try:
+            torch.cuda.set_device(card)  # as a thread host does
+            for b in range(32):
+                r0 = torch.tensor((t * 32 + b) * band_h, dtype=torch.int32,
+                                  device=cuda)
+                results[(t, b)] = (r0, mb_ops.mandelbrot(band_h, W, row0=r0,
+                                                         **kw))
+        except Exception as e:  # reported below, with the thread's result
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=render, args=(t,))
+                   for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    assert mb_ops.mandelbrot.launches - before == 128
+    for r0, got in results.values():
+        assert torch.equal(got, mb_ref.mandelbrot(band_h, W, row0=r0, **kw))

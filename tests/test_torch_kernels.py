@@ -196,10 +196,87 @@ class TestStencil:
         with pytest.raises(ValueError, match="square odd"):
             st_ops.taps_of(np.ones((2, 2)))
 
+    INT_TYPES = [(torch.uint8, np.uint8), (torch.int8, np.int8),
+                 (torch.int16, np.int16), (torch.int32, np.int32)]
+
+    @pytest.mark.parametrize("hw", [(33, 40), (64, 64), (5, 7)])
+    @pytest.mark.parametrize("k", [3, 5])
+    @pytest.mark.parametrize("types", INT_TYPES, ids=lambda t: str(t[1]))
+    def test_int_vs_jax(self, hw, k, types):
+        """Integer images: equal to JAX's ref.  Random images over the
+        type's whole range and taps of a few units put sums out of the
+        range both ways, so saturation at both bounds is exercised."""
+        tdt, ndt = types
+        info = np.iinfo(ndt)
+        rng = np.random.default_rng([*hw, k, info.bits, info.min < 0])
+        img = rng.integers(info.min, info.max, size=hw, endpoint=True,
+                           dtype=ndt)
+        kern = (3 * rng.normal(size=(k, k))).astype(np.float32)
+        ours = st_ops.stencil2d(torch.from_numpy(img), kern)
+        assert ours.dtype == tdt
+        theirs = np.asarray(jst_ref.stencil2d(jnp.asarray(img),
+                                              jnp.asarray(kern)))
+        assert theirs.dtype == ndt
+        np.testing.assert_array_equal(ours.numpy(), theirs)
+        if hw != (5, 7):
+            assert (theirs == info.max).any() and (theirs == info.min).any()
+
+    @pytest.mark.parametrize("k", [3, 5])
+    @pytest.mark.parametrize("types", INT_TYPES, ids=lambda t: str(t[1]))
+    def test_int_saturates_both_ways_vs_jax(self, k, types):
+        """Sums far outside the type's range (a bright square times EDGE5-
+        like taps scaled up) and inside it: the same as JAX's ref."""
+        tdt, ndt = types
+        info = np.iinfo(ndt)
+        img = np.zeros((24, 24), ndt)
+        img[6:14, 8:16] = info.max
+        img[14:18, 2:6] = info.min
+        img[1, 1] = 7
+        kern = np.full((k, k), -1.0e3, np.float32)
+        kern[k // 2, k // 2] = 4.0e3 * k * k
+        kern[0, 0] = 0.37
+        ours = st_ops.stencil2d(torch.from_numpy(img), kern).numpy()
+        theirs = np.asarray(jst_ref.stencil2d(jnp.asarray(img),
+                                              jnp.asarray(kern)))
+        np.testing.assert_array_equal(ours, theirs)
+        assert (theirs == info.max).any() and (theirs == info.min).any()
+
+    def test_saturating_conversion_vs_xla(self):
+        """The conversion back alone: NaN to 0, truncation, saturation,
+        with 2^31 - 1 (not representable in float32) as the int32 bound."""
+        x = np.asarray([3e9, -3e9, np.nan, 2.7, -2.7, 2.0 ** 31,
+                        -2.0 ** 31, 2.0 ** 31 - 128, np.inf, -np.inf,
+                        255.9, 256.0, -0.5, 127.5, -128.9], np.float32)
+        for tdt, ndt in self.INT_TYPES:
+            ours = st_ref.saturate_to(torch.from_numpy(x), tdt).numpy()
+            np.testing.assert_array_equal(ours,
+                                          np.asarray(jnp.asarray(x)
+                                                     .astype(ndt)))
+        assert st_ref.saturate_to(torch.from_numpy(x[:5]),
+                                  torch.int32).tolist() == \
+            [2 ** 31 - 1, -2 ** 31, 0, 2, -2]
+        assert st_ref.saturate_to(torch.from_numpy(x[:5]),
+                                  torch.uint8).tolist() == [255, 0, 0, 2, 0]
+
+    @pytest.mark.parametrize("k", [3, 5])
+    def test_uint8_vs_jax_pallas(self, k):
+        """A uint8 image against JAX's Pallas op in interpret mode."""
+        rng = np.random.default_rng([k, 8])
+        img = rng.integers(0, 255, size=(64, 48), endpoint=True,
+                           dtype=np.uint8)
+        kern = rng.normal(size=(k, k)).astype(np.float32)
+        theirs = np.asarray(jst_ops.stencil2d(jnp.asarray(img),
+                                              jnp.asarray(kern), tile_h=32,
+                                              interpret=True))
+        assert theirs.dtype == np.uint8
+        ours = st_ops.stencil2d(torch.from_numpy(img), kern).numpy()
+        np.testing.assert_array_equal(ours, theirs)
+
     def test_refuses_what_the_kernel_does_not_take(self):
-        with pytest.raises(TypeError, match="float32 or bfloat16"):
-            st_ops.stencil2d(torch.zeros(8, 8, dtype=torch.int32),
-                             np.ones((3, 3)))
+        for dtype in (torch.int64, torch.bool):
+            with pytest.raises(TypeError, match="float32, bfloat16"):
+                st_ops.stencil2d(torch.zeros(8, 8, dtype=dtype),
+                                 np.ones((3, 3)))
         with pytest.raises(ValueError, match=r"\(H, W\)"):
             st_ops.stencil2d(torch.zeros(2, 8, 8), np.ones((3, 3)))
         with pytest.raises(ValueError, match="non-empty"):
