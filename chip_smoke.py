@@ -23,16 +23,27 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
 12. (run here, after phase 5) drives the cluster runtime on the card: one
    warm ``ClusterDeployment`` of the farm at phase 2's width each over 2
    and 4 thread hosts whose tensors stay on the card (``device``) and over
-   2 spawned host processes (``pipe``), 3 batches each, then the image
-   pipeline at phase 3's size cut between its two engines over ``device``
-   and ``pipe``: the partition must refine the network (CSP, both
-   directions), every batch must equal phases 2 and 3 exactly, thread
-   hosts must launch the kernel here once a band (64 ``mandelbrot``, 16
-   ``stencil`` a batch), and each spawned host checks inside its own
-   process that every band launched its own Mandelbrot kernel once and is
-   a CUDA tensor.  It prints the start, cold and warm walls, the bytes
-   crossing the cut a batch and the cluster report; every deployment is
-   closed and every host process gone before phase 6;
+   2 spawned host processes (``pipe``, and ``shm`` with 8 MiB slots), 3
+   batches each, then the image pipeline at phase 3's size cut between its
+   two engines over ``device``, ``pipe`` and ``shm`` (at the largest
+   microbatch up to 16 whose ring fits in the free ``/dev/shm``, which it
+   prints): the partition must refine the network (CSP, both directions),
+   every batch must equal phases 2 and 3 exactly, thread hosts must launch
+   the kernel here once a band (64 ``mandelbrot``, 16 ``stencil`` a
+   batch), each spawned host checks inside its own process that every
+   band launched its own Mandelbrot kernel once and is a CUDA tensor, and
+   over ``shm`` every chunk must go through a slot and every segment be
+   unlinked after the close.  Then the farm over 2 process hosts (``pipe``
+   and ``shm``): batches 0 and 1, host 1 killed, batch 2 failing, and
+   ``recover(mode="restart")`` replaying it equal to phase 2 at epoch 2
+   with host 1 restarted; and the farm over 4 ``device`` hosts whose
+   worker raises once in batch 1, ``recover(mode="rebalance")`` moving it
+   onto a survivor, the new plan refining the network, the replay equal to
+   phase 2 and launching here exactly the bands it re-streams.  It prints
+   the walls, the bytes crossing the cut a batch, the ring's chunks by
+   path, the recovery walls and events, the cluster reports and the
+   phase's own wall; every deployment is closed and every host process
+   gone before phase 6;
 6. runs ``Model.forward`` of the full-width qwen2-0.5b (24 layers, random
    weights from seed 0) on a (4, 2048) batch of seeded tokens: in bf16 (the
    default config) the logits must be finite; in float32 its logits at
@@ -110,7 +121,14 @@ k = 3 taps, sums out of the type's range both ways) exactly against the
 plain version.  It counts the tensor-core instructions (HMMA/HGMMA lines
 of ``cuobjdump -sass``) in the flash, grouped-matmul and SSD libraries,
 which must be above 0, and checks that each of the four kernel ops raises under grad mode
-for an input that requires grad, before any launch.
+for an input that requires grad, before any launch.  It then holds, each
+as one launch against the plain version, what the ops once refused on the
+card: float16 flash attention (D = 48 padded, and the qwen2 shape, timed),
+bf16 rows not 16-byte aligned and a strided head dim; the float16 SSD scan
+with bf16 dt and A, strided P and N, at mamba2's shape (timed), and S = 0
+(no launch); the float16 grouped matmul at deepseek's up shape with f32,
+bf16 and f16 w (timed) and a strided w; and bool and transposed stencil
+images.
 
 Kernel launch counts are reset just before phase 2 and read after phase 9
 (phase 12's thread hosts count with them),
@@ -131,6 +149,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -817,6 +836,147 @@ def check_grad_refusal(torch, dev) -> None:
           "unchanged")
 
 
+def check_widened(torch, dev) -> None:
+    """What the kernel ops once refused on the card, each call one launch
+    held to its plain version: float16 flash attention (at D = 48, padded
+    to 64, and at the qwen2 forward's shape), a strided head dim and bf16
+    rows that are not 16-byte aligned (copied once); the float16 SSD scan
+    with bf16 dt and A (cast to f32) and strided P and N, and S = 0 (no
+    launch); the float16 grouped matmul with f32, bf16 and f16 w, and a
+    strided w; bool and transposed stencil images.  float16 is timed at
+    the main path's shapes beside the plain version (no repo config
+    computes in f16: untuned).  Tolerances: flash f16 5e-3 (the plain
+    version rounds its probabilities to f16, one f16 ulp of o), SSD and
+    grouped-matmul f16 2e-3 and 2e-3 of max|want| (two f16 ulps once the
+    f32 sums round), bf16 flash the reference's 5e-2."""
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+    from repro_torch.kernels.moe_gmm import ops as gmm, ref as gmm_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd, ref as ssd_ref
+    from repro_torch.kernels.stencil import ops as st, ref as st_ref
+    flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator().manual_seed(8)
+    f16, bf16 = torch.float16, torch.bfloat16
+
+    def one_launch(fn, call, label):
+        before = fn.launches
+        out = call()
+        torch.cuda.synchronize()
+        check(fn.launches == before + 1,
+              f"{label}: {fn.launches - before} launches, not 1")
+        return out
+
+    def close(got, want, rtol, atol, label):
+        diff = (got.float() - want.float()).abs()
+        excess = float((diff - (atol + rtol * want.float().abs())).max())
+        check(excess <= 0, f"{label}: outside rtol {rtol} / atol {atol} by "
+                           f"{excess}")
+        print(f"[kernel] {label}: one launch, max|diff| "
+              f"{float(diff.max()):.3e} (rtol {rtol}, atol {atol:.3e})")
+
+    def timed(label, plain, kernel, flops, nbytes):
+        t = timed_turns(torch, {"plain": plain, "kernel": kernel},
+                        {"plain": 3, "kernel": 10}, flush=flush_buf.zero_)
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
+        print(f"[kernel] {label} f16: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"roofline {bound_ms / t['kernel']:.1%}")
+
+    # flash attention
+    for (B, H, K, S, D), dtype in (((2, 4, 2, 70, 48), f16),
+                                   ((4, 14, 2, 2048, 64), f16),
+                                   ((1, 2, 1, 50, 200), torch.float32)):
+        q = (torch.randn(B, H, S, D, generator=g) * 0.3).to(dtype).to(dev)
+        k = (torch.randn(B, K, S, D, generator=g) * 0.3).to(dtype).to(dev)
+        v = torch.randn(B, K, S, D, generator=g).to(dtype).to(dev)
+        label = f"flash_attention ({B}, {H}, {K}, {S}, {S}, {D}) {dtype}"
+        got = one_launch(fa.mha, lambda: fa.mha(q, k, v), label)
+        tol = 5e-3 if dtype == f16 else 2e-4
+        close(got, fa_ref.mha(q, k, v), tol, tol, label)
+        if S == 2048:
+            pairs = B * H * S * (S + 1) // 2
+            timed("flash_attention qwen2-0.5b shape",
+                  lambda: fa_ref.mha(q, k, v), lambda: fa.mha(q, k, v),
+                  4.0 * D * pairs,
+                  (2 * q.numel() + k.numel() + v.numel()) * 2)
+    base = torch.randn(1, 2, 40, 68, generator=g).to(bf16).to(dev)
+    for t, what in ((base[..., :64], "seq stride 68"),
+                    (base[..., 1:65], "base 2 bytes off 16")):
+        label = f"flash_attention bf16 unaligned rows ({what})"
+        got = one_launch(fa.mha, lambda: fa.mha(t, t, t), label)
+        close(got, fa_ref.mha(t, t, t), 5e-2, 5e-2, label)
+    v = torch.randn(1, 2, 40, 64, 2, generator=g).to(dev)[..., 0]
+    label = "flash_attention f32 head dim stride 2"
+    got = one_launch(fa.mha, lambda: fa.mha(v, v, v), label)
+    close(got, fa_ref.mha(v, v, v), 2e-4, 2e-4, label)
+    # the SSD scan
+    for (b, S, H, P, G, N) in ((2, 300, 4, 64, 1, 128),
+                               (4, 2048, 80, 64, 1, 128)):
+        x = torch.randn(b, S, H, P, generator=g).to(f16).to(dev)
+        dt = (torch.rand(b, S, H, generator=g) * 0.1).to(bf16).to(dev)
+        A = (-torch.rand(H, generator=g) - 0.1).to(bf16).to(dev)
+        Bm = (torch.randn(b, S, G, N, generator=g) * 0.3).to(f16).to(dev)
+        Cm = (torch.randn(b, S, G, N, generator=g) * 0.3).to(f16).to(dev)
+        want = ssd_ref.ssd(x, dt, A, Bm, Cm)
+        scale = float(want.float().abs().max())
+        label = f"ssd_scan ({b}, {S}, {H}, {P}, {G}, {N}) f16, bf16 dt"
+        got = one_launch(ssd.ssd, lambda: ssd.ssd(x, dt, A, Bm, Cm), label)
+        close(got, want, 2e-3, 2e-3 * scale, label)
+        if S == 2048:
+            nbytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * 2 \
+                + (dt.numel() + A.numel()) * 2
+            timed("ssd_scan mamba2-2.7b shape",
+                  lambda: ssd_ref.ssd(x, dt, A, Bm, Cm),
+                  lambda: ssd.ssd(x, dt, A, Bm, Cm),
+                  ssd_work(b, S, H, P, G, N), nbytes)
+        else:
+            xs, Bs = (torch.empty(*t.shape, 2, dtype=t.dtype, device=dev)
+                      [..., 0].copy_(t) for t in (x, Bm))  # strides 2
+            label = label + ", strided P and N"
+            got = one_launch(ssd.ssd, lambda: ssd.ssd(xs, dt, A, Bs, Cm),
+                             label)
+            close(got, want, 2e-3, 2e-3 * scale, label)
+            before = ssd.ssd.launches
+            y0, h0 = ssd.ssd(x[:, :0], dt[:, :0], A, Bm[:, :0], Cm[:, :0],
+                             return_state=True)
+            check(ssd.ssd.launches == before and y0.shape == (b, 0, H, P)
+                  and h0.shape == (b * H, N, P) and not bool(h0.any()),
+                  "ssd_scan S = 0: not an empty y and a zero state")
+            print("[kernel] ssd_scan S = 0: empty y, zero state, no launch")
+    # the grouped matmul
+    T, k, E, D, F, tile = 8192, 6, 64, 2048, 1408, 128
+    x = torch.randn(T * k, D, generator=g).to(f16).to(dev)
+    eo = torch.randint(0, E, (T * k,), generator=g).to(dev)
+    w32 = (torch.randn(E, D, F, generator=g) / D ** 0.5).to(dev)
+    for w, what in ((w32, "f32 w"), (w32.to(bf16), "bf16 w"),
+                    (w32.to(f16), "f16 w"),
+                    (w32.transpose(1, 2).contiguous().transpose(1, 2),
+                     "strided f32 w")):
+        want = gmm_ref.gmm(x, eo, w)
+        label = f"moe_gmm rows={T * k} D={D} F={F} f16 x, {what}"
+        got = one_launch(gmm.moe_apply, lambda: gmm.moe_apply(x, eo, w),
+                         label)
+        close(got, want, 2e-3, 2e-3 * float(want.float().abs().max()),
+              label)
+        del got, want
+        if what == "f16 w":
+            nbytes = T * k * (D + F) * 2 + eo.numel() * 8 + E * D * F * 2
+            timed("moe_gmm deepseek-moe-16b up shape",
+                  lambda: gmm_ref.gmm(x, eo, w),
+                  lambda: gmm.moe_apply(x, eo, w), 2.0 * T * k * D * F,
+                  nbytes)
+    # the stencil
+    img = torch.randn(2048, 2048, generator=g).to(dev)
+    taps = st.taps_of(torch.randn(5, 5, generator=g))
+    for x, what in ((img.t(), "transposed f32"), (img > 0.5, "bool"),
+                    ((img > 0.5).t(), "transposed bool")):
+        label = f"stencil (2048, 2048) k=5 {what}"
+        got = one_launch(st.stencil2d, lambda: st.stencil2d(x, taps), label)
+        check(got.dtype == x.dtype and torch.equal(got, st_ref.stencil2d(
+            x, taps)), f"{label}: not exact")
+        print(f"[kernel] {label}: one launch, exact")
+    del flush_buf
+
+
 def tensor_core_instructions(torch, name: str) -> int:
     """HMMA (mma.sync) and HGMMA (wgmma) lines in the SASS of a built
     kernel library, by ``cuobjdump -sass``."""
@@ -974,21 +1134,27 @@ def checked_farm(width, height, bands, iterations):
 
 
 def run_deployment(torch, label, net, plan, transport, factory, n, batches,
-                   counts, kernel, per_batch, same_as):
+                   counts, kernel, per_batch, same_as, microbatch=16):
     """One warm ``ClusterDeployment``: refinement, ``batches`` batches each
     checked by ``same_as`` and by the parent's ``kernel`` launches
-    (``per_batch``), the walls, the pipe's bytes a batch and the cluster
-    report.  Returns the walls in ms (start, then one a batch)."""
+    (``per_batch``), the walls, the bytes crossing the cut a batch and,
+    over the shared-memory ring, each batch's chunks by path (every chunk
+    must go through a slot) and no ``/dev/shm`` segment left after the
+    close.  Prints the cluster report.  Returns the walls in ms (start,
+    then one a batch)."""
     from repro_torch.cluster import ClusterDeployment, check_refinement
+    from repro_torch.cluster.transport import SharedMemoryRing
     from repro_torch.core import netlog
     refined = check_refinement(net, plan)
     check(refined, f"[cluster] {label}: partitioned network does not refine")
     print(f"[cluster] {label}: partitioned [T= unpartitioned (CSP, both "
           f"directions): {refined}; cut "
           f"{[f'{c.src}->{c.dst}' for c in plan.cut]}")
+    ring = transport if isinstance(transport, SharedMemoryRing) else None
+    n_chunks = -(-n // microbatch)
     t0 = time.perf_counter()
     dep = ClusterDeployment(net, plan=plan, transport=transport,
-                            microbatch_size=16, factory=factory,
+                            microbatch_size=microbatch, factory=factory,
                             timeout_s=300)
     with dep:
         walls = [(time.perf_counter() - t0) * 1e3]
@@ -1006,14 +1172,28 @@ def run_deployment(torch, label, net, plan, transport, factory, n, batches,
                   f"{kernel} kernels in this process, not {per_batch}")
             sent = sum(v for r in out.reports
                        for v in r.metrics.get("sent_bytes", {}).values())
+            paths = ""
+            if ring is not None:
+                by_path = [v for r in out.reports
+                           for v in r.metrics.get("ring", {}).values()]
+                slots, inline = (sum(v[i] for v in by_path) for i in (0, 1))
+                check(inline == 0 and slots == n_chunks * len(plan.cut),
+                      f"[cluster] {label}: batch {b} sent {slots} chunks "
+                      f"through a slot and {inline} inline, not "
+                      f"{n_chunks * len(plan.cut)} and 0")
+                paths = f", ring chunks: {slots} through a slot, {inline} " \
+                        "inline"
             print(f"[cluster] {label}: batch {b} "
                   f"({'cold' if b == 0 else 'warm'}) {walls[-1]:.1f} ms, "
                   f"exact: True, {kernel} launches here {launched}, cut "
-                  f"bytes {sent}, stage builds "
+                  f"bytes {sent}{paths}, stage builds "
                   f"{sum(r.jit_builds for r in out.reports)}")
         procs = list(dep.controller._procs.values())
+        names = ring.owned_names() if ring is not None else []
     check(not any(p.is_alive() for p in procs),
           f"[cluster] {label}: a host process outlived the deployment")
+    if ring is not None:
+        check_unlinked(ring, names, label)
     print(netlog.cluster_report(dep.plan, out.reports, events=dep.events))
     print(f"[cluster] {label}: start {walls[0]:.1f} ms, cold batch "
           f"{walls[1]:.1f} ms, warm batches "
@@ -1021,28 +1201,198 @@ def run_deployment(torch, label, net, plan, transport, factory, n, batches,
     return walls
 
 
+def check_unlinked(ring, names, label) -> None:
+    """Every ``/dev/shm`` segment the ring created is gone after close."""
+    from multiprocessing import shared_memory
+    check(bool(names) and not ring.owned_names(),
+          f"[cluster] {label}: the ring still owns segments")
+    for name in names:
+        try:
+            shared_memory.SharedMemory(name=name).close()
+        except FileNotFoundError:
+            continue
+        raise SmokeFailure(f"[cluster] {label}: /dev/shm segment {name} "
+                           "left after close")
+    print(f"[cluster] {label}: {len(names)} /dev/shm segments unlinked")
+
+
+def shm_free_bytes() -> int:
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def run_kill_recovery(torch, transport, farm_img, args, batches=3) -> None:
+    """Batches 0 and 1 of the farm over 2 process hosts, then SIGKILL host
+    1 (the Collect's); batch 2 fails with the dead host found, and
+    ``recover(mode="restart")`` respawns it and replays the batch, which
+    must equal phase 2's image bit for bit, at epoch >= 2, with host 1
+    named as restarted and the plan re-proved."""
+    import numpy as np
+    from repro_torch import workloads
+    from repro_torch.cluster import (ClusterDeployment, ClusterError,
+                                     check_refinement, partition)
+    from repro_torch.cluster.transport import SharedMemoryRing
+    from repro_torch.core import netlog
+    label = f"mandelbrot {'shm' if transport != 'pipe' else 'pipe'} x2 kill"
+    net = checked_farm(*args)
+    plan = partition(net, hosts=2)
+    check(check_refinement(net, plan), f"[cluster] {label}: no refinement")
+    with ClusterDeployment(net, plan=plan, transport=transport,
+                           microbatch_size=16, factory=(checked_farm, args),
+                           timeout_s=300) as dep:
+        for b in range(batches - 1):
+            out = dep.run(instances=args[2])
+            check(np.array_equal(workloads.assemble(out["collect"]),
+                                 farm_img),
+                  f"[cluster] {label}: batch {b} differs")
+        t_kill = time.perf_counter()
+        dep.kill_host(1)
+        try:
+            dep.run(instances=args[2])
+        except ClusterError as exc:
+            dead = [r.host for r in exc.reports if not r.ok
+                    and "died" in (r.error or "")]
+            check(dead == [1], f"[cluster] {label}: dead hosts {dead}")
+        else:
+            raise SmokeFailure(f"[cluster] {label}: batch {batches - 1} ran "
+                               "with host 1 killed")
+        t_detect = time.perf_counter()
+        out = dep.recover(mode="restart")
+        torch.cuda.synchronize()
+        t_done = time.perf_counter()
+        check(np.array_equal(workloads.assemble(out["collect"]), farm_img),
+              f"[cluster] {label}: the replayed batch differs from phase 2")
+        (ev,) = dep.events
+        check(dep.epoch >= 2 and ev.restarted == [1] and ev.dead == [1]
+              and ev.refined is True,
+              f"[cluster] {label}: recovery event {ev.describe()}")
+        procs = list(dep.controller._procs.values())
+        names = (transport.owned_names()
+                 if isinstance(transport, SharedMemoryRing) else [])
+    check(not any(p.is_alive() for p in procs),
+          f"[cluster] {label}: a host process outlived the deployment")
+    if names:
+        check_unlinked(transport, names, label)
+    print(netlog.cluster_report(dep.plan, out.reports, events=dep.events))
+    print(f"[cluster] {label}: {ev.describe()}")
+    print(f"[cluster] {label}: kill -> failure found "
+          f"{(t_detect - t_kill) * 1e3:.1f} ms, recover() (restart + replay) "
+          f"{(t_done - t_detect) * 1e3:.1f} ms, kill -> replayed result "
+          f"{(t_done - t_kill) * 1e3:.1f} ms; replay exact: True, epoch "
+          f"{dep.epoch}")
+
+
+def failing_farm(args, state: dict):
+    """The farm whose worker raises once, on the first band of batch 1
+    (a transient host failure), before it launches anything."""
+    from repro_torch import workloads
+    from repro_torch.core.dataflow import Kind
+    net = workloads.mandelbrot_factory(*args)
+    (worker,) = [p for p in net.procs.values() if p.kind is Kind.WORKER]
+    render = worker.fn
+
+    def render_once_failing(row0):
+        state["calls"] = state.get("calls", 0) + 1
+        if state["calls"] == args[2] + 1:
+            raise RuntimeError("transient worker failure (injected)")
+        return render(row0)
+
+    worker.fn = render_once_failing
+    return net, worker.name
+
+
+def run_rebalance(torch, counts, farm_img, args) -> None:
+    """The farm over 4 thread hosts on the card (``device``): batch 0 ok,
+    batch 1 fails in the worker's host, ``recover(mode="rebalance")``
+    moves that host's processes onto survivors; the new plan must refine
+    the network, the replay must equal phase 2, and this process must
+    launch exactly the Mandelbrot kernels of the bands re-streamed."""
+    import numpy as np
+    from repro_torch import workloads
+    from repro_torch.cluster import (ClusterDeployment, ClusterError,
+                                     check_refinement, partition)
+    from repro_torch.core import netlog
+    label = "mandelbrot device x4 rebalance"
+    net, worker = failing_farm(args, {})
+    bands, mb = args[2], 16
+    with ClusterDeployment(net, plan=partition(net, hosts=4),
+                           transport="device", microbatch_size=mb,
+                           timeout_s=300) as dep:
+        out = dep.run(instances=bands)
+        check(np.array_equal(workloads.assemble(out["collect"]), farm_img),
+              f"[cluster] {label}: batch 0 differs")
+        failed = dep.plan.assignment[worker]
+        try:
+            dep.run(instances=bands)
+        except ClusterError as exc:
+            erred = sorted(r.host for r in exc.reports
+                           if not r.ok and not r.stalled)
+            check(erred == [failed], f"[cluster] {label}: erred {erred}")
+        else:
+            raise SmokeFailure(f"[cluster] {label}: batch 1 did not fail")
+        before = counts()["mandelbrot"]
+        t0 = time.perf_counter()
+        out = dep.recover(mode="rebalance")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = counts()["mandelbrot"] - before
+        (ev,) = dep.events
+        host = dep.plan.assignment[worker]
+        want = max(bands - mb * ev.replay_from.get(host, -(-bands // mb)), 0)
+        check(np.array_equal(workloads.assemble(out["collect"]), farm_img),
+              f"[cluster] {label}: the replayed batch differs from phase 2")
+        check(ev.refined is True and check_refinement(net, dep.plan)
+              and failed not in dep.plan.hosts() and ev.moved,
+              f"[cluster] {label}: {ev.describe()}")
+        check(launched == want, f"[cluster] {label}: the replay launched "
+                                f"{launched} kernels here, not {want}")
+        after = dep.run(instances=bands)
+        check(np.array_equal(workloads.assemble(after["collect"]), farm_img),
+              f"[cluster] {label}: the batch after the rebalance differs")
+    print(netlog.cluster_report(dep.plan, out.reports, events=dep.events))
+    print(f"[cluster] {label}: {ev.describe()}")
+    print(f"[cluster] {label}: host {failed} evacuated, plan "
+          f"{dep.plan.hosts()} refines: True; recover() {wall:.1f} ms, "
+          f"{launched} mandelbrot launches here (bands re-streamed from "
+          f"chunk {ev.replay_from.get(host)}), replay exact: True")
+
+
 def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
                       n_img, size):
     """Phase 12: the farm at phase 2's width over 2 and 4 thread hosts on
-    the card (``device``) and 2 spawned host processes (``pipe``), then the
-    image pipeline at phase 3's size cut between its engines over both."""
+    the card (``device``) and 2 spawned host processes (``pipe``, ``shm``),
+    then the image pipeline at phase 3's size cut between its engines over
+    ``device``, ``pipe`` and ``shm``; a killed host recovered over ``pipe``
+    and ``shm``, and a failed worker's host rebalanced away over
+    ``device``."""
     import multiprocessing
 
     import numpy as np
     from repro_torch import workloads
-    from repro_torch.cluster import partition
+    from repro_torch.cluster import (ExecConfig, derive_cut_capacities,
+                                     partition)
+    from repro_torch.cluster.transport import SharedMemoryRing
+    t_phase = time.perf_counter()
+    free = shm_free_bytes()
+    print(f"[cluster] /dev/shm: {free} bytes free")
     args = (W, H, bands, iters)
+    # a farm chunk: 16 row indices and 16 bands of int32 iteration counts
+    farm_slot = SharedMemoryRing.slot_bytes_for(
+        (torch.empty(16, dtype=torch.int32, device="meta"),
+         torch.empty(16, H // bands, W, dtype=torch.int32, device="meta")))
     same_img = lambda out: np.array_equal(  # noqa: E731
         workloads.assemble(out["collect"]), farm_img)
     for transport, hosts, factory in (
             ("device", 2, workloads.mandelbrot_factory),
             ("device", 4, workloads.mandelbrot_factory),
-            ("pipe", 2, checked_farm)):
+            ("pipe", 2, checked_farm),
+            (SharedMemoryRing(slot_bytes=farm_slot), 2, checked_farm)):
+        name = getattr(transport, "name", transport)
         net = factory(*args)
-        run_deployment(torch, f"mandelbrot {transport} x{hosts}", net,
+        run_deployment(torch, f"mandelbrot {name} x{hosts}", net,
                        partition(net, hosts=hosts), transport,
                        (factory, args), bands, 3, counts, "mandelbrot",
-                       bands if transport == "device" else 0, same_img)
+                       bands if name == "device" else 0, same_img)
 
     def same_edges(out):
         got = out["collector"]
@@ -1058,8 +1408,31 @@ def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
         run_deployment(torch, f"image {transport} x2", net, plan, transport,
                        factory, n_img, 3, counts, "stencil",
                        n_img if transport == "device" else 0, same_edges)
+    # the ring holds `capacity` chunks of mb grey f32 images: the largest
+    # microbatch (up to 16) whose ring fits in what /dev/shm has free
+    cap = max(derive_cut_capacities(plan, ExecConfig(16)).values())
+
+    def grey_slot(mb):  # a pipeline chunk: mb grey f32 images
+        return SharedMemoryRing.slot_bytes_for(torch.empty(
+            mb, size, size, dtype=torch.float32, device="meta"))
+    mb = 16
+    while mb > 1 and cap * grey_slot(mb) > 0.8 * free:
+        mb -= 1
+    check(cap * grey_slot(mb) <= 0.8 * free,
+          f"[cluster] image shm x2: /dev/shm ({free} bytes free) cannot "
+          f"hold {cap} slots of one {size}^2 image")
+    print(f"[cluster] image shm x2: microbatch {mb} ({cap} slots of "
+          f"{grey_slot(mb)} bytes; 16 needs {cap * grey_slot(16)})")
+    run_deployment(torch, f"image shm x2 mb {mb}", net, plan,
+                   SharedMemoryRing(slot_bytes=grey_slot(mb)), factory,
+                   n_img, 3, counts, "stencil", 0, same_edges,
+                   microbatch=mb)
+    for transport in ("pipe", SharedMemoryRing(slot_bytes=farm_slot)):
+        run_kill_recovery(torch, transport, farm_img, args)
+    run_rebalance(torch, counts, farm_img, args)
     check(not multiprocessing.active_children(),
           "[cluster] host processes still running after phase 12")
+    print(f"[cluster] phase 12 wall: {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- phases 6-9: the decoder LMs -----------------------------------------------------
@@ -1394,6 +1767,7 @@ def main() -> int:
                check_stencil(torch, dev), check_flash(torch, dev),
                check_ssd(torch, dev), check_moe_gmm(torch, dev)]
     check_grad_refusal(torch, dev)
+    check_widened(torch, dev)
 
     reset_launch_counts()  # the main path starts here
     farm, farm_img = run_farm(torch, launch_counts, W, H, BANDS, ITERS)

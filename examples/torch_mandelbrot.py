@@ -5,18 +5,23 @@ version on the CPU).
     PYTHONPATH=src python examples/torch_mandelbrot.py [--width 192]
     PYTHONPATH=src python examples/torch_mandelbrot.py --hosts 2 \\
         --transport pipe --batches 3       # cluster mode
+    PYTHONPATH=src python examples/torch_mandelbrot.py --hosts 2 \\
+        --transport shm --kill-host 1      # elastic recovery
 
 The counterpart of ``examples/mandelbrot.py``, on the card unless
 ``--device cpu``.  ``--hosts N`` reruns the paper's capstone: the *same*
 declarative network is partitioned over N hosts (real OS processes with
-``--transport pipe``, threads whose tensors stay on the card with
+``--transport pipe``, real OS processes passing the bands through
+``/dev/shm`` slots with ``shm``, threads whose tensors stay on the card with
 ``device``, plain threads with ``inprocess``) and must produce results
 bit-identical to the sequential oracle, with the CSP checker confirming the
-partitioned network trace-refines the unpartitioned one.  The reference's
-flags map as follows: ``--transport jaxmesh`` is ``device``; ``--pallas``
-has no counterpart (on the card the kernel always runs); ``--transport
-shm`` and ``--kill-host`` are refused until the port's shared-memory and
-elastic cluster slices.
+partitioned network trace-refines the unpartitioned one.  ``--kill-host N``
+(process transports; three batches or more) SIGKILLs host N's worker
+before batch 2, lets the deployment recover (respawn, epoch bump, replay
+of the lost chunks) and exits non-zero unless the replayed image equals
+the single-host one.  The reference's flags map as follows: ``--transport
+jaxmesh`` is ``device``; ``--pallas`` has no counterpart (on the card the
+kernel always runs).
 """
 
 import argparse
@@ -33,15 +38,27 @@ CHARS = " .:-=+*#%@"
 
 def run_cluster_mode(args, net, factory, seq_img, device):
     from repro_torch.cluster import (ClusterDeployment, ClusterError,
-                                     check_refinement, partition)
+                                     SharedMemoryRing, check_refinement,
+                                     partition)
     from repro_torch.core import netlog
-    transport = "device" if args.transport == "jaxmesh" else args.transport
-    if transport == "shm" or args.kill_host >= 0:
-        what = "--transport shm" if transport == "shm" else "--kill-host"
-        print(f"{what}: not in the port yet (the shared-memory ring and "
-              "elastic recovery come with later cluster slices)",
-              file=sys.stderr)
-        raise SystemExit(2)
+    name = "device" if args.transport == "jaxmesh" else args.transport
+    mb = max(args.bands // 4, 1)
+    transport = name
+    if name == "shm":
+        # one slot holds a chunk: mb row indices and mb bands of int32
+        # iteration counts, laid out as the ring writes them
+        import torch
+        chunk = (torch.empty(mb, dtype=torch.int32, device="meta"),
+                 torch.empty(mb, args.height // args.bands, args.width,
+                             dtype=torch.int32, device="meta"))
+        transport = SharedMemoryRing(
+            slot_bytes=SharedMemoryRing.slot_bytes_for(chunk))
+    if args.kill_host >= 0:
+        if name not in ("pipe", "shm"):
+            print("--kill-host: only process hosts (--transport pipe or "
+                  "shm) have a worker process to kill", file=sys.stderr)
+            raise SystemExit(2)
+        args.batches = max(args.batches, 3)  # cold, warm, then the kill
     plan = partition(net, hosts=args.hosts)
     print(plan.describe())
     refines = check_refinement(net, plan)
@@ -51,29 +68,55 @@ def run_cluster_mode(args, net, factory, seq_img, device):
         raise SystemExit(1)
     # one warm deployment serves every batch: spawn and stage building are
     # paid once (batch 0), the rest is steady state
-    img, same = None, False
+    img, same, recovered = None, False, False
     with ClusterDeployment(net, plan=plan, transport=transport,
-                           microbatch_size=max(args.bands // 4, 1),
-                           factory=factory, device=device,
-                           timeout_s=args.timeout_s) as dep:
+                           microbatch_size=mb, factory=factory,
+                           device=device, timeout_s=args.timeout_s) as dep:
         for b in range(max(args.batches, 1)):
+            if b == 2 and args.kill_host >= 0:
+                print(f"batch {b}: killing host {args.kill_host}'s worker "
+                      "process (SIGKILL, mid-deployment)")
+                dep.kill_host(args.kill_host)
             t0 = time.perf_counter()
             try:
                 out = dep.run(instances=args.bands)
             except ClusterError as e:
-                print(e)
-                raise SystemExit(1)
+                if args.kill_host < 0 or recovered:
+                    print(e)
+                    raise SystemExit(1)
+                # the §8 report fired; recover() respawns the corpse, bumps
+                # the plan epoch, re-proves the refinement and replays the
+                # lost chunks of THIS batch
+                t1 = time.perf_counter()
+                out = dep.recover()
+                recovered = True
+                print(f"batch {b}: host failure captured — recovered in "
+                      f"{(time.perf_counter() - t1) * 1e3:.1f}ms (epoch "
+                      f"{dep.epoch})")
             wall = time.perf_counter() - t0
             img = workloads.assemble(out["collect"])
             same = bool(np.array_equal(img, seq_img))
+            paths = ""
+            if name == "shm":  # every chunk must go through a slot
+                by_path = [v for r in out.reports
+                           for v in r.metrics.get("ring", {}).values()]
+                inline = sum(v[1] for v in by_path)
+                paths = (f", ring chunks: {sum(v[0] for v in by_path)} "
+                         f"through a slot, {inline} inline")
             if args.batches > 1:
                 state = "cold" if b == 0 else "warm"
                 print(f"batch {b} ({state}, {wall * 1e3:.1f}ms): "
-                      f"identical={same}")
+                      f"identical={same}{paths}")
+            if name == "shm" and inline:
+                print("shm: chunks went inline (the slot is too small)")
+                raise SystemExit(1)
             if not same:
                 break
-    print(f"sequential == cluster({transport}, {args.hosts} hosts): {same}")
+    print(f"sequential == cluster({name}, {args.hosts} hosts): {same}")
     print(netlog.cluster_report(dep.plan, out.reports, events=dep.events))
+    if args.kill_host >= 0 and not (recovered and dep.epoch >= 2):
+        print("kill-host demo: no recovery happened (host survived?)")
+        raise SystemExit(1)
     if not same:
         raise SystemExit(1)
     return img
@@ -95,7 +138,7 @@ def main():
                     choices=["inprocess", "pipe", "device", "jaxmesh",
                              "shm"],
                     help="cluster channel transport (with --hosts); "
-                         "jaxmesh means device, shm is refused")
+                         "jaxmesh means device")
     ap.add_argument("--batches", type=int, default=1,
                     help="batches to stream through ONE warm deployment "
                          "(with --hosts): batch 0 pays spawn and build, "
@@ -103,7 +146,11 @@ def main():
     ap.add_argument("--timeout-s", type=float, default=300.0,
                     help="a batch that takes longer fails (with --hosts)")
     ap.add_argument("--kill-host", type=int, default=-1, metavar="N",
-                    help="refused: elastic recovery is a later slice")
+                    help="elastic-recovery demo (process transports, 3 "
+                         "batches or more): SIGKILL host N's worker before "
+                         "batch 2, recover (respawn + epoch bump + replay "
+                         "of the lost chunks) and print the recovery "
+                         "section of the cluster report")
     ap.add_argument("--pallas", action="store_true",
                     help="accepted for the reference's sake; no effect "
                          "(on the card the kernel always runs)")

@@ -14,13 +14,21 @@ its own) — and streams batches through it:
   controller speaks for the corpse (EOS down its egress, its ingress
   drained) so the survivors quiesce instead of hanging.
 
-Repairing a failed deployment — :meth:`ClusterController.recover`, the
-rebalance and reconfigure replans, adoption of a durable deployment, and
-the host lifecycle verbs that only recovery needs — is the elastic
-cluster slice of the port; each of those raises ``NotImplementedError``
-naming it.  A batch that fails raises :class:`~.runtime.ClusterError`
-carrying the cluster report, and the deployment then refuses further
-batches rather than limp on.
+A batch that fails raises :class:`~.runtime.ClusterError` carrying the
+cluster report, and the controller remembers what :meth:`recover` needs:
+who died, who erred, who stalled at which chunk, and the batch.
+:meth:`ClusterController.recover` drains the surviving channels
+(requeueing undelivered chunks under the new epoch), restarts the dead
+hosts' workers — or, with ``mode="rebalance"``, reuses the planner to move
+the failed hosts' processes onto survivors — re-proves the refinement of
+the new epoch's plan (:func:`.partition.check_redeployment`), and replays
+only the lost chunks of the failed batch.  :meth:`reconfigure` refits the
+same network to another host count between batches, the same way.  Every
+recovery is a :class:`RecoveryEvent`, rendered by
+:func:`..core.netlog.cluster_report`.  Adopting a durable deployment after
+a controller crash is the durable slice's work and raises
+``NotImplementedError`` naming it; without a store, recovery replays a
+stateful partition from chunk 0, as the JAX package does without one.
 """
 
 from __future__ import annotations
@@ -37,10 +45,11 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..core import trace as _trace
-from ..core.dataflow import Network, NetworkError
+from ..core.dataflow import Distribution, Kind, Network, NetworkError
 from ..core.stream import microbatch_plan
 from ..device import resolve_device, to_device
-from .partition import PartitionPlan, is_shim, partition
+from .partition import (PartitionPlan, check_redeployment, is_shim,
+                        partition, repartition_without)
 from .runtime import (ClusterError, ClusterResult, ExecConfig, HostReport,
                       _emit_batch, _signal_failure, derive_cut_capacities,
                       make_host_executor)
@@ -51,16 +60,10 @@ __all__ = ["ClusterController", "RecoveryEvent"]
 
 _SHUTDOWN = "__gpp_shutdown__"
 
-ELASTIC_SLICE = (
-    "comes with the elastic cluster slice of the port (recovery, "
-    "rebalance and reconfiguration: the JAX package's "
-    "cluster/control.py:798-1388 with the stream replay pieces)")
-
 
 @dataclasses.dataclass
 class RecoveryEvent:
-    """One recovery of a live deployment (epoch N -> N+1), for the report.
-    The type only: recoveries themselves come with the elastic slice."""
+    """One recovery of a live deployment (epoch N -> N+1), for the report."""
 
     epoch_from: int
     epoch_to: int
@@ -75,6 +78,9 @@ class RecoveryEvent:
     replay_from: dict         # host -> first chunk replayed
     refined: Optional[bool] = None  # new epoch's plan [T=] original network
     wall_s: float = 0.0
+    # dead-reader FIFOs found on the dead hosts' ingress (a host killed
+    # mid-recv bricks the queue): rebuilt in place, or routed around by the
+    # auto-fallback to mode="rebalance" (auto_mode records which, and why)
     bricked: list = dataclasses.field(default_factory=list)
     auto_mode: Optional[str] = None
 
@@ -128,6 +134,14 @@ def _has_real_emit(sub: Network) -> bool:
     return any(not is_shim(e.name) for e in sub.emits())
 
 
+def _host_shape(plan, h) -> tuple:
+    """What a host's worker is wired to: its processes and cut channels.
+    A replan only restarts hosts whose shape changed."""
+    return (tuple(plan.procs_of(h)),
+            tuple((c.src, c.dst) for c in plan.ingress_of(h)),
+            tuple((c.src, c.dst) for c in plan.egress_of(h)))
+
+
 def _host_stats(ex, before: int, t0: float) -> tuple:
     """The per-batch telemetry tuple shipped with every host result:
     summaries, new stage builds, the :class:`MetricsSnapshot` sample, and
@@ -146,15 +160,17 @@ def _serve_host(sub, ex, plan, host, endpoint, work_q, result_q,
     thread hosts and spawned process hosts.
 
     A host never retires itself: a peer failure leaves it *stalled* (fold
-    state intact), its own failure is reported with a full traceback and
-    its run state reset — either way it parks again, warm, and the
-    controller decides what happens next.
+    state intact, batch resumable), its own failure is reported with a full
+    traceback and its run state reset — either way it parks again, warm,
+    and the controller decides what happens next.  A ``"replay"`` message
+    resumes a stalled fold at its first lost chunk, or re-streams the batch
+    from ``start_ci``.
     """
     while True:
         msg = work_q.get()
         if isinstance(msg, str) and msg == _SHUTDOWN:
             break
-        _, batch_id, epoch, bounds, instances, batch, start_ci = msg
+        kind, batch_id, epoch, bounds, instances, batch, start_ci = msg
         endpoint.epoch = epoch
         before = ex.jit_builds
         t0 = time.monotonic()
@@ -165,8 +181,12 @@ def _serve_host(sub, ex, plan, host, endpoint, work_q, result_q,
                 batch = unpack_raw(batch, ex.cn.device)
             else:
                 batch = to_device(batch, ex.cn.device)
-            ex.reset_run_state()
-            out = ex.run_partition(list(bounds), batch, start_ci=start_ci)
+            if kind == "replay" and ex.replay_state is not None:
+                out = ex.resume_partition(batch)  # only the lost chunks
+            else:
+                ex.reset_run_state()
+                out = ex.run_partition(list(bounds), batch,
+                                       start_ci=start_ci)
             # a process host's results cross as bytes, tensors copied to
             # the CPU with their dtype; the controller rebuilds CPU tensors
             result_q.put(("ok", host, batch_id, epoch,
@@ -211,8 +231,10 @@ def _process_host_entry(factory, fargs, assignment: dict, host: int,
 
 class ClusterController:
     """Owns a deployment's live state: the epoch-stamped plan, the
-    transport, and one parked worker per host, with :meth:`spawn_host`,
-    :meth:`stop_host`, :meth:`close` and :meth:`run_batch`.
+    transport, and one parked worker per host — with the lifecycle verbs
+    (:meth:`spawn_host`, :meth:`stop_host`, :meth:`restart_host`,
+    :meth:`kill_host`), :meth:`run_batch` and the recovery path
+    (:meth:`recover`, :meth:`reconfigure`).
     :class:`~.deploy.ClusterDeployment` is the user-facing facade over this
     class."""
 
@@ -244,7 +266,14 @@ class ClusterController:
         self._result_qs: dict = {}    # process hosts: host -> own queue
         self._devices: dict = {}      # thread hosts: host -> device
         self.executors: dict = {}     # thread hosts only: live executors
-        self._needs_recovery = False  # the last batch failed
+        # failure state of the last batch (drives recovery)
+        self._needs_recovery = False
+        self._dead: set = set()
+        self._erred: set = set()
+        self._stalled: dict = {}      # host -> resume chunk
+        self._last_batch: Optional[tuple] = None   # descriptor, for replay
+        self._ok_cache: dict = {}     # completed hosts' results, failed batch
+        self._kept: dict = {}         # chan -> drained records to requeue
         # observability (core/trace.py): the controller's own recorder spans
         # the control verbs; worker rings arrive with each result and merge
         # by per-host clock offset (fixed at FIRST receipt; 0 for thread
@@ -306,14 +335,16 @@ class ClusterController:
         """Each thread host's device: the deployment's, or for the
         ``device`` transport host *h* on ``cuda:(h % device_count)`` (every
         host on one card shares it), with each cut channel bound to its
-        consumer's device.  Process hosts resolve their own."""
+        consumer's device.  The device follows the host's id, so a replan
+        never moves a surviving host's warm executor to another card.
+        Process hosts resolve their own."""
         t = self.transport
         if t.process_hosts:
             return
         base = resolve_device(self.cfg.device)
         if isinstance(t, DeviceTransport):
-            split = t.device_split(len(self._live), base)
-            self._devices = {h: split[i] for i, h in enumerate(self._live)}
+            split = t.device_split(max(self._live) + 1, base)
+            self._devices = {h: split[h] for h in self._live}
             t.bind({(c.src, c.dst): self._devices[self.plan.assignment[c.dst]]
                     for c in self.plan.cut})
         else:
@@ -362,8 +393,9 @@ class ClusterController:
         th.start()
 
     def stop_host(self, h: int) -> None:
-        """Retire host ``h``'s worker: drain its park queue, ask it to shut
-        down, and join it (a process that does not stop is terminated)."""
+        """Retire host ``h``'s worker: graceful shutdown (drain the park
+        queue, ask it to stop, join; a process that does not stop is
+        terminated).  Fault injection is :meth:`kill_host`."""
         p = self._procs.pop(h, None)
         if p is not None:
             self._drain_work_q(h)
@@ -374,6 +406,7 @@ class ClusterController:
             p.join(timeout=10.0)
             if p.is_alive():
                 p.terminate()
+                p.join(timeout=5.0)
             return
         th = self._threads.pop(h, None)
         if th is not None:
@@ -386,10 +419,44 @@ class ClusterController:
             self.executors.pop(h, None)
 
     def restart_host(self, h: int) -> None:
-        raise NotImplementedError(f"restart_host {ELASTIC_SLICE}")
+        """Respawn host ``h``'s worker against the (possibly still warm)
+        transport: the plan is unchanged, only the worker is fresh."""
+        p = self._procs.pop(h, None)
+        if p is not None:
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=10.0)
+        th = self._threads.pop(h, None)
+        if th is not None and th.is_alive():
+            try:
+                self._work_qs[h].put(_SHUTDOWN, timeout=1.0)
+            except Exception:
+                pass
+            th.join(timeout=5.0)
+        self.executors.pop(h, None)
+        if self.transport.process_hosts:
+            # a killed worker parked on its queue died HOLDING the queue's
+            # reader lock — that queue is unreadable forever, so the
+            # respawned worker gets a fresh one (only the controller writes
+            # it; pending messages were stale anyway).  Same for its result
+            # queue: a worker killed mid-report dies holding the writer
+            # lock.
+            self._work_qs.pop(h, None)
+            self._result_qs.pop(h, None)
+        else:
+            self._drain_work_q(h)
+        self.spawn_host(h)
 
     def kill_host(self, h: int) -> None:
-        raise NotImplementedError(f"kill_host {ELASTIC_SLICE}")
+        """Fault injection: SIGKILL host ``h``'s worker process mid-flight
+        (no cleanup, no goodbye — the honest failure mode)."""
+        p = self._procs.get(h)
+        if p is None:
+            raise NetworkError(
+                "kill_host: only process transports (pipe/shm) have a "
+                "worker process to kill; thread hosts share this "
+                "interpreter")
+        p.kill()
 
     def _drain_work_q(self, h: int) -> None:
         q = self._work_qs.get(h)
@@ -424,7 +491,10 @@ class ClusterController:
     def run_batch(self, instances: Optional[int] = None, *,
                   batch=None) -> ClusterResult:
         """Stream one batch through the warm deployment; on a host failure
-        raise :class:`ClusterError` carrying the cluster report."""
+        raise :class:`ClusterError` carrying the cluster report, and
+        remember everything :meth:`recover` needs (who died, who stalled
+        where, the batch descriptor).  After a failure the next batch first
+        recovers the deployment without replaying the failed one."""
         if self._closed:
             raise NetworkError("ClusterDeployment: already closed")
         self.start()
@@ -452,7 +522,8 @@ class ClusterController:
             reports = self._fresh_reports()
             results = self._await_results(batch_id, reports,
                                           set(self._live))
-        return self._finish_batch(reports, results)
+        return self._finish_batch(batch_id, bounds, instances, batch,
+                                  reports, results)
 
     def _fresh_reports(self) -> dict:
         plan = self.plan
@@ -463,11 +534,14 @@ class ClusterController:
                         for c in plan.ingress_of(h) + plan.egress_of(h)})
             for h in self._live}
 
-    def _finish_batch(self, reports: dict, results: dict) -> ClusterResult:
+    def _finish_batch(self, batch_id, bounds, instances, batch,
+                      reports: dict, results: dict) -> ClusterResult:
         self._last_reports = dict(reports)  # metrics() reads the last batch
         report_list = [reports[h] for h in self._live]
         if not all(r.ok for r in report_list):
             self._needs_recovery = True
+            self._last_batch = (batch_id, bounds, instances, batch)
+            self._ok_cache = results
             from ..core import netlog
             try:
                 depths = {f"{s}->{d}": n for (s, d), n
@@ -484,17 +558,6 @@ class ClusterController:
         merged.reports = report_list
         merged.epoch = self.epoch
         return merged
-
-    # -- the elastic slice's verbs ------------------------------------------
-    def recover(self, mode: str = "restart",
-                replay: bool = True) -> Optional[ClusterResult]:
-        """Repair a failed deployment: the elastic slice's work."""
-        raise NotImplementedError(
-            f"recovering a failed deployment {ELASTIC_SLICE}; this "
-            "deployment had a failed batch — close it and start a new one")
-
-    def reconfigure(self, *, hosts: Optional[int] = None, plan=None):
-        raise NotImplementedError(f"reconfigure {ELASTIC_SLICE}")
 
     def adopt_state(self, meta: dict, salvage: Optional[dict] = None):
         raise NotImplementedError(
@@ -628,6 +691,7 @@ class ClusterController:
                             reports[h].error = (
                                 f"host process died (exitcode {p.exitcode})"
                                 " without reporting")
+                            self._dead.add(h)
                             failed_hosts.add(h)
                             pending.discard(h)
                 self._quiesce(failed_hosts)
@@ -636,7 +700,11 @@ class ClusterController:
             if h not in pending:
                 continue
             if ep != -1 and ep != self.epoch:
-                continue  # stale report from an abandoned epoch
+                # stale report from an abandoned epoch: a host that stalled
+                # past timeout_s finishes the OLD attempt and reports under
+                # the old epoch (same batch id as the replay); it still owes
+                # a current-epoch report for the queued message
+                continue
             batch_metrics = None
             if stats is not None:
                 (reports[h].stats_summary, reports[h].donation_summary,
@@ -656,22 +724,26 @@ class ClusterController:
                 reports[h].stalled = True
                 reports[h].resume_ci = resume_ci
                 reports[h].error = tb
+                if bid == batch_id:
+                    self._stalled[h] = resume_ci
                 failed_hosts.add(h)
                 self._quiesce(failed_hosts)
             else:  # errors count whatever batch they were raised on
                 reports[h].error = payload
+                self._erred.add(h)
                 failed_hosts.add(h)
                 self._quiesce(failed_hosts)
             pending.discard(h)
         for h in pending:
             reports[h].error = f"no result within {self.timeout_s}s"
+            self._erred.add(h)
         return results
 
     def _quiesce(self, failed_hosts: set) -> None:
         """Stop the failure from hanging its neighbours: EOS down each
-        failed host's egress (consumers stall), and drain each failed host's
-        ingress (producers unblock and finish).  What is drained is
-        discarded: requeueing it for a resumed batch is recovery's work."""
+        failed host's egress (consumers stall resumably), and drain each
+        failed host's ingress (producers unblock and finish) — keeping
+        records bound for *stalled* survivors for post-recovery requeue."""
         if not failed_hosts:
             return
         plan, t = self.plan, self.transport
@@ -680,5 +752,385 @@ class ClusterController:
                 t.inject_eos((c.src, c.dst))
         drain_chans = [(c.src, c.dst) for h in failed_hosts
                        for c in plan.ingress_of(h)]
+        keep = {(c.src, c.dst) for c in plan.cut
+                if plan.assignment[c.dst] in self._stalled}
         if drain_chans:
-            t.drain(drain_chans)
+            for chan, (kept, _) in t.drain(drain_chans,
+                                           keep=keep).items():
+                if kept:
+                    self._kept.setdefault(chan, []).extend(kept)
+
+    # -- recovery ----------------------------------------------------------
+    def recover(self, mode: str = "restart",
+                replay: bool = True) -> Optional[ClusterResult]:
+        """Bring a failed deployment back without a fresh ``start()``.
+
+        ``mode="restart"`` respawns each dead host's worker against the
+        warm transport (the plan is unchanged); ``mode="rebalance"`` reuses
+        the planner to move the failed hosts' processes onto survivors (a
+        new plan, re-proved against the original network).  Either way the
+        surviving channels are drained — undelivered chunks bound for
+        stalled survivors are requeued under the bumped epoch — and, with
+        ``replay=True``, the failed batch is replayed: stalled hosts resume
+        at their first lost chunk, everyone else re-streams only what the
+        survivors still need.  Returns the replayed batch's result (None
+        when ``replay=False`` or no batch was pending)."""
+        if mode not in ("restart", "rebalance"):
+            raise NetworkError(f"recover: unknown mode {mode!r}")
+        if not self._needs_recovery:
+            raise NetworkError("recover: nothing to recover — the last "
+                               "batch completed")
+        t0 = time.monotonic()
+        old_plan = self.plan
+        self.recorder.instant("recover", "control", mode=mode,
+                              dead=sorted(self._dead),
+                              erred=sorted(self._erred))
+        ev = RecoveryEvent(
+            epoch_from=self.epoch, epoch_to=self.epoch + 1, mode=mode,
+            dead=sorted(self._dead), erred=sorted(self._erred),
+            stalled=dict(self._stalled), restarted=[], moved={},
+            requeued={}, discarded=0, replay_from={})
+        # 1. drain what the failed stream left in the channels (quiesce
+        #    kept partial passes; this is the full sweep)
+        keep = {(c.src, c.dst) for c in self.plan.cut
+                if self.plan.assignment[c.dst] in self._stalled}
+        with self.recorder.span("drain", "control", epoch=self.epoch):
+            for chan, (kept, dropped) in self.transport.drain(
+                    keep=keep).items():
+                if kept:
+                    self._kept.setdefault(chan, []).extend(kept)
+                ev.discarded += dropped
+        # 1b. a host killed while blocked in recv died HOLDING its ingress
+        #     FIFO's reader lock — the restarted worker (and every later
+        #     drain) would block on the bricked queue forever.  Probe the
+        #     dead hosts' ingress channels; rebuild what the transport can
+        #     (respawning any live host that still holds an endpoint onto
+        #     the abandoned FIFO — spawned processes snapshot the queue
+        #     map), otherwise route around it via mode="rebalance".
+        force_restart: set = set()
+        if self._dead:
+            ingress = [(c.src, c.dst) for h in sorted(self._dead)
+                       for c in self.plan.ingress_of(h)]
+            with self.recorder.span("brick_probe", "control"):
+                bricked = (self.transport.bricked_channels(ingress)
+                           if ingress else set())
+            ev.bricked = sorted(f"{a}->{b}" for a, b in bricked)
+            if bricked:
+                if all(self.transport.rebuild_channel(chan)
+                       for chan in sorted(bricked)):
+                    if self.transport.process_hosts:
+                        # whatever the bricked FIFO still held is
+                        # unreachable; the replay re-streams it, so the
+                        # rebuilt channel's live endpoints must restart
+                        for chan in bricked:
+                            for p_name in chan:
+                                h = self.plan.assignment[p_name]
+                                if h not in self._dead:
+                                    force_restart.add(h)
+                else:
+                    # erred hosts count: their worker is parked warm and
+                    # can absorb the dead hosts' processes — only a host
+                    # whose WORKER died is not a rebalance target
+                    survivors = sorted(set(self._live) - self._dead)
+                    if not survivors:
+                        raise NetworkError(
+                            f"recover: bricked ingress FIFO(s) "
+                            f"{ev.bricked} cannot be rebuilt by the "
+                            f"{self.transport.name!r} transport and no "
+                            "surviving host is left to rebalance around "
+                            "them — the deployment cannot be recovered "
+                            "(fresh start() required)")
+                    # route around instead: FORGET the bricked FIFOs so the
+                    # rebalance's reconfigure recreates any that stay in
+                    # the new cut, and restart live hosts whose endpoints
+                    # snapshot the abandoned queue
+                    for chan in sorted(bricked):
+                        self.transport.forget_channel(chan)
+                        if self.transport.process_hosts:
+                            for p_name in chan:
+                                h = self.plan.assignment[p_name]
+                                if h not in self._dead:
+                                    force_restart.add(h)
+                    if mode != "rebalance":
+                        ev.auto_mode = ("auto-fallback restart->rebalance: "
+                                        "bricked FIFO not rebuildable")
+                        mode = ev.mode = "rebalance"
+        # 2. restart or rebalance the failed hosts
+        with self.recorder.span(f"recover_{mode}", "control"):
+            if mode == "rebalance" and (self._dead or self._erred):
+                self._rebalance(ev)
+                for h in sorted(force_restart):  # stale endpoints onto a
+                    # rebuilt FIFO still in the new cut: respawn those too
+                    if h in self._live and h not in ev.restarted:
+                        self._stalled.pop(h, None)
+                        self.restart_host(h)
+                        ev.restarted.append(h)
+            else:
+                for h in sorted(set(self._dead) | force_restart):
+                    if h not in self._dead:
+                        # a force-restarted survivor loses any stalled fold
+                        # state with its worker — it replays from scratch
+                        self._stalled.pop(h, None)
+                    self.restart_host(h)
+                    ev.restarted.append(h)
+        # 3. new epoch: stale records become invisible
+        self.epoch += 1
+        self.transport.set_epoch(self.epoch)
+        self.recorder.instant("epoch_bump", "control", epoch=self.epoch)
+        # 4. requeue undelivered chunks for the stalled survivors (at most
+        #    one FIFO's worth — the replay covers the rest).  They belong to
+        #    the FAILED batch, so they only go back when that batch is about
+        #    to be replayed; a recover(replay=False) that moves on to fresh
+        #    batches discards them (a fresh consumer expects chunk 0)
+        requeued_map: dict = {}
+        cut = {(c.src, c.dst) for c in self.plan.cut}
+        with self.recorder.span("requeue", "control", epoch=self.epoch):
+            for chan, records in sorted(self._kept.items()):
+                if (replay and self._last_batch is not None
+                        and chan in cut
+                        and self.plan.assignment[chan[1]] in self._stalled):
+                    n = self.transport.requeue(chan, records)
+                    requeued_map[chan] = [ci for ci, _ in records[:n]]
+                    ev.requeued[f"{chan[0]}->{chan[1]}"] = requeued_map[chan]
+                    ev.discarded += len(records) - n
+                else:
+                    ev.discarded += len(records)
+        self._kept = {}
+        # 5. re-prove the refinement (paper §6.1.1) for the new epoch's plan
+        with self.recorder.span("reproof", "control", epoch=self.epoch):
+            try:
+                ev.refined = check_redeployment(self.net, old_plan,
+                                                self.plan)
+            except Exception:
+                ev.refined = False
+        # 6. replay only the lost chunks of the failed batch.  Snapshot and
+        #    clear the failure state first: if the replay fails TOO, the
+        #    await loop repopulates it fresh for the next recover()
+        result = None
+        pending_batch, ok_cache = self._last_batch, self._ok_cache
+        stalled = dict(self._stalled)
+        self._dead.clear()
+        self._erred.clear()
+        self._stalled = {}
+        self._last_batch = None
+        self._ok_cache = {}
+        self._needs_recovery = False
+        try:
+            if replay and pending_batch is not None:
+                with self.recorder.span("replay", "control",
+                                        epoch=self.epoch):
+                    result = self._replay(pending_batch, stalled, ok_cache,
+                                          requeued_map, ev)
+                # a resumed consumer consumes fewer records than the
+                # replaying producer re-sends: what it had folded before
+                # the failure arrives again and lingers after its stream
+                # ends, stamped with the CURRENT epoch, so the next batch
+                # would misread it as its own chunks.  Every host is idle
+                # once the replay's results are in: sweep the cut clean.
+                for chan, (kept, dropped) in self.transport.drain().items():
+                    ev.discarded += dropped + len(kept)
+        finally:
+            ev.wall_s = time.monotonic() - t0
+            self.events.append(ev)
+        return result
+
+    def _replan(self, new_plan: PartitionPlan) -> tuple[list, list]:
+        """Swap in ``new_plan``: capacities, live hosts, the transport's
+        cut channels and the thread hosts' devices, with telemetry rows the
+        new plan made meaningless pruned.  Returns the surviving hosts
+        whose wiring changed and the hosts the plan dropped (the caller
+        restarts and stops them)."""
+        old_plan = self.plan
+        new_caps = derive_cut_capacities(new_plan, self.cfg)
+        changed = [h for h in new_plan.hosts()
+                   if h in old_plan.hosts()
+                   and _host_shape(old_plan, h) != _host_shape(new_plan, h)]
+        dropped = [h for h in old_plan.hosts()
+                   if h not in new_plan.hosts()]
+        self.plan = new_plan
+        self.capacities = new_caps
+        self._live = new_plan.hosts()
+        self.transport.reconfigure(
+            [(c.src, c.dst) for c in new_plan.cut], new_caps)
+        self._bind_devices()
+        live = set(self._live)
+        self._last_reports = {h: r for h, r in self._last_reports.items()
+                              if h in live}
+        return changed, dropped
+
+    def _rebalance(self, ev: RecoveryEvent) -> None:
+        """Reuse the planner: move the failed hosts' processes onto
+        survivors, rebuild only the workers whose partition changed."""
+        evacuate = sorted(self._dead or self._erred)
+        old_plan = self.plan
+        new_assign = repartition_without(old_plan, evacuate)
+        new_plan = partition(self.net, assignment=new_assign)
+        ev.moved = {p: (old_plan.assignment[p], new_assign[p])
+                    for p in new_assign
+                    if old_plan.assignment[p] != new_assign[p]}
+        changed, dropped = self._replan(new_plan)
+        for h in dropped:
+            self.stop_host(h)
+            self._work_qs.pop(h, None)
+        for h in changed:
+            # a rebuilt worker loses any stalled fold state with its old
+            # subnetwork — it replays from scratch, survivors don't
+            self._stalled.pop(h, None)
+            self.restart_host(h)
+            ev.restarted.append(h)
+        for h in sorted(set(self._dead) & set(self._live)):
+            if h not in changed:
+                self.restart_host(h)
+                ev.restarted.append(h)
+
+    # -- elasticity for capacity (not failure) ------------------------------
+    def reconfigure(self, *, hosts: Optional[int] = None,
+                    plan: Optional[PartitionPlan] = None) -> RecoveryEvent:
+        """Re-fit the SAME network to a different host count — scale-out or
+        scale-in of a live deployment, between batches, as an epoch bump
+        rather than a restart: drain the channels (leftovers of the old
+        epoch are discarded), swap in the new plan, reconfigure the cut
+        channels, stop hosts the plan dropped, restart hosts whose wiring
+        changed, spawn hosts it added, bump the epoch and re-prove the
+        refinement (:func:`check_redeployment`).  Hosts whose shape is
+        unchanged keep their warm executors.
+
+        Returns the :class:`RecoveryEvent` (``mode="reconfigure"``).  Call
+        between batches; a pending failure is recovered (without replay)
+        first, as :meth:`run_batch` would."""
+        if self._closed:
+            raise NetworkError("ClusterDeployment: already closed")
+        if (hosts is None) == (plan is None):
+            raise NetworkError(
+                "reconfigure: need exactly one of hosts= or plan=")
+        self.start()
+        if self._needs_recovery:
+            self.recover(replay=False)
+        t0 = time.monotonic()
+        self.recorder.instant("reconfigure", "control",
+                              hosts=hosts, epoch=self.epoch)
+        old_plan = self.plan
+        new_plan = (plan if plan is not None
+                    else partition(self.net, hosts=hosts))
+        added = [h for h in new_plan.hosts() if h not in old_plan.hosts()]
+        ev = RecoveryEvent(
+            epoch_from=self.epoch, epoch_to=self.epoch + 1,
+            mode="reconfigure", dead=[], erred=[], stalled={},
+            restarted=[], moved={}, requeued={}, discarded=0,
+            replay_from={})
+        # nothing is in flight between batches, but a failed earlier batch
+        # may have left records behind: sweep them under the old epoch
+        for chan, (kept, dropped) in self.transport.drain().items():
+            ev.discarded += dropped + len(kept)
+        self._kept = {}
+        ev.moved = {p: (old_plan.assignment[p], new_plan.assignment[p])
+                    for p in new_plan.assignment
+                    if old_plan.assignment.get(p) != new_plan.assignment[p]}
+        changed, dropped_hosts = self._replan(new_plan)
+        for h in dropped_hosts:
+            self.stop_host(h)
+            self._work_qs.pop(h, None)
+        for h in changed:
+            self.restart_host(h)
+            ev.restarted.append(h)
+        for h in added:
+            self.spawn_host(h)
+            ev.restarted.append(h)
+        self.epoch += 1
+        self.transport.set_epoch(self.epoch)
+        self.recorder.instant("epoch_bump", "control", epoch=self.epoch)
+        try:
+            ev.refined = check_redeployment(self.net, old_plan, self.plan)
+        except Exception:
+            ev.refined = False
+        ev.wall_s = time.monotonic() - t0
+        self.events.append(ev)
+        return ev
+
+    def _host_stateful(self, h: int) -> bool:
+        """A host whose partition folds state across chunks (a real Collect
+        or a COMBINE reducer) cannot replay a stream tail — it must re-run
+        from chunk 0 unless it kept resumable state."""
+        for name in self.plan.procs_of(h):
+            p = self.plan.net.procs[name]
+            if p.kind is Kind.COLLECT:
+                return True
+            if (p.kind is Kind.REDUCER
+                    and p.distribution is Distribution.COMBINE):
+                return True
+        return False
+
+    def _host_order(self) -> list:
+        """Hosts in dataflow order (the host graph is acyclic by plan
+        construction)."""
+        plan = self.plan
+        hosts = plan.hosts()
+        succ = {h: set() for h in hosts}
+        indeg = {h: 0 for h in hosts}
+        for c in plan.cut:
+            a, b = plan.assignment[c.src], plan.assignment[c.dst]
+            if b not in succ[a]:
+                succ[a].add(b)
+                indeg[b] += 1
+        order, ready = [], sorted(h for h in hosts if indeg[h] == 0)
+        while ready:
+            h = ready.pop(0)
+            order.append(h)
+            for m in sorted(succ[h]):
+                indeg[m] -= 1
+                if indeg[m] == 0:
+                    ready.append(m)
+        return order
+
+    def _replay(self, pending_batch, stalled: dict, ok_cache: dict,
+                requeued_map: dict, ev: RecoveryEvent) -> ClusterResult:
+        """Replay the failed batch: stalled hosts resume their saved fold,
+        everyone else streams from the first chunk some consumer still
+        needs (0 for stateful partitions), hosts nobody needs sit out."""
+        batch_id, bounds, instances, batch = pending_batch
+        n = len(bounds)
+        plan = self.plan
+        # chan -> first ci NOT covered by the requeued undelivered chunks
+        requeued_next = {chan: max(cis) + 1
+                         for chan, cis in requeued_map.items() if cis}
+        from_ci: dict = {}
+        for h in reversed(self._host_order()):
+            if h in stalled:
+                from_ci[h] = stalled[h]
+                continue
+            if self._host_stateful(h):
+                # a stateful partition that lost its in-memory fold re-runs
+                # from chunk 0 (no durable snapshot covers a prefix)
+                from_ci[h] = 0
+                continue
+            needs = []
+            for c in plan.egress_of(h):
+                dst_h = plan.assignment[c.dst]
+                need = from_ci.get(dst_h, 0)
+                if dst_h in stalled:
+                    need = max(need, requeued_next.get((c.src, c.dst), 0))
+                needs.append(need)
+            from_ci[h] = min(needs) if needs else n
+        participants = [
+            h for h in self._live
+            if h in stalled or from_ci[h] < n
+            or h not in ok_cache]  # hosts with no usable result rerun
+        emit_hosts = {plan.assignment[e.name] for e in self.net.emits()}
+        for h in participants:
+            start = from_ci[h] if h not in stalled else 0
+            ev.replay_from[h] = stalled[h] if h in stalled else from_ci[h]
+            self._work_qs[h].put(
+                ("replay", batch_id, self.epoch, bounds, instances,
+                 batch if h in emit_hosts else None, start))
+        reports = self._fresh_reports()
+        results = self._await_results(batch_id, reports, set(participants))
+        for h in self._live:  # hosts that sat the replay out reuse their
+            # completed result verbatim — ONLY those: a participant that
+            # produced nothing (killed again mid-replay) must stay not-ok
+            if h not in participants and h not in results and h in ok_cache:
+                results[h] = ok_cache[h]
+                reports[h].ok = True
+                reports[h].stats_summary = ("(reused: completed before "
+                                            "the failure)")
+        return self._finish_batch(batch_id, bounds, instances, batch,
+                                  reports, results)

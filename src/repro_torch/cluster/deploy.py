@@ -11,7 +11,8 @@ steady-state path:
   each consumer executor's depth/lane appetite
   (:func:`.runtime.derive_cut_capacities`), stands the transport up once,
   and parks one worker per host — a daemon thread (``inprocess`` /
-  ``device``) or a long-running spawned OS process (``pipe``) — each
+  ``device``) or a long-running spawned OS process (``pipe`` / ``shm``) —
+  each
   holding a warm :class:`~.runtime.PartitionExecutor` whose stage callables
   are built once and persist across batches;
 * :meth:`run` posts one batch descriptor per host (chunk bounds + instance
@@ -22,11 +23,13 @@ steady-state path:
 
 This class is the user-facing facade over
 :class:`.control.ClusterController`.  A host failure mid-batch raises
-:class:`~.runtime.ClusterError` carrying the §8-style cluster report.
-Repairing the deployment after that (:meth:`recover`, :meth:`kill_host`,
-:meth:`restart_host`, :meth:`reconfigure`) and adopting a durable one
-(:meth:`adopt`) come with the elastic and durable cluster slices of the
-port, and raise ``NotImplementedError`` until then.
+:class:`~.runtime.ClusterError` carrying the §8-style cluster report;
+:meth:`recover` then repairs the deployment and replays the failed batch's
+lost chunks, :meth:`kill_host` injects the honest failure (process hosts),
+and :meth:`reconfigure` refits the network to another host count between
+batches.  Adopting a durable deployment (:meth:`adopt`) comes with the
+durable cluster slice of the port and raises ``NotImplementedError`` until
+then.
 """
 
 from __future__ import annotations
@@ -53,8 +56,9 @@ class ClusterDeployment:
             warm = dep.run(instances=n)    # near single-host speed
             other = dep.run(batch=my_batch)  # explicit Emit batch pytree
 
-    ``transport`` is a name (``"inprocess"`` / ``"pipe"`` / ``"device"``)
-    or a ready :class:`ChannelTransport`; the process transport needs
+    ``transport`` is a name (``"inprocess"`` / ``"pipe"`` / ``"shm"`` /
+    ``"device"``) or a ready :class:`ChannelTransport` (e.g.
+    ``SharedMemoryRing(slot_bytes=...)``); the process transports need
     ``factory=(picklable_callable, args)``.  ``device`` is where the hosts
     run (``None``: the card; ``"cpu"`` on request).  Every :meth:`run`
     returns a :class:`~.runtime.ClusterResult` whose per-host
@@ -132,8 +136,8 @@ class ClusterDeployment:
 
     @property
     def events(self) -> list:
-        """:class:`~.control.RecoveryEvent` per recovery (none until the
-        elastic slice)."""
+        """:class:`~.control.RecoveryEvent` per recovery or
+        reconfiguration."""
         return self.controller.events
 
     @property
@@ -167,15 +171,31 @@ class ClusterDeployment:
         self.controller.close()
 
     def kill_host(self, host: int) -> None:
+        """Fault injection (process transports): SIGKILL one host's worker
+        mid-flight.  The next batch detects the corpse, quiesces the
+        survivors resumably, and raises ``ClusterError``; :meth:`recover`
+        brings the deployment back."""
         self.controller.kill_host(host)
 
     def restart_host(self, host: int) -> None:
+        """Respawn one host's worker against the warm transport."""
         self.controller.restart_host(host)
 
     def reconfigure(self, *, hosts: Optional[int] = None, plan=None):
+        """Re-fit the same network to a different host count between
+        batches — scale-out/in as an epoch-bumped replan, not a restart
+        (see :meth:`ClusterController.reconfigure`).  Hosts whose wiring
+        is unchanged keep their warm executors.  Returns the
+        :class:`~.control.RecoveryEvent` (``mode="reconfigure"``,
+        ``refined`` = the refinement re-proof)."""
         return self.controller.reconfigure(hosts=hosts, plan=plan)
 
     def recover(self, mode: str = "restart") -> Optional[ClusterResult]:
+        """Repair a failed deployment and replay the failed batch's lost
+        chunks (see :meth:`ClusterController.recover`).  ``mode="restart"``
+        respawns dead workers under the unchanged plan; ``mode="rebalance"``
+        moves the failed hosts' processes onto survivors via the planner.
+        Returns the replayed batch's completed result."""
         return self.controller.recover(mode=mode, replay=True)
 
     # -- execution ---------------------------------------------------------
@@ -187,7 +207,9 @@ class ClusterDeployment:
         its own items, exactly like ``run_cluster``) or an explicit
         ``batch`` pytree for the network's Emit.  Returns the merged Collect
         dict with fresh per-host reports; raises :class:`ClusterError` on
-        any host failure."""
+        any host failure.  After a failure the deployment is not poisoned:
+        :meth:`recover` replays the failed batch, or the next :meth:`run`
+        recovers without replay and moves on."""
         return self.controller.run_batch(instances, batch=batch)
 
     # -- observability (deploy with ``trace=True``) --------------------------

@@ -10,11 +10,11 @@ FIFO blocks the producer — the tightest channel anywhere throttles the
 whole cluster, exactly as in a buffered CSP chain.
 
 Hosts are threads (``inprocess``/``device`` transports) or real spawned OS
-processes (``pipe``); the latter need a picklable ``factory`` so each fresh
-interpreter can rebuild the network (closures do not pickle).  Each host
-runs on one device: thread hosts on the deployment's (``device`` spreads
-them over the cards), process hosts on the one their own interpreter
-resolves — the card unless the deployment asks for the CPU.
+processes (``pipe``/``shm``); the latter need a picklable ``factory`` so
+each fresh interpreter can rebuild the network (closures do not pickle).
+Each host runs on one device: thread hosts on the deployment's (``device``
+spreads them over the cards), process hosts on the one their own
+interpreter resolves — the card unless the deployment asks for the CPU.
 
 Deployment lifetime lives in :mod:`.deploy`: a
 :class:`~.deploy.ClusterDeployment` partitions, builds and spawns ONCE and
@@ -162,6 +162,8 @@ class PartitionExecutor(StreamExecutor):
         # batch): the bytes/s feed of MetricsSnapshot / cluster_report
         self.sent_bytes: dict = {}
         self.recv_bytes: dict = {}
+        # the endpoint's ring-path counts as of this batch's start
+        self._ring_base: dict = {}
         # StreamStats progress counters as of this serve call's start:
         # metrics_sample reports the DELTA
         self._sample_base = (0, 0, 0)  # (chunks_done, items_done, stalls)
@@ -230,14 +232,30 @@ class PartitionExecutor(StreamExecutor):
 
     def run_partition(self, bounds: list, batch=None, *,
                       start_ci: int = 0) -> dict:
-        """Stream chunks ``bounds[start_ci:]`` through this partition."""
-        # fresh batch: byte counters and the sample baseline restart
+        """Stream chunks ``bounds[start_ci:]`` through this partition
+        (``start_ci`` > 0: a replay of only the lost tail of a batch)."""
+        # fresh batch: byte counters, ring-path counts and the sample
+        # baseline restart (a resume keeps accumulating — the replayed tail
+        # belongs to the same batch)
         self.sent_bytes = {}
         self.recv_bytes = {}
+        self._ring_base = self.ep.ring_counts()
         self._sample_base = (0, 0, 0)
-        # a fresh batch must not inherit another stream's read-ahead
+        # a fresh batch (or a replay from a chunk, which only reaches hosts
+        # whose run state was reset) must not inherit another stream's
+        # read-ahead; a stall-RESUME goes through resume_partition and keeps
+        # it — the buffer holds exactly the records off the FIFO but unfolded
         self.ep.clear_read_buffers()
         return self._run_plan(list(bounds), batch, start_ci=start_ci)
+
+    def resume_partition(self, batch=None) -> dict:
+        """Resume an interrupted batch from the saved replay state."""
+        # resume keeps the interrupted run's StreamStats: rebase the sample
+        # so this serve call reports only the tail it actually streams
+        if self.replay_state is not None:
+            st = self.replay_state.stats
+            self._sample_base = (st.chunks_done, st.items_done, st.stalls)
+        return self.resume_plan(batch)
 
     def _drive(self, plan, batch, start_ci, jit_accs, host_accs):
         """Bracket the base drive loop with coalesce flushes: on success the
@@ -273,13 +291,22 @@ class PartitionExecutor(StreamExecutor):
         n_items = st.items_done - b_items
         stalls = st.stalls - b_stalls
         wall = max(wall_s, 1e-9)
-        return {
+        sample = {
             "wall_s": wall_s,
             "items_per_s": n_items / wall,
             "stalls_per_chunk": stalls / n_chunks if n_chunks else 0.0,
             "sent_bytes": dict(self.sent_bytes),
             "recv_bytes": dict(self.recv_bytes),
         }
+        # the shared-memory ring: this batch's chunks by path, per channel
+        ring = {}
+        for chan, (slots, inline) in self.ep.ring_counts().items():
+            b_slots, b_inline = self._ring_base.get(chan, (0, 0))
+            ring[f"{chan[0]}->{chan[1]}"] = (slots - b_slots,
+                                             inline - b_inline)
+        if ring:
+            sample["ring"] = ring
+        return sample
 
 
 # ==========================================================================

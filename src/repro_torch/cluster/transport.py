@@ -8,7 +8,7 @@ streaming executor's backpressure extended across the host boundary: a slow
 consumer host throttles its producer host through the transport itself,
 exactly as a buffered CSP channel chain would.
 
-Three implementations:
+Four implementations:
 
 * :class:`InProcess` — ``queue.Queue``-backed loopback; hosts are threads in
   this interpreter.  Always available; the reference semantics.
@@ -17,21 +17,23 @@ Three implementations:
   own CUDA context), so the tests exercise genuine host boundaries.  Values
   cross as raw bytes with a dtype tag (:func:`pack_raw`) and are rebuilt on
   the consumer host's device.
+* :class:`SharedMemoryRing` — spawned process hosts again, but a chunk's
+  tensors cross through preallocated ``/dev/shm`` slots: one copy from the
+  producer's tensor (on the card or not) into a slot, one copy out onto the
+  consumer's device, and only a small header through the queue.
 * :class:`DeviceTransport` — thread hosts whose tensors stay on the card:
   host *h* runs on ``cuda:(h % device_count)``, and a send places the chunk
   on the consumer host's device (a no-op when producer and consumer share
   a card).
-
-The shared-memory ring (``"shm"``) is the next cluster slice's work:
-:func:`make_transport` refuses it with ``NotImplementedError``.
 
 All transports carry a per-chunk SKIP marker so upstream COMBINE reducers
 (which emit nothing until their final chunk) stay chunk-aligned across the
 cut, and an EOS marker as a defensive stream terminator.
 
 Every record on the wire is stamped ``(epoch, ci, payload)``.  The
-deployment epoch is what a recovery bumps (the elastic slice's work), so a
-consumer discards records left over from an older stream (stale epoch) and
+deployment epoch is what a recovery bumps
+(:meth:`.control.ClusterController.recover`), so a consumer discards
+records left over from an older stream (stale epoch) and
 replayed duplicates (``ci`` below the chunk it needs) instead of tripping
 the out-of-order check.  :meth:`ChannelTransport.drain` empties the FIFOs —
 the controller drains a failed host's ingress so its producers unblock.
@@ -58,6 +60,7 @@ import queue
 import threading
 import time as _time
 from contextlib import nullcontext
+from typing import Optional
 
 import numpy as np
 import torch
@@ -73,6 +76,7 @@ __all__ = [
     "ChannelTransport",
     "InProcess",
     "MultiProcessPipe",
+    "SharedMemoryRing",
     "DeviceTransport",
     "make_transport",
     "pack_raw",
@@ -452,6 +456,11 @@ class ChannelTransport:
         """``{(src, dst): FIFO bound}`` for the channels this transport
         carries — depth/capacity is the occupancy a scaling policy watches
         (1.0 = the cut channel is exerting backpressure)."""
+        return {}
+
+    def ring_counts(self) -> dict:
+        """``{(src, dst): (chunks through a slot, chunks inline)}`` sent by
+        this handle; only the shared-memory ring has two paths."""
         return {}
 
     def close(self) -> None:
@@ -873,6 +882,704 @@ class _PipeEndpoint(_QueueTransport):
         return unpack_raw(value, self.device)
 
 
+class _ShmLeaf:
+    """Placement record of one leaf inside a shared-memory slot: the torch
+    dtype's name (``"bfloat16"``; numpy has no bf16) or a numpy leaf's
+    ``dtype.str``, the full shape (``()`` for 0-d leaves) and the byte
+    offset in the slot."""
+
+    __slots__ = ("torch", "dtype", "shape", "offset")
+
+    def __init__(self, is_torch: bool, dtype: str, shape: tuple,
+                 offset: int):
+        self.torch = is_torch
+        self.dtype = dtype
+        self.shape = shape
+        self.offset = offset
+
+    def __getstate__(self):
+        return (self.torch, self.dtype, self.shape, self.offset)
+
+    def __setstate__(self, state):
+        self.torch, self.dtype, self.shape, self.offset = state
+
+
+_SHM_ALIGN = 64  # leaves start on 64-byte boundaries inside a slot
+
+
+def _aligned(offset: int) -> int:
+    return -(-offset // _SHM_ALIGN) * _SHM_ALIGN
+
+
+def _leaf_nbytes(leaf) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return leaf.nbytes
+
+
+def _slot_leaves(value):
+    """``value``'s leaves as the ring writes them: tensors detached, numpy
+    leaves C-contiguous (0-d kept), anything else as it is.  Returns
+    ``(tree, bytes the leaves take in a slot, exotic)``; exotic (object or
+    structured numpy dtypes) cannot be written as raw bytes."""
+    total, exotic = 0, False  # total: where the last leaf ends
+
+    def _one(leaf):
+        nonlocal total, exotic
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach()
+        elif isinstance(leaf, (np.ndarray, np.generic)):
+            leaf = _as_contig(leaf)
+            if not _rawable(leaf):
+                exotic = True
+                return leaf
+        else:
+            return leaf
+        total = _aligned(total) + _leaf_nbytes(leaf)
+        return leaf
+
+    tree = pytree.tree_map(_one, value)
+    return tree, total, exotic
+
+
+def _write_slot(buf, tree):
+    """Write every array leaf of ``tree`` into the slot ``buf`` (a
+    shared-memory ``memoryview``) with ONE copy each, straight through a
+    view of the slot (a CUDA tensor copies from the card into it); returns
+    the tree of :class:`_ShmLeaf` placements."""
+    offset = 0
+
+    def _one(leaf):
+        nonlocal offset
+        if isinstance(leaf, (torch.Tensor, np.ndarray)):
+            offset = _aligned(offset)
+        if isinstance(leaf, torch.Tensor):
+            n = _leaf_nbytes(leaf)
+            meta = _ShmLeaf(True, str(leaf.dtype).removeprefix("torch."),
+                            tuple(leaf.shape), offset)
+            if n:
+                torch.frombuffer(buf, dtype=torch.uint8, count=n,
+                                 offset=offset).view(leaf.dtype).view(
+                                     leaf.shape).copy_(leaf)
+        elif isinstance(leaf, np.ndarray):
+            n = leaf.nbytes
+            meta = _ShmLeaf(False, leaf.dtype.str, leaf.shape, offset)
+            if n:
+                np.copyto(np.frombuffer(buf, dtype=leaf.dtype,
+                                        count=leaf.size,
+                                        offset=offset).reshape(leaf.shape),
+                          leaf)
+        else:
+            return leaf
+        offset += n
+        return meta
+
+    return pytree.tree_map(_one, tree)
+
+
+def _read_slot(buf, meta_tree, device):
+    """Rebuild the leaves of ``meta_tree`` out of the slot ``buf``: each a
+    writable copy that does not alias the slot, tensors on ``device``
+    (``None``: the CPU).  A copy onto a card is finished before this
+    returns, so the caller may recycle the slot at once."""
+
+    def _one(meta):
+        if not isinstance(meta, _ShmLeaf):
+            return meta
+        n_el = 1
+        for s in meta.shape:
+            n_el *= s
+        if not meta.torch:
+            dt = np.dtype(meta.dtype)
+            return np.frombuffer(buf, dtype=dt, count=n_el,
+                                 offset=meta.offset).reshape(
+                                     meta.shape).copy()
+        dtype = getattr(torch, meta.dtype)
+        if n_el == 0:
+            t = torch.empty(meta.shape, dtype=dtype)
+            return t if device is None else t.to(device)
+        view = torch.frombuffer(buf, dtype=torch.uint8,
+                                count=n_el * dtype.itemsize,
+                                offset=meta.offset).view(dtype).view(
+                                    meta.shape)
+        if device is None or device.type == "cpu":
+            return view.clone()
+        return view.to(device, non_blocking=False)
+
+    out = pytree.tree_map(_one, meta_tree)
+    if device is not None and device.type == "cuda":
+        # the slot is recycled once this returns: every copy out of it
+        # must have landed on the card first
+        torch.cuda.current_stream(device).synchronize()
+    return out
+
+
+def _attach_shm(name: str):
+    """Attach a peer-created segment.  Spawned hosts share the parent's
+    resource-tracker process and its registry is a *set*, so the attach's
+    re-registration is idempotent and the single unregister happens when the
+    owning transport ``unlink``\\ s in :meth:`SharedMemoryRing.close` —
+    never unregister here, or concurrent hosts race to double-remove the
+    name and the tracker logs KeyErrors."""
+    from multiprocessing import shared_memory
+    return shared_memory.SharedMemory(name=name)
+
+
+class _ShmRing:
+    """One channel's ring: slot names + the two queues that cycle them.
+
+    Picklable through ``Process`` args (mp queues inherit); attached
+    ``SharedMemory`` objects are cached per process, never pickled.
+    """
+
+    def __init__(self, slot_names: list, slot_bytes: int, free_q, data_q,
+                 capacity: Optional[int] = None):
+        self.slot_names = slot_names
+        self.slot_bytes = slot_bytes
+        self.free_q = free_q  # indices of writable slots (backpressure)
+        self.data_q = data_q  # (ci, header) FIFO, bounded by capacity
+        # the LOGICAL CSP bound — double-buffered rings hold 2× slots but
+        # the header queue still only admits `capacity` in-flight records
+        self.capacity = capacity if capacity is not None else len(slot_names)
+
+
+class _ShmOps:
+    """send/recv over ``self._rings`` — shared by the parent transport and
+    the picklable child endpoint.  Received tensors land on ``device`` (the
+    host's own, set by the host entry; ``None``: the CPU)."""
+
+    name = "shm"
+    _rings: dict
+    device = None
+
+    # the shm coalesce budget is capped by the ring's slot size: a batch
+    # must fit ONE slot, or _flush_one silently degrades to per-record
+    # sends and the fast path never engages.  The setter clamps (with a
+    # warning) so a mis-sized budget is visible instead of silent.
+    @property
+    def coalesce_bytes(self) -> int:
+        return getattr(self, "_coalesce_bytes", 0)
+
+    @coalesce_bytes.setter
+    def coalesce_bytes(self, value: int) -> None:
+        value = int(value)
+        limit = self._slot_limit()
+        if value > 0 and limit and value > limit:
+            import warnings
+            warnings.warn(
+                f"shm: coalesce_bytes={value} exceeds slot_bytes={limit}; "
+                f"clamping to {limit} (a coalesced batch must fit one ring "
+                "slot or every batch falls back to per-record sends)",
+                RuntimeWarning, stacklevel=2)
+            value = limit
+        self._coalesce_bytes = value
+
+    def _slot_limit(self) -> int:
+        sb = getattr(self, "slot_bytes", 0)  # the owning transport
+        if sb:
+            return sb
+        rings = getattr(self, "_rings", None)  # a child endpoint
+        if rings:
+            return min((r.slot_bytes for r in rings.values()), default=0)
+        return 0
+
+    def _attached(self) -> dict:
+        cache = getattr(self, "_shm_cache", None)
+        if cache is None:
+            cache = self._shm_cache = {}
+        return cache
+
+    def _slot(self, ring: _ShmRing, idx: int):
+        cache = self._attached()
+        name = ring.slot_names[idx]
+        if name not in cache:
+            cache[name] = _attach_shm(name)
+        return cache[name]
+
+    # -- which path each chunk took ---------------------------------------
+    def _count(self, chan, path: int, n: int = 1) -> None:
+        counts = getattr(self, "_ring_counts", None)
+        if counts is None:
+            counts = self._ring_counts = {}
+        counts.setdefault(chan, [0, 0])[path] += n
+
+    def ring_counts(self) -> dict:
+        """``{chan: (chunks sent through a slot, chunks sent inline)}``
+        by THIS handle since it was made: a run shows which path its bytes
+        took (inline: larger than a slot, or an exotic numpy dtype)."""
+        return {chan: tuple(c) for chan, c in
+                getattr(self, "_ring_counts", {}).items()}
+
+    def send(self, chan, ci: int, value) -> None:
+        if self.coalesce_bytes > 0:
+            if isinstance(value, str) and value == EOS:
+                # EOS flushes what precedes it, then ships alone (unwrapped)
+                self.flush_sends(chan)
+                self._send_one(chan, ci, value)
+                return
+            full = None
+            with self._buf_lock():
+                buf = self._pending_map().setdefault(chan, [[], 0])
+                buf[0].append((ci, value))  # RAW values; written into a
+                buf[1] += _payload_nbytes(value)  # slot at flush time
+                if buf[1] >= self.coalesce_bytes:
+                    full = self._send_pending.pop(chan)
+            if full is not None:  # write + ship outside the lock
+                self._flush_one(chan, full)
+            return
+        self._send_one(chan, ci, value)
+
+    def _free_slot(self, ring: _ShmRing, chan, best_effort: bool):
+        try:
+            return ring.free_q.get(timeout=0.1 if best_effort
+                                   else self.recv_timeout_s)
+        except queue.Empty:
+            if best_effort:
+                return None  # stale-epoch flush: replay re-sends the drop
+            raise TransportError(
+                f"{self.name}: channel {chan} has no free slot for "
+                f"{self.recv_timeout_s}s (consumer host stalled?)") from None
+
+    def _write_free_slot(self, ring: _ShmRing, chan, tree, best_effort):
+        """Take a free slot and write ``tree`` into it: ``(idx, placements)``,
+        or ``(None, None)`` when a best-effort send finds no slot.  A write
+        that fails hands its slot back, so the ring keeps its capacity."""
+        idx = self._free_slot(ring, chan, best_effort)
+        if idx is None:
+            return None, None
+        try:
+            return idx, _write_slot(self._slot(ring, idx).buf, tree)
+        except BaseException:
+            ring.free_q.put(idx)
+            raise
+
+    def _send_one(self, chan, ci: int, value, *,
+                  best_effort: bool = False) -> None:
+        ring = self._rings[chan]
+        if isinstance(value, str):  # SKIP / EOS markers need no slot
+            self._put_header(ring, chan, (self.epoch, ci, ("marker", value)),
+                             best_effort=best_effort)
+            return
+        tree, total, exotic = _slot_leaves(value)
+        if total > ring.slot_bytes or exotic:
+            # the reference's semantics: oversized / exotic chunks ship
+            # inline through the header queue (counted, never silent)
+            self._count(chan, 1)
+            self._put_header(ring, chan,
+                             (self.epoch, ci, ("inline", pack_raw(tree))),
+                             best_effort=best_effort)
+            return
+        idx, meta = self._write_free_slot(ring, chan, tree, best_effort)
+        if idx is None:
+            return
+        self._count(chan, 0)
+        self._put_header(ring, chan, (self.epoch, ci, ("slot", idx, meta)),
+                         best_effort=best_effort)
+
+    def _flush_one(self, chan, buf, *, best_effort: bool = False) -> None:
+        records = buf[0]
+        if len(records) == 1:  # no batching win — ship the plain record
+            self._send_one(chan, records[0][0], records[0][1],
+                           best_effort=best_effort)
+            return
+        ring = self._rings[chan]
+        # one slot, the leaves of every record one after another: lay the
+        # batch out as ONE tree, so its size counts the alignment between
+        # records and the offsets never overlap
+        trees, total, exotic = _slot_leaves(
+            [value for _, value in records if not isinstance(value, str)])
+        if exotic or total > ring.slot_bytes:
+            # the batch cannot share one slot: ship it record by record
+            for ci, value in records:
+                self._send_one(chan, ci, value, best_effort=best_effort)
+            return
+        idx, metas = self._write_free_slot(ring, chan, trees, best_effort)
+        if idx is None:
+            return
+        entries, it = [], iter(metas)
+        for ci, value in records:
+            entries.append((ci, ("marker", value)) if isinstance(value, str)
+                           else (ci, ("tree", next(it))))
+        self._count(chan, 0, len(metas))
+        self._put_header(ring, chan,
+                         (self.epoch, records[0][0],
+                          ("cbatch", idx, entries)),
+                         best_effort=best_effort)
+
+    def _put_header(self, ring: _ShmRing, chan, item, *,
+                    best_effort: bool = False) -> None:
+        try:
+            ring.data_q.put(item, timeout=0.1 if best_effort
+                            else self.recv_timeout_s)
+        except queue.Full:
+            header = item[2]  # dropping the header must still recycle
+            if header[0] in ("slot", "cbatch"):  # its slot
+                ring.free_q.put(header[1])
+            if best_effort:
+                return
+            raise TransportError(
+                f"{self.name}: channel {chan} full for "
+                f"{self.recv_timeout_s}s (consumer host stalled?)") from None
+
+    def _discard_header(self, ring: _ShmRing, header) -> None:
+        """Drop a header, recycling its slot (the ring invariant is that
+        free slots + in-flight slots == slot count)."""
+        if header[0] in ("slot", "cbatch"):
+            ring.free_q.put(header[1])
+
+    def _consume_header(self, ring: _ShmRing, header):
+        """Decode a header into its value, recycling the slot only once
+        every leaf has been copied out of it."""
+        if header[0] == "marker":
+            return header[1]
+        if header[0] == "inline":
+            return unpack_raw(header[1], self.device)
+        _, idx, meta_tree = header
+        out = _read_slot(self._slot(ring, idx).buf, meta_tree, self.device)
+        ring.free_q.put(idx)
+        return out
+
+    def _consume_batch(self, ring: _ShmRing, header) -> list:
+        """Decode every record of a ``("cbatch", idx, entries)`` header out
+        of its slot (copying — the slot is recycled once, at the end) and
+        return ``[(ci, value), ...]`` in send order."""
+        _, idx, entries = header
+        metas = [e[1] for _, e in entries if e[0] == "tree"]
+        values = iter(_read_slot(self._slot(ring, idx).buf, metas,
+                                 self.device))
+        out = [(ci, entry[1] if entry[0] == "marker" else next(values))
+               for ci, entry in entries]
+        ring.free_q.put(idx)
+        return out
+
+    def recv(self, chan, ci: int):
+        ring = self._rings[chan]
+        deadline = _time.monotonic() + (self.recv_timeout_s if ci >= 0
+                                        else 1.0)
+        exploded = self._exploded_map()
+        while True:
+            buf = exploded.get(chan)
+            while buf:  # read-ahead from an exploded coalesced batch
+                got_ci, value = buf.pop(0)
+                if not buf:
+                    exploded.pop(chan, None)
+                if isinstance(value, str) and value == EOS:
+                    return EOS
+                if ci < 0:
+                    return value
+                if got_ci < ci:
+                    continue  # replayed duplicate of an already-folded chunk
+                if got_ci > ci:
+                    raise TransportError(
+                        f"{self.name}: channel {chan} out of order: "
+                        f"expected chunk {ci}, got {got_ci}")
+                return value
+            try:
+                ep, got_ci, header = ring.data_q.get(
+                    timeout=max(deadline - _time.monotonic(), 0.01))
+            except queue.Empty:
+                raise TransportError(
+                    f"{self.name}: channel {chan} empty for "
+                    f"{self.recv_timeout_s}s (producer host died?)") from None
+            if header[0] == "cbatch":
+                # ONE epoch check for the whole batch, then explode into the
+                # read-ahead buffer (sub-records hit the dup/order filter)
+                if ci >= 0 and ep < self.epoch:
+                    self._discard_header(ring, header)
+                    continue
+                if ci >= 0 and ep > self.epoch:
+                    self._discard_header(ring, header)
+                    raise TransportError(
+                        f"{self.name}: channel {chan} carries epoch {ep} "
+                        f"but this endpoint is at {self.epoch} (controller "
+                        "out of sync)")
+                exploded.setdefault(chan, []).extend(
+                    self._consume_batch(ring, header))
+                continue
+            is_eos = header[0] == "marker" and header[1] == EOS
+            if ci < 0:  # draining: any record at any epoch
+                return EOS if is_eos else self._consume_header(ring, header)
+            if ep < self.epoch:
+                self._discard_header(ring, header)  # pre-recovery leftover
+                continue
+            if ep > self.epoch:
+                self._discard_header(ring, header)
+                raise TransportError(
+                    f"{self.name}: channel {chan} carries epoch {ep} but "
+                    f"this endpoint is at {self.epoch} (controller out of "
+                    "sync)")
+            if is_eos:
+                return EOS  # stream terminator outranks the order check
+            if got_ci < ci:
+                self._discard_header(ring, header)  # replayed duplicate
+                continue
+            if got_ci > ci:
+                self._discard_header(ring, header)
+                raise TransportError(
+                    f"{self.name}: channel {chan} out of order: expected "
+                    f"chunk {ci}, got {got_ci}")
+            return self._consume_header(ring, header)
+
+    def channel_depths(self) -> dict:
+        out = {}
+        for chan, ring in self._rings.items():
+            try:
+                out[chan] = ring.data_q.qsize()
+            except (NotImplementedError, OSError):
+                out[chan] = -1
+        return out
+
+    def channel_capacities(self) -> dict:
+        return {chan: ring.capacity for chan, ring in self._rings.items()}
+
+
+class SharedMemoryRing(_ShmOps, ChannelTransport):
+    """Cut channels over ``multiprocessing.shared_memory`` between spawned
+    host processes.
+
+    Each channel preallocates ``capacity`` fixed-size slots of
+    ``slot_bytes`` (twice as many with ``double_buffer``); a send writes
+    the chunk's leaves into a free slot — one copy a leaf, straight from
+    the tensor (on the card or not) into the slot, no pickling of the
+    payload — and queues a small placement header; the receiver copies the
+    leaves out of the slot onto its own device and then recycles the slot.
+    A producer that outruns its consumer blocks on the header queue (the
+    CSP bound, ``ChannelDef.capacity`` as on every transport) or on the
+    empty free-slot queue.
+
+    Chunks larger than ``slot_bytes`` (and numpy leaves of object or
+    structured dtypes) ship inline through the header queue, as raw
+    header+buffer records (:func:`pack_raw`), so the transport never wedges
+    on an unexpected payload; :meth:`ring_counts` counts each channel's
+    chunks by path, and the hosts report them (``HostReport.metrics``,
+    :func:`..core.netlog.cluster_report`).
+
+    Every slot needs ``slot_bytes`` of ``/dev/shm`` once written: size the
+    slot to the largest chunk (:meth:`slot_bytes_for`) and check the free
+    space before a large ring.
+    Owned segments are unlinked by :meth:`close`, and from ``atexit`` if a
+    parent dies without closing.
+    """
+
+    name = "shm"
+    process_hosts = True
+
+    def __init__(self, ctx=None, slot_bytes: int = 1 << 20,
+                 double_buffer: bool = False):
+        if ctx is None:
+            import multiprocessing
+            ctx = multiprocessing.get_context("spawn")
+        self.ctx = ctx
+        self.slot_bytes = int(slot_bytes)
+        # 2× physical slots per ring (same logical CSP capacity): a producer
+        # writes the next slot while the consumer still reads the previous
+        # one, instead of blocking on free_q
+        self.double_buffer = double_buffer
+        self._rings: dict = {}
+        self._caps: dict = {}   # chan -> capacity, kept for rebuilds
+        self._owned: dict = {}  # chan -> created segments; we unlink them
+        self._atexit_armed = False
+
+    @staticmethod
+    def slot_bytes_for(chunk) -> int:
+        """The ``slot_bytes`` that carries ``chunk`` through a slot: its
+        leaves laid out as a send writes them, the alignment between them
+        included.  ``chunk`` may hold ``meta`` tensors of the real shapes,
+        so sizing a ring allocates nothing."""
+        return max(_slot_leaves(chunk)[1], 1)
+
+    def _make_ring(self, chan, capacities) -> _ShmRing:
+        from multiprocessing import shared_memory
+        cap = capacities.get(chan, 0) or DEFAULT_CAPACITY
+        n_slots = cap * 2 if self.double_buffer else cap
+        slots = [shared_memory.SharedMemory(create=True,
+                                            size=self.slot_bytes)
+                 for _ in range(n_slots)]
+        self._owned[chan] = slots
+        self._attached().update({s.name: s for s in slots})
+        free_q = self.ctx.Queue()
+        for i in range(n_slots):
+            free_q.put(i)
+        data_q = self.ctx.Queue(maxsize=cap)  # the CSP bound, not slot count
+        return _ShmRing([s.name for s in slots], self.slot_bytes,
+                        free_q, data_q, capacity=cap)
+
+    def setup(self, cut_channels, capacities) -> None:
+        self._caps.update(capacities)
+        for chan in cut_channels:
+            self._rings[chan] = self._make_ring(chan, capacities)
+        # a process that dies without a clean close() must not strand the
+        # segments: /dev/shm outlives us, so unlink from atexit as a net
+        if not self._atexit_armed:
+            import atexit
+            atexit.register(self._unlink_owned)
+            self._atexit_armed = True
+
+    def reconfigure(self, cut_channels, capacities) -> None:
+        self._caps.update(capacities)
+        keep = set(cut_channels)
+        for chan in list(self._rings):
+            if chan not in keep:
+                self._release_ring(chan)
+        for chan in cut_channels:
+            if chan not in self._rings:
+                self._rings[chan] = self._make_ring(chan, capacities)
+
+    def owned_names(self) -> list:
+        """Names of the ``/dev/shm`` segments this transport created and
+        has not unlinked yet (empty after :meth:`close`)."""
+        return [s.name for slots in self._owned.values() for s in slots]
+
+    def bricked_channels(self, channels=None) -> set:
+        """A ring has TWO reader locks a corpse can hold: the header queue's
+        (consumer killed mid-``recv``) and the free-slot queue's (producer
+        killed waiting for a slot).  Either one wedges the channel."""
+        out = set()
+        for chan in (list(self._rings) if channels is None else channels):
+            ring = self._rings.get(chan)
+            if ring is None:
+                continue
+            for q in (ring.data_q, ring.free_q):
+                rlock = getattr(q, "_rlock", None)
+                if rlock is None:
+                    continue
+                if rlock.acquire(True, _BRICK_PROBE_S):
+                    rlock.release()
+                else:
+                    out.add(chan)
+                    break
+        return out
+
+    def rebuild_channel(self, chan) -> bool:
+        if chan not in self._rings:
+            return False
+        self.forget_channel(chan)
+        self._rings[chan] = self._make_ring(chan, self._caps)
+        return True
+
+    def forget_channel(self, chan) -> None:
+        if chan not in self._rings:
+            return
+        try:  # release slots + queues of the bricked ring; best effort —
+            self._release_ring(chan)  # the corpse may hold its locks
+        except Exception:
+            # a wedged queue close must not strand the segments: they are
+            # only ever unlinked through _owned, so walk it here too
+            self._rings.pop(chan, None)
+            self._unlink(self._owned.pop(chan, ()))
+
+    def _unlink(self, slots) -> None:
+        cache = self._attached()
+        for shm in slots:
+            cache.pop(shm.name, None)
+            try:
+                shm.close()
+            except BufferError:
+                pass  # a view still exported: the mapping goes with us
+            try:
+                shm.unlink()
+            except FileNotFoundError:
+                pass
+
+    def _release_ring(self, chan) -> None:
+        ring = self._rings.pop(chan)
+        self._unlink(self._owned.pop(chan, ()))
+        for q in (ring.free_q, ring.data_q):
+            q.close()
+
+    def drain(self, channels=None, *, keep=frozenset()) -> dict:
+        out = {}
+        for chan in (list(self._rings) if channels is None else channels):
+            ring = self._rings[chan]
+            records, empties, failures = [], 0, 0
+            while empties < 2 and failures < 10_000:
+                try:
+                    records.append(ring.data_q.get(timeout=_DRAIN_POLL_S))
+                    empties = 0
+                except queue.Empty:
+                    empties += 1
+                except Exception:  # a peer killed mid-put can corrupt a
+                    failures += 1  # pickled header — count it lost, move on
+            kept, dropped = [], failures
+            for ep, ci, header in records:
+                if header[0] == "cbatch":
+                    if chan in keep:
+                        for rci, rv in self._consume_batch(ring, header):
+                            if rci >= 0 and not (isinstance(rv, str)
+                                                 and rv == EOS):
+                                kept.append((rci, rv))
+                            else:
+                                dropped += 1
+                    else:
+                        self._discard_header(ring, header)
+                        dropped += 1
+                    continue
+                is_eos = header[0] == "marker" and header[1] == EOS
+                if chan in keep and ci >= 0 and not is_eos:
+                    # decode out of the slot (recycling it): holding slots
+                    # hostage would starve the producer's free-slot ring
+                    kept.append((ci, self._consume_header(ring, header)))
+                else:
+                    self._discard_header(ring, header)
+                    dropped += 1
+            # sweep the unflushed coalesce buffers (raw values, send order)
+            for rci, rv in self._sweep_pending(chan):
+                if (chan in keep and rci >= 0
+                        and not (isinstance(rv, str) and rv == EOS)):
+                    kept.append((rci, rv))
+                else:
+                    dropped += 1
+            out[chan] = (kept, dropped)
+        return out
+
+    def _requeue_limit(self, chan) -> int:
+        return self._rings[chan].capacity
+
+    def inject_eos(self, chan) -> bool:
+        try:
+            self._rings[chan].data_q.put(
+                (self.epoch, -1, ("marker", EOS)), timeout=0.1)
+            return True
+        except queue.Full:
+            return False
+
+    def endpoint(self, host: int):
+        ep = _ShmEndpoint(self._rings)
+        ep.recv_timeout_s = self.recv_timeout_s  # keep any override
+        ep.coalesce_bytes = self.coalesce_bytes
+        return ep
+
+    def _unlink_owned(self) -> None:
+        for slots in self._owned.values():
+            self._unlink(slots)
+        self._owned = {}
+
+    def close(self) -> None:
+        self._unlink_owned()
+        if self._atexit_armed:
+            import atexit
+            atexit.unregister(self._unlink_owned)
+            self._atexit_armed = False
+        for ring in self._rings.values():
+            for q in (ring.free_q, ring.data_q):
+                q.close()
+                q.join_thread()
+
+
+class _ShmEndpoint(_ShmOps, ChannelTransport):
+    """Child-process handle of a SharedMemoryRing (picklable via Process
+    args inheritance; attaches slots lazily, once per process).
+    ``device`` is the host's own: the host entry sets it once its executor
+    is built, and received tensors land there."""
+
+    name = "shm"
+    process_hosts = True
+
+    def __init__(self, rings: dict):
+        self._rings = rings
+        self.device = None
+
+
 class DeviceTransport(InProcess):
     """Thread hosts whose tensors stay on the card: host *h* owns
     ``cuda:(h % device_count)`` (on one card every host shares ``cuda:0``),
@@ -910,15 +1617,11 @@ class DeviceTransport(InProcess):
 
 
 def make_transport(kind: str, **kw) -> ChannelTransport:
-    """A transport by name: ``"inprocess"``, ``"pipe"`` or ``"device"``.
+    """A transport by name: ``"inprocess"``, ``"pipe"``, ``"shm"`` (with
+    ``slot_bytes=`` and ``double_buffer=``) or ``"device"``.
     ``coalesce_bytes=`` is accepted by every kind."""
-    if kind == "shm":
-        raise NotImplementedError(
-            "the shared-memory ring transport ('shm') comes with the next "
-            "cluster slice of the port (SharedMemoryRing); use 'pipe' for "
-            "process hosts or 'device' for thread hosts on the card")
     kinds = {"inprocess": InProcess, "pipe": MultiProcessPipe,
-             "device": DeviceTransport}
+             "shm": SharedMemoryRing, "device": DeviceTransport}
     if kind not in kinds:
         raise NetworkError(
             f"unknown transport {kind!r}; pick one of {sorted(kinds)}")

@@ -78,6 +78,8 @@ def cluster_report(plan, reports, events=None, depths=None,
                    durability=None) -> str:
     """Cross-host §8 report: per-host partition, streaming telemetry,
     per-channel bytes/s (when the hosts sampled transport byte counters),
+    per-channel chunk counts by path on the shared-memory ring (``ring
+    slot=N inline=M``, from the sender's ``metrics["ring"]``),
     captured failures (the paper's error-capture mechanism at cluster
     scale), and — when the elastic control plane has recovered the
     deployment — one ``recovery`` line per plan-epoch swap.
@@ -103,12 +105,14 @@ def cluster_report(plan, reports, events=None, depths=None,
     chosen: dict = {}  # "src->dst" -> FIFO depth actually deployed
     epoch = 1
     sent: dict = {}    # "src->dst" -> (bytes, wall_s) from the sender host
+    ring: dict = {}    # "src->dst" -> (slot, inline) chunks, shm senders
     for r in sorted(reports, key=lambda r: r.host):
         chosen.update(getattr(r, "capacities", None) or {})
         epoch = max(epoch, getattr(r, "epoch", 1))
         m = getattr(r, "metrics", None) or {}
         for chan, nbytes in (m.get("sent_bytes") or {}).items():
             sent[chan] = (nbytes, m.get("wall_s") or 0.0)
+        ring.update(m.get("ring") or {})
     lines = [f"== cluster: {plan.net.name} over {len(reports)} host(s), "
              f"plan epoch {epoch} =="]
     for c in plan.cut:
@@ -119,6 +123,8 @@ def cluster_report(plan, reports, events=None, depths=None,
             nbytes, wall = sent[key]
             extra += (f", {_fmt_rate(nbytes / wall)}" if wall
                       else f", {nbytes}B")
+        if key in ring:
+            extra += f", ring slot={ring[key][0]} inline={ring[key][1]}"
         if depths and key in depths and depths[key] >= 0:
             extra += f", depth={depths[key]}"
         lines.append(f"  channel {c.src} -> {c.dst}: host "

@@ -340,8 +340,8 @@ class _ReplayState:
     host's ingress recv failed because its producer host failed): chunks
     ``< next_ci`` are folded into the accumulators, chunk ``next_ci``
     onwards never entered the DAG.  A host holding one reports itself
-    *stalled* (a survivor of a peer's failure) rather than failed; resuming
-    from it is the recovery slice's work."""
+    *stalled* (a survivor of a peer's failure) rather than failed, and
+    :meth:`StreamExecutor.resume_plan` picks the run up at ``next_ci``."""
 
     next_ci: int          # first chunk that was NOT folded
     plan: list            # full bounds of the interrupted run
@@ -647,10 +647,26 @@ class StreamExecutor:
 
     def reset_run_state(self) -> None:
         """Forget any interrupted run (a controller is starting a fresh
-        batch): resume state and COMBINE carries go.  Subclasses clear
-        whatever per-run buffers they add."""
+        batch or a replay from scratch): resume state and COMBINE carries
+        go.  Subclasses clear whatever per-run buffers they add."""
         self.replay_state = None
         self._combine_carry = {}
+
+    def resume_plan(self, batch=None):
+        """Resume the interrupted run captured in :attr:`replay_state`:
+        chunks already folded stay folded, only the lost tail streams."""
+        st = self.replay_state
+        if st is None:
+            raise NetworkError("resume_plan: no interrupted run to resume")
+        self.replay_state = None
+        self._combine_carry = st.combine_carry
+        self.stats = st.stats
+        self.stats.replays += 1
+        if self.stats.resumed_at is None:
+            self.stats.resumed_at = st.next_ci
+        self._outstanding = [0] * self.lanes
+        return self._drive(st.plan, batch, st.next_ci, st.jit_accs,
+                           st.host_accs)
 
     def _drive(self, plan, batch, start_ci, jit_accs, host_accs):
         rec = self.rec

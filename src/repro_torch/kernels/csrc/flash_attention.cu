@@ -30,7 +30,8 @@
 //   kv tiles past its own causal frontier and a warp whose rows all lie past
 //   Sq computes nothing.  D = 256 would need more registers than a thread
 //   has (O alone is 128 floats a thread) and takes the FMA path.
-// * f32 (and bf16 at D = 256): the f32 FMA units.  256 threads per
+// * f32, f16 (no model of the repo computes in f16: untuned) and bf16 at
+//   D = 256: the f32 FMA units.  256 threads per
 //   (b * H + h, 64-row q tile); q, k and v are staged in shared memory as
 //   f32, a thread owns a 4 x 4 piece of the (64, 64) score tile (rows
 //   ty + 16 i, columns tx + 16 j), so a row's max and sum are a shuffle over
@@ -58,6 +59,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "mma_bf16.cuh"
@@ -76,9 +78,13 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 template <int D>
@@ -484,16 +490,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v,
+template <typename T>
+cudaError_t dispatch_fma(int d, const void* q, const void* k, const void* v,
                          void* o, int batch, int n_heads, int group, int sq,
                          int sk, int causal, float scale, const Strides& st,
                          cudaStream_t s) {
   switch (d) {
-    case 16: return launch<16, float>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
-    case 32: return launch<32, float>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
-    case 64: return launch<64, float>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
-    case 128: return launch<128, float>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
-    case 256: return launch<256, float>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
+    case 16: return launch<16, T>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
+    case 32: return launch<32, T>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
+    case 64: return launch<64, T>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
+    case 128: return launch<128, T>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
+    case 256: return launch<256, T>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -551,7 +558,8 @@ int dispatch_bf16(int d, const void* q, const void* k, const void* v,
 // q: (batch, n_heads, sq, d) and k, v: (batch, n_heads / group, sk, d),
 // o like q, each addressed by the 12 strides in `strides` (batch, head, seq
 // of q, k, v, o, in elements; the d axis is contiguous).  dtype: 0 = float32,
-// 1 = bfloat16; bf16 on the tensor cores (flash_attention_tensor_cores)
+// 1 = bfloat16, 2 = float16; bf16 on the tensor cores
+// (flash_attention_tensor_cores)
 // needs 16-byte aligned rows (else kUnalignedRows, nothing launched).
 // Returns the cudaGetLastError() code of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -560,7 +568,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int d, int causal, float scale,
                                       int dtype, const long long* strides,
                                       int device, void* stream) {
-  if ((dtype != 0 && dtype != 1) || group <= 0 || n_heads % group != 0 ||
+  if (dtype < 0 || dtype > 2 || group <= 0 || n_heads % group != 0 ||
       batch <= 0 || sq <= 0 || sk <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
@@ -574,8 +582,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)dispatch_f32(d, q, k, v, o, batch, n_heads, group, sq, sk,
-                             causal, scale, st, s);
+    return (int)dispatch_fma<float>(d, q, k, v, o, batch, n_heads, group, sq,
+                                    sk, causal, scale, st, s);
+  if (dtype == 2)
+    return (int)dispatch_fma<__half>(d, q, k, v, o, batch, n_heads, group,
+                                     sq, sk, causal, scale, st, s);
   return dispatch_bf16(d, q, k, v, o, batch, n_heads, group, sq, sk, causal,
                        scale, st, s);
 }

@@ -45,7 +45,9 @@
 //   while two warps rounded every weight twice.
 // * f32 x: the FMA units, as before (a 64 x 128 tile a block, a 4 x 8
 //   register tile a thread over stages of 16), which keeps the f32 path's
-//   sums in full f32.
+//   sums in full f32.  f16 x takes the same kernel: x widened to f32 as it
+//   is loaded, w rounded to f16 (the plain version's cast) and y rounded to
+//   f16 once; no model of the repo computes in f16, so it is untuned.
 //
 // How the design answers the TPU kernel's structure:
 // * The TPU kernel gets the expert of each row tile by scalar prefetch, and
@@ -78,7 +80,9 @@
 #include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -95,6 +99,20 @@ constexpr int kXPad = kBM + 1;  // x is stored transposed, rows padded
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ void store_y(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_y(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+// w rounded to x's type TX (the plain version casts w to x's dtype first):
+// nothing to do for f32 x, a round trip through f16 for f16 x
+template <typename TX>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<TX, __half>::value)
+    return __half2float(__float2half_rn(v));
+  else
+    return v;
 }
 
 // n consecutive elements from p as f32, one vector load where `vec`
@@ -134,12 +152,12 @@ __device__ __forceinline__ void load_row(const T* p, bool vec, int left,
   }
 }
 
-template <typename TW>
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
-    gmm_kernel(const float* __restrict__ x, const int* __restrict__ tile_expert,
+    gmm_kernel(const TX* __restrict__ x, const int* __restrict__ tile_expert,
                const int* __restrict__ tile_rows,
                const int* __restrict__ row_src, const TW* __restrict__ w,
-               float* __restrict__ y, int n_expert, int d, int f, int tile_m,
+               TX* __restrict__ y, int n_expert, int d, int f, int tile_m,
                int slices, int n_col, bool x_vec, bool w_vec) {
   const int col_blk = blockIdx.x % n_col;  // see "Raster order" above
   const int row_blk = blockIdx.x / n_col;
@@ -176,10 +194,12 @@ __global__ void __launch_bounds__(kThreads)
     else
       xreg[0] = xreg[1] = xreg[2] = xreg[3] = 0.f;
     const int kw = k0 + wk, cw = c0 + wn;
-    if (kw < d && cw < f)
+    if (kw < d && cw < f) {
       load_row<8>(wb + (long long)kw * f + wn, w_vec && cw + 8 <= f,
                   f - cw, wreg);
-    else
+#pragma unroll
+      for (int i = 0; i < 8; ++i) wreg[i] = round_to<TX>(wreg[i]);
+    } else
 #pragma unroll
       for (int i = 0; i < 8; ++i) wreg[i] = 0.f;
   };
@@ -231,16 +251,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (r >= rows) break;
-    float* yr = y + (long long)src[r] * f;
+    TX* yr = y + (long long)src[r] * f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = c0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (c < f) yr[c] = acc[i][j];
+      if (c < f) store_y(&yr[c], acc[i][j]);
     }
   }
 }
 
-template <typename TW>
+template <typename TX, typename TW>
 cudaError_t launch(const void* x, const void* tile_expert,
                    const void* tile_rows, const void* row_src, const void* w,
                    void* y, int n_tiles, int tile_m, int n_expert, int d,
@@ -249,13 +269,13 @@ cudaError_t launch(const void* x, const void* tile_expert,
   const int n_col = (f + kBN - 1) / kBN;
   const long long blocks = (long long)n_tiles * slices * n_col;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  // 16-byte loads of 4 x elements and 8 w elements stay aligned when the
+  // vector loads of 4 x elements and 8 w elements stay aligned when the
   // rows are multiples of them and the bases are 16-byte aligned
   const bool x_vec = d % 4 == 0 && (uintptr_t)x % 16 == 0;
   const bool w_vec = f % 8 == 0 && (uintptr_t)w % 16 == 0;
-  gmm_kernel<TW><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const float*)x, (const int*)tile_expert, (const int*)tile_rows,
-      (const int*)row_src, (const TW*)w, (float*)y, n_expert, d, f, tile_m,
+  gmm_kernel<TX, TW><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (const TX*)x, (const int*)tile_expert, (const int*)tile_rows,
+      (const int*)row_src, (const TW*)w, (TX*)y, n_expert, d, f, tile_m,
       slices, n_col, x_vec, w_vec);
   return cudaGetLastError();
 }
@@ -535,8 +555,10 @@ cudaError_t launch(const void* x, const void* tile_expert,
 // (n_tiles,) int32, tile_rows[t] the number of valid rows at the head of
 // tile t (0 for a padding tile).  row_src: (n_tiles * tile_m,) int32, the
 // row of x that padded row i reads and the row of y it writes (valid rows
-// only are read).  x: (rows, d) in `x_dtype` (0 = float32, 1 = bfloat16);
-// w: (n_expert, d, f) in `w_dtype`; y: (rows, f) in x_dtype.  All
+// only are read).  x: (rows, d) in `x_dtype` (0 = float32, 1 = bfloat16,
+// 2 = float16); w: (n_expert, d, f) in `w_dtype` (the same codes; f16 w
+// with bf16 x is not taken: the op casts it to bf16 first); y: (rows, f)
+// in x_dtype.  All
 // contiguous.  Writes the rows of y that valid rows map to, only.  Returns
 // the cudaGetLastError() code of the launch.
 extern "C" int moe_gmm_launch(const void* x, const void* tile_expert,
@@ -546,19 +568,25 @@ extern "C" int moe_gmm_launch(const void* x, const void* tile_expert,
                               int x_dtype, int w_dtype, int device,
                               void* stream) {
   if (n_tiles <= 0 || tile_m <= 0 || n_expert <= 0 || d <= 0 || f <= 0 ||
-      row_src == nullptr || (x_dtype != 0 && x_dtype != 1) ||
-      (w_dtype != 0 && w_dtype != 1))
+      row_src == nullptr || x_dtype < 0 || x_dtype > 2 || w_dtype < 0 ||
+      w_dtype > 2 || (x_dtype == 1 && w_dtype == 2))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
-  if (x_dtype == 0 && w_dtype == 0)
-    err = launch<float>(x, tile_expert, tile_rows, row_src, w, y, n_tiles,
-                        tile_m, n_expert, d, f, s);
-  else if (x_dtype == 0)
-    err = launch<bf16>(x, tile_expert, tile_rows, row_src, w, y, n_tiles,
-                       tile_m, n_expert, d, f, s);
+#define GMM_FMA(TX_, TW_)                                                    \
+  launch<TX_, TW_>(x, tile_expert, tile_rows, row_src, w, y, n_tiles,        \
+                   tile_m, n_expert, d, f, s)
+  if (x_dtype != 1) {  // f32 and f16 x: the FMA kernel
+    if (x_dtype == 0)
+      err = w_dtype == 0 ? GMM_FMA(float, float)
+            : w_dtype == 1 ? GMM_FMA(float, bf16) : GMM_FMA(float, __half);
+    else
+      err = w_dtype == 0 ? GMM_FMA(__half, float)
+            : w_dtype == 1 ? GMM_FMA(__half, bf16) : GMM_FMA(__half, __half);
+  }
+#undef GMM_FMA
   else if (w_dtype == 0)
     err = tc::launch<float>(x, tile_expert, tile_rows, row_src, w, y,
                             n_tiles, tile_m, n_expert, d, f, s);

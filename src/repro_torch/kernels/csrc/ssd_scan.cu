@@ -53,9 +53,11 @@
 //   element by element, at the same points: no row is refused.  Loaded at
 //   the top of each chunk instead, the rows' latency adds to the products'
 //   time at two blocks an SM.
-// * f32: ssd_kernel, every product on the f32 FMA units out of shared
-//   memory (256 threads, a thread owns a 4-row slice of the (64, 64) tiles
-//   and rows ty + 16 i, columns tx + 16 j of the state).
+// * f32 and f16: ssd_kernel, every product on the f32 FMA units out of
+//   shared memory (256 threads, a thread owns a 4-row slice of the (64, 64)
+//   tiles and rows ty + 16 i, columns tx + 16 j of the state).  f16 x, B, C
+//   are widened to f32 as they are staged and y is rounded to f16 once; no
+//   model of the repo computes in f16, so it takes this path untuned.
 //
 // What is left for later: wgmma with the operands read from shared memory,
 // C B^T computed once per group and shared by its heads (today every head
@@ -89,6 +91,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "mma_bf16.cuh"
@@ -103,7 +106,11 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
 
 template <int NP, int PP>
 constexpr size_t smem_bytes() {
@@ -747,8 +754,9 @@ cudaError_t dispatch(const void* x, const void* dt, const void* A,
 
 }  // namespace
 
-// x: (batch, seq, n_heads, p) and y like it, in `dtype` (0 = float32 on
-// the FMA kernel, 1 = bfloat16 on the tensor cores); dt: (batch, seq,
+// x: (batch, seq, n_heads, p) and y like it, in `dtype` (0 = float32 and
+// 2 = float16 on the FMA kernel, 1 = bfloat16 on the tensor cores); dt:
+// (batch, seq,
 // n_heads) float32; A: (n_heads,) float32,
 // contiguous; B, C: (batch, seq, n_groups, n) in `dtype`, head h reading
 // group h / (n_heads / n_groups).  Each of x, dt, B, C, y is addressed by
@@ -763,7 +771,7 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                int n_groups, int p, int n, int dtype,
                                const long long* strides, int device,
                                void* stream) {
-  if ((dtype != 0 && dtype != 1) || batch <= 0 || seq <= 0 ||
+  if (dtype < 0 || dtype > 2 || batch <= 0 || seq <= 0 ||
       n_heads <= 0 || n_groups <= 0 || n_heads % n_groups != 0 || p < 1 ||
       p > 64 || n < 1 || n > 128)
     return (int)cudaErrorInvalidValue;
@@ -782,6 +790,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   if (dtype == 0)
     err = dispatch<float>(x, dt, A, B, C, y, hT, batch, seq, n_heads, hpg, p,
                           n, st, s);
+  else if (dtype == 2)
+    err = dispatch<__half>(x, dt, A, B, C, y, hT, batch, seq, n_heads, hpg,
+                           p, n, st, s);
   else
     err = tc::dispatch(x, dt, A, B, C, y, hT, batch, seq, n_heads, hpg, p, n,
                        st, s);

@@ -9,7 +9,7 @@ import torch
 from .. import _build
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
@@ -17,6 +17,20 @@ def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether ``csrc/flash_attention.cu`` runs this call on the tensor
     cores (else on the f32 FMA units); the C code owns the rule."""
     return bool(_lib().flash_attention_tensor_cores(DTYPES[dtype], head_dim))
+
+
+def readable(t: torch.Tensor, tensor_cores: bool) -> torch.Tensor:
+    """``t`` if :func:`launch` can read it in place (head dim contiguous
+    and, on the tensor cores, a 16-byte aligned base with batch, head and
+    seq strides multiples of 8 elements: ``aligned_rows`` in the C code),
+    else a copy in a fresh contiguous buffer, which has both."""
+    ok = t.stride(3) == 1
+    if ok and tensor_cores:
+        ok = t.data_ptr() % 16 == 0 and all(
+            t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1)
+    if ok:
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
 
 
 def _lib() -> ctypes.CDLL:

@@ -3,13 +3,21 @@ version for CPU tensors.
 
 On the card the kernel runs or the call raises; nothing falls back to the
 plain version.  The kernel masks the ragged ends of Sq and Sk itself and
-reads every operand through its strides, so this wrapper pads and copies
-nothing (the TPU wrapper pads both lengths to block multiples).  bf16 at
-head dims up to 128 runs on the tensor cores, whose 16-byte copies need
-16-byte aligned rows: the launch raises ValueError on a tensor that has
-none, before the kernel runs.  The
-CUDA branch refuses inputs that require grad while grad mode is on (the
-kernel has no backward yet); the CPU branch is differentiable.
+reads every operand through its strides, so this wrapper pads nothing in
+the sequence (the TPU wrapper pads both lengths to block multiples).  It
+takes float32, bfloat16 and float16.  Each call is one launch; before it
+the wrapper makes at most one copy of an operand the kernel cannot read
+in place:
+
+* a head dim outside ``kernel.HEAD_DIMS`` (up to 256) is zero-padded to
+  the next one, with the scale of the real head dim, and the output sliced
+  back: the zero columns add nothing to q·kᵀ, and v's zero columns are cut;
+* a head dim that is not contiguous, or (bf16 on the tensor cores, whose
+  16-byte copies need 16-byte aligned rows) a base or stride that is not
+  16-byte aligned, is copied into a fresh contiguous buffer.
+
+The CUDA branch refuses inputs that require grad while grad mode is on
+(the kernel has no backward yet); the CPU branch is differentiable.
 ``mha.launches`` counts the kernel launches.
 """
 
@@ -18,6 +26,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import _autograd, _launches
 from . import kernel, ref
@@ -49,21 +58,25 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"mha: unsupported device {q.device}")
     if q.dtype not in kernel.DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise TypeError(f"mha: the CUDA kernel takes q, k, v all float32 or "
-                        f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in kernel.HEAD_DIMS:
-        raise ValueError(f"mha: the CUDA kernel takes head dims "
-                         f"{kernel.HEAD_DIMS}, got {D}")
+        raise TypeError(f"mha: the CUDA kernel takes q, k, v all float32, "
+                        f"all bfloat16 or all float16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if D > kernel.HEAD_DIMS[-1]:
+        raise ValueError(f"mha: the CUDA kernel takes head dims up to "
+                         f"{kernel.HEAD_DIMS[-1]}, got {D}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("mha: q, k and v must lie on one device")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("mha: the CUDA kernel needs the head dim "
-                         "contiguous (stride 1)")
     _autograd.refuse_grad("mha", q, k, v)
+    Dk = next(d for d in kernel.HEAD_DIMS if d >= D)
+    if Dk != D:  # fresh, contiguous and aligned
+        q, k, v = (F.pad(t, (0, Dk - D)) for t in (q, k, v))
+    else:
+        tc = kernel.tensor_core_path(q.dtype, D)
+        q, k, v = (kernel.readable(t, tc) for t in (q, k, v))
     o = torch.empty_like(q)  # keeps q's layout, e.g. the model's (B, S, H, D)
     kernel.launch(q, k, v, o, causal=causal, scale=scale)
     _launches.count(mha)
-    return o
+    return o if Dk == D else o[..., :D]
 
 
 mha.launches = 0

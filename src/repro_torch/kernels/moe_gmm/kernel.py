@@ -9,7 +9,7 @@ import torch
 from .. import _build
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _lib() -> ctypes.CDLL:
@@ -34,8 +34,9 @@ def launch(x: torch.Tensor, tile_expert: torch.Tensor,
     stream: valid padded row i reads row ``row_src[i]`` of x (T, D) and
     writes that row of y (T, F) (the three int32).  w is (E, D, F); all
     contiguous CUDA tensors, y in x's dtype.  bf16 x runs on the tensor
-    cores (f32 w rounded to bf16 as it is staged into shared memory), f32 x
-    on the FMA units.  The grid is one-dimensional, so any number of row
+    cores (f32 w rounded to bf16 as it is staged into shared memory; f16 w
+    is not taken), f32 and f16 x on the FMA units (f16 x with w rounded to
+    f16).  The grid is one-dimensional, so any number of row
     tiles launches.  Raises if the launch is refused."""
     lib = _lib()
     E, D, F = w.shape

@@ -100,9 +100,10 @@ def moe_apply(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor, *,
 
     A CPU tensor takes the plain version (:func:`ref.gmm`).  A CUDA tensor
     is routed as :func:`sort_by_expert` routes it and multiplied by the
-    kernel (f32 or bf16 x, f32 or bf16 w, w contiguous), which reads
-    each token's row of x through the routing and writes its row of y in
-    place: no padded copy is made, and the padding is never computed."""
+    kernel (f32, bf16 or f16 x and w; a strided x or w is copied once, an
+    f16 w beside a bf16 x is rounded to bf16 once), which reads each
+    token's row of x through the routing and writes its row of y in place:
+    no padded copy is made, and the padding is never computed."""
     if x.ndim != 2 or expert_of.ndim != 1 or w.ndim != 3 \
             or expert_of.shape[0] != x.shape[0] or w.shape[1] != x.shape[1]:
         raise ValueError(f"moe_apply: x (T, D), expert_of (T,) and w "
@@ -120,12 +121,16 @@ def moe_apply(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor, *,
                          "device")
     if x.dtype not in kernel.DTYPES or w.dtype not in kernel.DTYPES:
         raise TypeError(f"moe_apply: the CUDA kernel takes x and w in "
-                        f"float32 or bfloat16, got {x.dtype}, {w.dtype}")
-    if not w.is_contiguous():
-        raise ValueError("moe_apply: the CUDA kernel needs w contiguous")
+                        f"float32, bfloat16 or float16, got {x.dtype}, "
+                        f"{w.dtype}")
     _autograd.refuse_grad("moe_apply", x, w)
-    # the kernel reads x's rows in place: a strided x is copied once
-    y = _routed_product(x.contiguous(), expert_of, w, tile_m, kernel.launch)
+    if x.dtype == torch.bfloat16 and w.dtype == torch.float16:
+        # the tensor cores stage w as bf16 bits: round it once here, the
+        # cast the plain version makes (w to x's dtype)
+        w = w.to(torch.bfloat16)
+    # the kernel reads x's rows and w in place: a strided one is copied once
+    y = _routed_product(x.contiguous(), expert_of, w.contiguous(), tile_m,
+                        kernel.launch)
     _launches.count(moe_apply)
     return y
 

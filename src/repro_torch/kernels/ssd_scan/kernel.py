@@ -10,7 +10,7 @@ import torch
 from .. import _build
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_P, MAX_N = 64, 128  # one launch; ops.ssd splits a wider scan
 
 
@@ -34,7 +34,7 @@ def launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (batch, S, H) f32, A (H,) f32 contiguous, B and C (batch, S, G, N) into
     ``y`` (x's shape and dtype) and, unless it is None, the final state into
     ``hT`` ((batch·H, N, P) f32, contiguous), on the current stream: bf16
-    on the tensor cores, f32 on the FMA units.  P <= MAX_P, N <= MAX_N.
+    on the tensor cores, f32 and f16 on the FMA units.  P <= MAX_P, N <= MAX_N.
     x, dt, B, C and y are read through their strides; the last axis of x,
     B, C and y must be contiguous.  Raises if the launch is refused."""
     lib = _lib()

@@ -8,7 +8,11 @@ the jnp path).  The CUDA branch refuses inputs that require grad while
 grad mode is on (the kernel has no backward yet); the CPU branch is
 differentiable.  The kernel forms the log-decays dt·A itself, reads B and C
 by group and every operand through its strides, and masks a ragged last
-chunk, so this wrapper broadcasts, pads and copies nothing.
+chunk, so this wrapper broadcasts and pads nothing.  x, B and C may be
+float32, bfloat16 or float16 (one type); dt and A are cast to float32, as
+the plain version computes them; an x, B or C whose P or N axis is not
+contiguous is copied once.  S = 0 launches nothing: y is empty and the
+state zero, as the plain version returns them.
 
 One launch takes P <= ``kernel.MAX_P`` and N <= ``kernel.MAX_N``; a wider
 input runs as several launches (:func:`_pieces`), since the scan's P columns
@@ -60,17 +64,19 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, return_state: bool = False):
         raise ValueError("ssd: x, dt, A, B and C must lie on one device")
     if x.dtype not in kernel.DTYPES or B.dtype != x.dtype \
             or C.dtype != x.dtype:
-        raise TypeError(f"ssd: the CUDA kernel takes x, B, C all float32 or "
-                        f"all bfloat16, got {x.dtype}, {B.dtype}, {C.dtype}")
-    if dt.dtype != torch.float32 or A.dtype != torch.float32:
-        raise TypeError(f"ssd: the CUDA kernel takes dt and A in float32, "
-                        f"got {dt.dtype}, {A.dtype}")
-    if S == 0:
-        raise ValueError("ssd: the CUDA kernel takes S >= 1, got S=0")
-    if any(t.stride(3) != 1 for t in (x, B, C)) or not A.is_contiguous():
-        raise ValueError("ssd: the CUDA kernel needs the P and N axes of x, "
-                         "B, C contiguous (stride 1) and A contiguous")
+        raise TypeError(f"ssd: the CUDA kernel takes x, B, C all float32, "
+                        f"all bfloat16 or all float16, got {x.dtype}, "
+                        f"{B.dtype}, {C.dtype}")
+    if not (dt.dtype.is_floating_point and A.dtype.is_floating_point):
+        raise TypeError(f"ssd: dt and A must be floating point, got "
+                        f"{dt.dtype}, {A.dtype}")
     _autograd.refuse_grad("ssd", x, dt, A, B, C)
+    if S == 0:
+        y = torch.empty((b, 0, H, P), dtype=x.dtype, device=x.device)
+        hT = torch.zeros((b * H, N, P), dtype=torch.float32, device=x.device)
+        return (y, hT) if return_state else y
+    x, B, C = (t if t.stride(3) == 1 else t.contiguous() for t in (x, B, C))
+    dt, A = dt.float(), A.float().contiguous()
     y, hT = _pieces(_launch, x, dt, A, B, C, return_state)
     return (y, hT) if return_state else y
 

@@ -45,6 +45,10 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64):
         raise ValueError(f"ssd_chunked: S={S} is not a multiple of the "
                          f"chunk {chunk}")
     nc = S // chunk
+    if nc == 0:  # nothing to scan: an empty y and the zero state
+        return (x.new_empty((BH, 0, P)),
+                torch.zeros((BH, N, P), dtype=torch.float32,
+                            device=x.device))
     xf = x.float().reshape(BH, nc, chunk, P)
     dtf = dt.float().reshape(BH, nc, chunk)
     Bf = B.float().reshape(BH, nc, chunk, N)

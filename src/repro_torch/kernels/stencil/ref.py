@@ -9,6 +9,7 @@ Integer images (uint8, int8, int16, int32) are converted to float32 (round
 to nearest, as XLA's promotion converts an int32 above 2^24), summed the
 same way, and converted back as XLA converts float32 to an integer
 (:func:`saturate_to`), so the result is the JAX package's bit for bit.
+Bool images take the same road and come back as ``!= 0``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,10 @@ def saturate_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     conversion: NaN becomes 0, the rest is truncated toward zero and
     saturates at the type's range.  (A plain ``.to`` is undefined out of
     range, and the float32 bound 2^31 - 1 rounds up to 2^31, so both bounds
-    are tested in float32 against exact powers of two.)"""
+    are tested in float32 against exact powers of two.)  For bool it is
+    ``x != 0``, as XLA casts to bool (NaN included, which is true)."""
+    if dtype == torch.bool:
+        return x != 0
     if dtype not in INT_DTYPES:
         return x.to(dtype)
     info = torch.iinfo(dtype)

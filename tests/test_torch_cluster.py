@@ -7,8 +7,11 @@ must reproduce the port's sequential oracle bit for bit, as the
 reference's ``tests/test_cluster.py`` demands of every transport, and the
 farm and pipeline also agree with the JAX package's own
 ``run_cluster(..., transport="inprocess")``.  Spawned process hosts
-(``pipe``) are in ``test_torch_cluster_procs.py``; the transport's packing
-is tested here, without spawning.
+(``pipe``, ``shm``) are in ``test_torch_cluster_procs.py``; the
+transports' packing and the shared-memory ring are tested here, without
+spawning.  Elastic recovery over thread hosts (restart, rebalance,
+reconfigure) must give the JAX package's :class:`RecoveryEvent` and plan
+for the same injected failure.
 """
 
 import jax.numpy as jnp
@@ -23,7 +26,8 @@ from repro.core import stream as jstream
 from repro_torch import workloads
 from repro_torch.cluster import (ClusterDeployment, ClusterError,
                                  DeviceTransport, ExecConfig, InProcess,
-                                 MultiProcessPipe, abstract_partitioned_model,
+                                 MultiProcessPipe, PartitionExecutor,
+                                 SharedMemoryRing, abstract_partitioned_model,
                                  auto_assignment, check_redeployment,
                                  check_refinement, cost_assignment,
                                  derive_cut_capacities, make_host_executor,
@@ -604,8 +608,10 @@ class TestFailureCapture:
         assert "channel" in rep
 
     def test_failed_deployment_refuses_the_next_batch(self):
-        """Repair is the elastic slice's: after a failed batch the next
-        run raises NotImplementedError naming it, instead of limping on."""
+        """After a failed batch the deployment is not poisoned: the next
+        run first recovers it (no replay of the failed batch: an epoch
+        bump, the failed stream's leftovers discarded) and then computes,
+        instead of refusing."""
         def tripwire(acc, x):
             if float(x) >= 16.0:
                 raise RuntimeError("collector tripped")
@@ -620,8 +626,10 @@ class TestFailureCapture:
                 {i: float(i * i) for i in range(4)}
             with pytest.raises(ClusterError, match="collector tripped"):
                 dep.run(instances=8)
-            with pytest.raises(NotImplementedError, match="elastic"):
-                dep.run(instances=4)
+            assert dep.run(instances=4)["collect"] == \
+                {i: float(i * i) for i in range(4)}
+            (ev,) = dep.events
+            assert dep.epoch == 2 and ev.erred == [1] and not ev.replay_from
 
 
 # ==========================================================================
@@ -755,34 +763,349 @@ class TestDeviceTransport:
 
 
 # ==========================================================================
+# the shared-memory ring, in one process (spawned hosts: the _procs file)
+# ==========================================================================
+
+CHAN = ("a", "b")
+
+
+def _ring(slot_bytes=1 << 12, cap=2, **kw):
+    t = make_transport("shm", slot_bytes=slot_bytes, **kw)
+    t.setup([CHAN], {CHAN: cap})
+    return t
+
+
+class TestSharedMemoryRing:
+    """Payload leaves cross as raw writes into preallocated slots."""
+
+    def test_make_transport_builds_the_ring(self):
+        t = make_transport("shm", slot_bytes=1 << 10, double_buffer=True)
+        assert isinstance(t, SharedMemoryRing) and t.process_hosts
+        assert t.slot_bytes == 1 << 10 and t.double_buffer
+        t.close()
+
+    def test_send_recv_in_process(self):
+        t = _ring()
+        try:
+            val = {"x": torch.arange(8, dtype=torch.float64),
+                   "h": torch.tensor(7.5, dtype=torch.bfloat16),
+                   "n": np.arange(3, dtype=">i2"), "s": 5}
+            for ci in range(4):  # more chunks than slots: slots recycle
+                t.send(CHAN, ci, val)
+                out = t.recv(CHAN, ci)
+                assert torch.equal(out["x"], val["x"])
+                assert out["h"].shape == () and out["h"].dtype == \
+                    torch.bfloat16 and float(out["h"]) == 7.5
+                assert out["n"].dtype == np.dtype(">i2")
+                np.testing.assert_array_equal(out["n"], val["n"])
+                assert out["s"] == 5
+            assert t.ring_counts() == {CHAN: (4, 0)}
+            assert t._rings[CHAN].free_q.qsize() == 2
+        finally:
+            t.close()
+
+    def test_received_leaves_are_writable_and_do_not_alias_the_slot(self):
+        t = _ring()
+        try:
+            src = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+            t.send(CHAN, 0, src.t())  # a strided view: written as values
+            got = t.recv(CHAN, 0)
+            assert torch.equal(got, src.t()) and got.is_contiguous()
+            got += 1  # writable
+            t.send(CHAN, 1, torch.zeros(3, 2))  # reuses a slot ...
+            t.recv(CHAN, 1)
+            assert torch.equal(got, src.t() + 1)  # ... which got not alias
+        finally:
+            t.close()
+
+    def test_oversize_chunk_ships_inline_and_is_counted(self):
+        t = _ring(slot_bytes=128)
+        try:
+            big = torch.arange(1024, dtype=torch.float64)
+            t.send(CHAN, 0, big)
+            assert torch.equal(t.recv(CHAN, 0), big)
+            t.send(CHAN, 1, torch.ones(4))
+            t.recv(CHAN, 1)
+            assert t.ring_counts() == {CHAN: (1, 1)}
+            assert t._rings[CHAN].free_q.qsize() == 2
+        finally:
+            t.close()
+
+    def test_ring_capacity_is_slot_count(self):
+        for double, slots in ((False, 3), (True, 6)):
+            t = _ring(cap=3, double_buffer=double)
+            try:
+                ring = t._rings[CHAN]
+                assert len(ring.slot_names) == slots
+                assert ring.data_q._maxsize == 3
+                assert t.channel_capacities() == {CHAN: 3}
+            finally:
+                t.close()
+
+    def test_out_of_order_detected_and_slot_recycled(self):
+        t = _ring()
+        try:
+            t.send(CHAN, 5, torch.arange(3.0))
+            with pytest.raises(tr.TransportError, match="out of order"):
+                t.recv(CHAN, 0)
+            assert t._rings[CHAN].free_q.qsize() == 2
+        finally:
+            t.close()
+
+    def test_drain_recycles_slots(self):
+        t = _ring(cap=3)
+        try:
+            for ci in range(3):
+                t.send(CHAN, ci, torch.arange(4.0))
+            assert t.drain()[CHAN][1] == 3  # no keep: all discarded
+            assert t._rings[CHAN].free_q.qsize() == 3
+        finally:
+            t.close()
+
+    def test_close_and_atexit_unlink_owned_segments(self):
+        from multiprocessing import shared_memory
+        t = _ring()
+        assert t._atexit_armed
+        names = t.owned_names()
+        assert len(names) == 2
+        t._unlink_owned()  # what atexit would run
+        for name in names:
+            with pytest.raises(FileNotFoundError):
+                shared_memory.SharedMemory(name=name)
+        t.close()  # idempotent after the atexit path
+        assert not t._atexit_armed and not t.owned_names()
+
+    def test_coalesce_budget_clamps_to_slot_bytes(self):
+        t = make_transport("shm", slot_bytes=1 << 12)
+        try:
+            with pytest.warns(RuntimeWarning, match="clamping"):
+                t.coalesce_bytes = 1 << 13
+            assert t.coalesce_bytes == 1 << 12
+        finally:
+            t.close()
+
+    def test_ring_counts_reach_the_report(self):
+        """The sender's chunks by path land in its host report's metrics
+        and on the channel's line of the cluster report."""
+        net = _pipeline()
+        plan = partition(net, hosts=2)
+        (c,) = plan.cut
+        key = f"{c.src}->{c.dst}"
+        t = make_transport("shm", slot_bytes=16)  # 2 f32 fit, 5 do not
+        t.recv_timeout_s = 5.0
+        t.setup([(c.src, c.dst)], {(c.src, c.dst): 4})
+        try:
+            ex = PartitionExecutor(build(plan.subnetwork(0), device=CPU),
+                                   plan=plan, host=0, endpoint=t,
+                                   microbatch_size=2)
+            from repro_torch.core.builder import make_emit_batch
+            ex.run_partition(stream.microbatch_plan(7, 2),
+                             make_emit_batch(net, 7, device=CPU))
+            sample = ex.metrics_sample(1.0)
+            assert sample["ring"] == {key: (4, 0)}  # 7 items in chunks of 2
+            assert t.drain()[(c.src, c.dst)][1] == 4
+            ex.run_partition(stream.microbatch_plan(7, 5),
+                             make_emit_batch(net, 7, device=CPU))
+            assert ex.metrics_sample(1.0)["ring"] == {key: (1, 1)}  # 5, 2
+            from repro_torch.cluster import HostReport
+            rep = netlog.cluster_report(plan, [HostReport(
+                host=0, procs=plan.procs_of(0), ok=True,
+                metrics=ex.metrics_sample(1.0))])
+            assert "ring slot=1 inline=1" in rep
+        finally:
+            t.close()
+
+
+# ==========================================================================
+# elastic recovery over thread hosts, against the JAX package
+# ==========================================================================
+
+def _trip_once_farm(lib, trip_at: int, state: dict):
+    """Farm whose host-side collector raises exactly once, on its
+    ``trip_at``-th call ever (a transient host failure)."""
+    def coll(acc, x):
+        state["n"] = state.get("n", 0) + 1
+        if state["n"] == trip_at:
+            raise RuntimeError("transient collector failure")
+        return {**acc, len(acc): float(x)}
+
+    return _core(lib).DataParallelCollect(
+        create=_items(lib), function=_sq, collector=coll, init={},
+        workers=2, jit_combine=False)
+
+
+EXPECT8 = {i: float(i * i) for i in range(8)}
+EVENT_FIELDS = ("epoch_from", "epoch_to", "mode", "dead", "erred", "stalled",
+                "restarted", "moved", "requeued", "discarded", "replay_from",
+                "refined", "bricked", "auto_mode")
+
+
+def _failed_then(lib, mode, **dep_kw):
+    """Batch 1 ok, batch 2 fails in host 1's collector, then ``mode``:
+    returns (replayed result, the deployment's events, its plan and a warm
+    batch after) from the package ``lib``."""
+    state: dict = {}
+    net = _trip_once_farm(lib, 12, state)
+    if lib == "jax":
+        dep = jcl.ClusterDeployment(net, hosts=2, microbatch_size=2,
+                                    timeout_s=60, **dep_kw)
+    else:
+        dep = ClusterDeployment(net, hosts=2, microbatch_size=2,
+                                timeout_s=60, device=CPU, **dep_kw)
+    Error = jcl.ClusterError if lib == "jax" else ClusterError
+    with dep:
+        assert dep.run(instances=8)["collect"] == EXPECT8
+        with pytest.raises(Error, match="transient collector failure"):
+            dep.run(instances=8)
+        rec = dep.recover(mode=mode)
+        after = dep.run(instances=8)["collect"]
+        return rec, list(dep.events), dict(dep.plan.assignment), after, dep
+
+
+class TestElasticRecovery:
+    """A live deployment is a control plane: failures are drained,
+    repaired (restart or rebalance), epoch-stamped, re-proved, and the
+    failed batch's lost chunks replayed, without a fresh start()."""
+
+    @pytest.mark.parametrize("mode", ["restart", "rebalance"])
+    def test_recovery_event_and_plan_equal_jax(self, mode):
+        rec, events, plan, after, dep = _failed_then("torch", mode)
+        jrec, jevents, jplan, jafter, _ = _failed_then("jax", mode)
+        assert rec["collect"] == EXPECT8 == jrec["collect"]
+        assert after == jafter == EXPECT8
+        assert all(r.ok for r in rec.reports) and rec.epoch == 2
+        (ev,), (jev,) = events, jevents
+        for f in EVENT_FIELDS:
+            assert getattr(ev, f) == getattr(jev, f), f
+        assert plan == jplan
+        assert ev.erred == [1] and ev.refined is True
+        if mode == "rebalance":
+            assert dep.plan.hosts() == [0] and ev.moved
+            assert all(dst == 0 for _, dst in ev.moved.values())
+        else:
+            assert dep.plan.hosts() == [0, 1] and not ev.moved
+
+    def test_recover_keeps_survivors_warm_and_reports(self):
+        rec, events, _, _, dep = _failed_then("torch", "restart")
+        assert sum(r.jit_builds for r in rec.reports) == 0
+        rep = netlog.cluster_report(dep.plan, rec.reports, events=events)
+        assert "plan epoch 2" in rep and "-- recovery --" in rep
+        assert "epoch 1 -> 2 (restart)" in rep
+        assert "refinement(epoch 2)=True" in rep
+
+    def test_stalled_survivor_resumes_partial_fold(self):
+        """A consumer whose producer dies mid-stream stalls with its fold
+        intact: resuming replays ONLY the lost chunks, and the result
+        matches the uninterrupted oracle."""
+        from repro_torch.core.builder import make_emit_batch
+        net = _farm()
+        plan = partition(net, hosts=2)
+        (c,) = plan.cut
+        chan = (c.src, c.dst)
+        t = InProcess()
+        t.setup([chan], {chan: 8})
+
+        def ex_of(h):
+            return PartitionExecutor(build(plan.subnetwork(h), device=CPU),
+                                     plan=plan, host=h, endpoint=t,
+                                     microbatch_size=2)
+
+        consumer = ex_of(plan.assignment[c.dst])
+        producer = ex_of(plan.assignment[c.src])
+        bounds = [(0, 2), (2, 4), (4, 6), (6, 8)]
+        batch = make_emit_batch(net, 8, device=CPU)
+        producer.run_partition(bounds[:2], batch)  # chunks 0..1, then dies
+        t.send(chan, -1, tr.EOS)
+        with pytest.raises(NetworkError):
+            consumer.run_partition(bounds)
+        assert consumer.replay_state.next_ci == 2
+        t.set_epoch(2)
+        producer.reset_run_state()
+        producer.run_partition(bounds, batch, start_ci=2)
+        out = consumer.resume_partition()
+        assert torch.equal(out["collect"], _seq(net, 8)["collect"])
+        assert consumer.stats.replays == 1 and consumer.stats.resumed_at == 2
+        with pytest.raises(NetworkError, match="no interrupted run"):
+            consumer.resume_plan()
+
+    def test_plain_run_after_failure_discards_undelivered_chunks(self):
+        """A run() after a failure recovers without replay and DISCARDS
+        the failed stream's undelivered chunks (a fresh consumer expects
+        chunk 0)."""
+        state: dict = {}
+        with ClusterDeployment(_trip_once_farm("torch", 12, state), hosts=2,
+                               microbatch_size=2, timeout_s=60,
+                               device=CPU) as dep:
+            assert dep.run(instances=8)["collect"] == EXPECT8
+            with pytest.raises(ClusterError):
+                dep.run(instances=8)
+            ctrl = dep.controller
+            (c,) = dep.plan.cut
+            ctrl._kept = {(c.src, c.dst): [(2, tr.SKIP), (3, tr.SKIP)]}
+            ctrl._stalled = {dep.plan.assignment[c.dst]: 2}
+            assert dep.run(instances=8)["collect"] == EXPECT8
+            assert dep.events[-1].requeued == {}
+            assert dep.events[-1].discarded >= 2
+
+    def test_kill_host_refused_for_thread_hosts(self):
+        with ClusterDeployment(_farm(), hosts=2, microbatch_size=2,
+                               device=CPU) as dep:
+            dep.run(instances=8)
+            with pytest.raises(NetworkError, match="process transports"):
+                dep.kill_host(0)
+
+    def test_recover_without_failure_refused(self):
+        with ClusterDeployment(_farm(), hosts=2, microbatch_size=2,
+                               device=CPU) as dep:
+            dep.run(instances=8)
+            with pytest.raises(NetworkError, match="nothing to recover"):
+                dep.recover()
+            with pytest.raises(NetworkError, match="unknown mode"):
+                dep.recover(mode="reboot")
+
+    def test_restart_host_keeps_serving(self):
+        with ClusterDeployment(_farm(), hosts=2, microbatch_size=2,
+                               device=CPU) as dep:
+            dep.run(instances=4)
+            old = dep.executors[1]
+            dep.restart_host(1)
+            assert torch.equal(dep.run(instances=6)["collect"],
+                               _seq(_farm(), 6)["collect"])
+            assert dep.executors[1] is not old
+
+    @pytest.mark.parametrize("hosts", [1, 3])
+    def test_reconfigure_equals_jax(self, hosts):
+        """Scale in and out between batches: the same moves, epoch and
+        re-proof as the JAX package, and the next batch still exact."""
+        net, jnet = _pipeline(), _pipeline("jax")
+        with ClusterDeployment(net, hosts=2, microbatch_size=2,
+                               device=CPU) as dep, \
+                jcl.ClusterDeployment(jnet, hosts=2,
+                                      microbatch_size=2) as jdep:
+            dep.run(instances=7)
+            jdep.run(instances=7)
+            ev = dep.reconfigure(hosts=hosts)
+            jev = jdep.reconfigure(hosts=hosts)
+            for f in EVENT_FIELDS:
+                assert getattr(ev, f) == getattr(jev, f), f
+            assert dict(dep.plan.assignment) == dict(jdep.plan.assignment)
+            assert ev.refined is True and dep.epoch == 2
+            out = dep.run(instances=7)
+            assert torch.equal(out["collect"], _seq(net, 7)["collect"])
+            assert float(out["collect"]) == float(
+                jdep.run(instances=7)["collect"])
+        with pytest.raises(NetworkError, match="exactly one"):
+            ClusterDeployment(net, hosts=2, device=CPU).reconfigure()
+
+
+# ==========================================================================
 # what later slices bring
 # ==========================================================================
 
 class TestLaterSlices:
-    def test_shm_names_its_slice(self):
-        with pytest.raises(NotImplementedError, match="SharedMemoryRing"):
-            make_transport("shm")
-        with pytest.raises(NotImplementedError, match="next cluster slice"):
-            run_cluster(_farm(), instances=4, hosts=2, transport="shm",
-                        device=CPU)
-
     def test_unknown_transport_rejected(self):
         with pytest.raises(NetworkError, match="unknown transport"):
             make_transport("jaxmesh")
-
-    @pytest.mark.parametrize("verb", ["recover", "kill_host", "restart_host",
-                                      "reconfigure"])
-    def test_recovery_verbs_name_the_elastic_slice(self, verb):
-        with ClusterDeployment(_farm(), hosts=2, microbatch_size=2,
-                               device=CPU) as dep:
-            call = {"recover": lambda: dep.recover(),
-                    "kill_host": lambda: dep.kill_host(0),
-                    "restart_host": lambda: dep.restart_host(0),
-                    "reconfigure": lambda: dep.reconfigure(hosts=1)}[verb]
-            with pytest.raises(NotImplementedError, match="elastic"):
-                call()
-            assert torch.equal(dep.run(instances=4)["collect"],
-                               _seq(_farm(), 4)["collect"])
 
     def test_snapshots_and_adoption_name_the_durable_slice(self, tmp_path):
         with pytest.raises(NotImplementedError, match="durable"):

@@ -19,6 +19,14 @@ CASES = {
                         "--transport", "pipe", "--width", "64",
                         "--height", "32", "--bands", "4", "--iters", "20",
                         "--batches", "2", "--timeout-s", "60"],
+    "mandelbrot_shm": ["torch_mandelbrot.py", "--hosts", "2",
+                       "--transport", "shm", "--width", "64",
+                       "--height", "32", "--bands", "4", "--iters", "20",
+                       "--batches", "2", "--timeout-s", "60"],
+    "mandelbrot_kill_host": ["torch_mandelbrot.py", "--hosts", "2",
+                             "--transport", "shm", "--width", "64",
+                             "--height", "32", "--bands", "4", "--iters",
+                             "20", "--kill-host", "1", "--timeout-s", "60"],
     "mandelbrot_device": ["torch_mandelbrot.py", "--hosts", "2",
                           "--transport", "jaxmesh", "--width", "64",
                           "--height", "32", "--bands", "4", "--iters", "20",
@@ -51,10 +59,19 @@ def test_example_prints_true_equalities(case):
     if case.startswith("mandelbrot_"):
         assert "== cluster: mandelbrot" in out.stdout  # netlog report
         assert "warm" in out.stdout
+    if case == "mandelbrot_shm":
+        assert "ring slot=" in out.stdout and "inline=0" in out.stdout
+    if case == "mandelbrot_kill_host":
+        assert "host failure captured — recovered" in out.stdout
+        assert "-- recovery --" in out.stdout
+        assert "epoch 1 -> 2 (restart)" in out.stdout
 
 
-@pytest.mark.parametrize("flag", [["--transport", "shm"],
-                                  ["--kill-host", "0"]])
+@pytest.mark.parametrize("flag", [["--transport", "inprocess"],
+                                  ["--transport", "jaxmesh"]])
 def test_mandelbrot_refuses_what_later_slices_bring(flag):
-    out = _run(["torch_mandelbrot.py", "--hosts", "2", *flag])
-    assert out.returncode == 2 and "not in the port yet" in out.stderr
+    """What the example still refuses: ``--kill-host`` over thread hosts,
+    which have no worker process to kill."""
+    out = _run(["torch_mandelbrot.py", "--hosts", "2", *flag,
+                "--kill-host", "0"])
+    assert out.returncode == 2 and "only process hosts" in out.stderr

@@ -164,18 +164,25 @@ def test_stencil_zero_and_unit_taps_equal_plain(cuda, dtype):
 
 
 def test_stencil_card_refuses_without_fallback(cuda):
-    """A transposed image is refused; a 7 x 7 kernel (refused before the
-    kernel took every odd k) runs and is exact."""
-    img = torch.randn(64, 64, generator=torch.Generator().manual_seed(1)
+    """What the card once refused computes, one launch a call, exact
+    against the plain version: a transposed image (copied once), a 7 x 7
+    kernel, and a bool image (summed in float32, ``!= 0``); an int64
+    image is still refused, with nothing launched."""
+    img = torch.randn(64, 48, generator=torch.Generator().manual_seed(1)
                       ).to(cuda)
+    taps = st_ops.taps_of(np.arange(49.0).reshape(7, 7) / 49.0 - 0.5)
+    mask = img > 0.3
+    for x in (img.t(), img, mask, mask.t()):
+        before = st_ops.stencil2d.launches
+        got = st_ops.stencil2d(x, taps)
+        assert st_ops.stencil2d.launches == before + 1
+        assert got.dtype == x.dtype and torch.equal(
+            got, st_ref.stencil2d(x, taps))
+    assert st_ops.stencil2d(mask, taps).any()
     before = st_ops.stencil2d.launches
-    with pytest.raises(ValueError, match="contiguous"):
-        st_ops.stencil2d(img.t(), np.ones((3, 3)))
+    with pytest.raises(TypeError, match="float32, bfloat16"):
+        st_ops.stencil2d(img.long(), taps)
     assert st_ops.stencil2d.launches == before
-    taps = st_ops.taps_of(np.arange(49.0).reshape(7, 7) / 49.0)
-    assert torch.equal(st_ops.stencil2d(img, taps),
-                       st_ref.stencil2d(img, taps))
-    assert st_ops.stencil2d.launches == before + 1
 
 
 # -- flash attention: 2e-4 in float32, 5e-2 in bfloat16 (the plain version
@@ -186,7 +193,9 @@ def test_stencil_card_refuses_without_fallback(cuda):
 
 
 def _assert_flash_close(got, want, dtype):
-    tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+    # float16: the plain version rounds its probabilities to f16 (2^-11 of
+    # each) and both round o once, one f16 ulp (2e-3 at |o| < 4)
+    tol = {torch.bfloat16: 5e-2, torch.float16: 5e-3}.get(dtype, 2e-4)
     got, want = got.float(), want.float()
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     err = float((got - want).abs().max())
@@ -261,18 +270,21 @@ def test_flash_bf16_model_layout_on_tensor_cores(cuda):
 
 
 def test_flash_tensor_core_path_refuses_unaligned_rows(cuda):
-    """The tensor-core path copies 16-byte rows: a seq stride that is not
-    a multiple of 8 elements is refused with a clear error, and nothing
-    falls back to the plain version."""
-    base = torch.zeros(1, 2, 40, 68, dtype=torch.bfloat16, device=cuda)
+    """The tensor-core path copies 16-byte rows: bf16 q, k, v whose seq
+    stride is not a multiple of 8 elements, or whose base is not 16-byte
+    aligned, are copied once into fresh buffers and computed on the tensor
+    cores, one launch a call, against the plain version."""
+    g = torch.Generator().manual_seed(11)
+    base = torch.randn(1, 2, 40, 68, generator=g).bfloat16().to(cuda)
     q = base[..., :64]  # rows of 68 elements: 136 bytes, not 16-aligned
-    assert q.stride(2) == 68
-    before = fa_ops.mha.launches
-    with pytest.raises(ValueError, match="16-byte"):
-        fa_ops.mha(q, q, q)
-    assert fa_ops.mha.launches == before
-    got = fa_ops.mha(q.float(), q.float(), q.float())  # f32: FMA path
-    assert fa_ops.mha.launches == before + 1 and got.shape == q.shape
+    shifted = base[..., 1:65]  # base 2 bytes past an aligned one
+    assert q.stride(2) == 68 and shifted.data_ptr() % 16 == 2
+    for t in (q, shifted):
+        before = fa_ops.mha.launches
+        got = fa_ops.mha(t, t, t)
+        torch.cuda.synchronize()
+        assert fa_ops.mha.launches == before + 1 and got.shape == t.shape
+        _assert_flash_close(got, fa_ref.mha(t, t, t), torch.bfloat16)
 
 
 def test_flash_kernel_reads_model_layout_in_place(cuda):
@@ -290,13 +302,44 @@ def test_flash_kernel_reads_model_layout_in_place(cuda):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
-def test_flash_card_refuses_without_fallback(cuda):
-    q = torch.zeros(1, 2, 8, 48, device=cuda)
+FLASH_EXTRA = [  # (B, H, K, Sq, Sk, D, dtype, causal)
+    (1, 2, 2, 8, 8, 48, torch.float32, True),     # D padded to 64
+    (2, 4, 2, 70, 70, 48, torch.float16, True),   # f16, D padded
+    (2, 4, 2, 33, 90, 80, torch.bfloat16, False),  # bf16, D 80 -> 128
+    (2, 8, 2, 128, 128, 64, torch.float16, True),
+    (1, 4, 4, 40, 40, 256, torch.float16, True),
+    (1, 2, 1, 50, 50, 200, torch.float32, True),  # D 200 -> 256
+]
+
+
+@pytest.mark.parametrize("case", FLASH_EXTRA,
+                         ids=lambda c: "x".join(map(str, c[:6]))
+                         + f"-{str(c[6])[6:]}")
+def test_flash_card_refuses_without_fallback(cuda, case):
+    """What the card once refused computes, one launch a call, against the
+    plain version: float16 (the FMA path), head dims outside
+    ``kernel.HEAD_DIMS`` (zero-padded to the next, with the real scale),
+    and a head dim that is not contiguous (copied once); D > 256 is still
+    refused, with nothing launched."""
+    B, H, K, Sq, Sk, D, dtype, causal = case
+    g = torch.Generator().manual_seed(D + Sq)
+    q = (torch.randn(B, H, Sq, D, generator=g) * 0.3).to(dtype).to(cuda)
+    k = (torch.randn(B, K, Sk, D, generator=g) * 0.3).to(dtype).to(cuda)
+    v = torch.randn(B, K, Sk, D, generator=g).to(dtype).to(cuda)
+    strided = torch.empty(B, K, Sk, D, 2, dtype=dtype, device=cuda)[..., 0]
+    strided.copy_(v)
+    assert strided.stride(3) == 2
+    for vv in (v, strided):
+        before = fa_ops.mha.launches
+        got = fa_ops.mha(q, k, vv, causal=causal)
+        torch.cuda.synchronize()
+        assert fa_ops.mha.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        _assert_flash_close(got, fa_ref.mha(q, k, v, causal=causal), dtype)
+    wide = torch.zeros(1, 2, 8, 264, device=cuda, dtype=dtype)
     before = fa_ops.mha.launches
-    with pytest.raises(ValueError, match="head dims"):
-        fa_ops.mha(q, q, q)
-    with pytest.raises(TypeError, match="float32"):
-        fa_ops.mha(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="up to 256"):
+        fa_ops.mha(wide, wide, wide)
     assert fa_ops.mha.launches == before
 
 
@@ -363,7 +406,9 @@ def _assert_ssd_close(y, hT, want_y, want_h, dtype):
     f32 state 2e-4); bf16 y also within 2e-2 max |want| and its error's
     norm within 1e-2 of want's, so a dropped chunk term cannot hide under
     the absolute gate."""
-    rtol, atol = (1e-2, 5e-2) if dtype == torch.bfloat16 else (2e-4, 2e-4)
+    # float16 y: one f16 ulp (2e-3 at |y| < 4) once the f32 sums round
+    rtol, atol = {torch.bfloat16: (1e-2, 5e-2),
+                  torch.float16: (2e-3, 2e-3)}.get(dtype, (2e-4, 2e-4))
     got, want = y.float(), want_y.float()
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
     torch.testing.assert_close(hT, want_h, rtol=2e-4, atol=2e-4)
@@ -426,17 +471,34 @@ def test_ssd_kernel_reads_model_layout_in_place(cuda):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
-def test_ssd_card_refuses_without_fallback(cuda):
-    x, dt, A, B, C = _ssd_inputs((1, 16, 2, 8, 1, 4), torch.float32, cuda)
+@pytest.mark.parametrize("shape", [(1, 16, 2, 8, 1, 4), (2, 300, 4, 64, 1,
+                                                          128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssd_card_refuses_without_fallback(cuda, shape):
+    """What the card once refused computes, one launch a call, against the
+    plain version: float16 x, B, C (the FMA path) with a bf16 dt and A
+    (cast to f32), x, B, C whose P and N axes are strided (copied once);
+    S = 0 returns an empty y and the zero state with no launch."""
+    x, dt, A, B, C = _ssd_inputs(shape, torch.float16, cuda, seed=7)
+    dt, A = dt.bfloat16(), A.bfloat16()
+    xs, Bs = (torch.empty(*t.shape, 2, dtype=t.dtype, device=cuda)[..., 0]
+              .copy_(t) for t in (x, B))  # P and N strides 2
+    assert xs.stride(3) == 2 and Bs.stride(3) == 2
+    for args in ((x, dt, A, B, C), (xs, dt, A, Bs, C),
+                 (x.float(), dt.float(), A.float(), B.float(), C.float())):
+        before = ssd_ops.ssd.launches
+        y, hT = ssd_ops.ssd(*args, return_state=True)
+        torch.cuda.synchronize()
+        assert ssd_ops.ssd.launches == before + 1
+        assert y.dtype == args[0].dtype
+        want_y, want_h = ssd_ref.ssd(*args, return_state=True)
+        _assert_ssd_close(y, hT, want_y, want_h, y.dtype)
     before = ssd_ops.ssd.launches
-    with pytest.raises(TypeError, match="float32 or"):
-        ssd_ops.ssd(x.half(), dt, A, B.half(), C.half())
-    with pytest.raises(TypeError, match="dt and A"):
-        ssd_ops.ssd(x, dt.bfloat16(), A, B, C)
-    with pytest.raises(ValueError, match="contiguous"):
-        ssd_ops.ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
-                    B, C)
+    y0, h0 = ssd_ops.ssd(x[:, :0], dt[:, :0], A, B[:, :0], C[:, :0],
+                         return_state=True)
     assert ssd_ops.ssd.launches == before
+    assert y0.shape == (shape[0], 0, *shape[2:4]) and y0.dtype == x.dtype
+    assert h0.shape == hT.shape and h0.is_cuda and not h0.any()
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
@@ -611,15 +673,34 @@ def test_moe_gmm_past_the_old_row_block_limit(cuda, x_dtype):
                                atol=atol)
 
 
-def test_moe_gmm_card_refuses_without_fallback(cuda):
-    x, eo, w = _gmm_inputs((16, 2, 4, 32, 16, 16), torch.float32,
-                           torch.float32, cuda)
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float16, torch.float32), (torch.float16, torch.bfloat16),
+    (torch.float16, torch.float16), (torch.float32, torch.float16),
+    (torch.bfloat16, torch.float16)])
+def test_moe_gmm_card_refuses_without_fallback(cuda, x_dtype, w_dtype):
+    """What the card once refused computes, one launch a call, against the
+    plain version: float16 x or w (the FMA path; f16 w beside bf16 x is
+    rounded to bf16 once), and a w that is not contiguous (copied once).
+    Routing on another device is still refused, with nothing launched."""
+    shape = (100, 2, 8, 72, 40, 48)
+    x, eo, w = _gmm_inputs(shape, x_dtype, w_dtype, cuda, seed=3)
+    wt = w.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not wt.is_contiguous()
+    want = gmm_ref.gmm(x, eo, w)
+    # float16 x: w rounded to f16 on both sides, sums of 72 products in
+    # f32 in another order, y rounded to f16 once: 2 f16 ulps
+    rtol, atol = ((2e-3, 2e-3 * float(want.float().abs().max()))
+                  if x_dtype == torch.float16 else _gmm_tol(shape, x_dtype,
+                                                            want))
+    for ww in (w, wt):
+        before = gmm_ops.moe_apply.launches
+        got = gmm_ops.moe_apply(x, eo, ww, tile_m=shape[5])
+        torch.cuda.synchronize()
+        assert gmm_ops.moe_apply.launches == before + 1
+        assert got.dtype == x_dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
     before = gmm_ops.moe_apply.launches
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        gmm_ops.moe_apply(x.half(), eo, w)
-    with pytest.raises(ValueError, match="contiguous"):
-        gmm_ops.moe_apply(x, eo, w.transpose(1, 2).contiguous()
-                          .transpose(1, 2))
     with pytest.raises(ValueError, match="one device"):
         gmm_ops.moe_apply(x, eo.cpu(), w)
     assert gmm_ops.moe_apply.launches == before
@@ -832,3 +913,42 @@ def test_thread_hosts_launch_concurrently_without_losing_counts(cuda):
     assert mb_ops.mandelbrot.launches - before == 128
     for r0, got in results.values():
         assert torch.equal(got, mb_ref.mandelbrot(band_h, W, row0=r0, **kw))
+
+
+# -- the shared-memory ring between devices -----------------------------------
+
+def test_shm_ring_carries_cuda_bf16_leaves(cuda):
+    """CUDA bf16 tensors (a 0-d one and a strided view among them) through
+    the ring: written from the card into a slot, rebuilt on the consumer
+    endpoint's device with the same bits, writable, and not aliasing the
+    slot; the oversize chunk ships inline, counted, onto the card too."""
+    from repro_torch.cluster import SharedMemoryRing
+    chan = ("a", "b")
+    t = SharedMemoryRing(slot_bytes=1 << 16)
+    t.setup([chan], {chan: 2})
+    try:
+        consumer = t.endpoint(1)
+        consumer.device = cuda
+        g = torch.Generator().manual_seed(9)
+        val = {"x": torch.randn(64, 96, generator=g).bfloat16().to(cuda),
+               "s": torch.tensor(3.25, dtype=torch.bfloat16, device=cuda),
+               "i": torch.arange(7, dtype=torch.int32, device=cuda)}
+        val["xt"] = val["x"].t()
+        t.send(chan, 0, val)
+        got = consumer.recv(chan, 0)
+        for key, want in val.items():
+            assert got[key].device == want.device
+            assert got[key].dtype == want.dtype
+            assert got[key].shape == want.shape
+            assert torch.equal(got[key], want)
+        got["x"].add_(1)  # writable, and another chunk through the same
+        t.send(chan, 1, {"x": torch.zeros_like(val["x"])})  # slots ...
+        consumer.recv(chan, 1)
+        assert torch.equal(got["x"], val["x"] + 1)  # ... leaves it alone
+        big = torch.randn(300, 300, generator=g).bfloat16().to(cuda)
+        t.send(chan, 2, big)
+        assert torch.equal(consumer.recv(chan, 2), big)
+        assert t.ring_counts() == {chan: (2, 1)}
+    finally:
+        t.close()
+    assert not t.owned_names()

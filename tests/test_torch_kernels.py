@@ -273,14 +273,32 @@ class TestStencil:
         np.testing.assert_array_equal(ours, theirs)
 
     def test_refuses_what_the_kernel_does_not_take(self):
-        for dtype in (torch.int64, torch.bool):
-            with pytest.raises(TypeError, match="float32, bfloat16"):
-                st_ops.stencil2d(torch.zeros(8, 8, dtype=dtype),
-                                 np.ones((3, 3)))
+        """int64 is still refused (JAX without 64-bit mode has no int64 to
+        hold it to); bool images compute (test_bool_vs_jax)."""
+        with pytest.raises(TypeError, match="float32, bfloat16"):
+            st_ops.stencil2d(torch.zeros(8, 8, dtype=torch.int64),
+                             np.ones((3, 3)))
         with pytest.raises(ValueError, match=r"\(H, W\)"):
             st_ops.stencil2d(torch.zeros(2, 8, 8), np.ones((3, 3)))
         with pytest.raises(ValueError, match="non-empty"):
             st_ops.stencil2d(torch.zeros(0, 8), np.ones((3, 3)))
+
+    @pytest.mark.parametrize("k", [3, 5])
+    def test_bool_vs_jax(self, k):
+        """A bool image against JAX's oracle and its Pallas op in
+        interpret mode: summed in float32 and cast back as ``!= 0``.  Taps
+        whose sums cancel give false pixels as well as true ones."""
+        rng = np.random.default_rng([k, 1])
+        img = rng.integers(0, 2, size=(40, 24)).astype(bool)
+        kern = rng.integers(-1, 2, size=(k, k)).astype(np.float32)
+        ours = st_ops.stencil2d(torch.from_numpy(img), kern).numpy()
+        for theirs in (jst_ref.stencil2d(jnp.asarray(img), jnp.asarray(kern)),
+                       jst_ops.stencil2d(jnp.asarray(img), jnp.asarray(kern),
+                                         tile_h=16, interpret=True)):
+            theirs = np.asarray(theirs)
+            assert theirs.dtype == np.bool_ and ours.dtype == np.bool_
+            np.testing.assert_array_equal(ours, theirs)
+        assert ours.any() and not ours.all()
 
     def test_cpu_runs_plain_version_without_launch(self):
         before = launch_counts()["stencil"]
@@ -289,3 +307,100 @@ class TestStencil:
         assert torch.equal(st_ops.stencil2d(img, taps),
                            st_ref.stencil2d(img, taps))
         assert launch_counts()["stencil"] == before
+
+
+# --------------------------------------------------------------------------
+# float16 and empty sequences through the other kernel ops
+# --------------------------------------------------------------------------
+
+class TestFloat16AndEmpty:
+    """float16 through flash attention (at a head dim the kernel pads, 48),
+    the SSD scan (with a bfloat16 dt, which the op casts to float32) and
+    the grouped matmul, and the SSD scan at S = 0, each against the JAX
+    op on the same numpy inputs.  float16 tolerances: 2e-3 for attention
+    (one f16 ulp of outputs below 4: the Pallas kernel sums its online
+    softmax in another order), 1e-3 for the scan's y and the grouped
+    matmul (about two f16 ulps of outputs below 1 and 2), and the
+    reference tests' 1e-4 / 1e-5 for the scan's float32 state."""
+
+    def test_flash_f16_head_dim_48_vs_jax(self):
+        from repro.kernels.flash_attention import ops as jfa_ops
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        rng = np.random.default_rng(48)
+        B, H, K, S, D = 2, 4, 2, 40, 48
+        q = (rng.normal(size=(B, H, S, D)) * 0.3).astype(np.float16)
+        k = (rng.normal(size=(B, K, S, D)) * 0.3).astype(np.float16)
+        v = rng.normal(size=(B, K, S, D)).astype(np.float16)
+        ours = fa_ops.mha(*(torch.from_numpy(t) for t in (q, k, v)))
+        assert ours.dtype == torch.float16 and ours.shape == (B, H, S, D)
+        for kw in (dict(interpret=True), dict(use_pallas=False)):
+            theirs = jfa_ops.mha(*(jnp.asarray(t) for t in (q, k, v)), **kw)
+            np.testing.assert_allclose(ours.float().numpy(),
+                                       np.asarray(theirs, np.float32),
+                                       rtol=2e-3, atol=2e-3)
+
+    def test_ssd_f16_with_bf16_dt_vs_jax(self):
+        from repro.kernels.ssd_scan import ops as jssd_ops
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
+        rng = np.random.default_rng(16)
+        b, S, H, P, G, N = 2, 48, 4, 8, 1, 16
+        x = rng.normal(size=(b, S, H, P)).astype(np.float16)
+        dt = torch.from_numpy((rng.random((b, S, H)) * 0.2).astype(
+            np.float32)).bfloat16()
+        A = (-rng.random(H) - 0.1).astype(np.float32)
+        B = (rng.normal(size=(b, S, G, N)) * 0.3).astype(np.float16)
+        C = (rng.normal(size=(b, S, G, N)) * 0.3).astype(np.float16)
+        y, h = ssd_ops.ssd(torch.from_numpy(x), dt, torch.from_numpy(A),
+                           torch.from_numpy(B), torch.from_numpy(C),
+                           chunk=16, return_state=True)
+        jy, jh = jssd_ops.ssd(jnp.asarray(x),
+                              jnp.asarray(dt.float().numpy(), jnp.bfloat16),
+                              jnp.asarray(A), jnp.asarray(B), jnp.asarray(C),
+                              chunk=16, return_state=True)
+        assert y.dtype == torch.float16 and h.dtype == torch.float32
+        np.testing.assert_allclose(y.float().numpy(),
+                                   np.asarray(jy, np.float32), rtol=1e-3,
+                                   atol=1e-3)
+        np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-4,
+                                   atol=1e-5)
+
+    def test_ssd_empty_sequence_vs_jax(self):
+        """S = 0: an empty y and the zero state, as the JAX op returns."""
+        from repro.kernels.ssd_scan import ops as jssd_ops
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
+        A = np.asarray([-0.5, -1.0, -0.3, -2.0], np.float32)
+        shapes = [(2, 0, 4, 8), (2, 0, 4), (2, 0, 1, 16), (2, 0, 1, 16)]
+        arrays = [np.zeros(s, np.float32) for s in shapes]
+        x, dt, B, C = (torch.from_numpy(a) for a in arrays)
+        y, h = ssd_ops.ssd(x, dt, torch.from_numpy(A), B, C,
+                           return_state=True)
+        jy, jh = jssd_ops.ssd(*(jnp.asarray(a) for a in arrays[:2]),
+                              jnp.asarray(A),
+                              *(jnp.asarray(a) for a in arrays[2:]),
+                              return_state=True)
+        assert tuple(y.shape) == jy.shape == (2, 0, 4, 8)
+        assert tuple(h.shape) == jh.shape == (8, 16, 8)
+        assert h.dtype == torch.float32
+        np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
+        assert not h.any()
+        y_only = ssd_ops.ssd(x, dt, torch.from_numpy(A), B, C)
+        assert tuple(y_only.shape) == (2, 0, 4, 8)
+
+    @pytest.mark.parametrize("w_dtype", [np.float16, np.float32])
+    def test_moe_apply_f16_vs_jax(self, w_dtype):
+        from repro.kernels.moe_gmm import ops as jgmm_ops
+        from repro_torch.kernels.moe_gmm import ops as gmm_ops
+        rng = np.random.default_rng(7)
+        T, D, F, E = 64, 16, 32, 4
+        x = rng.normal(size=(T, D)).astype(np.float16)
+        eo = rng.integers(0, E, T).astype(np.int32)
+        w = (rng.normal(size=(E, D, F)) * 0.1).astype(w_dtype)
+        ours = gmm_ops.moe_apply(torch.from_numpy(x), torch.from_numpy(eo),
+                                 torch.from_numpy(w), tile_m=16)
+        theirs = jgmm_ops.moe_apply(jnp.asarray(x), jnp.asarray(eo),
+                                    jnp.asarray(w), tile_m=16, tile_f=16,
+                                    interpret=True)
+        assert ours.dtype == torch.float16
+        np.testing.assert_allclose(ours.float().numpy(),
+                                   np.asarray(theirs, np.float32),
+                                   rtol=1e-3, atol=1e-3)
