@@ -44,6 +44,30 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    path, the recovery walls and events, the cluster reports and the
    phase's own wall; every deployment is closed and every host process
    gone before phase 6;
+13. (run after phase 7, whose model it serves) durability on the card:
+   13a the farm over 2 ``device`` hosts (microbatch 8) with fold snapshots
+   every 2 chunks, beside the same deployment without, 5 batches each in
+   turns, every batch equal to phase 2 and launching its 64 bands here;
+   it prints the snapshot spans (count, median ms, bytes), the controller
+   meta's persist spans and the warm walls' ratio (not gated); 13b the
+   Collect raising once past its second snapshot, ``recover()`` equal to
+   phase 2, the Collect's host replayed from its snapshot's chunk (> 0),
+   a ``restore`` event, and exactly the re-streamed bands launched here;
+   13c a fresh ``ClusterDeployment.adopt`` of 13a's closed deployment and
+   a salvage adopt over a live one, each at epoch 2, refined, its next
+   batch equal to phase 2 (the salvaged one building no stage); 13d
+   ``python -m repro_torch.launch.cluster`` over 2 ``pipe`` hosts at
+   2048², 64 bands, with ``--iters`` for a ~6 s batch, its whole process
+   group SIGKILLed once the Collect's host wrote a snapshot, then
+   ``--resume-from``: adopted at epoch 2 and refined, the pending batch
+   replayed from the snapshot (a nonzero chunk for the Collect's host),
+   the oracle equal, kill → adopted and kill → replayed result printed;
+   13e qwen2-0.5b served with a store persisting every step, crashed with
+   two requests done and two in flight, adopted on a fresh backend: every
+   request answered once with the tokens of an uncrashed engine without a
+   store; the persist span, its bytes, TPOT with and without the store and
+   the adopt wall.  No host process and no new ``/dev/shm`` entry may be
+   left; the phase prints its wall;
 6. runs ``Model.forward`` of the full-width qwen2-0.5b (24 layers, random
    weights from seed 0) on a (4, 2048) batch of seeded tokens: in bf16 (the
    default config) the logits must be finite; in float32 its logits at
@@ -131,7 +155,7 @@ bf16 and f16 w (timed) and a strided w; and bool and transposed stencil
 images.
 
 Kernel launch counts are reset just before phase 2 and read after phase 9
-(phase 12's thread hosts count with them),
+(the thread hosts of phases 12 and 13 count with them),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
 the farm, of the pipeline, one more bf16 forward and one decode step of
@@ -1301,12 +1325,13 @@ def failing_farm(args, state: dict):
     return net, worker.name
 
 
-def run_rebalance(torch, counts, farm_img, args) -> None:
+def run_rebalance(torch, counts, farm_img, args) -> float:
     """The farm over 4 thread hosts on the card (``device``): batch 0 ok,
     batch 1 fails in the worker's host, ``recover(mode="rebalance")``
     moves that host's processes onto survivors; the new plan must refine
     the network, the replay must equal phase 2, and this process must
-    launch exactly the Mandelbrot kernels of the bands re-streamed."""
+    launch exactly the Mandelbrot kernels of the bands re-streamed.
+    Returns the ``recover()`` wall in ms (a replay from chunk 0)."""
     import numpy as np
     from repro_torch import workloads
     from repro_torch.cluster import (ClusterDeployment, ClusterError,
@@ -1355,16 +1380,17 @@ def run_rebalance(torch, counts, farm_img, args) -> None:
           f"{dep.plan.hosts()} refines: True; recover() {wall:.1f} ms, "
           f"{launched} mandelbrot launches here (bands re-streamed from "
           f"chunk {ev.replay_from.get(host)}), replay exact: True")
+    return wall
 
 
 def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
-                      n_img, size):
+                      n_img, size) -> float:
     """Phase 12: the farm at phase 2's width over 2 and 4 thread hosts on
     the card (``device``) and 2 spawned host processes (``pipe``, ``shm``),
     then the image pipeline at phase 3's size cut between its engines over
     ``device``, ``pipe`` and ``shm``; a killed host recovered over ``pipe``
     and ``shm``, and a failed worker's host rebalanced away over
-    ``device``."""
+    ``device``.  Returns the rebalance's ``recover()`` wall in ms."""
     import multiprocessing
 
     import numpy as np
@@ -1429,10 +1455,431 @@ def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
                    microbatch=mb)
     for transport in ("pipe", SharedMemoryRing(slot_bytes=farm_slot)):
         run_kill_recovery(torch, transport, farm_img, args)
-    run_rebalance(torch, counts, farm_img, args)
+    rebalance_ms = run_rebalance(torch, counts, farm_img, args)
     check(not multiprocessing.active_children(),
           "[cluster] host processes still running after phase 12")
     print(f"[cluster] phase 12 wall: {time.perf_counter() - t_phase:.1f} s")
+    return rebalance_ms
+
+
+# -- phase 13: durability on the card -------------------------------------------------
+
+_TRIP13: dict = {}  # module-level: the adopting controller rebuilds the farm
+
+
+def tripping_farm(args, trip_at):
+    """The farm whose host-side Collect raises once, on its ``trip_at``-th
+    band (a transient failure landing after some fold snapshots)."""
+    from repro_torch import workloads
+    net = workloads.mandelbrot_factory(*args)
+    coll = net.procs["collect"]
+    fold = coll.fn
+
+    def once(acc, item):
+        _TRIP13["n"] = _TRIP13.get("n", 0) + 1
+        if _TRIP13["n"] == trip_at:
+            raise RuntimeError("transient collector failure (injected)")
+        return fold(acc, item)
+
+    coll.fn = once
+    return net
+
+
+def pct(xs, q):
+    """Nearest-rank percentile of a non-empty list."""
+    ys = sorted(xs)
+    return ys[min(len(ys) - 1, int(len(ys) * q / 100.0))]
+
+
+def run_durable_farm(torch, counts, farm_img, args, d) -> dict:
+    """13a: the farm over 2 ``device`` hosts with fold snapshots every 2
+    chunks, and the same deployment without snapshots, 5 batches each in
+    turns; every batch equal to phase 2 and launching its 64 bands here.
+    Leaves the durable deployment's state in ``d`` (closed)."""
+    import numpy as np
+    from repro_torch import workloads
+    from repro_torch.cluster import ClusterDeployment
+    label = "[durable] 13a farm device x2"
+    bands = args[2]
+    deps = {name: ClusterDeployment(
+        workloads.mandelbrot_factory(*args), hosts=2, transport="device",
+        microbatch_size=8, trace=True, timeout_s=300,
+        snapshot_every=2 if name == "snapshots" else 0,
+        snapshot_dir=d if name == "snapshots" else None)
+        for name in ("snapshots", "plain")}
+    walls: dict = {name: [] for name in deps}
+    try:
+        for turn in range(5):  # turn 0 is cold; then ABBA
+            names = (["snapshots", "plain"] if turn % 2 else
+                     ["plain", "snapshots"])
+            for name in names:
+                before = counts()["mandelbrot"]
+                t0 = time.perf_counter()
+                out = deps[name].run(instances=bands)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                check(np.array_equal(workloads.assemble(out["collect"]),
+                                     farm_img),
+                      f"{label} ({name}): batch {turn} differs from phase 2")
+                launched = counts()["mandelbrot"] - before
+                check(launched == bands, f"{label} ({name}): batch {turn} "
+                                         f"launched {launched} kernels here")
+                if turn:
+                    walls[name].append(wall)
+        dep = deps["snapshots"]
+        kinds = {e.kind for e in dep.durable_events}
+        check("snapshot" in kinds, f"{label}: durable events {kinds}")
+        spans = [e for e in dep.merged_trace()
+                 if e.kind == "span" and e.name == "snapshot"]
+        persists = [e for e in dep.merged_trace()
+                    if e.kind == "span" and e.name == "persist"]
+    finally:
+        for dep in deps.values():
+            dep.close()
+    check(bool(spans), f"{label}: no host wrote a fold snapshot")
+    by_ci = {}
+    for e in spans:
+        by_ci.setdefault((e.host, e.args["ci"]), e.args["nbytes"])
+    snap_ms = statistics.median(e.dur * 1e3 for e in spans)
+    warm = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"{label}: 5 batches each, exact, 64 mandelbrot launches here a "
+          f"batch; fold snapshots: {len(spans)} spans over 5 batches, "
+          f"median {snap_ms:.2f} ms, bytes (host, chunk) {dict(sorted(by_ci.items()))}; "
+          f"controller meta: {len(persists)} persist spans, median "
+          f"{statistics.median(e.dur * 1e3 for e in persists):.2f} ms, "
+          f"{max(e.args['nbytes'] for e in persists)} bytes at most")
+    print(f"{label}: warm batch median {warm['snapshots']:.1f} ms with "
+          f"snapshots ({', '.join(f'{w:.1f}' for w in walls['snapshots'])}) "
+          f"vs {warm['plain']:.1f} ms without "
+          f"({', '.join(f'{w:.1f}' for w in walls['plain'])}): ratio "
+          f"{warm['snapshots'] / warm['plain']:.3f} (the JAX package holds "
+          "its own to <= 1.05; not gated)")
+    return {"snap_ms": snap_ms, "warm": warm}
+
+
+def run_snapshot_replay(torch, counts, farm_img, args, d,
+                        rebalance_ms) -> None:
+    """13b: the Collect raises on the first band of chunk 5, past the fold
+    snapshots at chunks 2 and 4; ``recover()`` must equal phase 2, replay
+    the Collect's host from its snapshot (a chunk > 0), append a
+    ``restore`` event, and launch here exactly the re-streamed bands."""
+    import numpy as np
+    from repro_torch import workloads
+    from repro_torch.cluster import (ClusterDeployment, ClusterError,
+                                     DeploymentStore)
+    label = "[durable] 13b replay from a snapshot"
+    bands, mb = args[2], 8
+    _TRIP13.clear()
+    with ClusterDeployment(tripping_farm(args, 5 * mb + 1), hosts=2,
+                           transport="device", microbatch_size=mb,
+                           snapshot_every=2, snapshot_dir=d,
+                           timeout_s=300) as dep:
+        try:
+            dep.run(instances=bands)
+        except ClusterError:
+            pass
+        else:
+            raise SmokeFailure(f"{label}: the batch did not fail")
+        coll = dep.plan.assignment["collect"]
+        snap = DeploymentStore(d).load_host_snapshot(coll)
+        check(snap is not None and snap["next_ci"] > 0,
+              f"{label}: no fold snapshot past chunk 0")
+        before = counts()["mandelbrot"]
+        t0 = time.perf_counter()
+        out = dep.recover()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = counts()["mandelbrot"] - before
+        ev = dep.events[-1]
+        kinds = [e.kind for e in dep.durable_events]
+    want = bands - mb * snap["next_ci"]
+    check(np.array_equal(workloads.assemble(out["collect"]), farm_img),
+          f"{label}: the replayed batch differs from phase 2")
+    check(ev.replay_from.get(coll) == snap["next_ci"] and ev.refined is True,
+          f"{label}: {ev.describe()} (snapshot at chunk {snap['next_ci']})")
+    check("restore" in kinds, f"{label}: durable events {kinds}")
+    check(launched == want, f"{label}: recover() launched {launched} "
+                            f"kernels here, not {want}")
+    print(f"{label}: {ev.describe()}")
+    print(f"{label}: the Collect's host {coll} resumed at chunk "
+          f"{snap['next_ci']} of 8; recover() {wall:.1f} ms, {launched} "
+          f"mandelbrot launches here (64 - 8 x {snap['next_ci']}), exact; "
+          f"phase 12's rebalance (a replay from chunk 0) {rebalance_ms:.1f} "
+          "ms")
+
+
+def run_adoption(torch, counts, farm_img, args, d, d_live) -> None:
+    """13c: a fresh adopt of 13a's closed deployment, and a salvage adopt
+    over a live one; each at epoch 2, refined, its next batch equal to
+    phase 2 (the salvaged one building no stage callable)."""
+    import numpy as np
+    from repro_torch import workloads
+    from repro_torch.cluster import ClusterDeployment
+    label = "[durable] 13c adopt"
+    bands = args[2]
+    factory = (workloads.mandelbrot_factory, args)
+    walls = {}
+    t0 = time.perf_counter()
+    dep = ClusterDeployment.adopt(d, factory=factory, transport="device")
+    walls["fresh"] = (time.perf_counter() - t0) * 1e3
+    with dep:
+        ev = dep.events[-1]
+        check(dep.epoch == 2 and ev.mode == "adopt" and ev.refined is True,
+              f"{label} fresh: epoch {dep.epoch}, {ev.describe()}")
+        out = dep.run(instances=bands)
+        check(np.array_equal(workloads.assemble(out["collect"]), farm_img),
+              f"{label} fresh: the batch differs from phase 2")
+    live = ClusterDeployment(workloads.mandelbrot_factory(*args), hosts=2,
+                             transport="device", microbatch_size=8,
+                             snapshot_every=2, snapshot_dir=d_live,
+                             timeout_s=300)
+    live.start()
+    live.run(instances=bands)  # warm: every stage built
+    t0 = time.perf_counter()
+    dep = ClusterDeployment.adopt(d_live, factory=factory,
+                                  transport="device",
+                                  salvage=live.salvageable())
+    walls["salvage"] = (time.perf_counter() - t0) * 1e3
+    with dep:
+        ev = dep.events[-1]
+        check(dep.epoch == 2 and ev.mode == "adopt" and ev.refined is True,
+              f"{label} salvage: epoch {dep.epoch}, {ev.describe()}")
+        out = dep.run(instances=bands)
+        builds = sum(r.jit_builds for r in out.reports)
+        check(builds == 0, f"{label} salvage: {builds} stage builds")
+        check(np.array_equal(workloads.assemble(out["collect"]), farm_img),
+              f"{label} salvage: the batch differs from phase 2")
+    print(f"{label}: fresh {walls['fresh']:.1f} ms (epoch 2, refined, hosts "
+          f"spawned anew), salvage {walls['salvage']:.1f} ms (epoch 2, "
+          "refined, 0 stage builds); both batches exact")
+
+
+def group_alive(pgid: int) -> list:
+    """Processes of group ``pgid`` that are not zombies."""
+    alive = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            alive.append(stat.parent.name)
+    return alive
+
+
+def run_launcher_kill(torch, d) -> None:
+    """13d: the launcher over 2 ``pipe`` hosts with fold snapshots, its
+    whole process group SIGKILLed once the Collect's host has written one,
+    then ``--resume-from``: adopted at epoch 2 and refined, the pending
+    batch replayed from the snapshot, and the oracle equal."""
+    import glob
+    import signal
+    from repro_torch.cluster import partition
+    from repro_torch.kernels.mandelbrot import kernel
+    from repro_torch.launch.cluster import make_mandelbrot
+    label = "[durable] 13d launcher SIGKILL"
+    size, bands = 2048, 64
+    # iterations for a ~6 s batch, from the farm's 64 band launches one
+    # after another (uncounted: the binding, not the op), as a host
+    # renders them — a band alone cannot fill the card, so the whole
+    # image in one launch would undercount
+    band_h, n0 = size // bands, 20000
+    out = torch.empty((bands, band_h, size), dtype=torch.int32,
+                      device="cuda")
+    rows = [torch.tensor(i * band_h, dtype=torch.int32, device="cuda")
+            for i in range(bands)]
+
+    def sweep():
+        for i in range(bands):
+            kernel.launch(out[i], x0=-2.2, y0=-1.15, pixel_delta=3.0 / size,
+                          max_iterations=n0, row0=rows[i])
+
+    sweep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep()
+    torch.cuda.synchronize()
+    t_img = time.perf_counter() - t0
+    iters = int(n0 * 6.0 / t_img)
+    del out, rows
+    coll = partition(make_mandelbrot(bands, size, size, 1),
+                     hosts=2).assignment["collect"]
+    flags = ["--hosts", "2", "--transport", "pipe", "--workload",
+             "mandelbrot", "--bands", str(bands), "--size", str(size),
+             "--iters", str(iters), "--microbatch", "4"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.cluster", *flags]
+    print(f"{label}: --iters {iters} ({t_img * 1e3:.1f} ms for the "
+          f"{bands} bands of the {size}^2 image at {n0} iterations)")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [*cmd, "--snapshot-every", "1", "--snapshot-dir", d, "--batches",
+         "1"], env=env, cwd=ROOT, start_new_session=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 300
+        while (not glob.glob(f"{d}/host_{coll}/step_*")
+               and proc.poll() is None and time.monotonic() < deadline):
+            time.sleep(0.02)
+        if proc.poll() is not None:  # (the message reads its output)
+            raise SmokeFailure(f"{label}: the first run ended before the "
+                               f"kill:\n{proc.communicate()[0][-3000:]}")
+        check(bool(glob.glob(f"{d}/host_{coll}/step_*")),
+              f"{label}: no fold snapshot of host {coll} within 300 s")
+        t_kill = time.perf_counter()
+        os.killpg(proc.pid, signal.SIGKILL)
+        first = proc.communicate(timeout=60)[0]
+        while group_alive(proc.pid) and time.perf_counter() < t_kill + 15:
+            time.sleep(0.05)
+        left = group_alive(proc.pid)
+        check(not left, f"{label}: processes {left} of the group survived")
+    finally:
+        if proc.poll() is None or group_alive(proc.pid):
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    print(f"{label}: killed the group {(t_kill - t_start):.1f} s after its "
+          f"start, once host {coll} had a fold snapshot; no process left")
+    for line in first.splitlines():
+        if line.startswith("[cluster]"):
+            print(f"  first run: {line}")
+    res = subprocess.Popen([*cmd, "--resume-from", d, "--batches", "2"],
+                           env=env, cwd=ROOT, start_new_session=True,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True, bufsize=1)
+    stamped = []
+    try:
+        for line in res.stdout:
+            stamped.append((time.perf_counter() - t_kill, line.rstrip()))
+        rc = res.wait(timeout=600)
+    finally:
+        if res.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(res.pid, signal.SIGKILL)
+            res.communicate()
+    text = "\n".join(line for _, line in stamped)
+    check(rc == 0, f"{label}: the resumed run exited {rc}:\n{text[-3000:]}")
+    adopted = [(t, ln) for t, ln in stamped
+               if "adopted durable deployment" in ln]
+    replayed = [(t, ln) for t, ln in stamped
+                if "replayed the pending batch" in ln]
+    check(len(adopted) == 1 and "epoch 2, refined=True" in adopted[0][1],
+          f"{label}: {adopted}")
+    check(len(replayed) == 1 and "identical=True" in replayed[0][1],
+          f"{label}: {replayed}")
+    import ast
+    replay_from = ast.literal_eval(replayed[0][1].split("replay_from=")[1])
+    check(replay_from.get(coll, 0) > 0, f"{label}: replay_from {replay_from}")
+    check("pipe over 2 hosts == sequential oracle: True" in text,
+          f"{label}: no oracle line:\n{text[-3000:]}")
+    for _, line in stamped:
+        if line.startswith("[cluster]") or "adopt (epoch" in line:
+            print(f"  resumed: {line.strip()}")
+    print(f"{label}: kill -> adopted {adopted[0][0]:.1f} s, kill -> "
+          f"replayed result {replayed[0][0]:.1f} s (the resumed launcher's "
+          f"start and oracle included), replay_from {replay_from}; "
+          f"group gone: True")
+
+
+def run_durable_serving(torch, model, params, d) -> None:
+    """13e: qwen2-0.5b (phase 6's model and weights) served with a store,
+    persisting every step; crashed with two requests done and two in
+    flight, then adopted on a fresh backend: every request answered once,
+    with the tokens of an uncrashed engine without a store."""
+    import gc
+    from repro_torch.cluster import DeploymentStore
+    from repro_torch.core import trace
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import LocalDecodeBackend, ServeEngine
+    label = "[durable] 13e serving"
+    reqs = launcher.requests(8, model.cfg.vocab, 16)
+
+    def backend():
+        return LocalDecodeBackend(model, params, n_slots=4, max_len=128)
+
+    def drain(eng):
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        return eng
+
+    def tpot(eng):
+        return pct([r.tpot * 1e3 for r in eng.completed
+                    if len(r.tokens) > 1], 50)
+
+    with torch.inference_mode():
+        plain = drain(ServeEngine(backend()))
+        want = {r.rid: r.tokens for r in plain.completed}
+        rec = trace.enable(host="serve13")
+        try:
+            stored = drain(ServeEngine(
+                backend(), store=DeploymentStore(os.path.join(d, "full")),
+                persist_every=1))
+            spans = [e for e in rec.events()
+                     if e.kind == "span" and e.name == "persist"]
+        finally:
+            trace.disable()
+        check(all(stored.poll(rid).tokens == t for rid, t in want.items()),
+              f"{label}: the engine with a store gives other tokens")
+        root = os.path.join(d, "crash")
+        eng = ServeEngine(backend(), store=DeploymentStore(root),
+                          persist_every=1)
+        for r in reqs:
+            eng.submit(r)
+        while len(eng.completed) < 2 or len(eng._live) < 2:
+            check(eng.step() > 0, f"{label}: drained before the crash")
+        at = (len(eng.completed), len(eng._live), eng.steps_run)
+        del eng  # the crash: engine and backend both go
+        gc.collect()
+        fresh = backend()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng2 = ServeEngine.adopt(fresh, DeploymentStore(root))
+        torch.cuda.synchronize()
+        adopt_ms = (time.perf_counter() - t0) * 1e3
+        eng2.run_until_drained()
+    answered = [r.rid for r in eng2.completed]
+    check(sorted(answered) == sorted(want),
+          f"{label}: answered {answered}, want each of {sorted(want)} once")
+    for rid, toks in want.items():
+        check(eng2.poll(rid).tokens == toks,
+              f"{label}: request {rid} differs from the uncrashed run")
+    nbytes = sorted({e.args["nbytes"] for e in spans})
+    print(f"{label}: qwen2-0.5b, 4 slots, max_len 128, 8 requests; crashed "
+          f"at step {at[2]} with {at[0]} done and {at[1]} in flight; the "
+          f"adopted engine answered each rid once, tokens equal to the "
+          f"uncrashed run (bf16, exact); adopt {adopt_ms:.1f} ms")
+    print(f"{label}: persist span p50 {pct([e.dur * 1e3 for e in spans], 50):.2f} "
+          f"ms over {len(spans)} steps, {nbytes[-1]} bytes a persist at most "
+          f"({nbytes[0]} at least); tpot p50 {tpot(stored):.2f} ms with the "
+          f"store vs {tpot(plain):.2f} ms without")
+
+
+def run_durable_phase(torch, counts, farm_img, model, params, args,
+                      rebalance_ms) -> None:
+    """Phase 13: durability on the card (13a-13e)."""
+    import multiprocessing
+    import tempfile
+    t_phase = time.perf_counter()
+    shm_before = set(os.listdir("/dev/shm"))
+    print(f"[durable] /dev/shm: {shm_free_bytes()} bytes free, "
+          f"{len(shm_before)} entries")
+    with tempfile.TemporaryDirectory() as tmp:
+        farm_dir = os.path.join(tmp, "farm")
+        run_durable_farm(torch, counts, farm_img, args, farm_dir)
+        run_snapshot_replay(torch, counts, farm_img, args,
+                            os.path.join(tmp, "replay"), rebalance_ms)
+        run_adoption(torch, counts, farm_img, args, farm_dir,
+                     os.path.join(tmp, "live"))
+        run_launcher_kill(torch, os.path.join(tmp, "launcher"))
+        run_durable_serving(torch, model, params, os.path.join(tmp, "serve"))
+    left = sorted(set(os.listdir("/dev/shm")) - shm_before)
+    check(not left, f"[durable] /dev/shm entries left: {left}")
+    check(not multiprocessing.active_children(),
+          "[durable] host processes still running after phase 13")
+    print(f"[durable] /dev/shm: {shm_free_bytes()} bytes free, nothing "
+          f"left; no host process left; phase 13 wall: "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 # -- phases 6-9: the decoder LMs -----------------------------------------------------
@@ -1640,10 +2087,6 @@ def run_serve(torch, model, params, counts, per_decode=None,
             - min(r.submitted_at for r in done))
     ttft = sorted(r.ttft * 1e3 for r in done)
     tpot = sorted(r.tpot * 1e3 for r in done if len(r.tokens) > 1)
-
-    def pct(xs, q):
-        return xs[min(len(xs) - 1, int(len(xs) * q / 100.0))]
-
     decode = sorted(e.dur * 1e3 for e in spans if e.name == "decode_chunk")
     prefill = sorted(e.dur * 1e3 for e in spans if e.name == "prefill")
     print(f"[serve] engine spans: decode step p50 {pct(decode, 50):.2f} ms "
@@ -1774,13 +2217,16 @@ def main() -> int:
     pipeline, edge_maps = run_pipeline(torch, dev, launch_counts, 16, 2048)
     run_jacobi(torch, dev, launch_counts, 4, 4096, 4, 1e-6)
     run_pi(torch, launch_counts, 256, 10**6)
-    run_cluster_phase(torch, launch_counts, farm_img, edge_maps, W, H, BANDS,
-                      ITERS, 16, 2048)
-    del farm_img, edge_maps
+    rebalance_ms = run_cluster_phase(torch, launch_counts, farm_img,
+                                     edge_maps, W, H, BANDS, ITERS, 16, 2048)
+    del edge_maps
     model, params, toks = run_forward(torch, dev, launch_counts,
                                       "qwen2-0.5b", 4, 2048,
                                       {"flash_attention": 24})
     run_serve(torch, model, params, launch_counts)
+    run_durable_phase(torch, launch_counts, farm_img, model, params,
+                      (W, H, BANDS, ITERS), rebalance_ms)
+    del farm_img
     ssm = run_forward(torch, dev, launch_counts, "mamba2-2.7b", 4, 2048,
                       {"ssd_scan": 64})
     hybrid = run_forward(torch, dev, launch_counts, "zamba2-1.2b", 4, 2048,

@@ -11,15 +11,19 @@ shared-memory slot ring), and :class:`ClusterDeployment` stands the whole
 thing up ONCE and then streams batch after batch through the warm hosts,
 recovering from a failed or killed host (restart or rebalance, then a
 replay of the lost chunks) and refitting itself to another host count;
-:func:`run_cluster` is the one-shot convenience on top.
+:func:`run_cluster` is the one-shot convenience on top.  A deployment with
+a :class:`DeploymentStore` (``snapshot_every=`` / ``snapshot_dir=``) is
+durable: hosts snapshot their fold state, a failed stateful host replays
+from its last snapshot, and :meth:`ClusterDeployment.adopt` takes the
+deployment over after its controller died.
 
-Durability, the simulator, cost calibration and the autoscaler come with
-later slices, and their entry points here raise ``NotImplementedError``
-naming them.
+The fault-injection simulator, cost calibration and the autoscaler come
+with later slices.
 """
 
 from .control import ClusterController, RecoveryEvent
 from .deploy import ClusterDeployment
+from .durable import DeploymentStore, DurabilityEvent
 from .partition import (PartitionPlan, abstract_partitioned_model,
                         auto_assignment, check_redeployment,
                         check_refinement, cost_assignment, partition,
@@ -41,4 +45,5 @@ __all__ = [
     "PartitionExecutor", "run_cluster", "ClusterResult", "ClusterError",
     "HostReport", "ExecConfig", "ClusterDeployment", "ClusterController",
     "RecoveryEvent", "derive_cut_capacities", "make_host_executor",
+    "DeploymentStore", "DurabilityEvent",
 ]

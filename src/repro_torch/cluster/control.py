@@ -25,15 +25,23 @@ the new epoch's plan (:func:`.partition.check_redeployment`), and replays
 only the lost chunks of the failed batch.  :meth:`reconfigure` refits the
 same network to another host count between batches, the same way.  Every
 recovery is a :class:`RecoveryEvent`, rendered by
-:func:`..core.netlog.cluster_report`.  Adopting a durable deployment after
-a controller crash is the durable slice's work and raises
-``NotImplementedError`` naming it; without a store, recovery replays a
-stateful partition from chunk 0, as the JAX package does without one.
+:func:`..core.netlog.cluster_report`.
+
+With a :class:`~.durable.DeploymentStore` the deployment is durable: the
+controller writes its meta (plan, epoch, ledger, the pending batch) at
+batch boundaries and around every recovery — and a write-ahead record of
+each batch before it is dispatched — while each host snapshots its fold
+state every ``snapshot_every`` chunks.  A stateful partition then replays
+from its last snapshot instead of chunk 0, and a brand-new controller can
+take the deployment over (:meth:`ClusterController.adopt_state`) after the
+old one died, mid-batch included.  Every durable action is a
+:class:`~.durable.DurabilityEvent`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue as _queue
 import threading
 import time
@@ -50,11 +58,12 @@ from ..core.stream import microbatch_plan
 from ..device import resolve_device, to_device
 from .partition import (PartitionPlan, check_redeployment, is_shim,
                         partition, repartition_without)
+from .durable import DeploymentStore, DurabilityEvent, reclaim, to_host
 from .runtime import (ClusterError, ClusterResult, ExecConfig, HostReport,
                       _emit_batch, _signal_failure, derive_cut_capacities,
                       make_host_executor)
 from .transport import (ChannelTransport, DeviceTransport, pack_raw,
-                        unpack_raw)
+                        queue_semaphores, unpack_raw)
 
 __all__ = ["ClusterController", "RecoveryEvent"]
 
@@ -164,14 +173,18 @@ def _serve_host(sub, ex, plan, host, endpoint, work_q, result_q,
     traceback and its run state reset — either way it parks again, warm,
     and the controller decides what happens next.  A ``"replay"`` message
     resumes a stalled fold at its first lost chunk, or re-streams the batch
-    from ``start_ci``.
+    from ``start_ci``; a ``"replay_snap"`` message restores the on-disk fold
+    snapshot it carries and streams only the chunks after it.
     """
     while True:
         msg = work_q.get()
         if isinstance(msg, str) and msg == _SHUTDOWN:
             break
-        kind, batch_id, epoch, bounds, instances, batch, start_ci = msg
+        # "replay_snap" messages append the fold snapshot to resume from;
+        # every other kind is the bare 7-tuple
+        kind, batch_id, epoch, bounds, instances, batch, start_ci, *extra = msg
         endpoint.epoch = epoch
+        ex.snapshot_tag = (batch_id, epoch)  # stamps fold snapshots
         before = ex.jit_builds
         t0 = time.monotonic()
         try:
@@ -183,6 +196,12 @@ def _serve_host(sub, ex, plan, host, endpoint, work_q, result_q,
                 batch = to_device(batch, ex.cn.device)
             if kind == "replay" and ex.replay_state is not None:
                 out = ex.resume_partition(batch)  # only the lost chunks
+            elif kind == "replay_snap":
+                # accumulators restored as of start_ci onto this host's
+                # device; only the tail re-streams
+                ex.reset_run_state()
+                snap = unpack_raw(extra[0]) if encode else extra[0]
+                out = ex.resume_from_state(snap, batch)
             else:
                 ex.reset_run_state()
                 out = ex.run_partition(list(bounds), batch,
@@ -240,13 +259,20 @@ class ClusterController:
 
     def __init__(self, net: Network, plan: PartitionPlan, cfg: ExecConfig,
                  transport: ChannelTransport, factory: Optional[tuple],
-                 timeout_s: float):
+                 timeout_s: float,
+                 store: Optional[DeploymentStore] = None):
         self.net = net
         self.plan = plan
         self.cfg = cfg
         self.transport = transport
         self.factory = factory
         self.timeout_s = timeout_s
+        # durability (cluster/durable.py): controller meta persists through
+        # the store at batch boundaries and around every recovery, so a
+        # fresh controller can adopt_state() this deployment after a crash
+        self.store = store
+        self._meta_seq = 0
+        self.durable_events: list[DurabilityEvent] = []
         self.poll_s = 1.0  # result-queue poll (dead-host detection cadence)
         self.epoch = 1
         self.events: list[RecoveryEvent] = []
@@ -318,6 +344,7 @@ class ClusterController:
             self.close()
             raise
         self._started = True
+        self._persist_meta("started")
 
     def _build_kernels(self) -> None:
         """Before spawning hosts that will run on the card: build every
@@ -507,16 +534,21 @@ class ClusterController:
         bounds = microbatch_plan(instances, self.cfg.microbatch_size)
         batch_id = self._batch_seq
         self._batch_seq += 1
+        # durable write-ahead: record the batch BEFORE dispatch, so a
+        # controller killed mid-batch leaves a replayable descriptor — the
+        # adopter sees needs_recovery and resumes from the host snapshots;
+        # _finish_batch overwrites this with the real outcome
+        self._persist_meta(f"batch {batch_id} dispatched",
+                           pending=(batch_id, bounds, instances, batch))
         # an explicit batch feeds the real Emit only — don't send it
         # through every host's work queue when one host owns the Emit
         emit_hosts = {self.plan.assignment[e.name]
                       for e in self.net.emits()}
-        if batch is not None and self.transport.process_hosts:
-            batch = pack_raw(batch)  # bytes, not a pickled tensor
+        sent = self._wire_batch(batch)
         for h in self._live:
             self._work_qs[h].put(
                 ("batch", batch_id, self.epoch, bounds, instances,
-                 batch if h in emit_hosts else None, 0))
+                 sent if h in emit_hosts else None, 0))
         with self.recorder.span("batch", "control", batch_id=batch_id,
                                 epoch=self.epoch):
             reports = self._fresh_reports()
@@ -524,6 +556,14 @@ class ClusterController:
                                           set(self._live))
         return self._finish_batch(batch_id, bounds, instances, batch,
                                   reports, results)
+
+    def _wire_batch(self, batch):
+        """An explicit batch as it crosses a host's work queue: raw bytes
+        to a process host (never a pickled tensor), as it is to a thread
+        host.  The controller keeps the batch itself for a replay."""
+        if batch is not None and self.transport.process_hosts:
+            return pack_raw(batch)
+        return batch
 
     def _fresh_reports(self) -> dict:
         plan = self.plan
@@ -542,6 +582,7 @@ class ClusterController:
             self._needs_recovery = True
             self._last_batch = (batch_id, bounds, instances, batch)
             self._ok_cache = results
+            self._persist_meta(f"batch {batch_id} failed")
             from ..core import netlog
             try:
                 depths = {f"{s}->{d}": n for (s, d), n
@@ -557,12 +598,178 @@ class ClusterController:
             merged.update(results[h])
         merged.reports = report_list
         merged.epoch = self.epoch
+        self._persist_meta(f"batch {batch_id} ok")
         return merged
 
-    def adopt_state(self, meta: dict, salvage: Optional[dict] = None):
-        raise NotImplementedError(
-            "adopting a durable deployment comes with the durable cluster "
-            "slice of the port (cluster/durable.py with train/checkpoint.py)")
+    # -- controller-crash recovery: adopt a deployment's on-disk state ------
+    def adopt_state(self, meta: dict,
+                    salvage: Optional[dict] = None) -> RecoveryEvent:
+        """Take ownership of a previous deployment's durable state: restore
+        the ledger and pending-batch descriptor, bump the epoch so anything
+        the dead controller left in flight is invisible, and re-prove the
+        refinement across the restart (:func:`check_redeployment`).
+
+        Without ``salvage`` every host worker spawns fresh (a full-cluster
+        loss: fold state comes back from the on-disk snapshots at the next
+        ``recover()``).  With ``salvage`` — the previous controller's live
+        wiring (``transport``/``work_qs``/``threads``/``executors``/...) —
+        surviving workers are re-parked under the new controller with their
+        warm executors intact: 0 new stage builds on survivors.  Restored
+        tensors go back onto the device of the thread host they belong
+        to."""
+        if self._started:
+            raise NetworkError("adopt_state: controller already started")
+        t0 = time.monotonic()
+        old_epoch = meta["epoch"]
+        old_plan = partition(self.net, assignment=meta["assignment"])
+        self._batch_seq = meta["batch_seq"]
+        if self.store is not None:
+            self._meta_seq = self.store.meta_step() or 0
+        self.recorder.instant("adopt", "control", epoch=old_epoch)
+        ev = RecoveryEvent(
+            epoch_from=old_epoch, epoch_to=old_epoch + 1, mode="adopt",
+            dead=[], erred=[], stalled={}, restarted=[], moved={},
+            requeued={}, discarded=0, replay_from={})
+        if salvage is not None:
+            self.transport = salvage["transport"]
+            self._procs = salvage.get("procs", {})
+            self._threads = salvage.get("threads", {})
+            self._work_qs = salvage["work_qs"]
+            self._result_q = salvage.get("result_q")
+            self._result_qs = salvage.get("result_qs", {})
+            self.executors = salvage.get("executors", {})
+            self._devices = salvage.get("devices", {})
+            self._started = True
+            self._transport_up = True
+
+            def _alive(h):
+                th = self._threads.get(h)
+                p = self._procs.get(h)
+                return ((th is not None and th.is_alive())
+                        or (p is not None and p.is_alive()))
+
+            # survivors keep warm executors + any in-memory stalled fold;
+            # hosts that died with the controller are marked dead so the
+            # pending recover() restarts them (fold from disk snapshots)
+            self._dead = {h for h in self._live if not _alive(h)}
+            self._dead |= set(meta["dead"]) & set(self._live)
+            self._stalled = {h: ci for h, ci in meta["stalled"].items()
+                             if h in self._live and h not in self._dead}
+            self._erred = set(meta["erred"]) & set(self._live) - self._dead
+        # the pending batch and ledger come back BEFORE a fresh start(),
+        # whose own meta record must not forget them
+        self._needs_recovery = bool(meta["needs_recovery"])
+        self._last_batch = meta["last_batch"]
+        self._kept = {tuple(chan): list(records)
+                      for chan, records in meta["kept"].items()}
+        reclaimed = (0, 0)
+        if salvage is None:
+            # full-cluster loss: every worker spawns fresh, so nobody holds
+            # in-memory fold state — the previous dead/stalled/erred sets
+            # are moot (replay restores stateful folds from the snapshots).
+            # What the dead deployment's processes could not unlink goes
+            # first.
+            reclaimed = reclaim(meta.get("named") or {})
+            self.start()
+        # completed hosts' cached results are plain data — epoch-independent,
+        # so hosts the replay doesn't touch can still sit out and reuse them
+        # (on their own device: a thread host's result lives there)
+        self._ok_cache = {h: (to_device(r, self._devices[h])
+                              if h in self._devices else r)
+                          for h, r in meta["ok_cache"].items()}
+        self.epoch = old_epoch + 1
+        self.transport.set_epoch(self.epoch)
+        self.recorder.instant("epoch_bump", "control", epoch=self.epoch)
+        ev.dead = sorted(self._dead)
+        ev.erred = sorted(self._erred)
+        ev.stalled = dict(self._stalled)
+        with self.recorder.span("reproof", "control", epoch=self.epoch):
+            try:
+                ev.refined = check_redeployment(self.net, old_plan,
+                                                self.plan)
+            except Exception:
+                ev.refined = False
+        ev.wall_s = time.monotonic() - t0
+        self.events.append(ev)
+        self.durable_events.append(DurabilityEvent(
+            kind="adopt", epoch=self.epoch,
+            step=(self.store.meta_step() or 0) if self.store else 0,
+            note=f"batch_seq={self._batch_seq}"
+                 + (f"; reclaimed {reclaimed[0]} semaphores, {reclaimed[1]} "
+                    "/dev/shm segments" if any(reclaimed) else "")))
+        self._persist_meta("adopted")
+        return ev
+
+    # -- durability (cluster/durable.py) -----------------------------------
+    def _persist_meta(self, note: str = "",
+                      pending: Optional[tuple] = None) -> None:
+        """Write the controller's durable state through the store: the
+        epoch-stamped plan assignment, the undelivered-chunk ledger, the
+        pending-batch descriptor and cached per-host results, every tensor
+        on the CPU (:func:`~.durable.to_host`).  Everything a fresh
+        controller needs to adopt this deployment.
+
+        ``pending`` is the write-ahead form: the durable record carries the
+        just-dispatched batch with ``needs_recovery`` set (so an adopter of
+        a controller that died mid-batch replays it) WITHOUT flipping the
+        live controller's own flags — the batch is still running here."""
+        if self.store is None:
+            return
+        last = pending if pending is not None else self._last_batch
+        with self.recorder.span("persist", "durable", epoch=self.epoch,
+                                seq=self._meta_seq + 1) as sp:
+            state = {
+                "epoch": self.epoch,
+                "assignment": dict(self.plan.assignment),
+                "cfg": {k: v for k, v in dataclasses.asdict(self.cfg).items()
+                        if k != "profile"},  # measured, not durable state
+                "batch_seq": self._batch_seq,
+                "needs_recovery": (True if pending is not None
+                                   else self._needs_recovery),
+                "stalled": dict(self._stalled),
+                "dead": sorted(self._dead),
+                "erred": sorted(self._erred),
+                "last_batch": None if last is None else to_host(last),
+                "ok_cache": to_host(self._ok_cache),
+                "kept": {chan: to_host(records)
+                         for chan, records in self._kept.items()},
+                "named": self._named_resources(),
+            }
+            self._meta_seq += 1
+            sp.set(nbytes=self.store.save_meta(self._meta_seq, state))
+            if pending is None:
+                # batch outcomes / recovery / adoption must be on disk
+                # before anyone (a new controller, a test) reads the store;
+                # the write-ahead record alone may ride the async queue
+                self.store.flush()
+        self.durable_events.append(DurabilityEvent(
+            kind="snapshot", epoch=self.epoch, step=self._meta_seq,
+            note=note))
+
+    def _named_resources(self) -> dict:
+        """The machine-wide named objects (semaphores, ``/dev/shm``
+        segments) of this deployment's process transport and host queues,
+        with this controller's pid: what an adopter reclaims if this
+        process dies without closing."""
+        if not self.transport.process_hosts:
+            return {}
+        sems, shms = self.transport.named_resources()
+        sems += queue_semaphores([*self._work_qs.values(),
+                                  *self._result_qs.values()])
+        return {"controller_pid": os.getpid(), "sem": sems, "shm": shms}
+
+    def _snapshot_ci(self, h: int, batch_id: int,
+                     bounds: list) -> tuple[int, Optional[dict]]:
+        """The chunk index host ``h``'s latest on-disk fold snapshot covers
+        for this batch (0 / None when there is none or it doesn't match)."""
+        if self.store is None:
+            return 0, None
+        snap = self.store.load_host_snapshot(h)
+        if (snap is None or snap.get("batch_id") != batch_id
+                or list(snap.get("bounds", [])) != [tuple(b) for b in bounds]
+                or not 0 < snap.get("next_ci", 0) <= len(bounds)):
+            return 0, None
+        return snap["next_ci"], snap
 
     # -- observability (core/trace.py) -------------------------------------
     def _absorb_trace(self, host, payload) -> None:
@@ -932,6 +1139,7 @@ class ClusterController:
         finally:
             ev.wall_s = time.monotonic() - t0
             self.events.append(ev)
+            self._persist_meta(f"recovered to epoch {self.epoch}")
         return result
 
     def _replan(self, new_plan: PartitionPlan) -> tuple[list, list]:
@@ -1045,6 +1253,7 @@ class ClusterController:
             ev.refined = False
         ev.wall_s = time.monotonic() - t0
         self.events.append(ev)
+        self._persist_meta(f"reconfigured to epoch {self.epoch}")
         return ev
 
     def _host_stateful(self, h: int) -> bool:
@@ -1094,14 +1303,10 @@ class ClusterController:
         requeued_next = {chan: max(cis) + 1
                          for chan, cis in requeued_map.items() if cis}
         from_ci: dict = {}
+        snap_state: dict = {}  # host -> on-disk fold snapshot to resume from
         for h in reversed(self._host_order()):
             if h in stalled:
                 from_ci[h] = stalled[h]
-                continue
-            if self._host_stateful(h):
-                # a stateful partition that lost its in-memory fold re-runs
-                # from chunk 0 (no durable snapshot covers a prefix)
-                from_ci[h] = 0
                 continue
             needs = []
             for c in plan.egress_of(h):
@@ -1110,18 +1315,45 @@ class ClusterController:
                 if dst_h in stalled:
                     need = max(need, requeued_next.get((c.src, c.dst), 0))
                 needs.append(need)
-            from_ci[h] = min(needs) if needs else n
+            limit = min(needs) if needs else n
+            if self._host_stateful(h):
+                # a stateful partition that lost its in-memory fold re-runs
+                # from chunk 0 — unless a durable snapshot covers a prefix
+                # AND no downstream consumer needs chunks before it (the
+                # snapshot holds fold state only at its own boundary)
+                ci, snap = self._snapshot_ci(h, batch_id, bounds)
+                if snap is not None and ci <= limit:
+                    from_ci[h] = ci
+                    snap_state[h] = snap
+                else:
+                    from_ci[h] = 0
+                continue
+            from_ci[h] = limit
         participants = [
             h for h in self._live
             if h in stalled or from_ci[h] < n
             or h not in ok_cache]  # hosts with no usable result rerun
         emit_hosts = {plan.assignment[e.name] for e in self.net.emits()}
+        sent = self._wire_batch(batch)
         for h in participants:
             start = from_ci[h] if h not in stalled else 0
             ev.replay_from[h] = stalled[h] if h in stalled else from_ci[h]
-            self._work_qs[h].put(
-                ("replay", batch_id, self.epoch, bounds, instances,
-                 batch if h in emit_hosts else None, start))
+            if h in snap_state and from_ci[h] > 0:
+                snap = snap_state[h]
+                if self.transport.process_hosts:
+                    snap = pack_raw(snap)  # bytes, not pickled tensors
+                self._work_qs[h].put(
+                    ("replay_snap", batch_id, self.epoch, bounds, instances,
+                     sent if h in emit_hosts else None, from_ci[h], snap))
+            else:
+                self._work_qs[h].put(
+                    ("replay", batch_id, self.epoch, bounds, instances,
+                     sent if h in emit_hosts else None, start))
+        restored = {h: from_ci[h] for h in snap_state if from_ci[h] > 0}
+        if restored:
+            self.durable_events.append(DurabilityEvent(
+                kind="restore", epoch=self.epoch,
+                step=self.store.meta_step() or 0, hosts=restored))
         reports = self._fresh_reports()
         results = self._await_results(batch_id, reports, set(participants))
         for h in self._live:  # hosts that sat the replay out reuse their

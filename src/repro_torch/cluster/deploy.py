@@ -27,9 +27,10 @@ This class is the user-facing facade over
 :meth:`recover` then repairs the deployment and replays the failed batch's
 lost chunks, :meth:`kill_host` injects the honest failure (process hosts),
 and :meth:`reconfigure` refits the network to another host count between
-batches.  Adopting a durable deployment (:meth:`adopt`) comes with the
-durable cluster slice of the port and raises ``NotImplementedError`` until
-then.
+batches.  Deployed with ``snapshot_every=`` and ``snapshot_dir=`` it is
+durable (:mod:`.durable`): a failed stateful host replays from its last
+fold snapshot instead of chunk 0, and after the controller itself is gone
+:meth:`adopt` stands a new one up over the on-disk state.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ from typing import Optional
 
 from ..core.dataflow import Network, NetworkError
 from .control import ClusterController
+from .durable import DeploymentStore
 from .partition import PartitionPlan, partition
-from .runtime import _DURABLE_SLICE, ClusterResult, ExecConfig
+from .runtime import ClusterResult, ExecConfig
 from .transport import ChannelTransport, make_transport
 
 __all__ = ["ClusterDeployment"]
@@ -65,6 +67,10 @@ class ClusterDeployment:
     :class:`~.runtime.HostReport`\\ s carry streaming telemetry, the chosen
     cut-channel capacities, and the number of stage callables built during
     that batch (0 once warm).
+
+    ``snapshot_every=N`` with ``snapshot_dir=DIR`` makes the deployment
+    durable: each host snapshots its fold state every N chunks under
+    ``DIR/host_<h>`` and the controller its meta under ``DIR/meta``.
     """
 
     def __init__(self, net: Optional[Network] = None, *,
@@ -83,8 +89,6 @@ class ClusterDeployment:
                  coalesce_bytes: int = 0,
                  profile=None,
                  device=None):
-        if snapshot_every or snapshot_dir:
-            raise NotImplementedError(_DURABLE_SLICE)
         if net is None:
             if factory is None:
                 raise NetworkError("ClusterDeployment: need net= or factory=")
@@ -93,23 +97,74 @@ class ClusterDeployment:
             if hosts is None:
                 raise NetworkError("ClusterDeployment: need hosts= or plan=")
             plan = partition(net, hosts=hosts)
+        if snapshot_every and not snapshot_dir:
+            raise NetworkError(
+                "ClusterDeployment: snapshot_every needs snapshot_dir=")
         self.net = net
         cfg = ExecConfig(microbatch_size, max_in_flight, lanes, fuse,
-                         trace=trace, coalesce_bytes=coalesce_bytes,
-                         profile=profile,
+                         trace=trace, snapshot_every=snapshot_every,
+                         snapshot_dir=snapshot_dir,
+                         coalesce_bytes=coalesce_bytes, profile=profile,
                          device=None if device is None else str(device))
         t: ChannelTransport = (make_transport(transport)
                                if isinstance(transport, str) else transport)
         if coalesce_bytes:
             t.coalesce_bytes = coalesce_bytes
+        store = DeploymentStore(snapshot_dir) if snapshot_dir else None
         self.controller = ClusterController(net, plan, cfg, t, factory,
-                                            timeout_s)
+                                            timeout_s, store=store)
 
     @classmethod
-    def adopt(cls, snapshot_dir: str, **kw) -> "ClusterDeployment":
-        raise NotImplementedError(
-            "adopting a durable deployment comes with the durable cluster "
-            "slice of the port (cluster/durable.py with train/checkpoint.py)")
+    def adopt(cls, snapshot_dir: str, *, factory: tuple,
+              transport="inprocess", timeout_s: float = 300.0,
+              trace: bool = False,
+              salvage: Optional[dict] = None) -> "ClusterDeployment":
+        """Stand a brand-new controller up over a previous deployment's
+        on-disk state (``snapshot_dir``) — the controller-crash recovery
+        path.  The epoch is bumped across the adopt, the refinement is
+        re-proved (``dep.events[-1].refined``), and any pending failed
+        batch replays from the durable fold snapshots at the next
+        :meth:`recover`.
+
+        ``factory=(picklable_callable, args)`` rebuilds the network (the
+        declarative half that does not live on disk).  ``salvage`` hands
+        over a dead controller's still-live wiring
+        (:meth:`salvageable`), so surviving warm workers are re-parked with
+        0 new stage builds; without it every host spawns fresh.  The hosts
+        run where the adopted deployment ran (the card unless it was
+        deployed on the CPU).
+        """
+        store = DeploymentStore(snapshot_dir)
+        meta = store.load_meta()
+        if meta is None:
+            raise NetworkError(
+                f"adopt: no deployment meta under {snapshot_dir!r}")
+        net = factory[0](*factory[1])
+        cfgd = dict(meta["cfg"])
+        dep = cls(net, plan=partition(net, assignment=meta["assignment"]),
+                  transport=transport,
+                  microbatch_size=cfgd["microbatch_size"],
+                  max_in_flight=cfgd["max_in_flight"],
+                  lanes=cfgd["lanes"], fuse=cfgd["fuse"], factory=factory,
+                  timeout_s=timeout_s, trace=trace or cfgd["trace"],
+                  snapshot_every=cfgd["snapshot_every"],
+                  snapshot_dir=snapshot_dir,
+                  coalesce_bytes=cfgd.get("coalesce_bytes", 0),
+                  device=cfgd["device"])
+        dep.controller.adopt_state(meta, salvage=salvage)
+        return dep
+
+    def salvageable(self) -> dict:
+        """The live wiring another controller needs to adopt this
+        deployment's surviving workers in-process (the ``salvage=`` value
+        for :meth:`adopt`).  Meaningful only while the workers are alive —
+        a real controller crash takes thread-backed hosts with it, so this
+        models the hosts-outlive-controller topology."""
+        c = self.controller
+        return {"transport": c.transport, "procs": c._procs,
+                "threads": c._threads, "work_qs": c._work_qs,
+                "result_q": c._result_q, "result_qs": c._result_qs,
+                "executors": c.executors, "devices": c._devices}
 
     # -- the control plane, surfaced ---------------------------------------
     @property
@@ -136,9 +191,15 @@ class ClusterDeployment:
 
     @property
     def events(self) -> list:
-        """:class:`~.control.RecoveryEvent` per recovery or
-        reconfiguration."""
+        """:class:`~.control.RecoveryEvent` per recovery, reconfiguration
+        or adoption."""
         return self.controller.events
+
+    @property
+    def durable_events(self) -> list:
+        """:class:`~.durable.DurabilityEvent` per meta snapshot, restore
+        from a fold snapshot and adoption, oldest first."""
+        return self.controller.durable_events
 
     @property
     def cfg(self) -> ExecConfig:

@@ -58,12 +58,6 @@ __all__ = [
     "run_cluster",
 ]
 
-_DURABLE_SLICE = (
-    "fold snapshots (snapshot_every / snapshot_dir) come with the durable "
-    "cluster slice of the port (cluster/durable.py with "
-    "train/checkpoint.py)")
-
-
 @dataclasses.dataclass
 class ExecConfig:
     """Per-host streaming-executor knobs (picklable: crosses into spawned
@@ -77,8 +71,12 @@ class ExecConfig:
     # spans/instants ship back with every batch result and merge on the
     # controller; False = recorders stay disabled (near-zero cost)
     trace: bool = False
-    # durability: the durable slice's work; anything but the defaults is
-    # refused by the deployment
+    # durability (cluster/durable.py): when snapshot_dir is set, each host
+    # persists its fold accumulators every snapshot_every chunks through a
+    # crash-atomic Checkpointer under <snapshot_dir>/host_<h>, and the
+    # controller writes its meta (plan, epoch, ledger) under /meta — so
+    # recover() replays from the last snapshot and a fresh controller can
+    # adopt() the deployment.  0 / None = durability off.
     snapshot_every: int = 0
     snapshot_dir: Optional[str] = None
     # transport fast path: coalesce records up to this many bytes into one
@@ -248,6 +246,20 @@ class PartitionExecutor(StreamExecutor):
         self.ep.clear_read_buffers()
         return self._run_plan(list(bounds), batch, start_ci=start_ci)
 
+    def resume_from_state(self, state: dict, batch=None):
+        """Durable-snapshot resume (see the base class) on a host whose run
+        state was reset: byte counters, ring-path counts and read-ahead
+        start afresh as for a replay from a chunk, and the sample baseline
+        is the snapshot's progress, so the serve call that replays the tail
+        does not bill the pre-snapshot chunks again."""
+        self.sent_bytes = {}
+        self.recv_bytes = {}
+        self._ring_base = self.ep.ring_counts()
+        self.ep.clear_read_buffers()
+        st = state["stats"]
+        self._sample_base = (st.chunks_done, st.items_done, st.stalls)
+        return super().resume_from_state(state, batch)
+
     def resume_partition(self, batch=None) -> dict:
         """Resume an interrupted batch from the saved replay state."""
         # resume keeps the interrupted run's StreamStats: rebase the sample
@@ -342,8 +354,6 @@ def make_host_executor(plan: PartitionPlan, host: int,
     ``cfg.device``).  A :class:`~.deploy.ClusterDeployment` keeps the
     returned executor alive across batches, so its stage callables are
     built exactly once."""
-    if cfg.snapshot_every or cfg.snapshot_dir:
-        raise NotImplementedError(_DURABLE_SLICE)
     sub = plan.subnetwork(host)
     cn = build(sub, device=cfg.device if device is None else device)
     if cfg.coalesce_bytes:
@@ -351,10 +361,20 @@ def make_host_executor(plan: PartitionPlan, host: int,
     # cfg.trace: each host OWNS a recorder (correct attribution even when
     # hosts are threads sharing this process); spans ship back per batch
     rec = _trace.new_recorder(host=host) if cfg.trace else None
-    return PartitionExecutor(cn, plan=plan, host=host, endpoint=endpoint,
-                             microbatch_size=cfg.microbatch_size,
-                             max_in_flight=cfg.max_in_flight,
-                             lanes=cfg.lanes, fuse=cfg.fuse, recorder=rec)
+    ex = PartitionExecutor(cn, plan=plan, host=host, endpoint=endpoint,
+                           microbatch_size=cfg.microbatch_size,
+                           max_in_flight=cfg.max_in_flight,
+                           lanes=cfg.lanes, fuse=cfg.fuse, recorder=rec)
+    if cfg.snapshot_every and cfg.snapshot_dir:
+        from .durable import DeploymentStore
+        store = DeploymentStore(cfg.snapshot_dir)
+        ex.snapshotter = store.host_checkpointer(host)
+        ex.snapshot_every = cfg.snapshot_every
+        # a fault injector can kill mid-snapshot-write through the endpoint
+        hook = getattr(endpoint, "snapshot_step", None)
+        if hook is not None:
+            ex.on_snapshot = hook
+    return ex
 
 
 def derive_cut_capacities(plan: PartitionPlan, cfg: ExecConfig,

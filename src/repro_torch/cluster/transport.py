@@ -463,8 +463,28 @@ class ChannelTransport:
         this handle; only the shared-memory ring has two paths."""
         return {}
 
+    def named_resources(self) -> tuple[list, list]:
+        """The machine-wide named objects this transport created —
+        ``(semaphore names, /dev/shm segment names)`` — which a process
+        killed without a clean close leaves behind (a durable deployment
+        records them, so whoever adopts it can reclaim them)."""
+        return [], []
+
     def close(self) -> None:
         pass
+
+
+def queue_semaphores(queues) -> list:
+    """The named semaphores behind ``multiprocessing`` queues (each has a
+    reader lock, a writer lock and a bound counter)."""
+    names = []
+    for q in queues:
+        for lock in (getattr(q, "_rlock", None), getattr(q, "_wlock", None),
+                     getattr(q, "_sem", None)):
+            name = getattr(getattr(lock, "_semlock", None), "name", None)
+            if name:
+                names.append(name)
+    return names
 
 
 class _QueueTransport(ChannelTransport):
@@ -848,6 +868,9 @@ class MultiProcessPipe(_QueueTransport):
         ep.recv_timeout_s = self.recv_timeout_s  # keep any override
         ep.coalesce_bytes = self.coalesce_bytes
         return ep
+
+    def named_resources(self) -> tuple[list, list]:
+        return queue_semaphores(self._queues.values()), []
 
     def _pack(self, value):
         # tensor and contiguous numpy leaves cross as raw header+buffer
@@ -1429,6 +1452,11 @@ class SharedMemoryRing(_ShmOps, ChannelTransport):
         """Names of the ``/dev/shm`` segments this transport created and
         has not unlinked yet (empty after :meth:`close`)."""
         return [s.name for slots in self._owned.values() for s in slots]
+
+    def named_resources(self) -> tuple[list, list]:
+        return (queue_semaphores(q for r in self._rings.values()
+                                 for q in (r.free_q, r.data_q)),
+                self.owned_names())
 
     def bricked_channels(self, channels=None) -> set:
         """A ring has TWO reader locks a corpse can hold: the header queue's

@@ -84,16 +84,13 @@ def cluster_report(plan, reports, events=None, depths=None,
     scale), and — when the elastic control plane has recovered the
     deployment — one ``recovery`` line per plan-epoch swap.
 
-    ``plan`` is a :class:`repro.cluster.partition.PartitionPlan`; ``reports``
-    a list of :class:`repro.cluster.runtime.HostReport`; ``events`` an
-    optional list of :class:`repro.cluster.control.RecoveryEvent` — an
-    autoscale action's event carries its decision as ``auto_mode``
-    (``autoscale add_host: ...``), so scaling renders right next to
-    recoveries here, and :class:`repro.cluster.autoscale.AutoscaleEvent`
-    duck-types into the same list via its own ``describe()``;
+    ``plan`` is a :class:`..cluster.partition.PartitionPlan`; ``reports``
+    a list of :class:`..cluster.runtime.HostReport`; ``events`` an
+    optional list of :class:`..cluster.control.RecoveryEvent` (any event
+    with a ``describe()`` renders in the same list);
     ``depths`` an optional live ``{"src->dst": queue depth}`` sample
     (:meth:`ChannelTransport.channel_depths`); ``durability`` an optional
-    list of :class:`repro.cluster.durable.DurabilityEvent` (controller-meta
+    list of :class:`..cluster.durable.DurabilityEvent` (controller-meta
     snapshots, replay-from-snapshot restores, adopts), rendered in order
     with per-event host dicts sorted.  Pure formatting — no cluster
     imports, so the core stays dependency-free.

@@ -379,6 +379,18 @@ class StreamExecutor:
         self._outstanding = [0] * self.lanes
         self._combine_carry: dict = {}  # per-run COMBINE accumulators
         self.replay_state: Optional[_ReplayState] = None  # interrupted run
+        # durability: with a snapshotter (a train.checkpoint.Checkpointer)
+        # attached, the drive loop persists the fold accumulators every
+        # `snapshot_every` chunks, so an interrupted batch replays from the
+        # last snapshot instead of chunk 0 (and a fresh controller can adopt
+        # the on-disk state).  `snapshot_tag` is (batch_id, epoch), stamped
+        # by the cluster host loop; `on_snapshot` is a pre-write hook (a
+        # fault injector can die there, mid-snapshot)
+        self.snapshotter = None
+        self.snapshot_every: int = 0
+        self.snapshot_tag: tuple = (0, 1)
+        self.on_snapshot = None
+        self._snap_seq = 0
         # per-stage callables persist across runs; jit_builds counts their
         # first builds, so a warm executor stays at the same number
         self._fns: dict = {}
@@ -668,12 +680,69 @@ class StreamExecutor:
         return self._drive(st.plan, batch, st.next_ci, st.jit_accs,
                            st.host_accs)
 
+    # -- durability: fold-state snapshot / restore ---------------------------
+    def snapshot_state(self, plan, next_ci: int, jit_accs: dict,
+                       host_accs: dict) -> dict:
+        """A device-free, picklable image of the fold state covering
+        chunks ``[0, next_ci)`` — the on-disk twin of :class:`_ReplayState`.
+        Valid only at a retire-consistent boundary (no chunk in flight);
+        every tensor is copied to the CPU here, before any writer thread
+        sees the tree."""
+        from ..cluster.durable import to_host
+        batch_id, epoch = self.snapshot_tag
+        return {"batch_id": batch_id, "epoch": epoch,
+                "next_ci": next_ci, "bounds": list(plan),
+                "jit_accs": to_host(jit_accs),
+                "host_accs": to_host(host_accs),
+                "combine_carry": to_host(self._combine_carry),
+                "stats": copy.deepcopy(self.stats)}
+
+    def _save_snapshot(self, plan, next_ci, jit_accs, host_accs) -> None:
+        from ..cluster.durable import _to_blob
+        with self.rec.span("snapshot", "durable", ci=next_ci,
+                           seq=self._snap_seq + 1) as sp:
+            state = self.snapshot_state(plan, next_ci, jit_accs, host_accs)
+            if self.on_snapshot is not None:
+                self.on_snapshot(next_ci)  # fault-injection point: die here
+            self._snap_seq += 1
+            blob = _to_blob(state)
+            sp.set(nbytes=blob["blob"].nbytes)
+            self.snapshotter.save(self._snap_seq, blob)
+
+    def resume_from_state(self, state: dict, batch=None):
+        """Stream the tail of an interrupted run from an on-disk snapshot:
+        fold accumulators restored as of ``state["next_ci"]`` onto this
+        executor's device, remaining chunks re-driven with full-batch chunk
+        numbering intact."""
+        dev = self.cn.device
+        with self.rec.span("snapshot_restore", "durable",
+                           ci=state["next_ci"]):
+            self.replay_state = None
+            self._combine_carry = to_device(dict(state["combine_carry"]),
+                                            dev)
+            self.stats = state["stats"]
+            self.stats.replays += 1
+            if self.stats.resumed_at is None:
+                self.stats.resumed_at = state["next_ci"]
+            self._outstanding = [0] * self.lanes
+            jit_accs = to_device(dict(state["jit_accs"]), dev)
+            host_accs = to_device(dict(state["host_accs"]), dev)
+        return self._drive(state["bounds"], batch, state["next_ci"],
+                           jit_accs, host_accs)
+
     def _drive(self, plan, batch, start_ci, jit_accs, host_accs):
         rec = self.rec
         cuda = self.cn.device.type == "cuda"
         in_flight: deque = deque()
         for ci in range(start_ci, len(plan)):
             lo, hi = plan[ci]
+            if (self.snapshot_every and self.snapshotter is not None
+                    and ci > start_ci and ci % self.snapshot_every == 0):
+                # drain in-flight first so the accumulators cover chunks
+                # < ci — the consistency point _ReplayState capture uses
+                while in_flight:
+                    self._retire(in_flight.popleft(), host_accs)
+                self._save_snapshot(plan, ci, jit_accs, host_accs)
             if len(in_flight) >= self.depth:  # backpressure BEFORE dispatch:
                 self.stats.stalls += 1       # ≤ `depth` chunks unretired
                 with rec.span("stall", "stream", ci=ci):

@@ -20,6 +20,8 @@ import random
 import sys
 import time
 
+from ._common import add_model_flags
+
 
 def _pct(xs: list, q: float) -> float:
     """Nearest-rank percentile (q in [0, 100]) of a non-empty list."""
@@ -41,10 +43,7 @@ def requests(n: int, vocab: int, max_new: int) -> list:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True,
-                    help="model architecture name (see repro_torch.configs)")
-    ap.add_argument("--reduced", action="store_true",
-                    help="CI-sized config: same wiring, tiny dims")
+    add_model_flags(ap)
     ap.add_argument("--hosts", type=int, default=0,
                     help="simulated host count (0 = stay in-process; the "
                          "only value ported so far)")

@@ -2,9 +2,11 @@
 
 The API is :class:`Request` in, :class:`Response` out, through a
 :class:`ServeEngine` over :class:`LocalDecodeBackend` (one slot-batched
-decode step in this process, on the card unless asked for the CPU).  The
-clustered decode farm, durable serving state and the deprecated
-``FarmScheduler`` shim come with the cluster and durable slices.
+decode step in this process, on the card unless asked for the CPU), whose
+request table and cache persist through a ``DeploymentStore`` when one is
+given (``ServeEngine(store=)``, ``ServeEngine.adopt``).  The clustered
+decode farm and the deprecated ``FarmScheduler`` shim come with the cluster
+serving slice.
 """
 
 from .engine import (LocalDecodeBackend, Request, Response,  # noqa: F401

@@ -17,9 +17,13 @@ The public API is small and immutable: :class:`Request` in,
 ``submit() -> rid`` / ``poll(rid)`` / ``run_until_drained()``.  Token
 streams are identical to sequential per-request generation.
 
-The clustered decode farm (``ClusterDecodeBackend``, ``make_decode_farm``)
-and durable serving state (``store=``, ``adopt``) come with the cluster and
-durable slices; here they raise ``NotImplementedError``.
+With ``store=`` (a :class:`..cluster.durable.DeploymentStore`) the engine
+persists its request table and the backend's cache every
+``persist_every`` steps, and :meth:`ServeEngine.adopt` stands a new engine
+up over them after a crash: every accepted request is answered exactly
+once.  The clustered decode farm (``ClusterDecodeBackend``,
+``make_decode_farm``) comes with the cluster serving slice; here it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,14 +39,13 @@ import torch.utils._pytree as pytree
 from ..core import trace as _trace
 from ..core.dataflow import NetworkError
 from ..core.stream import SlotPlan, microbatch_plan
+from ..device import to_device
 
 __all__ = ["Request", "Response", "ServeEngine", "LocalDecodeBackend",
            "ClusterDecodeBackend", "build_decode_model", "make_decode_farm"]
 
 _CLUSTER_SLICE = ("the clustered decode farm comes with the port's cluster "
-                  "runtime slice")
-_DURABLE_SLICE = ("durable serving state comes with the port's cluster and "
-                  "durable slices")
+                  "serving slice")
 
 
 # ==========================================================================
@@ -226,9 +229,7 @@ class ServeEngine:
     def __init__(self, backend, *, eos_id: int = -1,
                  time_fn=time.monotonic,
                  recorder: Optional[_trace.TraceRecorder] = None,
-                 store=None):
-        if store is not None:
-            raise NotImplementedError(_DURABLE_SLICE)
+                 store=None, persist_every: int = 1):
         self.backend = backend
         self.eos_id = eos_id
         self.time_fn = time_fn
@@ -243,11 +244,49 @@ class ServeEngine:
         self._live: dict[int, _Live] = {}     # rid -> admitted state
         self._known: set = set()
         self._submit_times: dict[int, float] = {}
+        # durability: a DeploymentStore persists the full request table
+        # (admission queue, in-flight slots, answered responses) plus the
+        # backend's cache at step boundaries, so a brand-new engine can
+        # adopt() the serving state and answer exactly once
+        self.store = store
+        self.persist_every = persist_every
+        self._persist_seq = 0
 
     @classmethod
-    def adopt(cls, backend, store, **kwargs) -> "ServeEngine":
-        """Placeholder for standing an engine up over persisted state."""
-        raise NotImplementedError(_DURABLE_SLICE)
+    def adopt(cls, backend, store, *, time_fn=time.monotonic,
+              recorder: Optional[_trace.TraceRecorder] = None,
+              persist_every: int = 1) -> "ServeEngine":
+        """Stand a brand-new engine up over a dead one's persisted serving
+        state: the request table resumes exactly where the last persisted
+        step left it — answered responses stay answered (never recomputed,
+        never re-delivered), in-flight requests resume mid-decode on the
+        restored cache, which goes back onto the backend's device, and
+        queued ones are admitted as slots free up.  The decode being
+        deterministic, the adopted engine's token streams equal an
+        uncrashed run's: every accepted request is answered exactly
+        once."""
+        state = store.load_serve()
+        if state is None:
+            raise NetworkError(
+                "ServeEngine.adopt: no persisted serving state in "
+                f"{store.root!r}")
+        eng = cls(backend, eos_id=state["eos_id"], time_fn=time_fn,
+                  recorder=recorder, store=store,
+                  persist_every=persist_every)
+        eng.rec.instant("adopt", "durable", steps=state["steps_run"])
+        eng.plan = state["plan"]
+        eng.pending = list(state["pending"])
+        eng.responses = dict(state["responses"])
+        eng.completed = list(state["completed"])
+        eng.steps_run = state["steps_run"]
+        eng.last_tok = np.asarray(state["last_tok"]).copy()
+        eng._live = dict(state["live"])
+        eng._known = set(state["known"])
+        eng._submit_times = dict(state["submit_times"])
+        eng._persist_seq = store.serve_step() or 0
+        if state.get("cache") is not None:
+            backend.cache = to_device(state["cache"], backend.device)
+        return eng
 
     # -- the public surface --------------------------------------------------
     def submit(self, req: Request) -> int:
@@ -317,6 +356,9 @@ class ServeEngine:
                     finished_at=now, steps=live.steps,
                     slot_events=tuple(e for e in self.plan.events
                                       if e.rid == rid)))
+        if (self.store is not None and self.persist_every
+                and self.steps_run % self.persist_every == 0):
+            self._persist()
         return len(active)
 
     def run_until_drained(self) -> list[Response]:
@@ -342,6 +384,36 @@ class ServeEngine:
         return list(self.plan.events)
 
     # -- internals -----------------------------------------------------------
+    def _state(self) -> dict:
+        """The engine's full serving state as one picklable dict — the
+        request table plus the backend's cache, every tensor copied to the
+        CPU, captured at a step boundary so the pair is mutually
+        consistent."""
+        import copy as _copy
+
+        from ..cluster.durable import to_host
+        cache = getattr(self.backend, "cache", None)
+        return {
+            "eos_id": self.eos_id,
+            "plan": _copy.deepcopy(self.plan),
+            "pending": list(self.pending),
+            "responses": dict(self.responses),
+            "completed": list(self.completed),
+            "steps_run": self.steps_run,
+            "last_tok": np.asarray(self.last_tok).copy(),
+            "live": _copy.deepcopy(self._live),
+            "known": set(self._known),
+            "submit_times": dict(self._submit_times),
+            "cache": None if cache is None else to_host(cache),
+        }
+
+    def _persist(self) -> None:
+        self._persist_seq += 1
+        with self.rec.span("persist", "durable", step=self.steps_run,
+                           seq=self._persist_seq) as sp:
+            sp.set(nbytes=self.store.save_serve(self._persist_seq,
+                                                self._state()))
+
     def _finish(self, resp: Response) -> None:
         self.responses[resp.rid] = resp
         self.completed.append(resp)

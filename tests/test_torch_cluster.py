@@ -1107,18 +1107,34 @@ class TestLaterSlices:
         with pytest.raises(NetworkError, match="unknown transport"):
             make_transport("jaxmesh")
 
-    def test_snapshots_and_adoption_name_the_durable_slice(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="durable"):
-            ClusterDeployment(_farm(), hosts=2, snapshot_every=1,
-                              snapshot_dir=str(tmp_path), device=CPU)
-        with pytest.raises(NotImplementedError, match="durable"):
-            ClusterDeployment.adopt(str(tmp_path), factory=(_farm, ()))
+    def test_snapshot_config_attaches_a_snapshotter_and_adopt_resumes(
+            self, tmp_path):
+        """``snapshot_every`` / ``snapshot_dir`` give each host executor a
+        fold snapshotter, the deployment writes its meta and snapshots,
+        and ``adopt`` resumes it at epoch 2 with the JAX package's
+        result."""
         plan = partition(_farm(), hosts=2)
-        with pytest.raises(NotImplementedError, match="durable"):
-            make_host_executor(plan, 0, InProcess().endpoint(0),
-                               ExecConfig(snapshot_every=2,
-                                          snapshot_dir=str(tmp_path),
-                                          device=CPU))
+        ex = make_host_executor(plan, 0, InProcess().endpoint(0),
+                                ExecConfig(snapshot_every=2,
+                                           snapshot_dir=str(tmp_path),
+                                           device=CPU))
+        assert ex.snapshotter is not None and ex.snapshot_every == 2
+        assert make_host_executor(plan, 0, InProcess().endpoint(0),
+                                  ExecConfig(device=CPU)).snapshotter is None
+        d = str(tmp_path / "dep")
+        with ClusterDeployment(_farm(), hosts=2, snapshot_every=1,
+                               snapshot_dir=d, microbatch_size=2,
+                               device=CPU) as dep:
+            out = dep.run(instances=10)
+        assert sorted(p.name for p in tmp_path.joinpath("dep").iterdir()) \
+            == ["host_0", "host_1", "meta"]
+        with ClusterDeployment.adopt(d, factory=(_farm, ())) as dep2:
+            assert dep2.epoch == 2 and dep2.events[-1].mode == "adopt"
+            again = dep2.run(instances=10)
+        assert torch.equal(again["collect"], out["collect"])
+        assert float(out["collect"]) == float(
+            jcl.run_cluster(_farm("jax"), instances=10, hosts=2,
+                            microbatch_size=2)["collect"])
 
 
 def test_launch_counts_lose_nothing_under_threads():

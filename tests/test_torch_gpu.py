@@ -952,3 +952,152 @@ def test_shm_ring_carries_cuda_bf16_leaves(cuda):
     finally:
         t.close()
     assert not t.owned_names()
+
+
+# -- durable deployments and serving on the card -----------------------------
+
+_CARD_TRIP: dict = {}  # module-level: the adopting controller rebuilds it
+
+
+def _card_farm(args, trip_at):
+    """The Mandelbrot farm whose host-side Collect raises once, on its
+    ``trip_at``-th item (past the fold snapshots of the batch)."""
+    from repro_torch import workloads
+    net = workloads.mandelbrot_factory(*args)
+    coll = net.procs["collect"]
+    fold = coll.fn
+
+    def once(acc, item):
+        _CARD_TRIP["n"] = _CARD_TRIP.get("n", 0) + 1
+        if _CARD_TRIP["n"] == trip_at:
+            raise RuntimeError("transient collector failure (injected)")
+        return fold(acc, item)
+
+    coll.fn = once
+    return net
+
+
+def test_durable_farm_on_card_snapshot_fail_recover_adopt(cuda, tmp_path):
+    """Over ``device`` hosts: the Collect fails in chunk 6 of 8, recover()
+    replays it from its chunk-6 fold snapshot (the renderer re-launching
+    only the 4 bands after it), then the closed deployment is adopted
+    fresh — each result equal to the single-host run."""
+    from repro_torch import workloads
+    from repro_torch.cluster import (ClusterDeployment, ClusterError,
+                                     DeploymentStore)
+    from repro_torch.core import run_sequential
+    args = (512, 256, 16, 200)
+    seq = workloads.assemble(run_sequential(
+        workloads.mandelbrot_factory(*args), 16)["collect"])
+    d = str(tmp_path)
+    _CARD_TRIP.clear()
+    try:
+        dep = ClusterDeployment(_card_farm(args, 13), hosts=2,
+                                transport="device", microbatch_size=2,
+                                snapshot_every=2, snapshot_dir=d,
+                                timeout_s=120)
+        with dep:
+            with pytest.raises(ClusterError):
+                dep.run(instances=16)
+            coll = dep.plan.assignment["collect"]
+            snap = DeploymentStore(d).load_host_snapshot(coll)
+            assert snap is not None and snap["next_ci"] == 6
+            before = mb_ops.mandelbrot.launches
+            rec = dep.recover()
+            torch.cuda.synchronize()
+            assert mb_ops.mandelbrot.launches - before == 16 - 2 * 6
+            assert np.array_equal(workloads.assemble(rec["collect"]), seq)
+            assert dep.events[-1].replay_from[coll] == 6
+        with ClusterDeployment.adopt(
+                d, factory=(_card_farm, (args, 0)),
+                transport="device") as dep2:
+            assert dep2.epoch == 3 and dep2.events[-1].refined is True
+            out = dep2.run(instances=16)
+            assert np.array_equal(workloads.assemble(out["collect"]), seq)
+    finally:
+        _CARD_TRIP.clear()
+
+
+def test_snapshot_and_serving_state_hold_no_cuda_tensor(cuda, tmp_path):
+    """The launcher's farm folds a device scalar (``jit_combine``): its
+    host snapshot, unpickled, holds CPU tensors only, and a stream resumed
+    from it puts the fold back on the card and ends at the oracle.  A
+    serving engine's persisted state holds no CUDA tensor either."""
+    import pickle
+    from repro_torch.cluster import ClusterDeployment, DeploymentStore
+    from repro_torch.cluster.durable import _from_blob
+    from repro_torch.core import build, run_sequential
+    from repro_torch.core.builder import make_emit_batch
+    from repro_torch.core.stream import StreamExecutor
+    from repro_torch.launch.cluster import make_mandelbrot
+    from repro_torch.serve import (LocalDecodeBackend, Request, ServeEngine,
+                                   build_decode_model)
+    args = (16, 256, 256, 300)
+    seq = run_sequential(make_mandelbrot(*args), 16)["collect"]
+    with ClusterDeployment(factory=(make_mandelbrot, args), hosts=2,
+                           transport="device", microbatch_size=2,
+                           snapshot_every=2, snapshot_dir=str(tmp_path)
+                           ) as dep:
+        assert torch.equal(dep.run(instances=16)["collect"], seq)
+        coll = dep.plan.assignment["collect"]
+    snap = DeploymentStore(str(tmp_path)).load_host_snapshot(coll)
+    leaves = torch.utils._pytree.tree_leaves(snap)
+    assert any(isinstance(l, torch.Tensor) for l in leaves)
+    assert not any(isinstance(l, torch.Tensor) and l.is_cuda for l in leaves)
+    net = make_mandelbrot(*args)
+    ex = StreamExecutor(build(net, device=cuda), microbatch_size=2)
+    ex.snapshot_tag = (snap["batch_id"], snap["epoch"])
+    out = ex.resume_from_state(snap, make_emit_batch(net, 16, device=cuda))
+    assert out["collect"].is_cuda and torch.equal(out["collect"], seq)
+
+    model, params = build_decode_model(("toy", 32, 8), device=cuda)
+    store = DeploymentStore(str(tmp_path / "serve"))
+    eng = ServeEngine(LocalDecodeBackend(model, params, n_slots=2,
+                                         max_len=16), store=store)
+    eng.submit(Request(rid=0, prompt=(3, 4, 5), max_new=4))
+    eng.step()
+    state = eng._state()
+    assert not any(isinstance(l, torch.Tensor) and l.is_cuda
+                   for l in torch.utils._pytree.tree_leaves(state))
+    blob = store.serve_checkpointer()
+    _, tree = blob.restore({"blob": np.zeros((0,), np.uint8)}, device="cpu")
+    assert _from_blob(tree)["steps_run"] == 1
+    pickle.loads(pickle.dumps(state))  # no device in the pickle
+
+
+def test_durable_serving_on_card_answers_once_with_uncrashed_tokens(
+        cuda, tmp_path):
+    """A reduced qwen2 on the card: the engine with a store crashes with
+    two requests done and two in flight; a new engine adopting the store
+    on a fresh backend answers every request exactly once, with the tokens
+    of an uncrashed engine without a store."""
+    from repro_torch.cluster import DeploymentStore
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import (LocalDecodeBackend, ServeEngine,
+                                   build_decode_model)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, params = build_decode_model(("model", "qwen2-0.5b", True),
+                                       device=cuda)
+    reqs = launcher.requests(6, model.cfg.vocab, 8)
+
+    def backend():
+        return LocalDecodeBackend(model, params, n_slots=3, max_len=32)
+
+    plain = ServeEngine(backend())
+    for r in reqs:
+        plain.submit(r)
+    plain.run_until_drained()
+    eng = ServeEngine(backend(), store=DeploymentStore(str(tmp_path)))
+    for r in reqs:
+        eng.submit(r)
+    while len(eng.completed) < 2 or len(eng._live) < 2:
+        assert eng.step()
+    del eng  # the crash
+    eng2 = ServeEngine.adopt(backend(), DeploymentStore(str(tmp_path)))
+    assert next(iter(torch.utils._pytree.tree_leaves(
+        eng2.backend.cache))).is_cuda
+    eng2.run_until_drained()
+    answered = [r.rid for r in eng2.completed]
+    assert sorted(answered) == [r.rid for r in reqs]
+    for r in reqs:
+        assert eng2.poll(r.rid).tokens == plain.poll(r.rid).tokens

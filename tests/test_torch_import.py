@@ -28,9 +28,11 @@ def test_import_loads_no_jax_and_no_repro_module():
         for name in names:
             importlib.import_module(name)
         assert len(names) > 20, names
-        for mod in ("partition", "transport", "runtime", "control",
-                    "deploy"):
-            assert f"repro_torch.cluster.{mod}" in names, mod
+        for mod in ("cluster.partition", "cluster.transport",
+                    "cluster.runtime", "cluster.control", "cluster.deploy",
+                    "cluster.durable", "train", "train.checkpoint",
+                    "launch._common", "launch.cluster"):
+            assert f"repro_torch.{mod}" in names, mod
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro."))

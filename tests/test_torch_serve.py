@@ -138,17 +138,38 @@ def test_slot_events_audit_matches_trace():
     assert {e.rid for e in trail if e.kind == "join"} == admits
 
 
-def test_cluster_and_durable_parts_name_their_slice():
-    model, params = _toy()
-    backend = LocalDecodeBackend(model, params, n_slots=1, max_len=8)
-    with pytest.raises(NotImplementedError, match="slice"):
-        ServeEngine(backend, store=object())
-    with pytest.raises(NotImplementedError, match="slice"):
-        ServeEngine.adopt(backend, object())
+def test_cluster_decode_farm_names_its_slice():
     with pytest.raises(NotImplementedError, match="slice"):
         ClusterDecodeBackend(TOY, n_slots=2)
     with pytest.raises(NotImplementedError, match="slice"):
         make_decode_farm(TOY, 2, 1, 8, 4)
+
+
+def test_store_persists_every_step_and_adopt_resumes(tmp_path):
+    """``ServeEngine(store=)`` persists the request table and cache each
+    step; ``ServeEngine.adopt`` over a fresh backend resumes mid-decode and
+    every request ends with its sequential-oracle tokens, answered once."""
+    from repro_torch.cluster import DeploymentStore
+    model, params = _toy()
+    reqs = [Request(rid=i, prompt=tuple(range(1, 2 + i)), max_new=3 + i % 3)
+            for i in range(5)]
+    expect = {r.rid: _oracle_tokens(model, params, r) for r in reqs}
+    store = DeploymentStore(str(tmp_path))
+    eng = _engine(model, params, 2, store=store)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    assert store.serve_step() == eng.steps_run == 4
+    eng2 = ServeEngine.adopt(LocalDecodeBackend(model, params, n_slots=2,
+                                                max_len=64),
+                             DeploymentStore(str(tmp_path)))
+    assert eng2.steps_run == 4 and eng2._persist_seq == 4
+    eng2.run_until_drained()
+    answered = [r.rid for r in eng2.completed]
+    assert sorted(answered) == list(range(5))
+    for r in reqs:
+        assert eng2.poll(r.rid).tokens == expect[r.rid], f"req {r.rid}"
 
 
 # ==========================================================================
