@@ -68,6 +68,27 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    store; the persist span, its bytes, TPOT with and without the store and
    the adopt wall.  No host process and no new ``/dev/shm`` entry may be
    left; the phase prints its wall;
+14. (run after phase 13) the fault-injection simulator on the card, its
+   simulated hosts threads of this process on ``cuda``: 14a the
+   JAX package's scenario families — ``run_scenario`` for seeds 0-19 (all
+   five fault kinds), ``run_kill_controller_scenario`` for each of its
+   five variants, ``run_stall_race_scenario`` for seeds 0 and 1,
+   ``run_coalesce_kill_scenario`` for seeds 0-5 and
+   ``run_pipe_brick_scenario`` over real ``pipe`` host processes, every
+   one ``ok`` (each family prints its scenarios, faults fired,
+   recoveries, median and max virtual ticks and wall); 14b the Mandelbrot
+   farm at phase 2's width over 2 simulated hosts (microbatch 16) under
+   ``FaultSchedule.random`` for 4 seeds (a kill, a double kill, a
+   controller-step kill and a kill during recovery; restart and rebalance
+   in turns): a cold batch, then the schedule armed and 2 batches, each
+   recovered as the faults demand, every batch equal to phase 2, every
+   recovery refined, the epoch chain refining, no record delivered twice,
+   no stage built on an untouched host, the merged trace conforming, and
+   at least 64 launches here a batch; it prints the launches, the bands
+   launched beyond one a band a batch, the kill -> recovered-result wall
+   and what a result's round trip through host bytes costs.  No host
+   thread, host process or new ``/dev/shm`` entry may be left; the phase
+   prints its wall;
 6. runs ``Model.forward`` of the full-width qwen2-0.5b (24 layers, random
    weights from seed 0) on a (4, 2048) batch of seeded tokens: in bf16 (the
    default config) the logits must be finite; in float32 its logits at
@@ -155,7 +176,8 @@ bf16 and f16 w (timed) and a strided w; and bool and transposed stencil
 images.
 
 Kernel launch counts are reset just before phase 2 and read after phase 9
-(the thread hosts of phases 12 and 13 count with them),
+(the thread hosts of phases 12 and 13 and the simulated hosts of phase 14
+count with them),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
 the farm, of the pipeline, one more bf16 forward and one decode step of
@@ -1882,6 +1904,153 @@ def run_durable_phase(torch, counts, farm_img, model, params, args,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 14: the fault-injection simulator on the card ------------------------------
+
+# (seed, recovery mode) of 14b: FaultSchedule.random over the 2-host farm
+# plan gives a kill, a double kill, a controller-step kill and a kill
+# during recovery for these seeds
+SIM_FARM_SEEDS = ((2, "restart"), (7, "rebalance"), (5, "restart"),
+                  (11, "rebalance"))
+SIM_FARM_KINDS = ("kill", "double-kill", "ctrl-step-kill",
+                  "kill-during-recovery")
+
+
+def sim_family(label, runs) -> list:
+    """14a: run one family's scenarios in turn, each must be ``ok``; print
+    each and the family's counts, virtual ticks and wall."""
+    t0 = time.perf_counter()
+    results = []
+    for run in runs:
+        r = run()
+        print(f"[sim] {label}: {r.describe()}")
+        check(r.ok, f"[sim] {label}: scenario failed: {r.failures}")
+        results.append(r)
+    ticks = [r.ticks for r in results]
+    print(f"[sim] {label}: {len(results)} scenarios, "
+          f"{sum(r.fired for r in results)} faults fired, "
+          f"{sum(r.recoveries for r in results)} recoveries, virtual ticks "
+          f"median {statistics.median(ticks)} max {max(ticks)}, wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def run_sim_farm(torch, counts, farm_img, args) -> None:
+    """14b: the Mandelbrot farm at phase 2's width over 2 simulated hosts
+    under seeded fault schedules (see the module docstring)."""
+    import random
+
+    import numpy as np
+    from repro_torch import workloads
+    from repro_torch.cluster import partition
+    from repro_torch.cluster.sim import FaultSchedule, drive_scenario
+    from repro_torch.cluster.transport import pack_raw, unpack_raw
+    label = "[sim] 14b farm x2"
+    bands = args[2]
+    factory = (workloads.mandelbrot_factory, args)
+    plan = partition(workloads.mandelbrot_factory(*args), hosts=2)
+
+    def same(out):
+        return (None if np.array_equal(workloads.assemble(out["collect"]),
+                                       farm_img)
+                else "the image differs from phase 2")
+
+    kinds = []
+    for seed, mode in SIM_FARM_SEEDS:
+        sched = FaultSchedule.random(random.Random(seed), plan)
+        kinds.append(sched.kind)
+        before = counts()["mandelbrot"]
+        t0 = time.perf_counter()
+        run = drive_scenario(workloads.mandelbrot_factory(*args), factory,
+                             plan, sched, mode, instances=bands, check=same,
+                             microbatch_size=16, timeout_s=300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()["mandelbrot"] - before
+        check(not run.failures, f"{label} seed {seed}: {run.failures}")
+        check(len(run.outs) == 3, f"{label} seed {seed}: "
+                                  f"{len(run.outs)} batches completed")
+        check(all(ev.refined is True for ev in run.events),
+              f"{label} seed {seed}: a recovery did not refine")
+        check(launched >= 3 * bands,
+              f"{label} seed {seed}: {launched} launches here for 3 batches")
+        fired = [ev for ev in sched.events if ev.fired]
+        check(bool(fired) and bool(run.events),
+              f"{label} seed {seed}: no fault fired or no recovery")
+        back = []  # kill -> recovered result, each armed batch with a fire
+        for t_start, t_end in run.spans[1:]:
+            at = [ev.fired_at for ev in fired if t_start <= ev.fired_at
+                  <= t_end]
+            if at:
+                back.append((t_end - min(at)) * 1e3)
+        print(f"{label} seed {seed} ({sched.kind}, {mode}): "
+              f"[{sched.describe()}] fired {len(fired)}, recoveries "
+              f"{len(run.events)}, 3 batches equal to phase 2, merged trace "
+              f"conforms, no duplicate delivery, chain refines; launches "
+              f"here {launched} ({launched - 3 * bands} beyond one a band a "
+              f"batch); kill -> recovered result "
+              f"{', '.join(f'{w:.1f}' for w in back)} ms; batch walls "
+              f"{', '.join(f'{(b - a) * 1e3:.1f}' for a, b in run.spans)} "
+              f"ms; virtual ticks {run.ticks}; wall {wall:.2f} s")
+        for ev in run.events:
+            print(f"{label} seed {seed}:   {ev.describe()}")
+    check(sorted(kinds) == sorted(SIM_FARM_KINDS),
+          f"{label}: fault kinds {kinds}, not {SIM_FARM_KINDS}")
+    # every result crosses from its simulated host to the controller as
+    # raw bytes (the process-host path): what one batch's round trip costs
+    result = {"collect": run.outs[-1]["collect"]}
+    trips = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        packed = pack_raw(result)
+        unpack_raw(packed)
+        trips.append((time.perf_counter() - t0) * 1e3)
+    nbytes = sum(len(leaf.buf) for leaf in
+                 packed["collect"].values())
+    print(f"{label}: a result's round trip through host bytes "
+          f"(pack_raw + unpack_raw, {nbytes} bytes): median "
+          f"{statistics.median(trips):.1f} ms of 3")
+
+
+def run_sim_phase(torch, counts, farm_img, args) -> None:
+    """Phase 14: the fault-injection simulator on the card (14a, 14b)."""
+    import multiprocessing
+    import threading
+    from repro_torch.cluster import sim
+    t_phase = time.perf_counter()
+    shm_before = set(os.listdir("/dev/shm"))
+    threads_before = set(threading.enumerate())
+    scen = sim_family("14a run_scenario seeds 0-19",
+                      [lambda s=s: sim.run_scenario(s) for s in range(20)])
+    kinds = {r.kind for r in scen}
+    check(kinds == {"kill", "stall", "double-kill", "kill-during-recovery",
+                    "ctrl-step-kill"}, f"[sim] 14a fault kinds {kinds}")
+    crash = sim_family("14a kill-controller", [
+        lambda s=s: sim.run_kill_controller_scenario(s) for s in range(5)])
+    check(len({r.kind for r in crash}) == 5,
+          f"[sim] 14a controller-crash variants {[r.kind for r in crash]}")
+    sim_family("14a stall-race seeds 0-1",
+               [lambda s=s: sim.run_stall_race_scenario(s) for s in (0, 1)])
+    sim_family("14a coalesce-kill seeds 0-5",
+               [lambda s=s: sim.run_coalesce_kill_scenario(s)
+                for s in range(6)])
+    sim_family("14a pipe-brick", [sim.run_pipe_brick_scenario])
+    run_sim_farm(torch, counts, farm_img, args)
+    deadline = time.monotonic() + 30.0
+    while True:  # a killed host thread unwinds at its next poll
+        left = [t.name for t in set(threading.enumerate()) - threads_before
+                if t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    check(not left, f"[sim] host threads left after phase 14: {left}")
+    check(not multiprocessing.active_children(),
+          "[sim] host processes still running after phase 14")
+    left = sorted(set(os.listdir("/dev/shm")) - shm_before)
+    check(not left, f"[sim] /dev/shm entries left: {left}")
+    print(f"[sim] no host thread, host process or /dev/shm entry left; "
+          f"phase 14 wall: {time.perf_counter() - t_phase:.1f} s")
+
+
 # -- phases 6-9: the decoder LMs -----------------------------------------------------
 
 def describe(cfg) -> str:
@@ -2226,6 +2395,7 @@ def main() -> int:
     run_serve(torch, model, params, launch_counts)
     run_durable_phase(torch, launch_counts, farm_img, model, params,
                       (W, H, BANDS, ITERS), rebalance_ms)
+    run_sim_phase(torch, launch_counts, farm_img, (W, H, BANDS, ITERS))
     del farm_img
     ssm = run_forward(torch, dev, launch_counts, "mamba2-2.7b", 4, 2048,
                       {"ssd_scan": 64})

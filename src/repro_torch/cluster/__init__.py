@@ -15,10 +15,11 @@ replay of the lost chunks) and refitting itself to another host count;
 a :class:`DeploymentStore` (``snapshot_every=`` / ``snapshot_dir=``) is
 durable: hosts snapshot their fold state, a failed stateful host replays
 from its last snapshot, and :meth:`ClusterDeployment.adopt` takes the
-deployment over after its controller died.
+deployment over after its controller died.  The fault-injection
+simulator (:mod:`.sim`) drives all of it through seeded kill and stall
+schedules and asserts the §6.1.1 invariants after each.
 
-The fault-injection simulator, cost calibration and the autoscaler come
-with later slices.
+Cost calibration and the autoscaler come with later slices.
 """
 
 from .control import ClusterController, RecoveryEvent
@@ -31,6 +32,10 @@ from .partition import (PartitionPlan, abstract_partitioned_model,
 from .runtime import (ClusterError, ClusterResult, ExecConfig, HostReport,
                       PartitionExecutor, derive_cut_capacities,
                       make_host_executor, run_cluster)
+from .sim import (FaultEvent, FaultSchedule, SimClock, SimTransport,
+                  run_coalesce_kill_scenario, run_kill_controller_scenario,
+                  run_pipe_brick_scenario, run_scenario,
+                  run_stall_race_scenario, run_workload_scenario)
 from .transport import (ChannelTransport, DeviceTransport, InProcess,
                         MultiProcessPipe, SharedMemoryRing, TransportError,
                         make_transport)
@@ -46,4 +51,8 @@ __all__ = [
     "HostReport", "ExecConfig", "ClusterDeployment", "ClusterController",
     "RecoveryEvent", "derive_cut_capacities", "make_host_executor",
     "DeploymentStore", "DurabilityEvent",
+    "FaultEvent", "FaultSchedule", "SimClock", "SimTransport",
+    "run_scenario", "run_pipe_brick_scenario",
+    "run_kill_controller_scenario", "run_stall_race_scenario",
+    "run_coalesce_kill_scenario", "run_workload_scenario",
 ]

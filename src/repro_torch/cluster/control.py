@@ -862,15 +862,29 @@ class ClusterController:
         if not qs:
             time.sleep(timeout)
             return []
-        ready = set(_mp_wait([q._reader for q in qs], timeout))
-        out = []
-        for q in qs:
-            if q._reader in ready:
+        if all(hasattr(q, "_reader") for q in qs):
+            ready = set(_mp_wait([q._reader for q in qs], timeout))
+            out = []
+            for q in qs:
+                if q._reader in ready:
+                    try:
+                        out.append(q.get_nowait())
+                    except _queue.Empty:
+                        pass
+            return out
+        # the fault-injection simulator's thread-backed process hosts hand
+        # out plain queue.Queue stand-ins with no waitable pipe: sweep them
+        deadline = time.monotonic() + timeout
+        while True:
+            out = []
+            for q in qs:
                 try:
                     out.append(q.get_nowait())
                 except _queue.Empty:
                     pass
-        return out
+            if out or time.monotonic() >= deadline:
+                return out
+            time.sleep(0.005)
 
     def _await_results(self, batch_id: int, reports: dict,
                        pending: set) -> dict:

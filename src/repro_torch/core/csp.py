@@ -456,9 +456,9 @@ def trace_chain_refines(spec: Network, impls, instances: int = 3,
        — epoch N and N+1 are observably the same deployment, not merely
        both valid ones.
 
-    :func:`repro.cluster.partition.check_redeployment` is the pairwise
+    :func:`..cluster.partition.check_redeployment` is the pairwise
     (N, N+1) instance of this; the fault-injection simulator
-    (:mod:`repro.cluster.sim`) calls the chained form once per scenario
+    (:mod:`..cluster.sim`) calls the chained form once per scenario
     over every epoch its fault schedule produced — calling
     :func:`trace_refines` pairwise instead would re-explore each epoch's
     state space up to three times."""

@@ -1101,3 +1101,53 @@ def test_durable_serving_on_card_answers_once_with_uncrashed_tokens(
     assert sorted(answered) == [r.rid for r in reqs]
     for r in reqs:
         assert eng2.poll(r.rid).tokens == plain.poll(r.rid).tokens
+
+
+# -- the fault-injection simulator on the card -------------------------------
+
+def test_sim_scenario_on_card(cuda):
+    """A seeded double kill over simulated hosts on the card: every
+    invariant of the scenario holds, the oracle on the card too."""
+    from repro_torch.cluster import sim
+    r = sim.run_scenario(2)
+    assert r.ok, r.failures
+    assert r.kind == "double-kill" and r.recoveries >= 1
+
+
+def test_sim_controller_crash_on_card(cuda):
+    """A controller crash mid-batch, adopted with its hosts salvaged and
+    the batch replayed from the Collect's fold snapshot, on the card."""
+    from repro_torch.cluster import sim
+    r = sim.run_kill_controller_scenario(7, variant="midbatch")
+    assert r.ok, r.failures
+    assert r.fired == 1 and r.recoveries >= 2
+
+
+def test_sim_mandelbrot_farm_on_card_survives_a_seeded_kill(cuda):
+    """The Mandelbrot farm (512 x 256, 8 bands) over 2 simulated hosts on
+    the card under a seeded kill: every batch equal to the sequential run
+    on the card, the kernel launched in the simulated hosts (threads of
+    this process) at least once a band a batch."""
+    import random
+    from repro_torch import workloads
+    from repro_torch.cluster import partition
+    from repro_torch.cluster.sim import FaultSchedule, drive_scenario
+    from repro_torch.core import run_sequential
+    args = (512, 256, 8, 200)
+    seq = workloads.assemble(run_sequential(
+        workloads.mandelbrot_factory(*args), 8)["collect"])
+    plan = partition(workloads.mandelbrot_factory(*args), hosts=2)
+    seed = next(s for s in range(100) if FaultSchedule.random(
+        random.Random(s), plan).kind == "kill")
+    sched = FaultSchedule.random(random.Random(seed), plan)
+    before = mb_ops.mandelbrot.launches
+    run = drive_scenario(
+        workloads.mandelbrot_factory(*args),
+        (workloads.mandelbrot_factory, args), plan, sched, "restart",
+        instances=8, microbatch_size=2, timeout_s=120,
+        check=lambda out: None if np.array_equal(
+            workloads.assemble(out["collect"]), seq) else "differs")
+    torch.cuda.synchronize()
+    assert not run.failures, run.failures
+    assert len(run.outs) == 3 and sched.events[0].fired and run.events
+    assert mb_ops.mandelbrot.launches - before >= 3 * 8

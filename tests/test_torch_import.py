@@ -30,7 +30,8 @@ def test_import_loads_no_jax_and_no_repro_module():
         assert len(names) > 20, names
         for mod in ("cluster.partition", "cluster.transport",
                     "cluster.runtime", "cluster.control", "cluster.deploy",
-                    "cluster.durable", "train", "train.checkpoint",
+                    "cluster.durable", "cluster.sim", "train",
+                    "train.checkpoint",
                     "launch._common", "launch.cluster"):
             assert f"repro_torch.{mod}" in names, mod
         bad = sorted(m for m in sys.modules
