@@ -89,6 +89,26 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    and what a result's round trip through host bytes costs.  No host
    thread, host process or new ``/dev/shm`` entry may be left; the phase
    prints its wall;
+15. (run after phase 14) the cost model and the autoscaler on the card:
+   15a ``calibrate`` of the Mandelbrot farm at phase 2's width (microbatch
+   16) and of the image pipeline at phase 3's size (microbatch 4) on
+   ``cuda``, with the ``device``, ``pipe`` and ``shm`` bandwidths: every
+   stage measured, each profile printed, the farm's render stage beside
+   16 x phase 1's band and the EDGE5 engine beside 4 x phase 1's EDGE5
+   (ratios printed, not gated); then for each network the count cut and
+   the cost cut over 2 and 4 ``device`` hosts, 3 batches each, every
+   batch equal to phases 2 and 3, each plan refining the network, the
+   launches of phase 12, the warm walls side by side and whether the two
+   cuts differ; and the count cut hot-swapped to the cost cut through
+   ``reconfigure(plan=)``, refined, its next batch equal; 15b ``python -m
+   repro_torch.launch.cluster`` over 2 ``device`` hosts at 4096², 64
+   bands, 1000 iterations, with ``--cut cost --calibrate --autoscale
+   --batches 4``: every batch ``identical=True``, the oracle equal, its
+   profile and autoscale events printed; 15c ``run_workload_scenario``
+   for seeds 0-5 on ``cuda`` (two spikes, two stragglers, two slow
+   starts), every one ``ok``, a spike and a straggler with one epoch bump
+   each, a slow start with none. No host thread, host process or new
+   ``/dev/shm`` entry may be left; the phase prints its wall;
 6. runs ``Model.forward`` of the full-width qwen2-0.5b (24 layers, random
    weights from seed 0) on a (4, 2048) batch of seeded tokens: in bf16 (the
    default config) the logits must be finite; in float32 its logits at
@@ -176,8 +196,8 @@ bf16 and f16 w (timed) and a strided w; and bool and transposed stencil
 images.
 
 Kernel launch counts are reset just before phase 2 and read after phase 9
-(the thread hosts of phases 12 and 13 and the simulated hosts of phase 14
-count with them),
+(the thread hosts of phases 12, 13 and 15 and the simulated hosts of
+phases 14 and 15 count with them),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
 the farm, of the pipeline, one more bf16 forward and one decode step of
@@ -2051,6 +2071,197 @@ def run_sim_phase(torch, counts, farm_img, args) -> None:
           f"phase 14 wall: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 15: the cost model and the autoscaler on the card -------------------------
+
+def warm_median(walls) -> float:
+    """The median of a deployment's warm batch walls (start and the cold
+    batch left out)."""
+    return statistics.median(walls[2:])
+
+
+def run_cost_cuts(torch, counts, label, net, factory, n, mb, kernel,
+                  per_batch, same, expect_ms) -> None:
+    """15a for one workload: ``calibrate`` on the card (every bandwidth of
+    ``device``, ``pipe`` and ``shm``), the measured stages against phase 1
+    (``expect_ms``: stage -> what phase 1's kernel times predict; the ratio
+    is printed, not gated), then the count and the cost cut deployed over
+    2 and 4 ``device`` hosts, 3 batches each, each batch equal to the
+    single-host run (``same``), and the count plan hot-swapped to the cost
+    plan through ``reconfigure(plan=)``."""
+    from repro_torch.cluster import (ClusterDeployment, calibrate,
+                                     check_refinement, cost_assignment,
+                                     partition)
+    t0 = time.perf_counter()
+    prof = calibrate(net, instances=2 * mb, microbatch_size=mb,
+                     transports=("device", "pipe", "shm"))
+    wall = time.perf_counter() - t0
+    print(f"[costs] 15a {label}: calibrated {len(prof.costs)} process "
+          f"cost(s) in {wall * 1e3:.1f} ms (microbatch {mb})")
+    for line in prof.describe().splitlines():
+        print(f"[costs] 15a {label}:   {line}")
+    check(bool(prof.costs) and all(
+        c.source == "measured" and c.wall_s > 0 for c in prof.costs.values()),
+        f"[costs] 15a {label}: a stage was not measured")
+    check(set(prof.bandwidths) == {"device", "pipe", "shm"}
+          and all(bw > 0 for bw in prof.bandwidths.values()),
+          f"[costs] 15a {label}: bandwidths {prof.bandwidths}")
+    for stage, (want_ms, what) in expect_ms.items():
+        got_ms = prof.costs[stage].wall_s * 1e3
+        print(f"[costs] 15a {label}: {stage} measured {got_ms:.4f} ms a "
+              f"chunk against {what} {want_ms:.4f} ms: ratio "
+              f"{got_ms / want_ms:.2f} (host dispatch included; not gated)")
+    walls = {}
+    for hosts in (2, 4):
+        count = partition(net, hosts=hosts)
+        cost = partition(net, assignment=cost_assignment(
+            net, hosts, prof, transport="device"))
+        same_cut = cost.assignment == count.assignment
+        print(f"[costs] 15a {label} x{hosts}: count cut "
+              f"{[f'{c.src}->{c.dst}' for c in count.cut]}, cost cut "
+              f"{[f'{c.src}->{c.dst}' for c in cost.cut]} over "
+              f"{len(cost.hosts())} host(s): "
+              f"{'the same plan' if same_cut else 'different plans'}")
+        for name, plan in (("count", count), ("cost", cost)):
+            walls[(hosts, name)] = run_deployment(
+                torch, f"15a {label} {name} cut device x{hosts}", net, plan,
+                "device", factory, n, 3, counts, kernel, per_batch, same,
+                microbatch=mb)
+        print(f"[costs] 15a {label} x{hosts}: warm batch median, count cut "
+              f"{warm_median(walls[(hosts, 'count')]):.1f} ms, cost cut "
+              f"{warm_median(walls[(hosts, 'cost')]):.1f} ms")
+    # the hot swap: a live count-cut deployment onto the cost cut
+    count = partition(net, hosts=2)
+    cost = partition(net, assignment=cost_assignment(net, 2, prof,
+                                                     transport="device"))
+    for plan in (count, cost):
+        check(check_refinement(net, plan),
+              f"[costs] 15a {label}: a plan does not refine the network")
+    with ClusterDeployment(net, plan=count, transport="device",
+                           microbatch_size=mb, factory=factory,
+                           timeout_s=300) as dep:
+        check(same(dep.run(instances=n)),
+              f"[costs] 15a {label}: the count cut's batch differs")
+        t0 = time.perf_counter()
+        ev = dep.reconfigure(plan=cost)
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        check(ev.mode == "reconfigure" and ev.refined is True
+              and dep.plan.assignment == cost.assignment,
+              f"[costs] 15a {label}: hot swap {ev.describe()}")
+        before = counts()[kernel]
+        check(same(dep.run(instances=n)),
+              f"[costs] 15a {label}: the batch after the hot swap differs")
+        torch.cuda.synchronize()
+        launched = counts()[kernel] - before
+        check(launched == per_batch, f"[costs] 15a {label}: {launched} "
+                                     f"{kernel} launches after the swap")
+    print(f"[costs] 15a {label}: hot swap count -> cost cut over 2 device "
+          f"hosts: {ev.describe()}; reconfigure {swap_ms:.1f} ms; the next "
+          f"batch equal, {launched} {kernel} launches")
+
+
+def run_cost_launcher(torch) -> None:
+    """15b: ``python -m repro_torch.launch.cluster`` over 2 ``device`` hosts
+    with the cost cut, calibration and the default autoscale policy."""
+    label = "[costs] 15b launcher"
+    flags = ["--workload", "mandelbrot", "--bands", "64", "--size", "4096",
+             "--iters", "1000", "--microbatch", "16", "--transport",
+             "device", "--hosts", "2", "--cut", "cost", "--calibrate",
+             "--autoscale", "--batches", "4"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.cluster",
+                        *flags], env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"{label}: exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    lines = r.stdout.splitlines()
+    batches = [ln for ln in lines if ln.startswith("[cluster] batch ")]
+    check(len(batches) == 4 and all("identical=True" in ln
+                                    for ln in batches),
+          f"{label}: batches {batches}")
+    check(any("sequential oracle: True" in ln for ln in lines),
+          f"{label}: no oracle line:\n{r.stdout[-3000:]}")
+    print(f"{label}: {' '.join(flags)}")
+    for ln in lines:
+        if (ln.startswith("[cluster]") or ln.startswith("group")
+                or ln.startswith("collect") or ln.startswith("bandwidth")
+                or ln.startswith("  host") or ln.startswith("  cut")):
+            print(f"{label}:   {ln}")
+    events = [ln for ln in lines if ln.startswith("[cluster] autoscale ")]
+    print(f"{label}: {len(events)} autoscale event(s); every batch "
+          f"identical=True; wall {wall:.1f} s (process start included)")
+
+
+def run_workload_family(torch) -> None:
+    """15c: ``run_workload_scenario`` for seeds 0-5 on the card, two of
+    each kind: a spike scales out, a straggler is migrated away, a slow
+    start causes no action."""
+    from repro_torch.cluster import sim
+    want = {"spike": 1, "straggler": 1, "slow-start": 0}
+    for seed in range(6):
+        t0 = time.perf_counter()
+        r = sim.run_workload_scenario(seed)
+        wall = time.perf_counter() - t0
+        print(f"[costs] 15c {r.describe()}")
+        check(r.ok, f"[costs] 15c seed {seed}: {r.failures}")
+        kind = r.kind.split("/")[1]
+        check(r.recoveries == want[kind],
+              f"[costs] 15c seed {seed}: {r.recoveries} epoch bumps for "
+              f"{kind}")
+        print(f"[costs] 15c seed {seed} ({kind}): {r.fired} autoscale "
+              f"decision(s), {r.recoveries} epoch bump(s), virtual ticks "
+              f"{r.ticks}, wall {wall:.2f} s")
+
+
+def run_costs_phase(torch, counts, farm_img, edge_maps, entries, args,
+                    n_img, size) -> None:
+    """Phase 15: the cost model and the autoscaler on the card (15a-15c)."""
+    import multiprocessing
+    import threading
+
+    import numpy as np
+    from repro_torch import workloads
+    t_phase = time.perf_counter()
+    shm_before = set(os.listdir("/dev/shm"))
+    threads_before = set(threading.enumerate())
+    W, H, bands, iters = args
+    mb = 16
+    band_ms, stencil_ms = entries[0]["ms"], entries[1]["ms"]
+    same_img = lambda out: np.array_equal(  # noqa: E731
+        workloads.assemble(out["collect"]), farm_img)
+    run_cost_cuts(torch, counts, "mandelbrot", workloads.mandelbrot_factory(
+        *args), (workloads.mandelbrot_factory, args), bands, mb,
+        "mandelbrot", bands, same_img,
+        {"group": (mb * band_ms, f"{mb} x phase 1's band")})
+
+    def same_edges(out):
+        got = out["collector"]
+        return len(got) == len(edge_maps) and all(
+            np.array_equal(a, b) for a, b in zip(got, edge_maps))
+
+    factory = (workloads.image_pipeline_factory, (n_img, size))
+    run_cost_cuts(torch, counts, "image", factory[0](*factory[1]), factory,
+                  n_img, 4, "stencil", n_img, same_edges,
+                  {"engine2": (4 * stencil_ms, "4 x phase 1's EDGE5")})
+    run_cost_launcher(torch)
+    run_workload_family(torch)
+    deadline = time.monotonic() + 30.0
+    while True:  # a simulated host thread unwinds at its next poll
+        left = [t.name for t in set(threading.enumerate()) - threads_before
+                if t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    check(not left, f"[costs] host threads left after phase 15: {left}")
+    check(not multiprocessing.active_children(),
+          "[costs] host processes still running after phase 15")
+    left = sorted(set(os.listdir("/dev/shm")) - shm_before)
+    check(not left, f"[costs] /dev/shm entries left: {left}")
+    print(f"[costs] no host thread, host process or /dev/shm entry left; "
+          f"phase 15 wall: {time.perf_counter() - t_phase:.1f} s")
+
+
 # -- phases 6-9: the decoder LMs -----------------------------------------------------
 
 def describe(cfg) -> str:
@@ -2388,7 +2599,6 @@ def main() -> int:
     run_pi(torch, launch_counts, 256, 10**6)
     rebalance_ms = run_cluster_phase(torch, launch_counts, farm_img,
                                      edge_maps, W, H, BANDS, ITERS, 16, 2048)
-    del edge_maps
     model, params, toks = run_forward(torch, dev, launch_counts,
                                       "qwen2-0.5b", 4, 2048,
                                       {"flash_attention": 24})
@@ -2396,7 +2606,9 @@ def main() -> int:
     run_durable_phase(torch, launch_counts, farm_img, model, params,
                       (W, H, BANDS, ITERS), rebalance_ms)
     run_sim_phase(torch, launch_counts, farm_img, (W, H, BANDS, ITERS))
-    del farm_img
+    run_costs_phase(torch, launch_counts, farm_img, edge_maps, entries,
+                    (W, H, BANDS, ITERS), 16, 2048)
+    del farm_img, edge_maps
     ssm = run_forward(torch, dev, launch_counts, "mamba2-2.7b", 4, 2048,
                       {"ssd_scan": 64})
     hybrid = run_forward(torch, dev, launch_counts, "zamba2-1.2b", 4, 2048,

@@ -17,12 +17,16 @@ durable: hosts snapshot their fold state, a failed stateful host replays
 from its last snapshot, and :meth:`ClusterDeployment.adopt` takes the
 deployment over after its controller died.  The fault-injection
 simulator (:mod:`.sim`) drives all of it through seeded kill and stall
-schedules and asserts the §6.1.1 invariants after each.
-
-Cost calibration and the autoscaler come with later slices.
+schedules and asserts the §6.1.1 invariants after each.  :func:`calibrate`
+measures what each stage costs on its device, so
+:func:`cost_assignment` cuts by time, and an :class:`AutoscalePolicy`
+(``ClusterDeployment(autoscale=)``) resizes a live deployment from its own
+metrics, every action an epoch-bumped replan.
 """
 
+from .autoscale import Autoscaler, AutoscaleEvent, AutoscalePolicy
 from .control import ClusterController, RecoveryEvent
+from .costs import CostProfile, ProcessCost, calibrate, calibrate_bandwidth
 from .deploy import ClusterDeployment
 from .durable import DeploymentStore, DurabilityEvent
 from .partition import (PartitionPlan, abstract_partitioned_model,
@@ -33,9 +37,10 @@ from .runtime import (ClusterError, ClusterResult, ExecConfig, HostReport,
                       PartitionExecutor, derive_cut_capacities,
                       make_host_executor, run_cluster)
 from .sim import (FaultEvent, FaultSchedule, SimClock, SimTransport,
-                  run_coalesce_kill_scenario, run_kill_controller_scenario,
-                  run_pipe_brick_scenario, run_scenario,
-                  run_stall_race_scenario, run_workload_scenario)
+                  WorkloadSchedule, run_coalesce_kill_scenario,
+                  run_kill_controller_scenario, run_pipe_brick_scenario,
+                  run_scenario, run_stall_race_scenario,
+                  run_workload_scenario)
 from .transport import (ChannelTransport, DeviceTransport, InProcess,
                         MultiProcessPipe, SharedMemoryRing, TransportError,
                         make_transport)
@@ -43,15 +48,19 @@ from .transport import (ChannelTransport, DeviceTransport, InProcess,
 __all__ = [
     "PartitionPlan", "partition", "auto_assignment", "cost_assignment",
     "repartition_without",
+    "CostProfile", "ProcessCost", "calibrate", "calibrate_bandwidth",
     "abstract_partitioned_model", "check_refinement", "check_redeployment",
     "ChannelTransport", "InProcess", "MultiProcessPipe", "SharedMemoryRing",
     "DeviceTransport",
     "TransportError", "make_transport",
     "PartitionExecutor", "run_cluster", "ClusterResult", "ClusterError",
     "HostReport", "ExecConfig", "ClusterDeployment", "ClusterController",
-    "RecoveryEvent", "derive_cut_capacities", "make_host_executor",
+    "RecoveryEvent",
+    "Autoscaler", "AutoscaleEvent", "AutoscalePolicy",
+    "derive_cut_capacities", "make_host_executor",
     "DeploymentStore", "DurabilityEvent",
     "FaultEvent", "FaultSchedule", "SimClock", "SimTransport",
+    "WorkloadSchedule",
     "run_scenario", "run_pipe_brick_scenario",
     "run_kill_controller_scenario", "run_stall_race_scenario",
     "run_coalesce_kill_scenario", "run_workload_scenario",

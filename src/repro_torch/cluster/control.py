@@ -834,6 +834,24 @@ class ClusterController:
                 snap.bytes_per_s[chan_key] = nbytes / wall
         return snap
 
+    def _prune_metrics(self, new_plan: PartitionPlan) -> None:
+        """Drop telemetry rows a replan made meaningless, at the epoch
+        bump: ``_last_reports`` entries for hosts the new plan dropped or
+        renamed (a policy polling :meth:`metrics` must never see ghost
+        hosts), and ``_cum_chan`` ledger keys whose endpoint processes the
+        replanned net no longer has (dangling string keys would otherwise
+        leak into ``bytes_per_s`` forever).  A channel a replan merely
+        stopped cutting keeps its lifetime history: a later replan can
+        cut it again, and its rate must resume, not reset."""
+        live = set(new_plan.hosts())
+        self._last_reports = {h: r for h, r in self._last_reports.items()
+                              if h in live}
+        procs = set(new_plan.net.procs)
+        self._cum_chan = {
+            k: v for k, v in self._cum_chan.items()
+            if k.partition("->")[0] in procs
+            and k.partition("->")[2] in procs}
+
     def _absorb_chan_totals(self, m: dict) -> None:
         """Fold one host's per-batch metrics into the cumulative per-channel
         ledger (``sent_bytes`` over that batch's ``wall_s``)."""
@@ -1175,9 +1193,7 @@ class ClusterController:
         self.transport.reconfigure(
             [(c.src, c.dst) for c in new_plan.cut], new_caps)
         self._bind_devices()
-        live = set(self._live)
-        self._last_reports = {h: r for h, r in self._last_reports.items()
-                              if h in live}
+        self._prune_metrics(new_plan)
         return changed, dropped
 
     def _rebalance(self, ev: RecoveryEvent) -> None:

@@ -27,10 +27,11 @@ This class is the user-facing facade over
 :meth:`recover` then repairs the deployment and replays the failed batch's
 lost chunks, :meth:`kill_host` injects the honest failure (process hosts),
 and :meth:`reconfigure` refits the network to another host count between
-batches.  Deployed with ``snapshot_every=`` and ``snapshot_dir=`` it is
-durable (:mod:`.durable`): a failed stateful host replays from its last
-fold snapshot instead of chunk 0, and after the controller itself is gone
-:meth:`adopt` stands a new one up over the on-disk state.
+batches (by itself, under load, with ``autoscale=``).  Deployed with
+``snapshot_every=`` and ``snapshot_dir=`` it is durable (:mod:`.durable`):
+a failed stateful host replays from its last fold snapshot instead of
+chunk 0, and after the controller itself is gone :meth:`adopt` stands a
+new one up over the on-disk state.
 """
 
 from __future__ import annotations
@@ -71,6 +72,10 @@ class ClusterDeployment:
     ``snapshot_every=N`` with ``snapshot_dir=DIR`` makes the deployment
     durable: each host snapshots its fold state every N chunks under
     ``DIR/host_<h>`` and the controller its meta under ``DIR/meta``.
+    ``profile=`` (a :class:`~.costs.CostProfile`) sizes coalesced cut
+    channels and prices the autoscaler's migrations; ``autoscale=`` (an
+    :class:`~.autoscale.AutoscalePolicy`, or ``True`` for its defaults)
+    polls the deployment's metrics after every batch and resizes it.
     """
 
     def __init__(self, net: Optional[Network] = None, *,
@@ -88,7 +93,8 @@ class ClusterDeployment:
                  snapshot_dir: Optional[str] = None,
                  coalesce_bytes: int = 0,
                  profile=None,
-                 device=None):
+                 device=None,
+                 autoscale=None):
         if net is None:
             if factory is None:
                 raise NetworkError("ClusterDeployment: need net= or factory=")
@@ -113,6 +119,15 @@ class ClusterDeployment:
         store = DeploymentStore(snapshot_dir) if snapshot_dir else None
         self.controller = ClusterController(net, plan, cfg, t, factory,
                                             timeout_s, store=store)
+        # autoscale= is a policy (or True for the defaults), NOT part of
+        # ExecConfig: the policy holds live hysteresis state and must not
+        # ride the durable cfg into adopt()
+        self.autoscaler = None
+        if autoscale is not None and autoscale is not False:
+            from .autoscale import Autoscaler, AutoscalePolicy
+            pol = AutoscalePolicy() if autoscale is True else autoscale
+            self.autoscaler = Autoscaler(self.controller, pol,
+                                         profile=profile)
 
     @classmethod
     def adopt(cls, snapshot_dir: str, *, factory: tuple,
@@ -196,6 +211,12 @@ class ClusterDeployment:
         return self.controller.events
 
     @property
+    def autoscale_events(self) -> list:
+        """:class:`~.autoscale.AutoscaleEvent` per autoscale decision
+        (executed or vetoed), oldest first; [] without ``autoscale=``."""
+        return [] if self.autoscaler is None else self.autoscaler.events
+
+    @property
     def durable_events(self) -> list:
         """:class:`~.durable.DurabilityEvent` per meta snapshot, restore
         from a fold snapshot and adoption, oldest first."""
@@ -270,8 +291,16 @@ class ClusterDeployment:
         dict with fresh per-host reports; raises :class:`ClusterError` on
         any host failure.  After a failure the deployment is not poisoned:
         :meth:`recover` replays the failed batch, or the next :meth:`run`
-        recovers without replay and moves on."""
-        return self.controller.run_batch(instances, batch=batch)
+        recovers without replay and moves on.
+
+        Deployed with ``autoscale=``, every completed batch is followed by
+        one policy poll: a sustained load signal resizes the plan between
+        batches as an epoch-bumped replan (:attr:`autoscale_events`
+        records each decision, executed or vetoed)."""
+        out = self.controller.run_batch(instances, batch=batch)
+        if self.autoscaler is not None:
+            self.autoscaler.poll()
+        return out
 
     # -- observability (deploy with ``trace=True``) --------------------------
     def merged_trace(self) -> list:

@@ -38,14 +38,21 @@ implementation through seeded failure schedules:
   new stage builds on hosts no recovery touched, merged-trace CSP
   conformance, and termination within the virtual-clock budget.
 
+Faults are one half of the dynamic protocol; *load* is the other.
+``--workload N`` drives seeded :class:`WorkloadSchedule`\\ s — traffic
+spikes, stragglers (a host whose virtual step cost is inflated mid-run),
+slow-start hosts — through a deployment scaling itself via
+:mod:`.autoscale`, asserting the same §6.1.1 invariants plus convergence:
+a bounded number of scaling actions per schedule.
+
 ``python -m repro_torch.cluster.sim --seeds 50`` sweeps 50 seeded schedules
 (``--device cpu`` off the card); ``--pipe-brick`` runs the mid-``recv``
 SIGKILL on the real ``pipe`` transport; ``--kill-controller N``,
-``--stall-race N`` and ``--coalesce-kill N`` run the controller-crash, the
-stall-past-timeout and the kill-during-coalesced-send families.  The
-workload scenarios (the autoscaler under load) and the kill-during-serving
-scenarios wait for the slices that bring the autoscaler and the clustered
-decode farm; their functions and flags raise ``NotImplementedError``.
+``--stall-race N``, ``--coalesce-kill N`` and ``--workload N`` run the
+controller-crash, the stall-past-timeout, the kill-during-coalesced-send
+and the workload families.  The kill-during-serving scenarios wait for the
+slice that brings the clustered decode farm; ``run_serve_kill_scenario``
+and ``--serve-kill`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,6 +84,8 @@ __all__ = [
     "FaultEvent",
     "FaultSchedule",
     "SimTransport",
+    "WorkloadPhase",
+    "WorkloadSchedule",
     "ScenarioResult",
     "ScenarioRun",
     "drive_scenario",
@@ -90,8 +99,6 @@ __all__ = [
     "main",
 ]
 
-WORKLOAD_STEP = ("the workload scenarios drive the autoscaler, which comes "
-                 "with the port's cluster step 9.6 (cluster/autoscale.py)")
 SERVE_KILL_STEP = ("the kill-during-serving scenarios drive the clustered "
                    "decode farm, which comes with the port's cluster step "
                    "9.8 (ClusterDecodeBackend)")
@@ -241,6 +248,13 @@ class _SimState:
         self.lock = threading.Lock()
         self.delivered: dict = {}   # chan -> set of (epoch, ci) handed out
         self.violations: list = []  # protocol-invariant breaches, verbatim
+        # workload injection (run_workload_scenario): host -> extra virtual
+        # ticks per protocol op.  Each extra tick also costs cost_sleep_s
+        # of real time, so the wall-clock telemetry the autoscaler polls
+        # (items/s, batch wall) sees the inflation too — a straggler is
+        # slow on BOTH clocks
+        self.host_cost: dict = {}
+        self.cost_sleep_s = 0.002
 
     def record_delivery(self, chan, epoch: int, ci: int) -> None:
         with self.lock:
@@ -441,6 +455,90 @@ class FaultSchedule:
         return sched
 
 
+@dataclasses.dataclass
+class WorkloadPhase:
+    """One traffic regime: from batch ``batch`` (0-based, inclusive)
+    onward, batches carry ``instances`` items and each host in
+    ``host_cost`` pays that many extra virtual ticks (plus proportional
+    real time) per protocol op."""
+
+    batch: int
+    instances: int
+    host_cost: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class WorkloadSchedule:
+    """A seeded, deterministic *load* schedule — the workload counterpart
+    of :class:`FaultSchedule`.  Three kinds:
+
+    * ``spike`` — traffic jumps mid-run while every host pays a constant
+      per-op service cost, so batch wall crosses the policy's latency
+      target and the deployment must scale OUT;
+    * ``straggler`` — one host's virtual step cost is inflated mid-run;
+      its items/s collapses relative to its peers and the policy must
+      evacuate it (a migration replan, not a new host);
+    * ``slow-start`` — a host is slow only for its first batches, then
+      warms up; sustained-signal hysteresis must reject the transient
+      (the no-flapping obligation: zero scaling actions)."""
+
+    kind: str            # "spike" | "straggler" | "slow-start"
+    phases: list         # WorkloadPhase, ascending by batch
+    victim: Optional[int] = None   # the inflated host (straggler kinds)
+
+    def phase_for(self, batch: int) -> WorkloadPhase:
+        cur = self.phases[0]
+        for ph in self.phases:
+            if ph.batch <= batch:
+                cur = ph
+        return cur
+
+    def describe(self) -> str:
+        bits = []
+        for ph in self.phases:
+            cost = ", ".join(f"host {h}+{c}"
+                             for h, c in sorted(ph.host_cost.items()))
+            bits.append(f"batch>={ph.batch}: {ph.instances} items"
+                        + (f" [{cost}]" if cost else ""))
+        return f"{self.kind}: " + "; ".join(bits)
+
+    @staticmethod
+    def random(rng: random.Random, plan,
+               kind: Optional[str] = None) -> "WorkloadSchedule":
+        """Seeded schedule over ``plan``'s hosts, drawn in the JAX
+        package's order (the same seed and plan give the same schedule).
+        The straggler victim is always a host holding plain workers
+        (ingress AND egress, neither the Emit's nor the Collect's host):
+        inflating a pure middle host makes its items/s the unambiguous
+        minimum, so the policy's slowest-host pick is deterministic."""
+        hosts = plan.hosts()
+        kind = kind or rng.choice(("spike", "straggler", "slow-start"))
+        if kind == "spike":
+            base, mult = rng.choice((4, 6)), 4
+            at = rng.choice((2, 3))
+            cost = {h: 2 for h in hosts}
+            return WorkloadSchedule(kind, [
+                WorkloadPhase(0, base, dict(cost)),
+                WorkloadPhase(at, base * mult, dict(cost))])
+        ingress = {plan.assignment[c.dst] for c in plan.cut}
+        egress = {plan.assignment[c.src] for c in plan.cut}
+        ends = {plan.assignment[e.name] for e in plan.net.emits()}
+        ends |= {h for h in hosts
+                 if any(p.startswith("collect")
+                        for p in plan.procs_of(h))}
+        middles = sorted((ingress & egress) - ends) or sorted(
+            ingress - ends) or sorted(ingress)
+        victim = rng.choice(middles)
+        n = 8
+        inflate = {victim: rng.choice((8, 10))}
+        if kind == "straggler":
+            at = rng.choice((1, 2))
+            phases = [WorkloadPhase(0, n), WorkloadPhase(at, n, inflate)]
+        else:  # slow-start: slow out of the gate, warm by batch 2
+            phases = [WorkloadPhase(0, n, inflate), WorkloadPhase(2, n)]
+        return WorkloadSchedule(kind, phases, victim=victim)
+
+
 class _SimOps:
     """Fault hooks layered over the plain queue transport, shared by the
     parent transport and the per-host endpoints."""
@@ -456,6 +554,12 @@ class _SimOps:
         _check_killed()
         if self._host is None:
             return
+        extra = self._sim.host_cost.get(self._host, 0)
+        if extra:
+            # inflated virtual step cost (straggler / slow-start / global
+            # service cost): pay it in virtual ticks AND in real time
+            self._sim.clock.tick(extra)
+            time.sleep(extra * self._sim.cost_sleep_s)
         ev = self._sim.schedule.fire(self._host, op, self.epoch)
         if ev is None:
             return
@@ -643,6 +747,22 @@ def sim_pipeline(n: int) -> Network:
     return OnePipelineCollect(
         create=lambda i: torch.tensor(float(i)),
         stage_ops=[lambda x: x * x, lambda x: x + 1.0],
+        collector=lambda a, x: a + x, init=torch.tensor(0.0),
+        jit_combine=True)
+
+
+def sim_workload_pipeline(n: int) -> Network:
+    """Four-stage pipeline for the workload scenarios: six processes
+    (emit, stage0..stage3, collect) that :func:`partition` spreads over
+    2-4 hosts, so a traffic spike can genuinely scale OUT and a straggler
+    holding a middle stage can be evacuated without touching the ends.
+    (The farm is no use here: DataParallelCollect fuses its workers into
+    one process, which pins the whole farm to two hosts.)"""
+    from ..core import OnePipelineCollect
+    return OnePipelineCollect(
+        create=lambda i: torch.tensor(float(i)),
+        stage_ops=[lambda x: x * x, lambda x: x + 1.0,
+                   lambda x: x * 2.0, lambda x: x - 3.0],
         collector=lambda a, x: a + x, init=torch.tensor(0.0),
         jit_combine=True)
 
@@ -852,7 +972,24 @@ def drive_scenario(net: Network, factory: tuple, plan, schedule,
             pass
         _trace.configure(clock=None)
 
-    # -- invariants --------------------------------------------------------
+    for i, out in enumerate(outs):
+        diff = check(out)
+        if diff is not None:
+            failures.append(f"batch {i}: {diff}")
+    _protocol_invariants(net, merged, outs, transport, ctrl.events,
+                         epoch_plans, failures, ("recovery", "recoveries"))
+    return ScenarioRun(failures, outs, spans, list(ctrl.events), refused,
+                       clock.ticks)
+
+
+def _protocol_invariants(net, merged, outs, transport, events, epoch_plans,
+                         failures, noun) -> None:
+    """The §6.1.1 invariants of a finished scenario, appended to
+    ``failures``: the merged trace conforms, no record was delivered twice,
+    no host that no epoch bump touched built a stage after the first
+    batch, and the chain of ``epoch_plans`` (one a bump) refines.  ``outs``
+    are the completed batches' results; ``noun`` names an epoch bump
+    (singular, plural) in the messages."""
     if outs:
         # trace conformance (§6.1.1, dynamically): the merged multi-host
         # trace — survivors' pre-stall events shipped with their error
@@ -866,31 +1003,25 @@ def drive_scenario(net: Network, factory: tuple, plan, schedule,
                                 f"(coverage {conf.coverage:.2f})")
         except NetworkError as e:
             failures.append(f"trace conformance: {e}")
-    for i, out in enumerate(outs):
-        diff = check(out)
-        if diff is not None:
-            failures.append(f"batch {i}: {diff}")
     failures.extend(transport.violations)  # duplicate (epoch, ci) records
-    touched = {h for ev in ctrl.events
+    touched = {h for ev in events
                for h in (*ev.restarted, *ev.dead, *ev.erred)}
     for out in outs[1:]:
         for r in out.reports:
             if r.host not in touched and r.ok and r.jit_builds:
                 failures.append(
-                    f"host {r.host} untouched by any recovery but built "
+                    f"host {r.host} untouched by any {noun[0]} but built "
                     f"{r.jit_builds} new stages")
-    if len(epoch_plans) != 1 + len(ctrl.events) and not failures:
+    if len(epoch_plans) != 1 + len(events) and not failures:
         failures.append(  # harness self-check: one plan per epoch bump
             f"epoch plan capture misaligned: {len(epoch_plans)} plans "
-            f"for {len(ctrl.events)} recoveries")
+            f"for {len(events)} {noun[1]}")
     if len(epoch_plans) > 1:
         models = [abstract_partitioned_model(net, p, name=f"epoch{i + 1}")
                   for i, p in enumerate(epoch_plans)]
         if not csp.trace_chain_refines(net, models, instances=3):
             failures.append(
                 "trace_chain_refines failed over the epoch chain")
-    return ScenarioRun(failures, outs, spans, list(ctrl.events), refused,
-                       clock.ticks)
 
 
 def run_scenario(seed: int, *, batches: int = 3,
@@ -927,10 +1058,182 @@ def run_scenario(seed: int, *, batches: int = 3,
         failures=run.failures)
 
 
-def run_workload_scenario(seed: int, **kwargs) -> ScenarioResult:
-    """A seeded load schedule (traffic spike, straggler, slow start)
-    against an autoscaling deployment: not in the port yet."""
-    raise NotImplementedError(f"run_workload_scenario: {WORKLOAD_STEP}")
+# ==========================================================================
+# Workload scenarios: the autoscaler under seeded load schedules
+# ==========================================================================
+
+_WORKLOAD_KINDS = ("spike", "straggler", "slow-start")
+
+
+def run_workload_scenario(seed: int, *, kind: Optional[str] = None,
+                          batches: int = 6,
+                          clock_budget: int = 800_000,
+                          timeout_s: float = 60.0,
+                          device=None) -> ScenarioResult:
+    """One seeded *workload* schedule against an autoscaling deployment —
+    the scaling counterpart of :func:`run_scenario`'s fault schedules.
+
+    A :class:`WorkloadSchedule` (``seed % 3`` picks spike / straggler /
+    slow-start unless ``kind`` pins it) drives per-batch traffic levels
+    and per-host virtual step-cost inflation through a deployment built
+    with ``autoscale=``; the policy polls between batches and resizes the
+    plan through ``reconfigure`` — every action an epoch bump with the
+    §6.1.1 re-proof, never a restart.  The hosts and the oracle run on
+    ``device`` (``None``: the card).  Asserted invariants:
+
+    * every batch bit-identical to the sequential oracle for its traffic
+      level (across however many replans the policy executed);
+    * no ``(chan, epoch, ci)`` record delivered twice within a batch;
+    * merged-trace CSP conformance, and ``trace_chain_refines`` over the
+      whole epoch chain of plans;
+    * every reconfigure event ``refined is True``;
+    * convergence / no flapping: executed actions bounded (≤ 2), total
+      epoch bumps bounded (≤ 3), and kind-specific liveness — a spike
+      must scale out, a straggler must be evacuated by a migration, a
+      slow-start transient must cause NO action at all;
+    * termination within the virtual-clock budget."""
+    from ..core import run_sequential
+    from .autoscale import AutoscalePolicy
+    from .deploy import ClusterDeployment
+
+    cfg_dev = _cfg_device(device)
+    rng = random.Random(seed)
+    kind = kind or _WORKLOAD_KINDS[seed % len(_WORKLOAD_KINDS)]
+    hosts = 2 if kind == "spike" else 3
+    factory = (sim_workload_pipeline, (8,))
+    net = factory[0](*factory[1])
+    plan = partition(net, hosts=hosts)
+    schedule = WorkloadSchedule.random(rng, plan, kind)
+    clock = SimClock(clock_budget)
+    transport = SimTransport(FaultSchedule([]), clock, rebuildable=True)
+
+    oracles: dict = {}
+
+    def oracle(n: int) -> float:
+        if n not in oracles:
+            oracles[n] = float(
+                run_sequential(net, n, device=device)["collect"])
+        return oracles[n]
+
+    if kind == "spike":
+        # start with every pressure signal off; the latency target is
+        # calibrated below from the measured warm baseline (an operator
+        # would configure an SLO — the sim derives one)
+        policy = AutoscalePolicy(
+            high_occupancy=1.01, high_stall_rate=1e9,
+            imbalance_ratio=1e9, sustain=1, cooldown=1,
+            min_hosts=hosts, max_hosts=hosts + 1)
+    else:
+        # imbalance is the signal under test: ratio 1.7 because bounded
+        # channels throttle the whole pipeline to the straggler's pace
+        # (the fastest host is the one UPSTREAM of the straggler, ~2x),
+        # and min_batch_wall_s gates out healthy sub-millisecond batches
+        # whose per-host rates are pure noise
+        policy = AutoscalePolicy(
+            high_occupancy=1.01, high_stall_rate=1e9,
+            imbalance_ratio=1.7, min_batch_wall_s=0.05,
+            sustain=(4 if kind == "slow-start" else 2), cooldown=2,
+            min_hosts=hosts - 1, max_hosts=hosts)
+
+    _trace.configure(clock="counting")
+    dep = ClusterDeployment(net, plan=plan, transport=transport,
+                            microbatch_size=2, factory=factory,
+                            timeout_s=timeout_s, trace=True,
+                            autoscale=policy, device=cfg_dev)
+    ctrl = dep.controller
+    ctrl.poll_s = 0.05
+    state = transport._sim
+    failures: list = []
+    epoch_plans = [plan]
+    outs: list = []
+    walls: list = []  # the slowest host's wall, batch by batch
+    try:
+        dep.start()
+        transport.track_hosts(ctrl._procs)
+        for b in range(batches):
+            ph = schedule.phase_for(b)
+            state.host_cost = dict(ph.host_cost)
+            transport.begin_stream()
+            out = dep.run(instances=ph.instances)
+            outs.append((b, ph.instances, out))
+            walls.append(max(dep.metrics().batch_wall_s.values(),
+                             default=0.0))
+            while len(epoch_plans) < 1 + len(ctrl.events):
+                epoch_plans.append(ctrl.plan)
+            if kind == "spike" and b == 1:
+                # baseline measured: target = 2.5x the slowest host's
+                # batch wall at the base traffic, the lesser of batches 0
+                # and 1 (one batch's wall alone can carry a neighbour's
+                # burst on a shared host and lift the target past the
+                # spike).  The 4x traffic spike crosses it; the
+                # post-scale-out wall must not re-cross from BELOW
+                # (hysteresis), bounding the action count
+                policy.high_batch_wall_s = 2.5 * min(walls)
+    except (ClusterError, NetworkError, SimLivelock, RuntimeError) as e:
+        failures.append(f"{type(e).__name__}: {e}")
+    finally:
+        merged = ctrl.merged_trace()
+        try:
+            dep.close()
+        except Exception:
+            pass
+        _trace.configure(clock=None)
+
+    # -- §6.1.1 invariants -------------------------------------------------
+    for b, n, out in outs:
+        got = float(out["collect"])
+        if got != oracle(n):
+            failures.append(
+                f"batch {b} ({n} items): result {got} != sequential "
+                f"oracle {oracle(n)}")
+    for ev in ctrl.events:
+        if ev.refined is not True:
+            failures.append(
+                f"epoch {ev.epoch_to}: check_redeployment failed")
+    _protocol_invariants(net, merged, [out for _, _, out in outs],
+                         transport, ctrl.events, epoch_plans, failures,
+                         ("replan", "replans"))
+
+    # -- convergence: bounded actions + kind-specific liveness -------------
+    scaler = dep.autoscaler
+    executed = scaler.actions
+    if len(executed) > 2:
+        failures.append(
+            f"flapping: {len(executed)} executed scaling actions "
+            "(want <= 2): "
+            + "; ".join(e.describe() for e in executed))
+    if len(ctrl.events) > 3:
+        failures.append(
+            f"flapping: {len(ctrl.events)} epoch bumps (want <= 3)")
+    if kind == "spike":
+        if not any(e.action == "add_host" for e in executed):
+            failures.append(
+                f"spike never scaled out (slowest host's batch walls "
+                f"{[round(w, 4) for w in walls]} s, target "
+                f"{policy.high_batch_wall_s} s)")
+        elif len(ctrl.plan.hosts()) <= hosts:
+            failures.append(
+                f"spike scaled out but the final plan still has "
+                f"{len(ctrl.plan.hosts())} hosts")
+    elif kind == "straggler":
+        if not any(e.action == "migrate" for e in executed):
+            failures.append("straggler never evacuated")
+        elif schedule.victim in ctrl.plan.hosts():
+            failures.append(
+                f"straggler host {schedule.victim} still owns processes "
+                f"after the migration")
+    else:  # slow-start
+        if executed:
+            failures.append(
+                "slow-start transient caused scaling actions (hysteresis "
+                "must reject it): "
+                + "; ".join(e.describe() for e in executed))
+    return ScenarioResult(
+        seed=seed, kind=f"workload/{kind}", topology="pipeline",
+        hosts=hosts,
+        schedule=schedule.describe(),
+        fired=len(scaler.events),
+        recoveries=len(ctrl.events), ticks=clock.ticks, failures=failures)
 
 
 # ==========================================================================
@@ -1364,16 +1667,15 @@ def main(argv=None) -> int:
                          "scenarios (transport batching fast path under "
                          "fire: stranded/replayed coalesce buffers)")
     ap.add_argument("--workload", type=int, default=0, metavar="N",
-                    help="N seeded workload schedules against the "
-                         "autoscaler (comes with the port's cluster step "
-                         "9.6)")
+                    help="run ONLY N seeded workload schedules (traffic "
+                         "spike / straggler / slow-start, seed%%3 picks) "
+                         "against the autoscaler, gating bit-identity, "
+                         "refinement and bounded scaling actions")
     ap.add_argument("--device", default=None,
                     help="where the hosts and the oracle run (default: the "
                          "card; 'cpu' off it)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-    if args.workload:
-        raise NotImplementedError(f"--workload: {WORKLOAD_STEP}")
     if args.serve_kill:
         raise NotImplementedError(f"--serve-kill: {SERVE_KILL_STEP}")
     resolve_device(args.device)  # no GPU and no --device cpu: raise first
@@ -1390,6 +1692,8 @@ def main(argv=None) -> int:
             fn, n = run_stall_race_scenario, args.stall_race
         elif args.coalesce_kill:
             fn, n = run_coalesce_kill_scenario, args.coalesce_kill
+        elif args.workload:
+            fn, n = run_workload_scenario, args.workload
         else:
             fn, n = run_scenario, args.seeds
         runs = [lambda s=s: fn(s, device=dev)

@@ -5,11 +5,11 @@ that can deploy across hosts takes ``--hosts/--transport``.  Defining them
 here keeps the CLIs mirror images of each other, and of the JAX package's
 launchers, whose flags they take.
 
-The flags of parts the port has not brought yet parse as they do in the
-JAX package and then refuse, naming what brings them
-(:func:`refuse_later_flags`): ``--autoscale`` / ``--min-hosts`` /
-``--max-hosts`` come with the autoscaler, and ``--virtual-devices`` fakes
-XLA host devices, which a PyTorch process has none of.
+``--autoscale`` / ``--min-hosts`` / ``--max-hosts`` describe an
+:class:`~repro_torch.cluster.AutoscalePolicy` (:func:`autoscale_policy`).
+``--virtual-devices`` parses as it does in the JAX package and then
+refuses (:func:`refuse_later_flags`): it fakes XLA host devices, which a
+PyTorch process has none of.
 """
 
 from __future__ import annotations
@@ -27,9 +27,6 @@ _TCMALLOC_CANDIDATES = (
     "/usr/lib/x86_64-linux-gnu/libtcmalloc.so.4",
     "/usr/lib/libtcmalloc_minimal.so.4",
 )
-
-AUTOSCALE_SLICE = ("the autoscaler (cluster/autoscale.py) comes with a later "
-                   "slice of the port")
 
 
 def add_model_flags(ap: argparse.ArgumentParser, *,
@@ -62,14 +59,33 @@ def add_cluster_flags(ap: argparse.ArgumentParser, *,
                          "allocator; off by default — a global allocator "
                          "swap should be an explicit choice")
     ap.add_argument("--autoscale", action="store_true",
-                    help="resize the plan between batches when load "
-                         "demands it; refused until the autoscaler is "
-                         "ported")
+                    help="poll the deployment's metrics between batches "
+                         "and resize the plan when load demands it "
+                         "(repro_torch.cluster.AutoscalePolicy defaults; "
+                         "bound by --min-hosts/--max-hosts). Every action "
+                         "is an epoch-bumped reconfigure with the "
+                         "refinement re-proof, never a restart")
     ap.add_argument("--min-hosts", type=int, default=None, metavar="N",
-                    help="autoscale floor (refused with --autoscale)")
+                    help="autoscale floor (default: the starting --hosts)")
     ap.add_argument("--max-hosts", type=int, default=None, metavar="N",
-                    help="autoscale ceiling (refused with --autoscale)")
+                    help="autoscale ceiling (default: --hosts + 2)")
     return ap
+
+
+def autoscale_policy(args):
+    """The :class:`repro_torch.cluster.AutoscalePolicy` the flags describe,
+    or ``None`` when ``--autoscale`` is off — pass straight to
+    ``ClusterDeployment(autoscale=...)``."""
+    if not getattr(args, "autoscale", False):
+        return None
+    from ..cluster import AutoscalePolicy
+    hosts = int(getattr(args, "hosts", 1) or 1)
+    lo = args.min_hosts if args.min_hosts is not None else hosts
+    hi = args.max_hosts if args.max_hosts is not None else hosts + 2
+    if not 1 <= lo <= hi:
+        raise SystemExit(
+            f"--min-hosts/--max-hosts: need 1 <= {lo} <= {hi}")
+    return AutoscalePolicy(min_hosts=lo, max_hosts=hi)
 
 
 def refuse_later_flags(args) -> None:
@@ -79,11 +95,6 @@ def refuse_later_flags(args) -> None:
         raise SystemExit(
             "--virtual-devices fakes XLA host devices for the JAX package; "
             "the port's multi-device path comes last (ROADMAP §1 item 12)")
-    if (getattr(args, "autoscale", False)
-            or getattr(args, "min_hosts", None) is not None
-            or getattr(args, "max_hosts", None) is not None):
-        raise SystemExit(f"--autoscale / --min-hosts / --max-hosts: "
-                         f"{AUTOSCALE_SLICE}")
 
 
 def apply_runtime_env(args) -> None:

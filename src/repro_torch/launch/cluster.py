@@ -17,20 +17,22 @@ boundaries; ``--resume-from DIR`` adopts a previous run's deployment from
 DIR after its controller died (SIGKILLed mid-batch included), replays the
 pending batch from the fold snapshots, then serves ``--batches`` more.
 
+Cost cuts and autoscaling: ``--cut cost`` runs a short seeded calibration
+(:func:`~repro_torch.cluster.calibrate`, on the hosts' device) and cuts
+the network by measured time, cut-channel transfer included;
+``--calibrate`` prints the profile; ``--autoscale`` (bound by
+``--min-hosts`` / ``--max-hosts``) polls the deployment between batches
+and resizes it, printing every decision.
+
 The flags and printed lines are the JAX package's launcher's, with
-``device`` for its ``jaxmesh`` transport, plus ``--device``.  ``--cut
-cost`` and ``--calibrate`` come with the cost model, and the autoscale
-flags with the autoscaler; both refuse here.
+``device`` for its ``jaxmesh`` transport, plus ``--device``.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ._common import add_cluster_flags, apply_runtime_env
-
-COSTS_SLICE = ("cost calibration (cluster/costs.py) comes with a later "
-               "slice of the port")
+from ._common import add_cluster_flags, apply_runtime_env, autoscale_policy
 
 
 # module-level factories: the process transports spawn fresh interpreters
@@ -109,19 +111,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "--batches more")
     ap.add_argument("--cut", default="count", choices=["count", "cost"],
                     help="partition objective: 'count' balances process "
-                         "counts per host; 'cost' (measured times) is "
-                         "refused until the cost model is ported")
+                         "COUNTS per host (the §6 default); 'cost' runs a "
+                         "short seeded calibration and minimises the "
+                         "bottleneck host's measured TIME, cut-channel "
+                         "transfer included — the plan is still proved as "
+                         "a §6.1.1 refinement before anything deploys")
     ap.add_argument("--calibrate", action="store_true",
-                    help="print the measured per-process cost profile; "
-                         "refused until the cost model is ported")
+                    help="print the measured per-process cost profile "
+                         "(wall time, output bytes, flops prior) and the "
+                         "calibrated transport bandwidth before deploying")
     ap.add_argument("--coalesce-bytes", type=int, default=0, metavar="B",
                     help="transport fast path: coalesce small records into "
                          "one queue put / ring slot, up to B bytes per "
                          "flush (0 = per-record sends, the default)")
     args = ap.parse_args(argv)
-    if args.cut == "cost" or args.calibrate:
-        raise SystemExit(f"--cut cost / --calibrate: {COSTS_SLICE}")
     apply_runtime_env(args)
+    autoscale_policy(args)  # refuse bad bounds before anything is built
     return args
 
 
@@ -164,7 +169,24 @@ def main(argv=None) -> None:
             dep.close()
             raise SystemExit(1)
     else:
-        plan = partition(net, hosts=args.hosts)
+        profile = None
+        if args.cut == "cost" or args.calibrate:
+            from ..cluster import calibrate
+            t0 = time.perf_counter()
+            profile = calibrate(net, instances=instances,
+                                microbatch_size=args.microbatch,
+                                transports=(args.transport,),
+                                device=args.device)
+            print(f"[cluster] calibrated {len(profile.costs)} process "
+                  f"cost(s) in {(time.perf_counter() - t0) * 1e3:.1f}ms")
+            if args.calibrate:
+                print(profile.describe())
+        if args.cut == "cost":
+            from ..cluster import cost_assignment
+            plan = partition(net, assignment=cost_assignment(
+                net, args.hosts, profile, transport=args.transport))
+        else:
+            plan = partition(net, hosts=args.hosts)
         print(plan.describe())
         print(f"[cluster] CSP refinement (partitioned [T= unpartitioned, "
               f"both directions): {check_refinement(net, plan)}")
@@ -174,6 +196,8 @@ def main(argv=None) -> None:
                                 snapshot_every=args.snapshot_every,
                                 snapshot_dir=args.snapshot_dir,
                                 coalesce_bytes=args.coalesce_bytes,
+                                profile=profile,
+                                autoscale=autoscale_policy(args),
                                 device=args.device)
     with dep:
         if args.resume_from and dep.controller._needs_recovery:
@@ -186,6 +210,7 @@ def main(argv=None) -> None:
                   f"identical={same} replay_from="
                   f"{dict(sorted(ev.replay_from.items()))}", flush=True)
         for b in range(max(args.batches, 1)):
+            plan = dep.plan  # an autoscale replan moves the next batch
             t0 = time.perf_counter()
             out = dep.run(instances=instances)
             wall = time.perf_counter() - t0
@@ -194,6 +219,8 @@ def main(argv=None) -> None:
                 print(f"[cluster] batch {b} "
                       f"({'cold' if b == 0 else 'warm'}): "
                       f"{wall * 1e3:.1f}ms identical={same}", flush=True)
+        for aev in dep.autoscale_events:
+            print(f"[cluster] {aev.describe()}")
         depths = {f"{s}->{d}": n for (s, d), n
                   in dep.transport.channel_depths().items()}
         if args.trace:

@@ -1151,3 +1151,40 @@ def test_sim_mandelbrot_farm_on_card_survives_a_seeded_kill(cuda):
     assert not run.failures, run.failures
     assert len(run.outs) == 3 and sched.events[0].fired and run.events
     assert mb_ops.mandelbrot.launches - before >= 3 * 8
+
+
+# -- the cost model and the autoscaler on the card ---------------------------
+
+def test_calibrate_on_card_measures_every_stage(cuda):
+    """``calibrate`` of the Mandelbrot farm (512 x 256, 8 bands) on the
+    card: the render stage and the Collect measured, the kernel launched
+    by the calibration, every bandwidth positive, and a cost cut that
+    refines the network."""
+    from repro_torch import workloads
+    from repro_torch.cluster import (calibrate, check_refinement,
+                                     cost_assignment, partition)
+    net = workloads.mandelbrot_factory(512, 256, 8, 200)
+    before = mb_ops.mandelbrot.launches
+    prof = calibrate(net, instances=8, microbatch_size=2,
+                     transports=("device", "pipe", "shm"))
+    assert mb_ops.mandelbrot.launches > before
+    assert set(prof.costs) == {"group"}  # its Collect folds on the host
+    for c in prof.costs.values():
+        assert c.source == "measured" and c.wall_s > 0 and c.out_bytes > 0
+    assert prof.costs["group"].out_bytes == 2 * 4 + 2 * 32 * 512 * 4
+    assert all(bw > 0 for bw in prof.bandwidths.values())
+    assert set(prof.bandwidths) == {"device", "pipe", "shm"}
+    plan = partition(net, assignment=cost_assignment(net, 2, prof,
+                                                     transport="device"))
+    assert check_refinement(net, plan)
+
+
+@pytest.mark.parametrize("kind", ["spike", "straggler", "slow-start"])
+def test_workload_scenario_on_card(cuda, kind):
+    """One workload scenario of each kind over simulated hosts on the
+    card: a spike scales out, a straggler is migrated away, a slow start
+    causes no action, every batch equal to the oracle on the card."""
+    from repro_torch.cluster import sim
+    r = sim.run_workload_scenario(0, kind=kind)
+    assert r.ok, r.failures
+    assert r.recoveries == (0 if kind == "slow-start" else 1)

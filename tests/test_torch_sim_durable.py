@@ -136,19 +136,31 @@ class TestSimGoldenTrace:
 
 
 class TestLaterSteps:
-    def test_workload_scenario_names_step_9_6(self):
-        with pytest.raises(NotImplementedError, match=r"step 9\.6"):
-            sim.run_workload_scenario(0, device=CPU)
+    @pytest.mark.parametrize("seed", [3, 4, 5])
+    def test_workload_scenario_computes(self, seed):
+        """Step 9.6 is ported: seeds 3-5 draw a spike, a straggler and a
+        slow start (``seed % 3``), each green."""
+        r = sim.run_workload_scenario(seed, device=CPU)
+        assert r.ok, "\n".join(r.failures)
+        kinds = ("spike", "straggler", "slow-start")
+        assert r.kind == f"workload/{kinds[seed % 3]}"
 
     def test_serve_kill_scenario_names_step_9_8(self):
         with pytest.raises(NotImplementedError, match=r"step 9\.8"):
             sim.run_serve_kill_scenario(0, device=CPU)
 
-    @pytest.mark.parametrize("flag,step", [("--workload", r"9\.6"),
-                                           ("--serve-kill", r"9\.8")])
+    @pytest.mark.parametrize("flag,step", [
+        pytest.param("--serve-kill", r"9\.8", id="--serve-kill-9\\.8")])
     def test_cli_flags_name_their_step(self, flag, step):
         with pytest.raises(NotImplementedError, match=f"step {step}"):
             sim.main([flag, "2", "--device", CPU])
+
+    def test_cli_workload_flag_computes(self, capsys):
+        assert sim.main(["--workload", "3", "--device", CPU]) == 0
+        out = capsys.readouterr().out
+        for kind in ("spike", "straggler", "slow-start"):
+            assert f"[ok] workload/{kind}" in out
+        assert "3 scenario(s)" in out and "0 failed" in out
 
 
 class TestDevice:
@@ -159,8 +171,10 @@ class TestDevice:
         lambda: sim.run_coalesce_kill_scenario(0),
         lambda: sim.run_pipe_brick_scenario(),
         lambda: sim.main(["--seeds", "1"]),
+        lambda: sim.run_workload_scenario(0),
+        lambda: sim.main(["--workload", "1"]),
     ], ids=["scenario", "kill-controller", "stall-race", "coalesce-kill",
-            "pipe-brick", "main"])
+            "pipe-brick", "main", "workload", "main-workload"])
     def test_card_by_default_refuses_without_gpu(self, run, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
