@@ -109,6 +109,28 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    starts), every one ``ok``, a spike and a straggler with one epoch bump
    each, a slow start with none. No host thread, host process or new
    ``/dev/shm`` entry may be left; the phase prints its wall;
+16. (run after phase 15, on phase 6's weights) the clustered decode farm
+   serving full-width qwen2-0.5b with phase 7's 8 requests (4 slots in 2
+   shards of 2 rows, max_len 128, prefill chunks of 8): 16a the farm over
+   2 ``device`` hosts and over 2 ``pipe`` host processes, whose token
+   streams must be identical to each other and to a local engine of 2
+   slots (the shards' decode shape) on the same weights (on a difference
+   it prints the first differing request and step with the top-2 logit
+   margin there), every request joining and leaving once; how many equal
+   phase 7's 4-slot run and the one-slot oracle is printed, not gated;
+   16b ``scale(3)`` over ``device`` after the first step: ``reconfigure``,
+   refined, epoch 2, streams equal 16a; 16c host 1 of 2 ``pipe`` hosts
+   killed after step 3: the next step recovers, streams equal 16a, the
+   kill → step-done wall printed; 16d a durable farm over ``device``
+   closed after 4 steps and adopted by a fresh backend: every request
+   answered once, streams equal 16a, the persist spans' bytes printed;
+   16e ``python -m repro_torch.cluster.sim --serve-kill 12`` on the card,
+   every scenario ok; 16f ``python -m repro_torch.launch.serve --arch
+   qwen2-0.5b --hosts 2 --transport device --autoscale``.  For each run
+   it prints tok/s, TTFT and TPOT p50/p99, the farm's decode step against
+   phase 7's local step and the bytes across the cut a decode step.  No
+   kernel may launch in the phase, and no host thread, host process or
+   new ``/dev/shm`` entry may be left; the phase prints its wall;
 6. runs ``Model.forward`` of the full-width qwen2-0.5b (24 layers, random
    weights from seed 0) on a (4, 2048) batch of seeded tokens: in bf16 (the
    default config) the logits must be finite; in float32 its logits at
@@ -197,7 +219,8 @@ images.
 
 Kernel launch counts are reset just before phase 2 and read after phase 9
 (the thread hosts of phases 12, 13 and 15 and the simulated hosts of
-phases 14 and 15 count with them),
+phases 14 and 15 count with them; phase 16, which must launch nothing, is
+counted apart, from 0),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
 the farm, of the pipeline, one more bf16 forward and one decode step of
@@ -1714,7 +1737,6 @@ def run_launcher_kill(torch, d) -> None:
     whole process group SIGKILLed once the Collect's host has written one,
     then ``--resume-from``: adopted at epoch 2 and refined, the pending
     batch replayed from the snapshot, and the oracle equal."""
-    import glob
     import signal
     from repro_torch.cluster import partition
     from repro_torch.kernels.mandelbrot import kernel
@@ -1758,15 +1780,18 @@ def run_launcher_kill(torch, d) -> None:
         [*cmd, "--snapshot-every", "1", "--snapshot-dir", d, "--batches",
          "1"], env=env, cwd=ROOT, start_new_session=True,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # a completed snapshot: the checkpointer writes LATEST after it renames
+    # step_*.tmp into place, so a kill mid-write cannot count
+    latest = os.path.join(d, f"host_{coll}", "LATEST")
     try:
         deadline = time.monotonic() + 300
-        while (not glob.glob(f"{d}/host_{coll}/step_*")
+        while (not os.path.exists(latest)
                and proc.poll() is None and time.monotonic() < deadline):
             time.sleep(0.02)
         if proc.poll() is not None:  # (the message reads its output)
             raise SmokeFailure(f"{label}: the first run ended before the "
                                f"kill:\n{proc.communicate()[0][-3000:]}")
-        check(bool(glob.glob(f"{d}/host_{coll}/step_*")),
+        check(os.path.exists(latest),
               f"{label}: no fold snapshot of host {coll} within 300 s")
         t_kill = time.perf_counter()
         os.killpg(proc.pid, signal.SIGKILL)
@@ -2262,6 +2287,337 @@ def run_costs_phase(torch, counts, farm_img, edge_maps, entries, args,
           f"phase 15 wall: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 16: the clustered decode farm on the card ----------------------------------
+
+FARM_SPEC = ("model", "qwen2-0.5b", False)   # full width, seed-0 weights
+
+
+def farm_backend(transport, hosts=2, **kw):
+    """Phase 16's decode farm: 4 slots in 2 shards of 2 rows, max_len 128,
+    prefill chunks of 8, on the card."""
+    from repro_torch.serve import ClusterDecodeBackend
+    return ClusterDecodeBackend(FARM_SPEC, n_slots=4, shards=2, hosts=hosts,
+                                transport=transport, max_len=128,
+                                prefill_chunk=LAUNCH_PREFILL_CHUNK, **kw)
+
+
+def tree_bytes(tree) -> int:
+    import torch.utils._pytree as pytree
+    return sum(l.numel() * l.element_size() for l in pytree.tree_leaves(tree))
+
+
+def serve_farm(torch, be, reqs, label, after_step=None,
+               engine=None) -> dict:
+    """Drive ``reqs`` through a ``ServeEngine`` over the farm backend
+    ``be`` (or ``engine``, already holding them); ``after_step(eng)`` runs
+    after every step.  Returns the responses by rid, the engine, the
+    decode-step and persist spans, the wall, and the bytes that crossed the
+    cut in each decode step.  The engine records into a recorder of its
+    own: thread hosts drain the process-default one after every batch."""
+    from repro_torch.core.trace import TraceRecorder
+    from repro_torch.serve import ServeEngine
+    cut_bytes = []
+    inner = be.dep.run
+
+    def run(*a, **k):  # the cut's bytes of every decode batch (2 items)
+        out = inner(*a, **k)
+        if len(out["collect"]) == be.shards:
+            cut_bytes.append(sum(sum(r.metrics.get("sent_bytes", {})
+                                     .values())
+                                 for r in out.reports if r.metrics))
+        return out
+
+    be.dep.run = run
+    try:
+        t0 = time.perf_counter()
+        eng = engine
+        if eng is None:
+            eng = ServeEngine(be, recorder=TraceRecorder(host="serve16"))
+            for r in reqs:
+                eng.submit(r)
+        while eng.pending or eng._live:
+            eng.step()
+            if after_step is not None:
+                after_step(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = [e for e in eng.rec.events() if e.kind == "span"]
+    finally:
+        be.dep.run = inner
+    done = list(eng.completed)
+    check(sorted(r.rid for r in done) == sorted(r.rid for r in reqs),
+          f"{label}: answered {sorted(r.rid for r in done)}")
+    for r in reqs:
+        resp = eng.poll(r.rid)
+        check(len(resp.tokens) == r.max_new and resp.finish_reason == "length",
+              f"{label}: request {r.rid} gave {len(resp.tokens)} tokens")
+        check([e.kind for e in resp.slot_events] == ["join", "leave"],
+              f"{label}: request {r.rid} slot events {resp.slot_events}")
+    return {"tokens": {r.rid: eng.poll(r.rid).tokens for r in reqs},
+            "eng": eng, "wall": wall, "cut_bytes": cut_bytes,
+            "decode": sorted(e.dur * 1e3 for e in spans
+                             if e.name == "decode_chunk"),
+            "persist": [e for e in spans if e.name == "persist"]}
+
+
+def report_farm(label, run, local_step_ms) -> None:
+    """tok/s, TTFT and TPOT, the farm step against phase 7's local step,
+    and the cut's bytes a decode step."""
+    done = run["eng"].completed
+    toks = sum(len(r.tokens) for r in done)
+    span = (max(r.finished_at for r in done)
+            - min(r.submitted_at for r in done))
+    ttft = [r.ttft * 1e3 for r in done]
+    tpot = [r.tpot * 1e3 for r in done if len(r.tokens) > 1]
+    dec = run["decode"]
+    cut = run["cut_bytes"]
+    print(f"{label}: {len(done)} requests, {toks} tokens in "
+          f"{span * 1e3:.1f} ms: {toks / span:.1f} tok/s; ttft p50 "
+          f"{pct(ttft, 50):.1f} ms p99 {pct(ttft, 99):.1f} ms; tpot p50 "
+          f"{pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} ms")
+    print(f"{label}: farm decode step p50 {pct(dec, 50):.2f} ms p99 "
+          f"{pct(dec, 99):.2f} ms over {len(dec)} steps = "
+          f"{pct(dec, 50) / local_step_ms:.2f} x phase 7's local step "
+          f"({local_step_ms:.2f} ms); cut {pct(cut, 50)} bytes a decode "
+          f"step (p50, {min(cut)}-{max(cut)}); wall {run['wall']:.2f} s")
+
+
+def top2_margin(torch, model, params, prompt, prefix) -> float:
+    """The top-2 logit margin of one request alone (one row, max_len 128)
+    at the token after ``prompt`` + ``prefix``: how near the argmax was to
+    flipping where two runs first differ."""
+    import torch.utils._pytree as pytree
+    dev = pytree.tree_leaves(params)[0].device
+    cache = model.init_cache(1, 128, device=dev)
+    logits = None
+    for t in (*prompt, *prefix):
+        logits, cache = model.decode_step(
+            params, cache, torch.tensor([[t]], dtype=torch.int32,
+                                        device=dev))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def first_difference(got: dict, want: dict):
+    """(rid, step) of the first request whose tokens differ, or None."""
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        for t, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return rid, t
+        if len(a) != len(b):
+            return rid, min(len(a), len(b))
+    return None
+
+
+def run_farm_phase(torch, model, params, phase7) -> None:
+    """Phase 16: full-width qwen2-0.5b served by the clustered decode farm
+    (16a-16f).  ``model``/``params`` are phase 6's (the farm's seed-0
+    weights); ``phase7`` is what phase 7's 4-slot launcher run gave."""
+    import gc
+    import multiprocessing
+    import tempfile
+    import threading
+    from repro_torch.cluster import DeploymentStore
+    from repro_torch.core.trace import TraceRecorder
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import LocalDecodeBackend, ServeEngine
+    t_phase = time.perf_counter()
+    shm_before = set(os.listdir("/dev/shm"))
+    threads_before = set(threading.enumerate())
+    reqs = launcher.requests(8, model.cfg.vocab, 16)
+    local_ms = phase7["step_ms"]
+
+    def free(be):
+        be.close()
+        del be
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the reference the farm must equal: a local engine at the shards'
+    # decode shape (M = 2 rows), on the same weights
+    eng = ServeEngine(LocalDecodeBackend(model, params, n_slots=2,
+                                         max_len=128))
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    m2 = {r.rid: eng.poll(r.rid).tokens for r in reqs}
+    del eng
+
+    # 16a: 2 device hosts, then 2 pipe hosts
+    streams = {}
+    for transport in ("device", "pipe"):
+        label = f"[farm] 16a {transport}"
+        t0 = time.perf_counter()
+        be = farm_backend(transport)
+        up = time.perf_counter() - t0
+        cache_mb = tree_bytes(be.shard_cache[0]) / 1e6
+        run = serve_farm(torch, be, reqs, label)
+        streams[transport] = run["tokens"]
+        report_farm(label, run, local_ms)
+        print(f"{label}: backend built and deployment started in "
+              f"{up:.1f} s; a shard's cache {cache_mb:.2f} MB; epoch "
+              f"{be.dep.epoch}, recoveries {be.recoveries}")
+        free(be)
+    check(streams["device"] == streams["pipe"],
+          "[farm] 16a: the device and pipe farms' streams differ")
+    diff = first_difference(streams["device"], m2)
+    if diff is not None:
+        rid, t = diff
+        r = next(q for q in reqs if q.rid == rid)
+        margin = top2_margin(torch, model, params, r.prompt,
+                             m2[rid][:t])
+        print(f"[farm] 16a FAULT: request {rid} differs from the local "
+              f"M = 2 engine at step {t} (farm {streams['device'][rid][t:t+1]}"
+              f", local {m2[rid][t:t+1]}); top-2 logit margin alone there "
+              f"{margin:.4f}")
+    check(diff is None, "[farm] 16a: the farm's streams differ from the "
+                        "local engine at the shards' decode shape (M = 2)")
+    same4 = sum(streams["device"][rid] == t
+                for rid, t in phase7["tokens"].items())
+    alone = sum(streams["device"][rid] == t
+                for rid, t in phase7["alone"].items())
+    print(f"[farm] 16a: device == pipe == local M = 2 engine, bit for bit "
+          f"(8 requests); {same4}/8 equal phase 7's 4-slot local run, "
+          f"{alone}/8 the one-slot oracle (not gated: other decode shapes)")
+    want = streams["device"]
+
+    # 16b: scale-out to 3 device hosts after the first step
+    label = "[farm] 16b device scale(3)"
+    be = farm_backend("device")
+    events = []
+
+    def grow(eng):
+        if eng.steps_run == 1 and not events:
+            t0 = time.perf_counter()
+            events.append((be.scale(3), time.perf_counter() - t0))
+
+    run = serve_farm(torch, be, reqs, label, after_step=grow)
+    ev, scale_s = events[0]
+    check(ev.mode == "reconfigure" and ev.refined is True
+          and be.dep.epoch == 2,
+          f"{label}: event {ev.mode} refined={ev.refined} epoch "
+          f"{be.dep.epoch}")
+    check(all(e.refined is True for e in be.dep.events),
+          f"{label}: an event did not refine")
+    check(run["tokens"] == want, f"{label}: streams differ from 16a")
+    report_farm(label, run, local_ms)
+    print(f"{label}: reconfigure {scale_s * 1e3:.1f} ms, epoch 2, refined, "
+          f"streams equal 16a")
+    free(be)
+
+    # 16c: host 1 of 2 pipe hosts killed after step 3
+    label = "[farm] 16c pipe kill_host(1)"
+    be = farm_backend("pipe")
+    killed = {}
+
+    def kill(eng):
+        if eng.steps_run == 3 and "at" not in killed:
+            be.dep.kill_host(1)
+            killed["at"] = time.perf_counter()
+        elif "at" in killed and "wall" not in killed:
+            killed["wall"] = time.perf_counter() - killed["at"]
+            killed["recoveries"] = be.recoveries
+
+    run = serve_farm(torch, be, reqs, label, after_step=kill)
+    check(killed.get("recoveries", 0) >= 1,
+          f"{label}: the step after the kill did not recover ({killed})")
+    check(all(e.refined is True for e in be.dep.events),
+          f"{label}: an event did not refine")
+    check(run["tokens"] == want, f"{label}: streams differ from 16a")
+    report_farm(label, run, local_ms)
+    print(f"{label}: kill -> step completed {killed['wall']:.2f} s, "
+          f"recoveries {be.recoveries}, events "
+          + "; ".join(f"{e.mode} {e.epoch_from}->{e.epoch_to}"
+                      for e in be.dep.events)
+          + "; streams equal 16a")
+    free(be)
+
+    # 16d: a durable farm closed after 4 steps, adopted by a fresh one
+    label = "[farm] 16d device adopt"
+    with tempfile.TemporaryDirectory() as d:
+        be = farm_backend("device", snapshot_dir=d)
+        eng = ServeEngine(be, store=be.store,
+                          recorder=TraceRecorder(host="serve16d"))
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(4):
+            eng.step()
+        first = [e for e in eng.rec.events()
+                 if e.kind == "span" and e.name == "persist"]
+        at = (len(eng.completed), len(eng._live), eng.steps_run)
+        del eng
+        free(be)  # the crash: engine and backend both go
+        be = farm_backend("device", snapshot_dir=d)
+        t0 = time.perf_counter()
+        eng2 = ServeEngine.adopt(be, DeploymentStore(d),
+                                 recorder=TraceRecorder(host="serve16d"))
+        adopt_ms = (time.perf_counter() - t0) * 1e3
+        run = serve_farm(torch, be, reqs, label, engine=eng2)
+        answered = [r.rid for r in eng2.completed]
+        check(sorted(answered) == sorted(want),
+              f"{label}: answered {answered}, want each rid once")
+        check(run["tokens"] == want, f"{label}: streams differ from 16a")
+        persist = first + run["persist"]
+        nbytes = sorted(e.args["nbytes"] for e in persist)
+        print(f"{label}: closed at step {at[2]} with {at[0]} done and "
+              f"{at[1]} in flight; adopted in {adopt_ms:.1f} ms; every "
+              f"request answered once, streams equal 16a; persist span "
+              f"p50 {pct([e.dur * 1e3 for e in persist], 50):.2f} ms over "
+              f"{len(persist)} steps, {nbytes[0]}-{nbytes[-1]} bytes each")
+        free(be)
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    # 16e: the kill-during-serving sweep on the card
+    label = "[farm] 16e sim --serve-kill 12"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.cluster.sim",
+                        "--serve-kill", "12"], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("seed")]
+    check(r.returncode == 0 and len(lines) == 12
+          and all("[ok]" in ln for ln in lines),
+          f"{label}: exited {r.returncode}:\n{r.stdout[-3000:]}"
+          f"{r.stderr[-3000:]}")
+    print(f"{label}: 12 scenarios ok, wall {wall:.1f} s (process start "
+          f"included); {r.stdout.strip().splitlines()[-1]}")
+
+    # 16f: the serve launcher over 2 device hosts with the autoscaler
+    label = "[farm] 16f launcher"
+    flags = ["--arch", "qwen2-0.5b", "--hosts", "2", "--transport",
+             "device", "--autoscale"]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        *flags], env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0 and "(cluster[devicex2h/2 shards]" in r.stdout
+          and ": 8 requests" in r.stdout,
+          f"{label}: exited {r.returncode}:\n{r.stdout[-3000:]}"
+          f"{r.stderr[-3000:]}")
+    print(f"{label}: python -m repro_torch.launch.serve {' '.join(flags)}; "
+          f"wall {wall:.1f} s (process start included)")
+    for ln in r.stdout.splitlines():
+        print(f"{label}:   {ln}")
+
+    deadline = time.monotonic() + 30.0
+    while True:  # a stopped host thread unwinds at its next poll
+        left = [t.name for t in set(threading.enumerate()) - threads_before
+                if t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    check(not left, f"[farm] host threads left after phase 16: {left}")
+    check(not multiprocessing.active_children(),
+          "[farm] host processes still running after phase 16")
+    left = sorted(set(os.listdir("/dev/shm")) - shm_before)
+    check(not left, f"[farm] /dev/shm entries left: {left}")
+    print(f"[farm] no host thread, host process or /dev/shm entry left; "
+          f"phase 16 wall: {time.perf_counter() - t_phase:.1f} s")
+
+
 # -- phases 6-9: the decoder LMs -----------------------------------------------------
 
 def describe(cfg) -> str:
@@ -2410,13 +2766,14 @@ def compare_routes(cfg, full, prefill, batch, half) -> None:
 
 
 def run_serve(torch, model, params, counts, per_decode=None,
-              launcher_main=True):
+              launcher_main=True) -> dict:
     """The launcher's defaults: 8 requests, 4 slots, max_len 128, max_new
     16, on the card, through the launcher's ``main`` (which builds its own
     weights) or, with ``launcher_main=False``, through a ``ServeEngine``
     over ``LocalDecodeBackend`` on the given model and weights.  Every
     ``decode_step`` call must launch exactly ``per_decode`` kernels (every
-    other kernel: none)."""
+    other kernel: none).  Returns each request's tokens, its tokens decoded
+    alone in a one-slot engine, and the decode step's p50 ms."""
     from repro_torch.core import trace
     from repro_torch.launch import serve as launcher
     from repro_torch.serve import LocalDecodeBackend, ServeEngine
@@ -2473,15 +2830,16 @@ def run_serve(torch, model, params, counts, per_decode=None,
           f"p99 {pct(decode, 99):.2f} ms over {len(decode)} steps; prefill "
           f"chunk ({LAUNCH_PREFILL_CHUNK} single-token steps) p50 "
           f"{pct(prefill, 50):.2f} ms over {len(prefill)} chunks")
-    same = 0
+    tokens = {r.rid: r.tokens for r in done}
+    alone = {}
     with torch.inference_mode():
         for r in reqs:  # each request alone in a one-slot engine
             eng = ServeEngine(LocalDecodeBackend(model, params, n_slots=1,
                                                  max_len=128))
             eng.submit(r)
             eng.run_until_drained()
-            same += eng.poll(r.rid).tokens == next(
-                d.tokens for d in done if d.rid == r.rid)
+            alone[r.rid] = eng.poll(r.rid).tokens
+    same = sum(alone[rid] == t for rid, t in tokens.items())
     print(f"[serve] {model.cfg.name}: {len(done)} requests complete, {toks} "
           f"tokens in "
           f"{span * 1e3:.1f} ms: {toks / span:.1f} tok/s; ttft p50 "
@@ -2489,6 +2847,7 @@ def run_serve(torch, model, params, counts, per_decode=None,
           f"{pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} ms; launches "
           f"{launched}; {same}/{len(reqs)} requests give the same tokens "
           "decoded alone (n_slots=1; not gated)")
+    return {"tokens": tokens, "alone": alone, "step_ms": pct(decode, 50)}
 
 
 def memory(torch, label: str) -> None:
@@ -2602,19 +2961,27 @@ def main() -> int:
     model, params, toks = run_forward(torch, dev, launch_counts,
                                       "qwen2-0.5b", 4, 2048,
                                       {"flash_attention": 24})
-    run_serve(torch, model, params, launch_counts)
+    phase7 = run_serve(torch, model, params, launch_counts)
     run_durable_phase(torch, launch_counts, farm_img, model, params,
                       (W, H, BANDS, ITERS), rebalance_ms)
     run_sim_phase(torch, launch_counts, farm_img, (W, H, BANDS, ITERS))
     run_costs_phase(torch, launch_counts, farm_img, edge_maps, entries,
                     (W, H, BANDS, ITERS), 16, 2048)
     del farm_img, edge_maps
+    # phase 16 is its own path: it must launch no kernel
+    before_farm = launch_counts()
+    reset_launch_counts()
+    run_farm_phase(torch, model, params, phase7)
+    farm_launched = launch_counts()
+    check(not any(farm_launched.values()),
+          f"phase 16 launched kernels: {farm_launched}")
+    reset_launch_counts()
     ssm = run_forward(torch, dev, launch_counts, "mamba2-2.7b", 4, 2048,
                       {"ssd_scan": 64})
     hybrid = run_forward(torch, dev, launch_counts, "zamba2-1.2b", 4, 2048,
                          {"ssd_scan": 38, "flash_attention": 6})
     run_serve(torch, ssm[0], ssm[1], launch_counts)
-    launched = launch_counts()
+    launched = {k: v + before_farm[k] for k, v in launch_counts().items()}
 
     # where the time goes: one more fused run of each kernel workload, one
     # more forward and one decode step of each served model, one more

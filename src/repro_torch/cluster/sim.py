@@ -50,9 +50,8 @@ a bounded number of scaling actions per schedule.
 SIGKILL on the real ``pipe`` transport; ``--kill-controller N``,
 ``--stall-race N``, ``--coalesce-kill N`` and ``--workload N`` run the
 controller-crash, the stall-past-timeout, the kill-during-coalesced-send
-and the workload families.  The kill-during-serving scenarios wait for the
-slice that brings the clustered decode farm; ``run_serve_kill_scenario``
-and ``--serve-kill`` raise ``NotImplementedError``.
+and the workload families; ``--serve-kill N`` runs N seeded host kills and
+stalls under a live serving engine over the clustered decode farm.
 """
 
 from __future__ import annotations
@@ -98,10 +97,6 @@ __all__ = [
     "run_serve_kill_scenario",
     "main",
 ]
-
-SERVE_KILL_STEP = ("the kill-during-serving scenarios drive the clustered "
-                   "decode farm, which comes with the port's cluster step "
-                   "9.8 (ClusterDecodeBackend)")
 
 
 class SimLivelock(RuntimeError):
@@ -1631,10 +1626,134 @@ def run_coalesce_kill_scenario(seed: int, *, batches: int = 3,
         recoveries=len(ctrl.events), ticks=clock.ticks, failures=failures)
 
 
-def run_serve_kill_scenario(seed: int, **kwargs) -> ScenarioResult:
-    """A seeded fault schedule against a live serving engine over the
-    clustered decode farm: not in the port yet."""
-    raise NotImplementedError(f"run_serve_kill_scenario: {SERVE_KILL_STEP}")
+# ==========================================================================
+# Kill-during-serving: faults under a live ServeEngine
+# ==========================================================================
+
+def run_serve_kill_scenario(seed: int, *, clock_budget: int = 2_000_000,
+                            timeout_s: float = 60.0,
+                            device=None) -> ScenarioResult:
+    """One seeded fault schedule against a live :class:`~..serve
+    .ServeEngine` over the clustered decode farm.
+
+    The engine streams a seeded request trace (arrival pattern, prompt
+    lengths, token budgets all fixed by the seed) through a
+    :class:`~..serve.ClusterDecodeBackend` whose deployment rides this
+    module's :class:`SimTransport`; the schedule kills or stalls hosts at
+    exact protocol steps *between decode chunks* — mid-prefill, mid-decode,
+    while parked, or during the recovery the first kill provoked.  The
+    serving guarantee under fire: every accepted request is answered
+    **exactly once**, each token stream identical to the sequential
+    per-request oracle, no ``(epoch, ci)`` record delivered twice within
+    any farm step (recovery replays included), and every epoch bump
+    re-proves the refinement.  The hosts and the oracle run on ``device``
+    (``None``: the card)."""
+    from ..serve import (ClusterDecodeBackend, LocalDecodeBackend, Request,
+                         ServeEngine)
+    from ..serve.engine import build_decode_model, make_decode_farm
+
+    cfg_dev = _cfg_device(device)
+    rng = random.Random(seed)
+    spec = ("toy", 32, 8)
+    n_slots, shards, max_len, pchunk = 4, 2, 32, 4
+    hosts = rng.choice((2, 3))
+    reqs = [Request(rid=i,
+                    prompt=tuple(rng.randrange(1, 32)
+                                 for _ in range(rng.randrange(1, 7))),
+                    max_new=rng.randrange(1, 7))
+            for i in range(rng.randrange(5, 9))]
+
+    # sequential oracle: each request alone through a single-slot engine
+    model, params = build_decode_model(spec, device=cfg_dev)
+    expect = {}
+    for r in reqs:
+        oeng = ServeEngine(LocalDecodeBackend(
+            model, params, n_slots=1, max_len=max_len,
+            prefill_chunk=pchunk))
+        oeng.submit(r)
+        oeng.run_until_drained()
+        expect[r.rid] = oeng.poll(r.rid).tokens
+
+    net = make_decode_farm(spec, n_slots, shards, max_len, pchunk, cfg_dev)
+    plan = partition(net, hosts=hosts)
+    schedule = FaultSchedule.random(rng, plan)
+    clock = SimClock(clock_budget)
+    transport = SimTransport(schedule, clock, rebuildable=True)
+
+    failures: list = []
+    be = None
+    events: list = []
+    eng = None
+    try:
+        be = ClusterDecodeBackend(
+            spec, n_slots=n_slots, shards=shards, hosts=hosts,
+            transport=transport, max_len=max_len, prefill_chunk=pchunk,
+            timeout_s=timeout_s, max_recover_attempts=8, device=cfg_dev)
+        ctrl = be.dep.controller
+        ctrl.poll_s = 0.05
+        transport.track_hosts(ctrl._procs)
+
+        # every farm step opens a fresh duplicate-monitor window: within
+        # one step (and all its recovery replays, each at a bumped epoch)
+        # (epoch, ci) must be unique per channel; across steps the same
+        # epoch legitimately reuses them
+        inner = be._run
+
+        def run_stream(batch):
+            transport.begin_stream()
+            return inner(batch)
+
+        be._run = run_stream
+        eng = ServeEngine(be)
+        # cold step first (spawn + stage builds = the warm baseline), then
+        # arm the schedule so `at` counts protocol steps deterministically
+        eng.submit(reqs[0])
+        eng.step()
+        schedule.arm()
+        i = 1
+        while i < len(reqs) or eng.pending or eng._live:
+            # seeded arrival trickle; always admit when the farm is idle
+            while i < len(reqs) and (rng.random() < 0.5
+                                     or not (eng.pending or eng._live)):
+                eng.submit(reqs[i])
+                i += 1
+            eng.step()
+        events = list(ctrl.events)
+    except (NetworkError, SimLivelock, RuntimeError) as e:
+        failures.append(f"{type(e).__name__}: {e}")
+        if be is not None:
+            events = list(be.dep.controller.events)
+    finally:
+        if be is not None:
+            try:
+                be.close()
+            except Exception:
+                pass
+
+    # -- the serving invariants --------------------------------------------
+    if eng is not None:
+        answered = [resp.rid for resp in eng.completed]
+        for r in reqs:
+            n = answered.count(r.rid)
+            if n != 1:
+                failures.append(
+                    f"request {r.rid} answered {n} times (want exactly 1)")
+                continue
+            got = eng.poll(r.rid).tokens
+            if got != expect[r.rid]:
+                failures.append(
+                    f"request {r.rid}: tokens {got} != sequential oracle "
+                    f"{expect[r.rid]}")
+    failures.extend(transport.violations)  # duplicate (epoch, ci) records
+    for ev in events:
+        if ev.refined is not True:
+            failures.append(
+                f"epoch {ev.epoch_to}: check_redeployment failed")
+    return ScenarioResult(
+        seed=seed, kind=f"serve/{schedule.kind}", topology="decode-farm",
+        hosts=hosts, schedule=schedule.describe(),
+        fired=sum(ev.fired for ev in schedule.events),
+        recoveries=len(events), ticks=clock.ticks, failures=failures)
 
 
 # ==========================================================================
@@ -1653,8 +1772,8 @@ def main(argv=None) -> int:
                     help="run ONLY the mid-recv SIGKILL scenario on the "
                          "real pipe transport")
     ap.add_argument("--serve-kill", type=int, default=0, metavar="N",
-                    help="N seeded kill-during-serving scenarios (comes "
-                         "with the port's cluster step 9.8)")
+                    help="run ONLY N seeded kill-during-serving scenarios "
+                         "(live ServeEngine over the clustered decode farm)")
     ap.add_argument("--kill-controller", type=int, default=0, metavar="N",
                     help="run ONLY N seeded controller-crash durability "
                          "scenarios (snapshots + adopt; N >= 5 covers "
@@ -1676,8 +1795,6 @@ def main(argv=None) -> int:
                          "card; 'cpu' off it)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-    if args.serve_kill:
-        raise NotImplementedError(f"--serve-kill: {SERVE_KILL_STEP}")
     resolve_device(args.device)  # no GPU and no --device cpu: raise first
 
     dev = args.device
@@ -1686,7 +1803,9 @@ def main(argv=None) -> int:
         runs = [lambda: run_pipe_brick_scenario(verbose=args.verbose,
                                                 device=dev)]
     else:
-        if args.kill_controller:
+        if args.serve_kill:
+            fn, n = run_serve_kill_scenario, args.serve_kill
+        elif args.kill_controller:
             fn, n = run_kill_controller_scenario, args.kill_controller
         elif args.stall_race:
             fn, n = run_stall_race_scenario, args.stall_race

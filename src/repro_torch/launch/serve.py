@@ -1,16 +1,18 @@
-"""Serving launcher: a :class:`~repro_torch.serve.ServeEngine` over the
-local decode backend, on the card by default.
+"""Serving launcher: a :class:`~repro_torch.serve.ServeEngine` over a local
+or clustered decode backend, on the card by default.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 8
     python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \\
-        --device cpu --requests 4 --slots 2 --max-new 4
+        --device cpu --hosts 2 --transport inprocess --n-slots 4
 
-The flags and report lines are those of the JAX package's serve launcher
-for its in-process backend (``--hosts 0``), plus ``--device``.
+The flags and report lines are those of the JAX package's serve launcher,
+plus ``--device``.  ``--hosts 0`` (default) decodes in-process
+(:class:`LocalDecodeBackend`); ``--hosts N`` parks the decode farm warm on
+a :class:`~repro_torch.cluster.ClusterDeployment` over ``--transport``
+(``--autoscale`` lets it resize itself between decode steps).
 ``--arrival-rate R`` replays an open-loop Poisson arrival trace at R
 requests/s instead of submitting everything up front; the report adds TTFT
-and per-token latency percentiles over the completed responses.  A decode
-farm across hosts (``--hosts N``) comes with the cluster slice.
+and per-token latency percentiles over the completed responses.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import random
 import sys
 import time
 
-from ._common import add_model_flags
+from ._common import (add_cluster_flags, add_model_flags, apply_runtime_env,
+                      autoscale_policy)
 
 
 def _pct(xs: list, q: float) -> float:
@@ -44,9 +47,7 @@ def requests(n: int, vocab: int, max_new: int) -> list:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_model_flags(ap)
-    ap.add_argument("--hosts", type=int, default=0,
-                    help="simulated host count (0 = stay in-process; the "
-                         "only value ported so far)")
+    add_cluster_flags(ap, default_hosts=0, default_transport="inprocess")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--n-slots", "--slots", dest="n_slots", type=int,
                     default=4, help="decode slot-batch width")
@@ -66,17 +67,27 @@ def main(argv=None) -> list:
     """Serve the request set; prints the report and returns the responses
     in completion order."""
     args = parse_args(argv)
+    apply_runtime_env(args)
+
+    from ..serve import (ClusterDecodeBackend, LocalDecodeBackend,
+                         ServeEngine, build_decode_model)
+
+    spec = ("model", args.arch, args.reduced)
     if args.hosts > 0:
-        raise SystemExit("--hosts > 0: the clustered decode farm comes with "
-                         "the port's cluster slice; use --hosts 0")
-
-    from ..serve import LocalDecodeBackend, ServeEngine, build_decode_model
-
-    model, params = build_decode_model(("model", args.arch, args.reduced),
-                                       device=args.device)
-    backend = LocalDecodeBackend(model, params, n_slots=args.n_slots,
-                                 max_len=args.max_len)
-    where = f"local {backend.device}"
+        shards = max(s for s in range(1, min(args.hosts, args.n_slots) + 1)
+                     if args.n_slots % s == 0)
+        backend = ClusterDecodeBackend(
+            spec, n_slots=args.n_slots, shards=shards, hosts=args.hosts,
+            transport=args.transport, max_len=args.max_len,
+            autoscale=autoscale_policy(args), device=args.device)
+        model = backend.model
+        where = (f"cluster[{args.transport}x{args.hosts}h/{shards} shards] "
+                 f"{backend.device}")
+    else:
+        model, params = build_decode_model(spec, device=args.device)
+        backend = LocalDecodeBackend(model, params, n_slots=args.n_slots,
+                                     max_len=args.max_len)
+        where = f"local {backend.device}"
     reqs = requests(args.requests, model.cfg.vocab, args.max_new)
     rng = random.Random(args.seed)
     due, t = [], 0.0
@@ -105,6 +116,8 @@ def main(argv=None) -> list:
           f"tokens in {dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s) over "
           f"{steps} farm steps "
           f"(mean occupancy {toks / max(steps, 1):.2f}/{args.n_slots})")
+    for aev in getattr(backend, "autoscale_events", []):
+        print(f"[serve] {aev.describe()}")
     ttfts = [r.ttft * 1e3 for r in done]
     tpots = [r.tpot * 1e3 for r in done if len(r.tokens) > 1]
     if ttfts:

@@ -1,17 +1,21 @@
-"""Serving: request-level continuous batching on one host.
+"""Serving: request-level continuous batching.
 
 The API is :class:`Request` in, :class:`Response` out, through a
 :class:`ServeEngine` over :class:`LocalDecodeBackend` (one slot-batched
-decode step in this process, on the card unless asked for the CPU), whose
-request table and cache persist through a ``DeploymentStore`` when one is
-given (``ServeEngine(store=)``, ``ServeEngine.adopt``).  The clustered
-decode farm and the deprecated ``FarmScheduler`` shim come with the cluster
-serving slice.
+decode step in this process) or :class:`ClusterDecodeBackend` (the decode
+farm of :func:`make_decode_farm` parked warm on a cluster deployment,
+surviving host kills, scaling by an epoch bump), on the card unless asked
+for the CPU.  The request table and the caches persist through a
+``DeploymentStore`` when one is given (``ServeEngine(store=)``,
+``ServeEngine.adopt``).  :class:`FarmScheduler` is the deprecated shim.
 """
 
-from .engine import (LocalDecodeBackend, Request, Response,  # noqa: F401
-                     ServeEngine, build_decode_model)
+from .engine import (ClusterDecodeBackend, LocalDecodeBackend,  # noqa: F401
+                     Request, Response, ServeEngine, build_decode_model,
+                     make_decode_farm)
+from .scheduler import FarmScheduler  # noqa: F401
 from .toy import ToyLM  # noqa: F401
 
 __all__ = ["Request", "Response", "ServeEngine", "LocalDecodeBackend",
-           "build_decode_model", "ToyLM"]
+           "ClusterDecodeBackend", "FarmScheduler", "build_decode_model",
+           "make_decode_farm", "ToyLM"]

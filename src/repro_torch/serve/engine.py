@@ -1,6 +1,7 @@
-"""Request-level continuous batching on one host, in PyTorch.
+"""Request-level continuous batching over a local or clustered decode
+backend, in PyTorch.
 
-The JAX package's serving engine for its single-host backend:
+The JAX package's serving engine:
 
 * the **admission queue** coalesces live requests into a slot-batched
   decode step (:class:`repro_torch.core.stream.SlotPlan`): new requests
@@ -9,21 +10,33 @@ The JAX package's serving engine for its single-host backend:
 * **chunked prefill** streams prompt context through the same
   :func:`repro_torch.core.stream.microbatch_plan` schedule as the rest of
   the library (one backend call per chunk);
-* the decode step runs in this process (:class:`LocalDecodeBackend`), on the
-  card unless the model's weights lie on the CPU.
+* the decode step runs either in this process (:class:`LocalDecodeBackend`,
+  on the card unless the model's weights lie on the CPU) or as a **parked
+  warm farm** on a persistent :class:`~..cluster.deploy.ClusterDeployment`
+  (:class:`ClusterDecodeBackend`): each farm step is one batch whose items
+  are *decode shards* — a worker's slice of the slot batch, cache
+  included — flowing Emit → OneFanAny → decode workers → AnyFanOne →
+  Collect.  The farm's processes are stateless and the serving state
+  rides the items, so a host failure mid-step raises,
+  :meth:`ClusterDeployment.recover` replays the lost chunks from the same
+  input items, and the engine sees a completed, identical step: no
+  request lost, none duplicated;
+* **scale-out** of the decode farm is an epoch-bumped ``reconfigure`` with
+  its refinement re-proof, not a restart: the admission queue keeps its
+  state and in-flight requests keep their caches across the bump.
 
 The public API is small and immutable: :class:`Request` in,
 :class:`Response` out (tokens, timing, finish reason), via
 ``submit() -> rid`` / ``poll(rid)`` / ``run_until_drained()``.  Token
-streams are identical to sequential per-request generation.
+streams are identical to sequential per-request generation.  The deprecated
+``FarmScheduler`` survives as a shim over this engine
+(:mod:`repro_torch.serve.scheduler`).
 
 With ``store=`` (a :class:`..cluster.durable.DeploymentStore`) the engine
-persists its request table and the backend's cache every
-``persist_every`` steps, and :meth:`ServeEngine.adopt` stands a new engine
-up over them after a crash: every accepted request is answered exactly
-once.  The clustered decode farm (``ClusterDecodeBackend``,
-``make_decode_farm``) comes with the cluster serving slice; here it raises
-``NotImplementedError``.
+persists its request table and the backend's cache (a farm's per-shard
+caches) every ``persist_every`` steps, and :meth:`ServeEngine.adopt` stands
+a new engine up over them after a crash: every accepted request is answered
+exactly once.
 """
 
 from __future__ import annotations
@@ -37,15 +50,14 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..core import trace as _trace
-from ..core.dataflow import NetworkError
+from ..core.dataflow import (Distribution, Kind, Network, NetworkError,
+                             ProcessDef)
+from ..core.processes import AnyFanOne, Collect, Emit, OneFanAny, Worker
 from ..core.stream import SlotPlan, microbatch_plan
-from ..device import to_device
+from ..device import resolve_device, to_device
 
 __all__ = ["Request", "Response", "ServeEngine", "LocalDecodeBackend",
            "ClusterDecodeBackend", "build_decode_model", "make_decode_farm"]
-
-_CLUSTER_SLICE = ("the clustered decode farm comes with the port's cluster "
-                  "serving slice")
 
 
 # ==========================================================================
@@ -175,18 +187,6 @@ class LocalDecodeBackend:
         pass
 
 
-class ClusterDecodeBackend:
-    """Placeholder for the decode farm on a cluster deployment."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_CLUSTER_SLICE)
-
-
-def make_decode_farm(*args, **kwargs):
-    """Placeholder for the decode farm as a process network."""
-    raise NotImplementedError(_CLUSTER_SLICE)
-
-
 def build_decode_model(spec: tuple, device=None):
     """``(model, params)`` from a spec: ``("toy", vocab, dim)`` builds
     :class:`ToyLM`; ``("model", arch, reduced)`` builds the
@@ -204,6 +204,268 @@ def build_decode_model(spec: tuple, device=None):
         raise NetworkError(f"build_decode_model: unknown spec kind "
                            f"{kind!r} (want 'toy' or 'model')")
     return model, model.init(seed=0, device=device)
+
+
+def make_decode_farm(spec: tuple, n_slots: int, shards: int, max_len: int,
+                     prefill_chunk: int, device=None) -> Network:
+    """The decode farm as a process network (module-level and picklable:
+    the ``pipe``/``shm`` transports rebuild it in spawned interpreters),
+    its weights from :func:`build_decode_model` on ``device`` (``None``:
+    the card).
+
+    Each *item* is one decode shard — ``n_slots // shards`` rows of the
+    slot batch, cache included — tagged with a mode: a decode item carries
+    last tokens and the advance mask, a prefill item one prompt chunk bound
+    for one row.  Workers are identical and stateless (any shard can land
+    on any worker); the Collect appends items in chunk order, so the
+    backend reads shard outputs back positionally.
+
+    Each worker drains into a per-branch relay buffer (a 1-in/1-out MERGE
+    process: the transport's egress FIFO declared *in* the network) before
+    the AnyFanOne.  The unpartitioned farm's trace set then already holds
+    every merge-arrival order a buffered deployment can show, so
+    ``check_redeployment`` holds for any host count under ``reconfigure``.
+
+    A worker decodes into a copy of its item's cache: the model writes the
+    k/v buffers in place, and over the thread transports the item's
+    tensors are those of the batch the controller keeps to replay a failed
+    step, so the step leaves its input as it found it."""
+    model, params = build_decode_model(spec, device=device)
+    if shards <= 0 or n_slots % shards:
+        raise NetworkError(f"make_decode_farm: n_slots={n_slots} not "
+                           f"divisible into {shards} shards")
+    s_rows = n_slots // shards
+    dev = pytree.tree_leaves(params)[0].device
+
+    def zero_item(i):
+        """Emit is only exercised by ``run(instances=)`` probes; serving
+        always supplies the item batch explicitly."""
+        return _shard_item(model.init_cache(s_rows, max_len, device=dev),
+                           s_rows, prefill_chunk, dev)
+
+    def shard_step(chunk):
+        # batched=True worker at microbatch 1: peel the chunk axis and take
+        # ONE branch on the item's mode (the JAX farm's lax.cond)
+        item = pytree.tree_map(lambda l: l[0], chunk)
+        cache = pytree.tree_map(torch.clone, item["cache"])
+        if int(item["mode"]) == 1:
+            ps = int(item["pslot"])
+            rows = torch.zeros((prefill_chunk, s_rows), dtype=torch.int32,
+                               device=dev)
+            adv = torch.zeros((prefill_chunk, s_rows), dtype=torch.bool,
+                              device=dev)
+            rows[:, ps] = item["toks"]
+            adv[:, ps] = item["act"]
+            for i in range(prefill_chunk):  # the JAX farm's lax.scan
+                _, cache = model.decode_step(params, cache, rows[i][:, None],
+                                             advance=adv[i])
+            nxt = torch.zeros((s_rows,), dtype=torch.int32, device=dev)
+        else:
+            logits, cache = model.decode_step(
+                params, cache, item["last"][:, None], advance=item["adv"])
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return pytree.tree_map(lambda l: l[None],
+                               {"cache": cache, "nxt": nxt})
+
+    net = Network("decode-farm")
+    net.add(Emit(zero_item, name="emit"))
+    net.add(OneFanAny(destinations=shards, name="ofa"))
+    bufs = []
+    for w in range(shards):
+        wn = f"decode{w}"
+        net.procs[wn] = Worker(shard_step, batched=True, name=wn,
+                               tag="decode")
+        net.connect("ofa", wn)
+        bn = f"buf{w}"
+        net.procs[bn] = ProcessDef(name=bn, kind=Kind.REDUCER,
+                                   distribution=Distribution.MERGE)
+        net.connect(wn, bn)
+        bufs.append(bn)
+    net.procs["afo"] = AnyFanOne(sources=shards, name="afo")
+    for bn in bufs:
+        net.connect(bn, "afo")
+    net._tail = "afo"
+    net.add(Collect(lambda acc, item: acc + [item], init=[],
+                    jit_combine=False, name="collect"))
+    return net
+
+
+def _shard_item(cache, rows: int, pc: int, dev, *, last=None, adv=None,
+                toks=None, act=None, pslot: int = 0, mode: int = 0) -> dict:
+    """One farm item on ``dev``: a shard's cache, its rows' last tokens
+    and advance mask (decode), a prompt chunk and the row it is bound for
+    (prefill), and the mode (0 decode, 1 prefill)."""
+    def vec(x, n, dtype):
+        if x is None:
+            return torch.zeros((n,), dtype=dtype, device=dev)
+        return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
+
+    return {"cache": cache,
+            "last": vec(last, rows, torch.int32),
+            "adv": vec(adv, rows, torch.bool),
+            "toks": vec(toks, pc, torch.int32),
+            "act": vec(act, pc, torch.bool),
+            "pslot": torch.tensor(pslot, dtype=torch.int32, device=dev),
+            "mode": torch.tensor(mode, dtype=torch.int32, device=dev)}
+
+
+class ClusterDecodeBackend:
+    """The decode farm parked warm on a :class:`ClusterDeployment`.
+
+    Holds the canonical serving state (per-shard caches) on ``device``
+    (``None``: the card) and streams it through the farm each step: a
+    decode step is one batch of ``shards`` items, a prefill chunk a
+    one-item batch bound for the owning shard.  Over ``device`` the caches
+    never leave the card; over ``pipe``/``shm`` they cross as raw bytes
+    with their dtype (bf16 included).  A
+    :class:`~..cluster.runtime.ClusterError` mid-step triggers
+    ``recover()``: the replayed batch returns the completed, identical
+    step result, so engine bookkeeping only ever advances on full steps
+    (exactly-once responses under host kills).  ``scale()`` re-fits the
+    same farm to a new host count through the controller's epoch-bumped
+    ``reconfigure``; ``autoscale=`` (an
+    :class:`~..cluster.autoscale.AutoscalePolicy`, or ``True`` for the
+    defaults) does the same by itself: :class:`ServeEngine` calls
+    :meth:`maybe_autoscale` after every decode step."""
+
+    def __init__(self, spec: tuple, *, n_slots: int, shards: int = 2,
+                 hosts: int = 2, transport="inprocess", max_len: int = 64,
+                 prefill_chunk: int = 8, timeout_s: float = 60.0,
+                 max_recover_attempts: int = 4, recover_mode: str = "restart",
+                 trace: bool = False, snapshot_every: int = 0,
+                 snapshot_dir: Optional[str] = None, autoscale=None,
+                 device=None):
+        from ..cluster.deploy import ClusterDeployment
+        if shards <= 0 or n_slots % shards:
+            raise NetworkError(f"ClusterDecodeBackend: n_slots={n_slots} "
+                               f"not divisible into {shards} shards")
+        self.spec = spec
+        self.n_slots = n_slots
+        self.shards = shards
+        self.max_len = max_len
+        self.prefill_chunk = prefill_chunk
+        self.recover_mode = recover_mode
+        self.max_recover_attempts = max_recover_attempts
+        self.recoveries = 0
+        self._rows = n_slots // shards
+        self.device = resolve_device(device)
+        dev_arg = None if device is None else str(device)
+        self.model, self.params = build_decode_model(spec, device=dev_arg)
+        # canonical state: one cache tree per shard, on the backend's
+        # device (it rides the items through the transport each step)
+        self.shard_cache = [
+            self.model.init_cache(self._rows, max_len, device=self.device)
+            for _ in range(shards)]
+        factory = (make_decode_farm,
+                   (spec, n_slots, shards, max_len, prefill_chunk, dev_arg))
+        self.dep = ClusterDeployment(
+            factory[0](*factory[1]), hosts=hosts, transport=transport,
+            microbatch_size=1, factory=factory, timeout_s=timeout_s,
+            trace=trace, snapshot_every=snapshot_every,
+            snapshot_dir=snapshot_dir, device=dev_arg)
+        self.dep.start()
+        # the backend owns its Autoscaler (rather than handing autoscale=
+        # to the deployment) so polling is per decode STEP, under the
+        # engine's control — not per internal batch, where one-item
+        # prefill chunks would pollute the policy's rate signals
+        self.autoscaler = None
+        if autoscale is not None and autoscale is not False:
+            from ..cluster.autoscale import Autoscaler, AutoscalePolicy
+            pol = AutoscalePolicy() if autoscale is True else autoscale
+            self.autoscaler = Autoscaler(self.dep.controller, pol)
+
+    @property
+    def store(self):
+        """The deployment's :class:`~..cluster.durable.DeploymentStore`
+        (None without ``snapshot_dir``): hand it to :class:`ServeEngine`
+        as ``store=`` so the request table persists next to the farm's
+        durable state."""
+        return self.dep.controller.store
+
+    # -- farm plumbing ------------------------------------------------------
+    def _run(self, batch) -> list:
+        """One batch through the warm farm, recovering as many times as
+        host failures demand; returns the per-item outputs in item order."""
+        from ..cluster.runtime import ClusterError
+        try:
+            return self.dep.run(batch=batch)["collect"]
+        except ClusterError:
+            pass
+        for _ in range(self.max_recover_attempts):
+            self.recoveries += 1
+            try:
+                out = self.dep.recover(mode=self.recover_mode)
+            except ClusterError:
+                continue  # the replay was killed too — recover again
+            if out is not None:
+                return out["collect"]
+            try:  # recovery had no pending batch: re-run this one
+                return self.dep.run(batch=batch)["collect"]
+            except ClusterError:
+                continue
+        raise NetworkError(
+            f"ClusterDecodeBackend: step did not complete within "
+            f"{self.max_recover_attempts} recoveries")
+
+    def _item(self, w: int, **kw) -> dict:
+        return _shard_item(self.shard_cache[w], self._rows,
+                           self.prefill_chunk, self.device, **kw)
+
+    @staticmethod
+    def _stack(items: list):
+        return pytree.tree_map(lambda *ls: torch.stack(ls), *items)
+
+    # -- the DecodeBackend surface ------------------------------------------
+    def reset(self, slot: int) -> None:
+        # in place: a canonical cache is a step's output, never part of a
+        # batch the controller keeps for a replay
+        w, ps = divmod(slot, self._rows)
+        self.shard_cache[w] = self.model.reset_slot(self.shard_cache[w], ps)
+
+    def prefill(self, slot: int, toks: np.ndarray, act: np.ndarray) -> None:
+        w, ps = divmod(slot, self._rows)
+        batch = self._stack([self._item(w, toks=toks, act=act, pslot=ps,
+                                        mode=1)])
+        (out,) = self._run(batch)
+        # a process host's output comes back on the CPU
+        self.shard_cache[w] = to_device(out["cache"], self.device)
+
+    def decode(self, last: np.ndarray, adv) -> np.ndarray:
+        rows = self._rows
+        last = np.asarray(last, np.int32)
+        adv = np.asarray(adv, bool)
+        batch = self._stack([
+            self._item(w, last=last[w * rows:(w + 1) * rows],
+                       adv=adv[w * rows:(w + 1) * rows])
+            for w in range(self.shards)])
+        outs = self._run(batch)
+        for w, out in enumerate(outs):
+            self.shard_cache[w] = to_device(out["cache"], self.device)
+        return np.concatenate([out["nxt"].cpu().numpy() for out in outs])
+
+    # -- elasticity ---------------------------------------------------------
+    def scale(self, hosts: int):
+        """Re-fit the live farm to ``hosts``: drain, replan, epoch bump,
+        refinement re-proof; serving state (caches, admission queue) is
+        untouched.  Returns the :class:`RecoveryEvent`."""
+        return self.dep.reconfigure(hosts=hosts)
+
+    def maybe_autoscale(self):
+        """One :class:`~..cluster.autoscale.AutoscalePolicy` poll against
+        the live farm: the hook :meth:`ServeEngine.step` calls after every
+        decode step.  No-op without ``autoscale=``; returns the
+        :class:`AutoscaleEvent` when the policy decided anything."""
+        if self.autoscaler is None:
+            return None
+        return self.autoscaler.poll()
+
+    @property
+    def autoscale_events(self) -> list:
+        """Every autoscale decision so far (executed and vetoed)."""
+        return [] if self.autoscaler is None else self.autoscaler.events
+
+    def close(self) -> None:
+        self.dep.close()
 
 
 # ==========================================================================
@@ -284,7 +546,10 @@ class ServeEngine:
         eng._known = set(state["known"])
         eng._submit_times = dict(state["submit_times"])
         eng._persist_seq = store.serve_step() or 0
-        if state.get("cache") is not None:
+        if state.get("shard_cache") is not None:
+            backend.shard_cache = [to_device(c, backend.device)
+                                   for c in state["shard_cache"]]
+        elif state.get("cache") is not None:
             backend.cache = to_device(state["cache"], backend.device)
         return eng
 
@@ -356,6 +621,12 @@ class ServeEngine:
                     finished_at=now, steps=live.steps,
                     slot_events=tuple(e for e in self.plan.events
                                       if e.rid == rid)))
+        # elasticity: the backend's autoscale policy (if any) polls the
+        # farm's metrics once per decode step — a scale decision lands as
+        # an epoch bump between steps, invisible to slot bookkeeping
+        maybe = getattr(self.backend, "maybe_autoscale", None)
+        if maybe is not None:
+            maybe()
         if (self.store is not None and self.persist_every
                 and self.steps_run % self.persist_every == 0):
             self._persist()
@@ -386,13 +657,15 @@ class ServeEngine:
     # -- internals -----------------------------------------------------------
     def _state(self) -> dict:
         """The engine's full serving state as one picklable dict — the
-        request table plus the backend's cache, every tensor copied to the
-        CPU, captured at a step boundary so the pair is mutually
-        consistent."""
+        request table plus the backend's cache (a farm's per-shard caches),
+        every tensor copied to the CPU, captured at a step boundary so the
+        pair is mutually consistent."""
         import copy as _copy
 
         from ..cluster.durable import to_host
-        cache = getattr(self.backend, "cache", None)
+        be = self.backend
+        shards = getattr(be, "shard_cache", None)
+        cache = None if shards is not None else getattr(be, "cache", None)
         return {
             "eos_id": self.eos_id,
             "plan": _copy.deepcopy(self.plan),
@@ -404,6 +677,8 @@ class ServeEngine:
             "live": _copy.deepcopy(self._live),
             "known": set(self._known),
             "submit_times": dict(self._submit_times),
+            "shard_cache": (None if shards is None
+                            else [to_host(c) for c in shards]),
             "cache": None if cache is None else to_host(cache),
         }
 

@@ -37,6 +37,7 @@ CASES = {
                "--tol", "1e-5"],
     "quickstart": ["torch_quickstart.py", "--instances", "16", "--points",
                    "500"],
+    "serve_lm": ["torch_serve_lm.py", "--requests", "6", "--slots", "3"],
 }
 
 
@@ -61,6 +62,8 @@ def test_example_prints_true_equalities(case):
         assert "warm" in out.stdout
     if case == "mandelbrot_shm":
         assert "ring slot=" in out.stdout and "inline=0" in out.stdout
+    if case == "serve_lm":
+        assert "[serve_lm] qwen2-0.5b: 6 reqs" in out.stdout
     if case == "mandelbrot_kill_host":
         assert "host failure captured — recovered" in out.stdout
         assert "-- recovery --" in out.stdout

@@ -1188,3 +1188,53 @@ def test_workload_scenario_on_card(cuda, kind):
     r = sim.run_workload_scenario(0, kind=kind)
     assert r.ok, r.failures
     assert r.recoveries == (0 if kind == "slow-start" else 1)
+
+
+# -- the clustered decode farm on the card ------------------------------------
+
+def test_reduced_farm_on_card_equals_local_two_slot_engine(cuda):
+    """The reduced qwen2-0.5b (float32) farm over 2 ``device`` hosts on the
+    card, 4 slots in shards of 2 rows, scaled to 3 hosts after the first
+    step: every request's tokens equal a local engine of 2 slots (the
+    shards' decode shape) on the same weights, every event refined."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import (ClusterDecodeBackend, LocalDecodeBackend,
+                                   ServeEngine, build_decode_model)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = ("model", "qwen2-0.5b", True)
+    model, params = build_decode_model(spec, device=cuda)
+    reqs = launcher.requests(6, model.cfg.vocab, 8)
+    eng = ServeEngine(LocalDecodeBackend(model, params, n_slots=2,
+                                         max_len=32))
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    want = {r.rid: eng.poll(r.rid).tokens for r in reqs}
+    be = ClusterDecodeBackend(spec, n_slots=4, shards=2, hosts=2,
+                              transport="device", max_len=32)
+    try:
+        assert all(l.is_cuda for c in be.shard_cache
+                   for l in torch.utils._pytree.tree_leaves(c))
+        eng = ServeEngine(be)
+        for r in reqs[:3]:
+            eng.submit(r)
+        eng.step()
+        ev = be.scale(3)
+        assert ev.mode == "reconfigure" and ev.refined is True
+        for r in reqs[3:]:
+            eng.submit(r)
+        eng.run_until_drained()
+        assert all(e.refined is True for e in be.dep.events)
+        got = {r.rid: eng.poll(r.rid).tokens for r in reqs}
+    finally:
+        be.close()
+    assert got == want
+
+
+def test_serve_kill_scenario_on_card(cuda):
+    """One seeded kill under a live engine over simulated hosts on the
+    card: every request answered once, equal to the one-slot oracle."""
+    from repro_torch.cluster import sim
+    r = sim.run_serve_kill_scenario(1)
+    assert r.ok, r.describe()
+    assert r.fired >= 1 and r.recoveries >= 1

@@ -33,7 +33,8 @@ def test_import_loads_no_jax_and_no_repro_module():
                     "cluster.durable", "cluster.sim", "cluster.costs",
                     "cluster.autoscale", "train",
                     "train.checkpoint",
-                    "launch._common", "launch.cluster"):
+                    "launch._common", "launch.cluster", "launch.serve",
+                    "serve.engine", "serve.scheduler"):
             assert f"repro_torch.{mod}" in names, mod
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")

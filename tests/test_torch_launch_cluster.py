@@ -138,14 +138,17 @@ def test_sigkill_mid_batch_then_resume_from_snapshots(tmp_path):
         env=env, start_new_session=True, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     try:
+        # a completed snapshot: the checkpointer writes LATEST after it
+        # renames step_*.tmp into place, so a kill mid-write cannot count
+        latest = os.path.join(d, f"host_{coll}", "LATEST")
         deadline = time.monotonic() + DEADLINE_S
-        while (not glob.glob(f"{d}/host_{coll}/step_*")
+        while (not os.path.exists(latest)
                and proc.poll() is None and time.monotonic() < deadline):
             time.sleep(0.02)
         assert proc.poll() is None, (
             "the first run ended before it could be killed mid-batch:\n"
             + proc.communicate()[0])
-        assert glob.glob(f"{d}/host_{coll}/step_*"), \
+        assert os.path.exists(latest), \
             f"no fold snapshot of host {coll} within {DEADLINE_S}s"
         # what the group holds in /dev/shm, which the kill leaves behind:
         # its queues' semaphores (the resource tracker dies with it)

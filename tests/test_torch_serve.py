@@ -6,7 +6,8 @@ slot-event audit), and the port's engine over the reduced qwen2-0.5b,
 mamba2-2.7b, zamba2-1.2b, deepseek-moe-16b and phi3.5-moe (the MoE archs on
 both of their paths), fed the JAX package's ``PRNGKey(0)`` weights, must
 give token streams identical to the JAX engine's on the same requests.  The
-launcher runs with ``--reduced --device cpu``.
+launcher runs with ``--reduced --device cpu``, locally and over two thread
+hosts (``--hosts 2``).
 """
 
 import dataclasses
@@ -27,7 +28,6 @@ from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import Model
 from repro_torch.serve import (LocalDecodeBackend, Request, Response,
                                ServeEngine, build_decode_model)
-from repro_torch.serve.engine import ClusterDecodeBackend, make_decode_farm
 
 TOY = ("toy", 32, 8)
 
@@ -136,13 +136,6 @@ def test_slot_events_audit_matches_trace():
     dones = {e.args["rid"] for e in rec.events() if e.name == "done"}
     assert admits == dones == {0, 1, 2}
     assert {e.rid for e in trail if e.kind == "join"} == admits
-
-
-def test_cluster_decode_farm_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice"):
-        ClusterDecodeBackend(TOY, n_slots=2)
-    with pytest.raises(NotImplementedError, match="slice"):
-        make_decode_farm(TOY, 2, 1, 8, 4)
 
 
 def test_store_persists_every_step_and_adopt_resumes(tmp_path):
@@ -281,9 +274,35 @@ def test_launcher_runs_reduced_on_cpu(capsys):
     for r in done:
         assert len(r.tokens) == 4 // 2 + (r.rid % 4) // 2 + 1
         assert [e.kind for e in r.slot_events] == ["join", "leave"]
-    with pytest.raises(SystemExit):
+
+
+def test_launcher_serves_cluster_reduced_on_cpu(capsys):
+    """``--hosts 2`` parks the decode farm on a deployment of two thread
+    hosts: the same responses as the local backend, and the report names
+    the cluster."""
+    args = ["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+            "--requests", "5", "--slots", "4", "--max-new", "4"]
+    local = serve_launcher.main(args)
+    capsys.readouterr()
+    done = serve_launcher.main(args + ["--hosts", "2", "--transport",
+                                       "inprocess"])
+    out = capsys.readouterr().out
+    assert ("[serve] qwen2-0.5b (cluster[inprocessx2h/2 shards] cpu): "
+            "5 requests") in out
+    assert "ttft p50" in out and "tpot p50" in out
+    assert {r.rid: r.tokens for r in done} == {r.rid: r.tokens
+                                               for r in local}
+    assert all([e.kind for e in r.slot_events] == ["join", "leave"]
+               for r in done)
+
+
+def test_launcher_refuses_virtual_devices():
+    """``--virtual-devices`` fakes XLA host devices: refused, naming the
+    multi-device item that brings it."""
+    with pytest.raises(SystemExit, match="item 12"):
         serve_launcher.main(["--arch", "qwen2-0.5b", "--reduced",
-                             "--device", "cpu", "--hosts", "2"])
+                             "--device", "cpu", "--hosts", "2",
+                             "--virtual-devices", "4"])
 
 
 def test_launcher_serves_mamba2_reduced_on_cpu(capsys):

@@ -7,9 +7,9 @@ every host, or with a host dying mid-snapshot-write — and the stall race,
 in both packages on the same seeded schedule, each green.  Two
 kill-during-coalesced-send seeds, likewise.  The reference's golden sim
 trace (``tests/test_trace.py`` ``TestSimGoldenTrace``): two runs' Chrome
-exports byte-identical, with three pids.  The scenario families that wait
-for later steps of the port refuse, naming their step, and every entry
-point refuses to run without a GPU unless it is given the CPU.
+exports byte-identical, with three pids.  The workload and kill-during-
+serving families run from the CLI, and every entry point refuses to run
+without a GPU unless it is given the CPU.
 """
 
 import json
@@ -145,15 +145,13 @@ class TestLaterSteps:
         kinds = ("spike", "straggler", "slow-start")
         assert r.kind == f"workload/{kinds[seed % 3]}"
 
-    def test_serve_kill_scenario_names_step_9_8(self):
-        with pytest.raises(NotImplementedError, match=r"step 9\.8"):
-            sim.run_serve_kill_scenario(0, device=CPU)
-
-    @pytest.mark.parametrize("flag,step", [
-        pytest.param("--serve-kill", r"9\.8", id="--serve-kill-9\\.8")])
-    def test_cli_flags_name_their_step(self, flag, step):
-        with pytest.raises(NotImplementedError, match=f"step {step}"):
-            sim.main([flag, "2", "--device", CPU])
+    def test_cli_serve_kill_flag_computes(self, capsys):
+        """Step 9.8 is ported: two seeded kill-during-serving scenarios
+        over the clustered decode farm, each green."""
+        assert sim.main(["--serve-kill", "2", "--device", CPU]) == 0
+        out = capsys.readouterr().out
+        assert out.count("decode-farm/") == 2
+        assert "2 scenario(s)" in out and "0 failed" in out
 
     def test_cli_workload_flag_computes(self, capsys):
         assert sim.main(["--workload", "3", "--device", CPU]) == 0
@@ -173,8 +171,11 @@ class TestDevice:
         lambda: sim.main(["--seeds", "1"]),
         lambda: sim.run_workload_scenario(0),
         lambda: sim.main(["--workload", "1"]),
+        lambda: sim.run_serve_kill_scenario(0),
+        lambda: sim.main(["--serve-kill", "1"]),
     ], ids=["scenario", "kill-controller", "stall-race", "coalesce-kill",
-            "pipe-brick", "main", "workload", "main-workload"])
+            "pipe-brick", "main", "workload", "main-workload", "serve-kill",
+            "main-serve-kill"])
     def test_card_by_default_refuses_without_gpu(self, run, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
