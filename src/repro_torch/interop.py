@@ -42,9 +42,9 @@ def tree_from_numpy(tree, device, dtype_map: Optional[dict] = None):
 
 
 def _leaf_tensor(leaf) -> torch.Tensor:
-    a = np.ascontiguousarray(leaf)
-    if not a.flags.writeable:  # e.g. a JAX array's buffer: never alias it
-        a = a.copy()
+    a = np.asarray(leaf)  # keeps a 0-d leaf 0-d (ascontiguousarray: (1,))
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")  # e.g. a JAX array's buffer: never alias
     if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: numpy cannot carry it
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(a)

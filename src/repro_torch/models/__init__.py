@@ -1,4 +1,5 @@
-"""Decoder LMs of the port (dense, VLM, MoE, SSM and hybrid families)."""
+"""The port's models: decoder LMs (dense, VLM, MoE, SSM and hybrid
+families) and the encoder-decoder (audio), behind one facade."""
 
 from .model import Model  # noqa: F401
 

@@ -37,19 +37,8 @@ __all__ = ["structure", "init_params", "forward", "hidden_states",
            "init_cache", "decode_step", "prefill", "reset_slot",
            "param_count"]
 
-_LATER = {
-    "audio": "the encoder-decoder slice",
-}
-
 # cache leaves an attention layer updates in place (the rest are new)
 _IN_PLACE = ("k", "v", "k_scale", "v_scale")
-
-
-def _check_family(cfg) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; it comes "
-            f"with {_LATER[cfg.family]}")
 
 
 # --------------------------------------------------------------------------
@@ -146,7 +135,6 @@ def _layer(tree, i: int):
 
 def init_params(cfg, gen: torch.Generator) -> dict:
     """Seeded weights on ``gen``'s device, in ``cfg.param_dtype``."""
-    _check_family(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     ninit, _ = layers.norm(cfg.norm)
     params: dict[str, Any] = {
@@ -193,7 +181,6 @@ def hidden_states(cfg, params, tokens, *, positions=None,
                   input_embeds=None):
     """Backbone up to (and including) the final norm: (B,S,D), and the sum
     of the MoE layers' aux losses (f32, 0 without MoE layers)."""
-    _check_family(cfg)
     x = (layers.embed(params["embedding"], cfg, tokens)
          if input_embeds is None else input_embeds)
     pos = _positions(cfg, tokens) if positions is None else positions
@@ -228,7 +215,6 @@ def init_cache(cfg, batch: int, max_len: int, device) -> dict:
     """Zero cache in ``cfg.compute_dtype`` (the mamba ``h`` state in f32):
     leaves (L, B, ...) per stacked segment, (B, ...) for each application
     of the shared attention block, plus the per-row ``step`` counter."""
-    _check_family(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     segments = []
     for kind, count in structure(cfg):
@@ -262,7 +248,6 @@ def decode_step(cfg, params, cache, tokens, *, positions=None, advance=None):
     the new cache shares them with ``cache``.  With S_step > 1 (prefill) a
     mamba layer runs a fresh full scan from a zero state, whatever its
     cache and ``advance`` say, as in the JAX package."""
-    _check_family(cfg)
     x = layers.embed(params["embedding"], cfg, tokens)
     pos = (_positions(cfg, tokens, offset=cache["step"])
            if positions is None else positions)

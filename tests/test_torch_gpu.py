@@ -501,6 +501,53 @@ def test_ssd_card_refuses_without_fallback(cuda, shape):
     assert h0.shape == hT.shape and h0.is_cuda and not h0.any()
 
 
+def test_reduced_whisper_on_card_matches_cpu(cuda):
+    """The reduced whisper-tiny on the card: every attention without a KV
+    cache launches the flash kernel (forward: the encoder's layers, the
+    decoder's causal self-attention and its cross-attention; prefill: the
+    encoder and the cross-attention; a decode step: the cross-attention
+    alone), float32 logits equal the same model on the CPU (plain
+    attention) within 1e-4, and bf16 logits are finite."""
+    import dataclasses
+    from repro_torch.models import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("whisper-tiny", reduced=True)
+    m = Model(cfg)
+    params = m.init(seed=0, device="cpu", max_dec_len=64)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 40)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 30, cfg.d_model)).astype(np.float32))
+    on_card = torch.utils._pytree.tree_map(lambda t: t.to(cuda), params)
+    t_c, f_c = toks.to(cuda), frames.to(cuda)
+    n_enc, n_dec = cfg.encdec.n_enc_layers, cfg.n_layers
+
+    def launched(fn):
+        before = fa_ops.mha.launches
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fa_ops.mha.launches - before
+
+    (got, _), n = launched(lambda: m.forward(on_card, t_c, frames=f_c))
+    assert n == n_enc + 2 * n_dec
+    want, _ = m.forward(params, toks, frames=frames)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    (lp, cache), n = launched(lambda: m.prefill(on_card, t_c[:, :32],
+                                                max_len=48, frames=f_c))
+    assert n == n_enc + n_dec
+    (ld, cache), n = launched(lambda: m.decode_step(on_card, cache,
+                                                    t_c[:, 32:33]))
+    assert n == n_dec
+    wp, wcache = m.prefill(params, toks[:, :32], max_len=48, frames=frames)
+    wd, _ = m.decode_step(params, wcache, toks[:, 32:33])
+    torch.testing.assert_close(lp.cpu(), wp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ld.cpu(), wd, rtol=1e-4, atol=1e-4)
+    m16 = Model(dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    (lb, _), n = launched(lambda: m16.forward(on_card, t_c, frames=f_c))
+    assert n == n_enc + 2 * n_dec
+    assert lb.dtype == torch.bfloat16 and bool(torch.isfinite(lb).all())
+
+
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
 def test_reduced_ssm_on_card_matches_cpu(cuda, arch):
     """The reduced mamba2 / zamba2 (float32) on the card, through the SSD

@@ -108,13 +108,6 @@ def test_configs_and_structure_match_reference(arch):
         assert transformer.structure(cfg) == jtransformer.structure(jcfg)
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny"])
-def test_unported_families_name_their_slice(arch):
-    cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        Model(cfg).init(device="cpu")
-
-
 # --------------------------------------------------------------------------
 # the same weights, the same logits
 # --------------------------------------------------------------------------
