@@ -189,6 +189,25 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    checks of phase 7; every decode step launches the grouped matmul 81
    times and nothing else.
 
+18. (run after phase 17 and the profiles below, on phase 6's weights)
+   training on the card: 18a trains full-width qwen2-0.5b through
+   ``python -m repro_torch.launch.train``'s ``main`` (8 steps of (4, 1024),
+   the default config: f32 params, bf16 compute, ``remat="full"``), with
+   the verified network line, finite losses, and exactly 48 flash launches
+   a step (24 forward, 24 recompute) and no other kernel; it prints the
+   losses, the step wall p50 from step 2 on, tokens/s, peak device memory
+   and the model FLOP utilisation.  18b holds ``loss_fn``'s loss and
+   gradients on the card against the CPU's: full-width qwen2-0.5b in f32 on
+   a (1, 128) batch (loss within 1e-5 relative, each grad leaf within 1e-3
+   of its max |grad|) and every architecture at reduced width in f32, plus
+   deepseek on its ragged path (1e-4), each launching its kernels (flash a
+   full-sequence attention, SSD a Mamba2 layer, three grouped matmuls a
+   ragged MoE layer).  18c runs the reference's fault-tolerance case on the
+   card (12 reduced steps, failures at 4 and 9, async saves every 3: two
+   restarts, within 1e-6 of a clean run) and its loss-decreases case (40
+   steps, lr 1e-2).  One full-width train step is then traced, with the
+   plain backwards' share of the busy time.
+
 Peak and free device memory are printed after each MoE phase.
 
 Phase 1 times each Mandelbrot band on its own as well (the fastest and
@@ -223,8 +242,13 @@ It holds uint8 and int32 2048 x 2048 stencil images (EDGE5 and random
 k = 3 taps, sums out of the type's range both ways) exactly against the
 plain version.  It counts the tensor-core instructions (HMMA/HGMMA lines
 of ``cuobjdump -sass``) in the flash, grouped-matmul and SSD libraries,
-which must be above 0, and checks that each of the four kernel ops raises under grad mode
-for an input that requires grad, before any launch.  It then holds, each
+which must be above 0.  It checks that each of the four kernel ops
+(``mha``, ``ssd``, ``moe_apply``, ``stencil2d``) launches once under grad
+mode and that its backward (the plain version's, recomputed) gives the
+plain version's gradients on the card within the op's forward tolerance,
+and times that plain backward beside the kernel's forward at the shapes
+timed above and at the qwen2 training shape (4, 14, 2, 1024, 1024, 64).
+It then holds, each
 as one launch against the plain version, what the ops once refused on the
 card: float16 flash attention (D = 48 padded, and the qwen2 shape, timed),
 bf16 rows not 16-byte aligned and a strided head dim; the float16 SSD scan
@@ -236,7 +260,8 @@ images.
 Kernel launch counts are reset just before phase 2 and read after phase 9
 (the thread hosts of phases 12, 13 and 15 and the simulated hosts of
 phases 14 and 15 count with them; phase 16, which must launch nothing, is
-counted apart, from 0; phase 17 is counted apart, from 0, and added),
+counted apart, from 0; phases 17 and 18 are counted apart, from 0, and
+added),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
 the farm, of the pipeline, one more bf16 forward and one decode step of
@@ -348,11 +373,12 @@ KERNEL_SYMBOLS = {"flash_attention": ("flash_mma_kernel<", "flash_kernel<"),
                   "mandelbrot": ("mandelbrot_kernel",)}
 
 
-def profile_run(torch, label: str, fn) -> None:
+def profile_run(torch, label: str, fn) -> tuple:
     """One run under ``torch.profiler``: its wall, the device's busy time
     (kernels and copies) and idle share, the host ops that took most time,
     the device kernels that took most time, and each of the port's
-    kernels' time, launches and share of the busy time."""
+    kernels' time, launches and share of the busy time.  Returns
+    (key averages, busy ms, wall ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -388,6 +414,7 @@ def profile_run(torch, label: str, fn) -> None:
                           f" ({ms / busy_ms:.1%} of busy)")
     if shares:
         print(f"[profile] {label}: kernel shares: " + ", ".join(shares))
+    return avgs, busy_ms, wall_ms
 
 
 def bound(flops: float, nbytes: float,
@@ -917,41 +944,141 @@ def check_moe_gmm(torch, dev) -> dict:
     return entry
 
 
-def check_grad_refusal(torch, dev) -> None:
-    """Each kernel op raises under grad mode for an input that requires
-    grad (its kernel has no backward, so a launch would cut the autograd
-    graph silently), before launching: its count does not move."""
+def check_kernel_grads(torch, dev, entries) -> None:
+    """Each of the four kernel ops under grad mode on the card: one launch
+    forward, and gradients equal to its plain version's (the same inputs
+    and cotangent through ``torch.autograd`` of the plain version on the
+    card) within the op's forward tolerance; under ``no_grad`` it launches
+    and builds no graph.  Then the plain backward (the recompute and its
+    gradient, what the op's backward runs) is timed beside the kernel's
+    forward at the shapes phase 1 timed, and the flash op's also at the
+    qwen2 training shape (4, 14, 2, 1024, 1024, 64), all in bf16 but the
+    stencil (f32 EDGE5)."""
     import numpy as np
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.moe_gmm import ops as gmm
-    from repro_torch.kernels.ssd_scan import ops as ssd
-    from repro_torch.kernels.stencil import ops as st
-    q = torch.randn(1, 2, 16, 32, device=dev, requires_grad=True)
-    img = torch.randn(32, 32, device=dev, requires_grad=True)
-    x = torch.randn(1, 16, 2, 8, device=dev)
-    dt = torch.rand(1, 16, 2, device=dev, requires_grad=True)
-    A = -torch.ones(2, device=dev)
-    Bm = torch.randn(1, 16, 1, 4, device=dev)
-    gx = torch.randn(8, 32, device=dev)
-    eo = torch.zeros(8, dtype=torch.int32, device=dev)
-    gw = torch.randn(4, 32, 16, device=dev, requires_grad=True)
-    calls = {"mha": (fa.mha, lambda: fa.mha(q, q, q)),
-             "ssd": (ssd.ssd, lambda: ssd.ssd(x, dt, A, Bm, Bm)),
-             "moe_apply": (gmm.moe_apply, lambda: gmm.moe_apply(gx, eo, gw)),
-             "stencil2d": (st.stencil2d,
-                           lambda: st.stencil2d(img, np.ones((3, 3))))}
-    for name, (fn, call) in calls.items():
-        before = fn.launches
-        try:
-            call()
-        except RuntimeError as exc:
-            check("no backward" in str(exc), f"{name}: raised {exc}")
-        else:
-            raise SmokeFailure(f"{name}: launched under grad mode")
-        check(fn.launches == before, f"{name}: launched before refusing")
-    print("[kernel] grad refusal: mha, ssd, moe_apply and stencil2d raise "
-          "under grad mode for an input that requires grad, launches "
-          "unchanged")
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+    from repro_torch.kernels.moe_gmm import ops as gmm, ref as gmm_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd, ref as ssd_ref
+    from repro_torch.kernels.stencil import ops as st, ref as st_ref
+    from repro_torch.workloads import EDGE5
+    g = torch.Generator().manual_seed(3)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dtype).to(dev)
+
+    eo = torch.randint(0, 4, (32,), generator=g).to(dev)
+    taps = st.taps_of(np.arange(9.0).reshape(3, 3) / 9)
+    # op: (counter, op, plain, inputs, forward tolerance)
+    cases = {
+        "mha": (fa.mha, fa.mha, fa_ref.mha,
+                (rnd(2, 4, 40, 32, scale=0.5), rnd(2, 2, 40, 32, scale=0.5),
+                 rnd(2, 2, 40, 32)), 2e-4),
+        "ssd": (ssd.ssd, lambda *t: ssd.ssd(*t, chunk=16),
+                lambda *t: ssd_ref.ssd(*t, chunk=16),
+                (rnd(1, 40, 2, 8), (torch.rand(1, 40, 2, generator=g)
+                                    * 0.2).to(dev),
+                 (-torch.rand(2, generator=g) - 0.1).to(dev),
+                 rnd(1, 40, 1, 4, scale=0.3), rnd(1, 40, 1, 4, scale=0.3)),
+                2e-4),
+        "moe_apply": (gmm.moe_apply, lambda x, w: gmm.moe_apply(x, eo, w),
+                      lambda x, w: gmm_ref.gmm(x, eo, w),
+                      (rnd(32, 32), rnd(4, 32, 16, scale=0.2)), 1e-5),
+        "stencil2d": (st.stencil2d, lambda t: st.stencil2d(t, taps),
+                      lambda t: st_ref.stencil2d(t, taps), (rnd(48, 40),),
+                      1e-5)}
+    for name, (counter, op, plain, inputs, tol) in cases.items():
+        ours = [t.clone().requires_grad_() for t in inputs]
+        theirs = [t.clone().requires_grad_() for t in inputs]
+        before = counter.launches
+        out = op(*ours)
+        check(counter.launches == before + 1 and out.grad_fn is not None,
+              f"{name}: {counter.launches - before} launches under grad "
+              "mode, or no graph")
+        want = plain(*theirs)
+        cot = torch.randn(out.shape, generator=g).to(dev)
+        got_g = torch.autograd.grad((out * cot).sum(), ours)
+        want_g = torch.autograd.grad((want * cot).sum(), theirs)
+        check(counter.launches == before + 1,
+              f"{name}: the backward launched the kernel")
+        err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
+        scale = max(float(b.abs().max()) for b in want_g)
+        check(err <= tol * max(1.0, scale),
+              f"{name}: grads differ from the plain version's by {err} > "
+              f"{tol} x max(1, {scale})")
+        with torch.no_grad():
+            out = op(*ours)
+        check(counter.launches == before + 2 and not out.requires_grad,
+              f"{name}: under no_grad: launches or a graph")
+        print(f"[grad] {name}: one launch under grad mode, backward through "
+              f"the plain version; grads max|diff| {err:.3e} vs the plain "
+              f"version's autograd on the card (gate {tol} x max(1, "
+              f"{scale:.3e})); no_grad: a launch, no graph")
+
+    def timed(label, fwd, inputs):
+        """Forward kernel ms (no graph) and plain backward ms (the
+        recompute and its gradient) at one shape."""
+        leaves = [t.requires_grad_() for t in inputs]
+        out = fwd(*leaves)
+        cot = torch.randn(out.shape, generator=g).to(out.dtype).to(dev)
+        args = [t for t in leaves if t.dtype.is_floating_point]
+
+        def backward():
+            torch.autograd.grad(out, args, cot, retain_graph=True)
+
+        def forward():
+            with torch.no_grad():
+                fwd(*leaves)
+
+        f_ms, b_ms = event_ms(torch, forward, 5), event_ms(torch, backward, 3)
+        print(f"[grad] {label}: kernel forward {f_ms:.4f} ms, plain "
+              f"backward {b_ms:.4f} ms ({b_ms / f_ms:.1f} x)")
+        return f_ms, b_ms
+
+    bf16 = torch.bfloat16
+    by_name = {e["name"]: e for e in entries}
+    for S in (1024, 2048):
+        B, H, K, D = 4, 14, 2, 64
+        f_ms, b_ms = timed(
+            f"flash_attention ({B}, {H}, {K}, {S}, {S}, {D}) bf16 causal"
+            + (" (the qwen2 training shape)" if S == 1024 else
+               " (phase 1's timed shape)"), fa.mha,
+            [rnd(B, H, S, D, scale=0.3, dtype=bf16),
+             rnd(B, K, S, D, scale=0.3, dtype=bf16),
+             rnd(B, K, S, D, dtype=bf16)])
+        if S == 1024:
+            by_name["flash_attention"]["train_shape"] = (f_ms, b_ms)
+    b, S, H, P, G, N = 4, 2048, 80, 64, 1, 128
+    timed(f"ssd_scan ({b}, {S}, {H}, {P}, {G}, {N}) bf16 (phase 1's timed "
+          "shape)", ssd.ssd,
+          [rnd(b, S, H, P, dtype=bf16),
+           (torch.rand(b, S, H, generator=g) * 0.1).to(dev),
+           (-torch.rand(H, generator=g) - 0.1).to(dev),
+           rnd(b, S, G, N, scale=0.3, dtype=bf16),
+           rnd(b, S, G, N, scale=0.3, dtype=bf16)])
+    T, D, F = 8192 * 6, 2048, 1408
+    eo_up = torch.randint(0, 64, (T,), generator=g).to(dev)
+    timed(f"moe_gmm up ({T} rows, 64 experts, {D} -> {F}) bf16 (phase 1's "
+          "timed shape)", lambda x, w: gmm.moe_apply(x, eo_up, w),
+          [rnd(T, D, dtype=bf16), rnd(64, D, F, scale=D ** -0.5)])
+    timed("stencil 2048 x 2048 f32 EDGE5 (phase 1's timed shape)",
+          lambda t: st.stencil2d(t, st.taps_of(EDGE5)),
+          [rnd(2048, 2048)])
+
+
+def event_ms(torch, fn, reps: int) -> float:
+    """Median ms of ``fn`` over ``reps`` calls, each between two CUDA
+    events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def check_widened(torch, dev) -> None:
@@ -3119,6 +3246,300 @@ def run_capacity_forward(torch, model, params, toks, counts, per_forward):
           "(not gated: not dropless, so it differs from the ragged path)")
 
 
+# -- phase 18: training on the card -------------------------------------------
+
+QWEN2_PARAMS = 494_032_768  # qwen2-0.5b, tied embeddings
+
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one ``loss_fn`` forward and backward of ``cfg``
+    on the card: the flash kernel once per full-sequence attention, the SSD
+    kernel once per Mamba2 layer, the grouped matmul three times per MoE
+    layer on the ragged path; twice each with ``remat="full"`` (forward
+    and recompute).  The backwards run the plain versions: no launch."""
+    from repro_torch.models import transformer
+    want = {"flash_attention": 0, "ssd_scan": 0, "moe_gmm": 0}
+    if cfg.family == "audio":
+        want["flash_attention"] = cfg.encdec.n_enc_layers + 2 * cfg.n_layers
+    else:
+        for kind, n in transformer.structure(cfg):
+            if kind == "mamba":
+                want["ssd_scan"] += n
+            else:
+                want["flash_attention"] += n
+                if kind == "attn_moe" and cfg.moe_ragged:
+                    want["moe_gmm"] += 3 * n
+    rep = 2 if cfg.remat == "full" else 1
+    return {k: v * rep for k, v in want.items()}
+
+
+def loss_and_grads(torch, model, params, batch):
+    """(loss, {key path: gradient}) of ``model.loss_fn`` on ``batch``."""
+    import torch.utils._pytree as pytree
+    leaves, spec = pytree.tree_flatten_with_path(params)
+    live = [p.detach().requires_grad_(True) for _, p in leaves]
+    loss, _ = model.loss_fn(
+        pytree.tree_unflatten(live, pytree.tree_structure(params)), batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return float(loss.detach()), {
+        pytree.keystr(path): (torch.zeros_like(p) if gr is None else gr)
+        for (path, p), gr in zip(leaves, grads)}
+
+
+def card_against_cpu(torch, dev, counts, label, model, params, batch, *,
+                     loss_rel=None, grad_rel=None, abs_tol=None) -> None:
+    """Loss and gradients of ``model`` on the card against the same on the
+    CPU (the plain path, the same weights and batch), with exactly the
+    launches :func:`expected_train_launches` names on the card.  Gates:
+    ``loss_rel`` and ``grad_rel`` (each leaf's max |diff| against that
+    leaf's max |grad|), or ``abs_tol`` for both.  The key bias ``bk`` is
+    held to its sibling ``bq``'s scale: its exact gradient is zero (a
+    shift shared by every key of a softmax row changes nothing), so what
+    both sides compute for it is rounding."""
+    from repro_torch.device import to_device
+    want = {k: expected_train_launches(model.cfg).get(k, 0)
+            for k in counts()}
+    before = counts()
+    t0 = time.perf_counter()
+    loss_g, grads_g = loss_and_grads(torch, model, params, batch)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before[k] for k, v in counts().items()}
+    check(launched == want, f"{label}: launched {launched}, not {want}")
+    loss_c, grads_c = loss_and_grads(torch, model, to_device(params, "cpu"),
+                                     to_device(batch, "cpu"))
+    loss_gate = abs_tol if abs_tol is not None else loss_rel * abs(loss_c)
+    check(abs(loss_g - loss_c) <= loss_gate,
+          f"{label}: loss {loss_g} on the card, {loss_c} on the CPU")
+    worst, worst_key = 0.0, ""
+    for key, gc in grads_c.items():
+        diff = float((grads_g[key].cpu() - gc).abs().max())
+        scale_key = key.replace("['bk']", "['bq']")
+        scale = float(grads_c[scale_key].abs().max())
+        limit = abs_tol if abs_tol is not None else grad_rel * scale
+        check(diff <= limit, f"{label}: grad {key} differs by {diff} > "
+                             f"{limit} (max|grad| of {scale_key} {scale})")
+        if diff / limit >= worst:
+            worst, worst_key = diff / limit, key
+    print(f"[train] {label}: loss card {loss_g:.6f} / CPU {loss_c:.6f} "
+          f"(gate {loss_gate:.2e}); {len(grads_c)} grad leaves, the worst "
+          f"{worst_key} at {worst:.1%} of its gate; card launches "
+          f"{launched}; card forward+backward {card_ms:.1f} ms")
+
+
+@contextlib.contextmanager
+def per_step_records(torch, counts):
+    """Records each train step's launches, loss and wall (the step waits
+    for the device): wraps ``make_train_step`` in the training loop's
+    module while the block runs."""
+    from repro_torch.train import train_loop
+    real = train_loop.make_train_step
+    steps: list = []
+
+    def counted(*args, **kw):
+        step = real(*args, **kw)
+
+        def run(*a):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            loss = float(out[2]["loss"])
+            steps.append({"launches": {k: v - before[k]
+                                       for k, v in counts().items()},
+                          "loss": loss, "s": time.perf_counter() - t0})
+            return out
+
+        return run
+
+    train_loop.make_train_step = counted
+    try:
+        yield steps
+    finally:
+        train_loop.make_train_step = real
+
+
+def run_train_launcher(torch, counts) -> None:
+    """18a: full-width qwen2-0.5b trained through ``python -m
+    repro_torch.launch.train``'s ``main``: 8 steps of (4, 1024), the
+    default config (f32 params, bf16 compute, ``remat="full"``)."""
+    import io
+    from repro_torch.launch import train as launcher
+    args = ["--arch", "qwen2-0.5b", "--steps", "8", "--batch", "4", "--seq",
+            "1024"]
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with per_step_records(torch, counts) as steps, \
+            contextlib.redirect_stdout(out):
+        launcher.main(args)
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith("[train]"):
+            print(line)
+    check("network train[qwen2-0.5b] verified" in text,
+          "18a: the launcher printed no verified line")
+    losses = [s["loss"] for s in steps]
+    check(len(losses) == 8 and all(math.isfinite(x) for x in losses),
+          f"18a: losses {losses}")
+    want = {k: (48 if k == "flash_attention" else 0) for k in counts()}
+    check(all(s["launches"] == want for s in steps),
+          f"18a: launches a step {[s['launches'] for s in steps]}, not "
+          f"{want}")
+    p50 = statistics.median(s["s"] for s in steps[2:])
+    B, S, T = 4, 1024, 4096
+    L, H, hd = 24, 14, 64
+    attn = 6.0 * L * B * H * hd * S * (S + 1)
+    flops = 6.0 * QWEN2_PARAMS * T + attn
+    print(f"[train] 18a qwen2-0.5b full width, launcher main {' '.join(args)}"
+          f": losses {', '.join(f'{x:.4f}' for x in losses)}; flash "
+          f"launches a step {steps[0]['launches']['flash_attention']} (24 "
+          f"forward + 24 recompute), no other kernel")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] 18a step wall p50 (steps 2-7) {p50 * 1e3:.1f} ms, "
+          f"{T / p50:.0f} tokens/s; peak device memory {peak / 2**30:.2f} "
+          f"GiB, {(peak - resident) / 2**30:.2f} GiB above the "
+          f"{resident / 2**30:.2f} GiB resident before; main's wall "
+          f"{wall:.1f} s")
+    print(f"[train] 18a model FLOP utilisation {flops / p50 / BF16_PEAK:.2%}"
+          f" = (6·N·T + 6·L·B·H·hd·S·(S+1)) / wall / 989e12 with N = "
+          f"{QWEN2_PARAMS:,}, T = {T}, L = {L}, B = {B}, H = {H}, hd = {hd},"
+          f" S = {S}: {6.0 * QWEN2_PARAMS * T:.4e} + {attn:.4e} = "
+          f"{flops:.4e} FLOP a step (remat's recompute not counted)")
+
+
+def run_train_grads(torch, dev, counts, params) -> None:
+    """18b: gradients on the card against the CPU: full-width qwen2-0.5b
+    in f32 on a (1, 128) batch from phase 6's weights (loss 1e-5 relative,
+    each grad leaf within 1e-3 of its max |grad|); every architecture at
+    reduced width in f32, and deepseek on its ragged path (1e-4)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import to_device
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    model = Model(cfg)
+    batch = SyntheticLM(1, 128, cfg.vocab, device=dev).create(0)
+    card_against_cpu(torch, dev, counts, "18b qwen2-0.5b full width f32 "
+                     "(1, 128), remat full", model, params, batch,
+                     loss_rel=1e-5, grad_rel=1e-3)
+    variants = [(a, {}) for a in sorted(ARCHS)] + \
+        [("deepseek-moe-16b", {"moe_ragged": True})]
+    for arch, over in variants:
+        cfg = dataclasses.replace(get_config(arch, reduced=True), **over)
+        model = Model(cfg)
+        p = to_device(model.init(seed=0, device="cpu"), dev)
+        batch = SyntheticLM(2, 32, cfg.vocab, device=dev).create(0)
+        card_against_cpu(torch, dev, counts,
+                         f"18b {arch}{'/ragged' if over else ''} reduced f32",
+                         model, p, batch, abs_tol=1e-4)
+
+
+def run_train_runner(torch, dev, counts) -> None:
+    """18c: the reference's ``test_injected_failures_recovered`` on the
+    card (reduced qwen2-0.5b, 12 steps, failures at 4 and 9, saves every
+    3, async) and its ``test_loss_decreases`` (40 steps, lr 1e-2)."""
+    import tempfile
+    import torch.utils._pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamW, Checkpointer, FaultInjector,
+                                   FaultTolerantRunner, make_train_step,
+                                   train)
+    model = Model(get_config("qwen2-0.5b", reduced=True))
+    opt = AdamW(lr=1e-3)
+    src = SyntheticLM(batch=4, seq=16, vocab=model.cfg.vocab, device=dev)
+    step = make_train_step(model, opt)
+
+    def step_fn(i, st):
+        p, o, _ = step(st["params"], st["opt_state"], src.create(i))
+        return {"params": p, "opt_state": o}
+
+    params = model.init(seed=0, device=dev)
+    state = {"params": params, "opt_state": opt.init(params)}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        runner = FaultTolerantRunner(Checkpointer(d, async_save=True),
+                                     max_restarts=3)
+        final = runner.run(total_steps=12, state=state, step_fn=step_fn,
+                           save_every=3,
+                           injector=FaultInjector(fail_at=(4, 9)))
+        runner.ckpt.wait()
+    run_s = time.perf_counter() - t0
+    clean = state
+    for i in range(12):
+        clean = step_fn(i, clean)
+    ours = {pytree.keystr(k): v for k, v in
+            pytree.tree_flatten_with_path(final["params"])[0]}
+    diff = max(float((ours[pytree.keystr(k)] - v).abs().max()) for k, v in
+               pytree.tree_flatten_with_path(clean["params"])[0])
+    on_card = all(v.is_cuda for v in ours.values())
+    check(runner.restarts == 2 and diff < 1e-6 and on_card,
+          f"18c: restarts {runner.restarts}, max|diff| {diff} to the clean "
+          f"run, restored on the card {on_card}")
+    print(f"[train] 18c runner on the card: 12 steps, failures at 4 and 9, "
+          f"async saves every 3: {runner.restarts} restarts, max|diff| "
+          f"{diff:.2e} to a clean 12-step run (gate 1e-6), {run_s:.1f} s")
+    src = SyntheticLM(batch=8, seq=32, vocab=model.cfg.vocab, device=dev)
+    res = train(model, src, steps=40, opt=AdamW(lr=1e-2), device=dev,
+                log_every=1)
+    losses = [h["loss"] for h in res["history"]]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first - 0.25, f"18c: loss {first} -> {last}")
+    print(f"[train] 18c loss decreases on the card: mean of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f} (gate: below first - "
+          "0.25)")
+
+
+def profile_train_step(torch, dev, params) -> None:
+    """One full-width qwen2-0.5b train step (4, 1024) from ``params``,
+    traced: the flash kernel's share and the plain backwards' share of the
+    device's busy time (the device time of the kernels inside the
+    backwards' profiler range)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _autograd
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW, make_train_step
+    model = Model(get_config("qwen2-0.5b"))
+    opt = AdamW()
+    state = opt.init(params)
+    batch = SyntheticLM(4, 1024, model.cfg.vocab, device=dev).create(0)
+    step = make_train_step(model, opt)
+    step(params, state, batch)  # warm-up
+    avgs, busy_ms, wall_ms = profile_run(
+        torch, "qwen2-0.5b train step (4, 1024)",
+        lambda: step(params, state, batch))
+    plain = [e for e in avgs if e.key == _autograd.PROFILE_LABEL]
+    on_host = [e for e in plain if str(e.device_type).endswith("CPU")]
+    backward_ms = sum(e.device_time_total for e in on_host) / 1e3
+    print(f"[profile] qwen2-0.5b train step (4, 1024): the plain backwards "
+          f"take {backward_ms:.2f} ms of device time in "
+          f"{sum(e.count for e in on_host)} calls, {backward_ms / busy_ms:.1%}"
+          f" of busy {busy_ms:.2f} ms (wall {wall_ms:.1f} ms)")
+
+
+def run_train_phase(torch, dev, counts, params) -> None:
+    """Phase 18 (18a-18c): training on the card, on phase 6's weights
+    (``params``, f32, left unchanged); the caller counts its launches from
+    0."""
+    import gc
+    t_phase = time.perf_counter()
+    run_train_launcher(torch, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_train_grads(torch, dev, counts, params)
+    run_train_runner(torch, dev, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] phase 18 wall: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3159,7 +3580,7 @@ def main() -> int:
     entries = [check_mandelbrot(torch, dev, W, H, BANDS, ITERS),
                check_stencil(torch, dev), check_flash(torch, dev),
                check_ssd(torch, dev), check_moe_gmm(torch, dev)]
-    check_grad_refusal(torch, dev)
+    check_kernel_grads(torch, dev, entries)
     check_widened(torch, dev)
 
     reset_launch_counts()  # the main path starts here
@@ -3228,6 +3649,16 @@ def main() -> int:
         profile_run(torch, f"{m.cfg.name} decode step (4 utterances, "
                     f"{WHISPER_FRAMES} frames)",
                     lambda: m.decode_step(p, c, t))
+
+    # phase 18 (training, on phase 6's weights) is counted apart, from 0,
+    # and added to the main path's counts
+    reset_launch_counts()
+    run_train_phase(torch, dev, launch_counts, params)
+    train_launched = launch_counts()
+    print(f"[train] phase 18 launches: {train_launched}")
+    launched = {k: v + train_launched[k] for k, v in launched.items()}
+    profile_train_step(torch, dev, params)
+    memory(torch, "phase 18, training")
 
     # the MoE path needs the card's memory: free every earlier model first
     del farm, pipeline, model, params, toks, ssm, hybrid, whisper, m, p, c, t

@@ -16,8 +16,10 @@ in place:
   16-byte copies need 16-byte aligned rows) a base or stride that is not
   16-byte aligned, is copied into a fresh contiguous buffer.
 
-The CUDA branch refuses inputs that require grad while grad mode is on
-(the kernel has no backward yet); the CPU branch is differentiable.
+Under grad mode the CUDA branch runs the launch inside a
+``torch.autograd.Function`` (:func:`.._autograd.launch`) whose backward is
+that of the plain version, recomputed from the saved q, k, v with its
+(B, H, Sq, Sk) f32 logits; the CPU branch is the plain version itself.
 ``mha.launches`` counts the kernel launches.
 """
 
@@ -66,7 +68,16 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{kernel.HEAD_DIMS[-1]}, got {D}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("mha: q, k and v must lie on one device")
-    _autograd.refuse_grad("mha", q, k, v)
+    return _autograd.launch(_launch, ref.mha, q, k, v, causal=causal,
+                            scale=scale)
+
+
+mha.launches = 0
+
+
+def _launch(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
+    """One launch on validated CUDA tensors."""
+    D = q.shape[3]
     Dk = next(d for d in kernel.HEAD_DIMS if d >= D)
     if Dk != D:  # fresh, contiguous and aligned
         q, k, v = (F.pad(t, (0, Dk - D)) for t in (q, k, v))
@@ -77,6 +88,3 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel.launch(q, k, v, o, causal=causal, scale=scale)
     _launches.count(mha)
     return o if Dk == D else o[..., :D]
-
-
-mha.launches = 0

@@ -11,9 +11,12 @@ is computed beside the tile's expert, so the kernel skips the padding.
 The weights are rounded to x's dtype before the product (the kernel does
 it in registers, the plain version with an explicit cast), so a float32
 ``w`` and a bfloat16 ``x`` give the numbers of ``w.to(x.dtype)``.
-The CUDA branch refuses x or w that requires grad while grad mode is on
-(the kernel has no backward yet); the CPU branch is differentiable.
-``moe_apply.launches`` counts the kernel launches.
+Under grad mode the CUDA branch runs the launch inside a
+``torch.autograd.Function`` (:func:`.._autograd.launch`) whose backward is
+that of the plain grouped product (:func:`.ref.gmm`), recomputed from the
+saved x and w; the routing indices carry no gradient.  The CPU branch is
+the plain version itself.  ``moe_apply.launches`` counts the kernel
+launches.
 """
 
 from __future__ import annotations
@@ -123,7 +126,19 @@ def moe_apply(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor, *,
         raise TypeError(f"moe_apply: the CUDA kernel takes x and w in "
                         f"float32, bfloat16 or float16, got {x.dtype}, "
                         f"{w.dtype}")
-    _autograd.refuse_grad("moe_apply", x, w)
+    return _autograd.launch(_launch, _plain, x, expert_of, w, tile_m=tile_m)
+
+
+moe_apply.launches = 0
+
+
+def _plain(x, expert_of, w, *, tile_m: int) -> torch.Tensor:
+    del tile_m
+    return ref.gmm(x, expert_of, w)
+
+
+def _launch(x, expert_of, w, *, tile_m: int) -> torch.Tensor:
+    """One launch on validated CUDA tensors."""
     if x.dtype == torch.bfloat16 and w.dtype == torch.float16:
         # the tensor cores stage w as bf16 bits: round it once here, the
         # cast the plain version makes (w to x's dtype)
@@ -133,9 +148,6 @@ def moe_apply(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor, *,
                         kernel.launch)
     _launches.count(moe_apply)
     return y
-
-
-moe_apply.launches = 0
 
 
 def _routed_product(x, expert_of, w, tile_m, launch):

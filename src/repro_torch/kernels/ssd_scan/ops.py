@@ -4,9 +4,11 @@ CPU tensors.
 On the card the kernel runs or the call raises; nothing falls back to the
 plain version, also when the final state is asked for (the kernel writes
 it, where the JAX package's TPU kernel returns none and its prefill takes
-the jnp path).  The CUDA branch refuses inputs that require grad while
-grad mode is on (the kernel has no backward yet); the CPU branch is
-differentiable.  The kernel forms the log-decays dt·A itself, reads B and C
+the jnp path).  Under grad mode the CUDA branch runs the whole op (every
+launch of a split input) inside a ``torch.autograd.Function``
+(:func:`.._autograd.launch`) whose backward is that of the plain version,
+recomputed from the saved x, dt, A, B, C; the CPU branch is the plain
+version itself.  The kernel forms the log-decays dt·A itself, reads B and C
 by group and every operand through its strides, and masks a ragged last
 chunk, so this wrapper broadcasts and pads nothing.  x, B and C may be
 float32, bfloat16 or float16 (one type); dt and A are cast to float32, as
@@ -70,7 +72,19 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, return_state: bool = False):
     if not (dt.dtype.is_floating_point and A.dtype.is_floating_point):
         raise TypeError(f"ssd: dt and A must be floating point, got "
                         f"{dt.dtype}, {A.dtype}")
-    _autograd.refuse_grad("ssd", x, dt, A, B, C)
+    return _autograd.launch(_op, ref.ssd, x, dt, A, B, C, chunk=chunk,
+                            return_state=return_state)
+
+
+ssd.launches = 0
+
+
+def _op(x, dt, A, B, C, *, chunk: int, return_state: bool):
+    """The op's launches on validated CUDA tensors (``chunk`` is the plain
+    version's; the kernel's is 64)."""
+    del chunk
+    b, S, H, P = x.shape
+    N = B.shape[3]
     if S == 0:
         y = torch.empty((b, 0, H, P), dtype=x.dtype, device=x.device)
         hT = torch.zeros((b * H, N, P), dtype=torch.float32, device=x.device)
@@ -79,9 +93,6 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, return_state: bool = False):
     dt, A = dt.float(), A.float().contiguous()
     y, hT = _pieces(_launch, x, dt, A, B, C, return_state)
     return (y, hT) if return_state else y
-
-
-ssd.launches = 0
 
 
 def _launch(x, dt, A, B, C, y, hT) -> None:

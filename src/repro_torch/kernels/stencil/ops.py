@@ -10,8 +10,10 @@ computes it.  A bool image goes the same way and comes back as ``!= 0``
 (the JAX package's cast of its float32 sum to bool).  int64 images are
 refused: JAX without 64-bit mode returns no int64, so nothing holds that
 type to a reference.  A non-contiguous image is copied once.
-The CUDA branch refuses an image that requires grad while grad mode is on
-(the kernel has no backward yet); the CPU branch is differentiable.
+Under grad mode a float image that requires grad runs the launch inside a
+``torch.autograd.Function`` (:func:`.._autograd.launch`) whose backward is
+that of the plain version; integer and bool images carry no gradient, as
+in torch.  The CPU branch is the plain version itself.
 ``stencil2d.launches`` counts the kernel launches.
 """
 
@@ -48,13 +50,17 @@ def stencil2d(img: torch.Tensor, taps) -> torch.Tensor:
         return ref.stencil2d(img, taps)
     if img.device.type != "cuda":
         raise ValueError(f"stencil2d: unsupported device {img.device}")
-    _autograd.refuse_grad("stencil2d", img)
+    return _autograd.launch(_launch, ref.stencil2d, img, taps)
+
+
+stencil2d.launches = 0
+
+
+def _launch(img: torch.Tensor, taps: tuple) -> torch.Tensor:
+    """One launch on a validated CUDA image."""
     src = (img.contiguous() if img.dtype in kernel.DTYPES
            else img.to(torch.float32, memory_format=torch.contiguous_format))
     out = torch.empty_like(src)
     kernel.launch(src, out, taps)
     _launches.count(stencil2d)
     return out if src.dtype == img.dtype else saturate_to(out, img.dtype)
-
-
-stencil2d.launches = 0

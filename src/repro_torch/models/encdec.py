@@ -7,8 +7,11 @@ sinusoidal positions on the encoder, learned positions on the decoder,
 causal self-attention and full cross-attention in the decoder.  The
 encoder's and decoder's blocks are stacked on a leading layer axis
 ``(L, ...)`` as the reference's ``vmap`` init makes them; a Python loop
-indexes that axis where the reference runs ``lax.scan`` (so ``remat`` and
-``scan_layers`` change nothing in a forward).
+runs the layers where the reference runs ``lax.scan`` (``scan_layers``
+changes nothing).  With ``cfg.remat == "full"`` and grad mode on, each
+encoder and decoder layer of the full-sequence path runs under activation
+checkpointing (:func:`.transformer.remat`), as the reference checkpoints
+its scan bodies.
 
 On a CUDA tensor every attention without a KV cache runs the hand-written
 flash kernel (:func:`layers._sdpa`): the encoder's self-attention and the
@@ -25,8 +28,7 @@ Entry points::
     init_cache(cfg, batch, max_len, device, enc_frames=0) -> cache
     prefill(cfg, params, tokens, max_len, frames=None) -> (logits, cache)
     decode_step(cfg, params, cache, tokens)            -> (logits, cache)
-
-The training loss comes with the training slice.
+    loss_fn(cfg, params, batch)                        -> (loss, metrics)
 """
 
 from __future__ import annotations
@@ -37,10 +39,10 @@ import torch
 
 from ..parallel.axes import act
 from . import layers
-from .transformer import _layer, _restack
+from .transformer import _layer, _layers, _restack, remat
 
 __all__ = ["init_params", "encode", "forward", "init_cache", "prefill",
-           "decode_step"]
+           "decode_step", "loss_fn"]
 
 MAX_DEC_LEN = 4096  # rows of the learned decoder positions by default
 
@@ -110,14 +112,19 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     x = act(x, "batch", "seq", "d")
     pos = torch.arange(Sf, dtype=torch.int32,
                        device=x.device)[None].expand(B, Sf)
-    for i in range(cfg.encdec.n_enc_layers):
-        lp = _layer(params["enc"], i)
+
+    def block(h, lp):
         a, _ = layers.attention(lp["attn"], cfg,
-                                layers.layernorm(lp["norm1"], x),
+                                layers.layernorm(lp["norm1"], h),
                                 positions=pos, causal=False)
-        x = x + a
-        x = x + layers.mlp(lp["mlp"], cfg, layers.layernorm(lp["norm2"], x),
-                           act_fn="gelu")
+        h = h + a
+        return h + layers.mlp(lp["mlp"], cfg,
+                              layers.layernorm(lp["norm2"], h),
+                              act_fn="gelu")
+
+    block = remat(cfg, block)
+    for lp in _layers(params["enc"], cfg.encdec.n_enc_layers):
+        x = block(x, lp)
     return layers.layernorm(params["enc_norm"], x)
 
 
@@ -148,11 +155,31 @@ def forward(cfg, params, tokens, *, frames: Optional[torch.Tensor] = None):
     x = x + params["dec_pos"][:S].to(x.dtype)[None]
     pos = torch.arange(S, dtype=torch.int32,
                        device=x.device)[None].expand(B, S)
-    for i in range(cfg.n_layers):
-        x, _ = _dec_block(_layer(params["dec"], i), cfg, x, enc_out, pos)
+
+    def block(h, lp):
+        return _dec_block(lp, cfg, h, enc_out, pos)[0]
+
+    block = remat(cfg, block)
+    for lp in _layers(params["dec"], cfg.n_layers):
+        x = block(x, lp)
     x = layers.layernorm(params["dec_norm"], x)
     logits = layers.unembed(params["embedding"], cfg, x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg, params, batch, **_):
+    """batch: {"tokens", "labels"} (B, S) and optional "frames" →
+    (loss, metrics): the mean next-token NLL over float32 logits (no aux
+    loss), with ``nll``, ``aux`` (0) and ``perplexity`` metrics."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          frames=batch.get("frames"))
+    logits = logits.float()
+    labels = batch["labels"]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    return nll, {"nll": nll, "aux": aux,
+                 "perplexity": torch.exp(torch.clamp(nll, max=20.0))}
 
 
 def init_cache(cfg, batch: int, max_len: int, device,

@@ -35,9 +35,15 @@ class Model:
     def param_count(self, params) -> int:
         return transformer.param_count(params)
 
-    # -- full-sequence forward ----------------------------------------------
+    # -- training -----------------------------------------------------------
     def forward(self, params, tokens, **kw):
         return self._m.forward(self.cfg, params, tokens, **kw)
+
+    def loss_fn(self, params, batch, **kw):
+        """(loss, metrics) of a {"tokens", "labels"} batch: the mean
+        next-token NLL (plus the weighted MoE aux loss), differentiable
+        through every kernel op."""
+        return self._m.loss_fn(self.cfg, params, batch, **kw)
 
     # -- serving ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device=None):

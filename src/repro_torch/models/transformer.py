@@ -13,14 +13,24 @@ Entry points::
 
     init_params(cfg, gen)                         -> params
     forward(cfg, params, tokens, ...)             -> (logits, aux)
+    loss_fn(cfg, params, batch)                   -> (loss, metrics)
     init_cache(cfg, batch, max_len, device)       -> cache
     decode_step(cfg, params, cache, tokens, ...)  -> (logits, cache)
     prefill(cfg, params, tokens, max_len)         -> (logits, cache)
     reset_slot(cfg, cache, slot)                  -> cache
 
 A MoE layer adds its load-balancing aux loss to ``forward``'s second
-output; the decode step drops it, as the reference's does.  The training
-loss, remat and ``scan_layers`` come with the training slice.
+output; the decode step drops it, as the reference's does.
+
+Training: with ``cfg.remat == "full"`` and grad mode on, each layer of a
+stacked segment runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body), so its activations are recomputed in
+the backward; zamba2's shared block runs outside it, as in the reference.
+``cfg.scan_layers`` changes nothing here: the layers are a Python loop
+either way.  The full-sequence forward takes its layers' weights with one
+``unbind`` per stacked leaf, whose backward is a single ``stack``: indexing
+``leaf[i]`` layer by layer would back up into a zero-filled tensor the
+size of the whole stack for every layer.
 """
 
 from __future__ import annotations
@@ -30,11 +40,12 @@ from typing import Any
 
 import torch
 import torch.utils._pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from . import layers, mamba, moe
 
 __all__ = ["structure", "init_params", "forward", "hidden_states",
-           "init_cache", "decode_step", "prefill", "reset_slot",
+           "loss_fn", "init_cache", "decode_step", "prefill", "reset_slot",
            "param_count"]
 
 # cache leaves an attention layer updates in place (the rest are new)
@@ -129,6 +140,32 @@ def _layer(tree, i: int):
     return pytree.tree_map(lambda leaf: leaf[i], tree)
 
 
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked segment, with one ``unbind`` per
+    leaf (one ``stack`` in the backward, where ``n`` calls of
+    :func:`_layer` would each scatter into a zero-filled stack)."""
+    leaves, spec = pytree.tree_flatten(tree)
+    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    return [pytree.tree_unflatten([u[i] for u in per_leaf], spec)
+            for i in range(n)]
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, under activation checkpointing when grad mode is on:
+    its saved activations are dropped and recomputed in the backward."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def remat(cfg, fn):
+    """``fn`` checkpointed when ``cfg.remat == "full"`` (the reference's
+    ``jax.checkpoint`` of a layer)."""
+    return functools.partial(_checkpointed, fn) if cfg.remat == "full" \
+        else fn
+
+
 # --------------------------------------------------------------------------
 # params
 # --------------------------------------------------------------------------
@@ -186,10 +223,13 @@ def hidden_states(cfg, params, tokens, *, positions=None,
     pos = _positions(cfg, tokens) if positions is None else positions
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, count), seg_p in zip(structure(cfg), params["segments"]):
-        layer_params = ([params["shared_block"]] if kind == "shared_attn"
-                        else [_layer(seg_p, i) for i in range(count)])
+        if kind == "shared_attn":  # outside remat, as in the reference
+            block, layer_params = _block_apply, [params["shared_block"]]
+        else:
+            block, layer_params = remat(cfg, _block_apply), _layers(seg_p,
+                                                                   count)
         for lp in layer_params:
-            x, aux, _ = _block_apply(lp, cfg, x, pos, kind)
+            x, aux, _ = block(lp, cfg, x, pos, kind)
             if aux is not None:
                 aux_total = aux_total + aux
     _, napply = layers.norm(cfg.norm)
@@ -205,6 +245,52 @@ def forward(cfg, params, tokens, *, positions=None, input_embeds=None):
     x, aux = hidden_states(cfg, params, tokens, positions=positions,
                            input_embeds=input_embeds)
     return layers.unembed(params["embedding"], cfg, x), aux
+
+
+def _nll_dense(cfg, params, hidden, labels):
+    """Summed negative log-likelihood of ``labels`` under the float32
+    logits of ``hidden``."""
+    logits = layers.unembed(params["embedding"], cfg, hidden).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+def _nll_chunked(cfg, params, hidden, labels):
+    """:func:`_nll_dense` over sequence chunks of ``cfg.loss_chunk``
+    (one chunk if it does not divide S), each under activation
+    checkpointing, so the (B, S, V) logits never exist at once: the peak is
+    (B, loss_chunk, V).  The reference scans the chunks under
+    ``jax.checkpoint``."""
+    S = hidden.shape[1]
+    ck = cfg.loss_chunk
+    nc = S // ck if S % ck == 0 else 1
+    ck = S // nc
+    chunk_nll = functools.partial(_nll_dense, cfg, params)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nc):
+        rows = slice(i * ck, (i + 1) * ck)
+        total = total + _checkpointed(chunk_nll, hidden[:, rows],
+                                      labels[:, rows])
+    return total
+
+
+def loss_fn(cfg, params, batch, *, aux_weight: float = 0.01):
+    """batch: {"tokens": (B, S), "labels": (B, S)} → (loss, metrics):
+    the mean next-token NLL plus ``aux_weight`` times the MoE layers' aux
+    loss; metrics hold ``nll``, ``aux`` and ``perplexity`` (of the NLL
+    capped at 20), each a 0-d float32 tensor."""
+    hidden, aux = hidden_states(cfg, params, batch["tokens"])
+    labels = batch["labels"]
+    B, S = labels.shape
+    if cfg.loss_chunk and S > cfg.loss_chunk:
+        total = _nll_chunked(cfg, params, hidden, labels)
+    else:
+        total = _nll_dense(cfg, params, hidden, labels)
+    nll = total / (B * S)
+    loss = nll + aux_weight * aux
+    return loss, {"nll": nll, "aux": aux,
+                  "perplexity": torch.exp(torch.clamp(nll, max=20.0))}
 
 
 # --------------------------------------------------------------------------

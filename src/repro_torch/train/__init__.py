@@ -1,7 +1,10 @@
-"""Training substrate: so far the crash-atomic :class:`Checkpointer`, which
-the durable cluster deployments write through.  The optimizer, the loop and
-the fault-tolerant runner come with the training slice."""
+"""Training substrate: optimizer, loop, checkpointing, fault tolerance."""
 
 from .checkpoint import Checkpointer  # noqa: F401
+from .fault import FaultInjector, FaultTolerantRunner, remesh  # noqa: F401
+from .optimizer import AdamW, cosine_warmup  # noqa: F401
+from .train_loop import as_network, make_train_step, train  # noqa: F401
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "FaultInjector", "FaultTolerantRunner", "remesh",
+           "AdamW", "cosine_warmup", "as_network", "make_train_step",
+           "train"]

@@ -61,13 +61,17 @@ def _unflatten(structure, values: list):
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A leaf as a numpy array on the host (bfloat16 as its uint16 bits)."""
+    """A leaf as a numpy array on the host (bfloat16 as its uint16 bits)
+    that the caller cannot reach: a card's leaf is copied by ``.cpu()``, a
+    CPU tensor or a numpy array is copied here, so an in-place write to
+    the tree after ``save`` returns never reaches an async write."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        t = t.cpu() if t.device.type != "cpu" else t.clone()
         if t.dtype == torch.bfloat16:
             return t.contiguous().view(torch.int16).numpy().view(np.uint16)
         return t.numpy()
-    return np.asarray(leaf)
+    return np.array(leaf)
 
 
 def _dtype_name(leaf, host: np.ndarray) -> str:

@@ -818,41 +818,133 @@ def test_reduced_moe_serving_on_card_matches_one_slot_runs(cuda, arch):
 # -- every kernel op refuses to cut the autograd graph on the card ------------
 
 def _grad_cases(cuda):
+    """op -> (wrapper, plain version, inputs, indices of the inputs that
+    take a gradient, forward tolerance), at small shapes on the card."""
     g = torch.Generator().manual_seed(11)
-    q = torch.randn(1, 2, 16, 32, generator=g).to(cuda)
+    q = torch.randn(1, 4, 16, 32, generator=g).to(cuda)
+    kv = torch.randn(1, 2, 16, 32, generator=g).to(cuda)
     img = torch.randn(32, 32, generator=g).to(cuda)
-    x, dt, A, B, C = _ssd_inputs((1, 16, 2, 8, 1, 4), torch.float32, cuda)
+    x, dt, A, B, C = _ssd_inputs((1, 40, 2, 8, 1, 4), torch.float32, cuda)
     gx, eo, gw = _gmm_inputs((16, 2, 4, 32, 16, 16), torch.float32,
                              torch.float32, cuda)
+    taps = st_ops.taps_of(np.arange(9.0).reshape(3, 3) / 9)
     return {
-        "mha": (fa_ops.mha, lambda r: fa_ops.mha(q.requires_grad_(r), q, q)),
-        "ssd": (ssd_ops.ssd,
-                lambda r: ssd_ops.ssd(x, dt.requires_grad_(r), A, B, C)),
-        "moe_apply": (gmm_ops.moe_apply,
-                      lambda r: gmm_ops.moe_apply(gx, eo,
-                                                  gw.requires_grad_(r))),
-        "stencil2d": (st_ops.stencil2d,
-                      lambda r: st_ops.stencil2d(img.requires_grad_(r),
-                                                 np.ones((3, 3)))),
+        "mha": (fa_ops.mha, fa_ref.mha, (q, kv, kv.clone()), (0, 1, 2),
+                2e-5),
+        "ssd": (lambda *t: ssd_ops.ssd(*t, chunk=16),
+                lambda *t: ssd_ref.ssd(*t, chunk=16),
+                (x, dt, A, B, C), (0, 1, 2, 3, 4), 2e-4),
+        "moe_apply": (lambda a, w: gmm_ops.moe_apply(a, eo, w),
+                      lambda a, w: gmm_ref.gmm(a, eo, w), (gx, gw), (0, 1),
+                      2e-5),
+        "stencil2d": (lambda t: st_ops.stencil2d(t, taps),
+                      lambda t: st_ref.stencil2d(t, taps), (img,), (0,),
+                      1e-5),
     }
 
 
+_COUNTERS = {"mha": fa_ops.mha, "ssd": ssd_ops.ssd,
+             "moe_apply": gmm_ops.moe_apply, "stencil2d": st_ops.stencil2d}
+
+
 @pytest.mark.parametrize("op", ["mha", "ssd", "moe_apply", "stencil2d"])
-def test_kernel_ops_refuse_grad_on_card(cuda, op):
-    """With grad mode on and an input that requires grad, the op raises
-    before its launch (the kernel has no backward, so the launch would cut
-    the graph silently); under no_grad the same input launches."""
-    fn, call = _grad_cases(cuda)[op]
-    before = fn.launches
-    with pytest.raises(RuntimeError, match=f"{op}: .*no backward"):
-        call(True)
-    assert fn.launches == before
-    with torch.no_grad():
-        out = call(True)
+def test_kernel_ops_grad_on_card(cuda, op):
+    """Under grad mode the op launches its kernel once and its backward
+    gives the plain version's gradients on the card (the same inputs and
+    cotangent through ``torch.autograd`` of the plain version), within the
+    op's forward tolerance; under no_grad it launches with no graph."""
+    fn, plain, inputs, diff, tol = _grad_cases(cuda)[op]
+    counter = _COUNTERS[op]
+    ours = [t.clone().requires_grad_(i in diff) for i, t in
+            enumerate(inputs)]
+    theirs = [t.clone().requires_grad_(i in diff) for i, t in
+              enumerate(inputs)]
+    before = counter.launches
+    out = fn(*ours)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1 and not out.requires_grad
-    call(False)
-    assert fn.launches == before + 2
+    assert counter.launches == before + 1 and out.grad_fn is not None
+    want = plain(*theirs)
+    torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)
+                      ).to(cuda)
+    (out * cot).sum().backward()
+    (want * cot).sum().backward()
+    assert counter.launches == before + 1  # the backward launches nothing
+    for i in diff:
+        assert float(ours[i].grad.abs().max()) > 0
+        torch.testing.assert_close(ours[i].grad, theirs[i].grad, rtol=tol,
+                                   atol=tol)
+    with torch.no_grad():
+        out = fn(*ours)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2 and not out.requires_grad
+
+
+def _train_pair(arch, device):
+    """One reduced train step of ``arch`` on ``device`` from seed-0 weights
+    drawn on the CPU: (new params, metrics)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import to_device
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW, make_train_step
+    m = Model(get_config(arch, reduced=True))
+    p = to_device(m.init(seed=0, device="cpu"), device)
+    opt = AdamW(lr=1e-3)
+    batch = SyntheticLM(batch=4, seq=32, vocab=m.cfg.vocab,
+                        device=device).create(0)
+    p2, _, metrics = make_train_step(m, opt)(p, opt.init(p), batch)
+    return p2, metrics
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b"])
+def test_reduced_train_step_card_equals_cpu(cuda, arch):
+    """A reduced f32 train step on the card (flash or SSD kernel forward,
+    plain backward) against the same step on the CPU."""
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()
+    p_gpu, m_gpu = _train_pair(arch, cuda)
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    assert launched["flash_attention" if arch == "qwen2-0.5b"
+                    else "ssd_scan"] > 0
+    p_cpu, m_cpu = _train_pair(arch, "cpu")
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) < 1e-4
+    import torch.utils._pytree as pytree
+    for a, b in zip(pytree.tree_leaves(p_gpu), pytree.tree_leaves(p_cpu)):
+        assert float((a.cpu() - b).abs().max()) < 1e-4
+
+
+def test_fault_tolerant_runner_on_card(cuda, tmp_path):
+    """12 reduced steps on the card with failures at 4 and 9 and async
+    saves: two restarts, and the clean run's parameters."""
+    import torch.utils._pytree as pytree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamW, Checkpointer, FaultInjector,
+                                   FaultTolerantRunner, make_train_step)
+    m = Model(get_config("qwen2-0.5b", reduced=True))
+    p = m.init(seed=0, device=cuda)
+    opt = AdamW(lr=1e-3)
+    src = SyntheticLM(batch=4, seq=16, vocab=m.cfg.vocab, device=cuda)
+    step = make_train_step(m, opt)
+
+    def step_fn(i, st):
+        pp, oo, _ = step(st["params"], st["opt_state"], src.create(i))
+        return {"params": pp, "opt_state": oo}
+
+    state = {"params": p, "opt_state": opt.init(p)}
+    runner = FaultTolerantRunner(Checkpointer(str(tmp_path),
+                                              async_save=True))
+    final = runner.run(total_steps=12, state=state, step_fn=step_fn,
+                       save_every=3, injector=FaultInjector(fail_at=(4, 9)))
+    runner.ckpt.wait()
+    clean = state
+    for i in range(12):
+        clean = step_fn(i, clean)
+    assert runner.restarts == 2
+    ours = dict(pytree.tree_flatten_with_path(final["params"])[0])
+    for path, leaf in pytree.tree_flatten_with_path(clean["params"])[0]:
+        assert ours[path].is_cuda
+        assert float((ours[path] - leaf).abs().max()) < 1e-6
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "moe_gmm", "ssd_scan"])

@@ -1,10 +1,10 @@
 """Gradients through the kernel ops on the CPU, against ``jax.grad``.
 
-On a CUDA tensor every kernel op refuses an input that requires grad while
-grad mode is on, because its kernel has no backward yet
-(``test_torch_gpu.py::test_kernel_ops_refuse_grad_on_card``).  The refusal
-is confined to the card: on a CPU tensor the ops run their plain versions,
-which carry gradients.  Here the same numpy-seeded inputs and cotangent go
+On a CUDA tensor every kernel op launches its kernel forward and takes the
+backward of its plain version (``kernels/_autograd.py``;
+``test_torch_gpu.py::test_kernel_ops_grad_on_card``).  On a CPU tensor
+the ops run their plain versions, so the gradients here are the ones the
+card's backward computes.  Here the same numpy-seeded inputs and cotangent go
 through the port's op (``torch.autograd``) and through the JAX package's
 plain op (``jax.grad`` of the same scalar, the sum of output times
 cotangent), and the gradients of every floating input must agree.

@@ -32,8 +32,11 @@ def test_import_loads_no_jax_and_no_repro_module():
                     "cluster.runtime", "cluster.control", "cluster.deploy",
                     "cluster.durable", "cluster.sim", "cluster.costs",
                     "cluster.autoscale", "train",
-                    "train.checkpoint",
+                    "train.checkpoint", "train.optimizer",
+                    "train.train_loop", "train.fault", "data",
+                    "data.pipeline", "kernels._autograd",
                     "launch._common", "launch.cluster", "launch.serve",
+                    "launch.train",
                     "serve.engine", "serve.scheduler"):
             assert f"repro_torch.{mod}" in names, mod
         bad = sorted(m for m in sys.modules
@@ -51,6 +54,7 @@ def test_import_loads_no_jax_and_no_repro_module():
 
 def test_sources_name_no_jax_import():
     files = [*sorted((SRC / "repro_torch").rglob("*.py")),
+             *sorted((ROOT / "examples").glob("torch_*.py")),
              ROOT / "chip_smoke.py"]
     for f in files:
         text = f.read_text()

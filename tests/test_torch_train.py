@@ -1,0 +1,358 @@
+"""The port's training substrate against the JAX package's, on the CPU:
+one train step, gradient accumulation, the loop, the fault-tolerant
+runner, the data pipeline, the step as a GPP network, the launcher and the
+example CLI.
+
+Weights are the port's seed-0 draw carried to both packages (see
+``_torch_loss_pairs.py``); batches are ``SyntheticLM``'s, whose tokens are
+the same numpy integers in both.  Float32 at reduced width.  The
+gradients agree within 1e-4 (``test_torch_loss_grads.py``), the moments
+within 1e-6; the parameters after one AdamW step within 5e-5, the
+reference's own gate for two computations of one update
+(``test_grad_accum_equivalence``): the first step moves each weight by
+lr · g / (|g| + eps), so an entry whose gradient is near eps (the key
+bias's is zero in exact arithmetic) turns float rounding of g into up to
+1.3e-5 of step at lr 1e-3.  Twelve steps with restarts compound that:
+2e-4 there.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+import tempfile
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.utils._pytree as pytree
+
+from _torch_loss_pairs import pair
+from repro.data import Prefetcher as JPrefetcher, SyntheticLM as JSyntheticLM
+from repro.train import (AdamW as JAdamW, Checkpointer as JCheckpointer,
+                         FaultInjector as JFaultInjector,
+                         FaultTolerantRunner as JRunner,
+                         make_train_step as jmake_train_step)
+from repro_torch.core import verify
+from repro_torch.data import Prefetcher, SyntheticLM, shard_batch
+from repro_torch.interop import params_from_numpy
+from repro_torch.train import (AdamW, Checkpointer, FaultInjector,
+                               FaultTolerantRunner, make_train_step, remesh,
+                               train)
+from repro_torch.train.train_loop import as_network
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _by_path(tree) -> dict:
+    return {pytree.keystr(k): v
+            for k, v in pytree.tree_flatten_with_path(tree)[0]}
+
+
+def _max_diff(a, b) -> float:
+    """Largest leaf difference, leaves paired by key path (a restored
+    checkpoint holds its dicts' keys in sorted order)."""
+    a, b = _by_path(a), _by_path(b)
+    assert a.keys() == b.keys()
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def _from_jax(tree, like):
+    return params_from_numpy(jax.tree_util.tree_map(np.asarray, tree),
+                             "cpu", like=like)
+
+
+class TestTrainStep:
+    @pytest.mark.parametrize("accum", [1, 2])
+    def test_step_equals_the_references(self, accum):
+        jm, jp, m, p = pair("qwen2-0.5b")
+        jopt, opt = JAdamW(lr=1e-3), AdamW(lr=1e-3)
+        jsrc = JSyntheticLM(batch=8, seq=16, vocab=m.cfg.vocab)
+        src = SyntheticLM(batch=8, seq=16, vocab=m.cfg.vocab, device="cpu")
+        jp2, jo2, jmet = jax.jit(jmake_train_step(jm, jopt, grad_accum=accum))(
+            jp, jopt.init(jp), jsrc.create(0))
+        p2, o2, met = make_train_step(m, opt, grad_accum=accum)(
+            p, opt.init(p), src.create(0))
+        assert _max_diff(p2, _from_jax(jp2, p2)) < 5e-5
+        assert _max_diff(o2["m"], _from_jax(jo2["m"], o2["m"])) < 1e-6
+        assert int(o2["step"]) == 1
+        assert set(met) == set(jmet)
+        for k in met:
+            np.testing.assert_allclose(float(met[k]), float(jmet[k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+
+    def test_grad_accum_equivalence(self):
+        """accum=2 over the same global batch ≈ accum=1 (same update)."""
+        _, _, m, p = pair("qwen2-0.5b")
+        opt = AdamW(lr=1e-3)
+        batch = SyntheticLM(batch=8, seq=16, vocab=m.cfg.vocab,
+                            device="cpu").create(0)
+        p1, _, _ = make_train_step(m, opt, grad_accum=1)(p, opt.init(p),
+                                                         batch)
+        p2, _, _ = make_train_step(m, opt, grad_accum=2)(p, opt.init(p),
+                                                         batch)
+        assert _max_diff(p1, p2) < 5e-5
+
+    def test_step_leaves_its_arguments_alone(self):
+        _, _, m, p = pair("qwen2-0.5b")
+        opt = AdamW(lr=1e-3)
+        state = opt.init(p)
+        batch = SyntheticLM(batch=4, seq=16, vocab=m.cfg.vocab,
+                            device="cpu").create(0)
+        snap = [t.clone() for t in pytree.tree_leaves((p, state, batch))]
+        step = make_train_step(m, opt)
+        a, b = step(p, state, batch), step(p, state, batch)
+        for x, y in zip(pytree.tree_leaves((p, state, batch)), snap):
+            assert torch.equal(x, y)
+        assert _max_diff(a[0], b[0]) == 0.0
+
+    def test_loss_decreases(self):
+        _, _, m, _ = pair("qwen2-0.5b")
+        src = SyntheticLM(batch=8, seq=32, vocab=m.cfg.vocab, device="cpu")
+        res = train(m, src, steps=40, opt=AdamW(lr=1e-2), device="cpu",
+                    log_every=1)
+        losses = [h["loss"] for h in res["history"]]
+        first = sum(losses[:5]) / 5
+        last = sum(losses[-5:]) / 5  # step noise: compare window means
+        assert last < first - 0.25, (first, last)
+        assert res["step"] == 40 and len(res["history"]) == 40
+
+    def test_train_checkpoints_and_refuses_a_mesh(self, tmp_path):
+        _, _, m, _ = pair("qwen2-0.5b")
+        src = SyntheticLM(batch=2, seq=8, vocab=m.cfg.vocab, device="cpu")
+        ck = Checkpointer(str(tmp_path), async_save=True)
+        res = train(m, src, steps=4, device="cpu", checkpointer=ck,
+                    ckpt_every=2, log_every=2)
+        ck.wait()
+        assert ck.steps_on_disk() == [2, 4]
+        assert [h["step"] for h in res["history"]] == [0, 2, 3]
+        step, back = ck.restore({"params": res["params"],
+                                 "opt_state": res["opt_state"]},
+                                device="cpu")
+        assert step == 4 and _max_diff(back["params"], res["params"]) == 0
+        with pytest.raises(NotImplementedError, match="item 12"):
+            train(m, src, steps=1, device="cpu", mesh=object())
+
+    def test_train_runs_on_the_card_by_default(self, monkeypatch):
+        _, _, m, _ = pair("qwen2-0.5b")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train(m, None, steps=1)
+
+
+def _runner_step(m, opt, src):
+    step = make_train_step(m, opt)
+
+    def step_fn(i, st):
+        p, o, _ = step(st["params"], st["opt_state"], src.create(i))
+        return {"params": p, "opt_state": o}
+
+    return step_fn
+
+
+class TestFaultTolerance:
+    @pytest.mark.parametrize("async_save", [False, True],
+                             ids=["sync", "async"])
+    def test_injected_failures_recovered(self, async_save):
+        _, _, m, p = pair("qwen2-0.5b")
+        opt = AdamW(lr=1e-3)
+        step_fn = _runner_step(m, opt, SyntheticLM(
+            batch=4, seq=16, vocab=m.cfg.vocab, device="cpu"))
+        state = {"params": p, "opt_state": opt.init(p)}
+        with tempfile.TemporaryDirectory() as d:
+            runner = FaultTolerantRunner(
+                Checkpointer(d, async_save=async_save), max_restarts=3)
+            final = runner.run(total_steps=12, state=state,
+                               step_fn=step_fn, save_every=3,
+                               injector=FaultInjector(fail_at=(4, 9)))
+            runner.ckpt.wait()
+        assert runner.restarts == 2
+        clean = state  # deterministic data: a clean 12-step run
+        for i in range(12):
+            clean = step_fn(i, clean)
+        assert _max_diff(final["params"], clean["params"]) < 1e-6
+        assert int(final["opt_state"]["step"]) == 12
+
+    def test_recovered_state_equals_the_references(self):
+        """Both packages' runners, failures at 4 and 9: the same final
+        parameters."""
+        jm, jp, m, p = pair("qwen2-0.5b")
+        jopt, opt = JAdamW(lr=1e-3), AdamW(lr=1e-3)
+        jsrc = JSyntheticLM(batch=4, seq=16, vocab=m.cfg.vocab)
+        jstep = jax.jit(jmake_train_step(jm, jopt))
+
+        def jstep_fn(i, st):
+            pp, oo, _ = jstep(st["params"], st["opt_state"], jsrc.create(i))
+            return {"params": pp, "opt_state": oo}
+
+        step_fn = _runner_step(m, opt, SyntheticLM(
+            batch=4, seq=16, vocab=m.cfg.vocab, device="cpu"))
+        with tempfile.TemporaryDirectory() as d1, \
+                tempfile.TemporaryDirectory() as d2:
+            jrun = JRunner(JCheckpointer(d1), max_restarts=3)
+            jfinal = jrun.run(total_steps=12,
+                              state={"params": jp,
+                                     "opt_state": jopt.init(jp)},
+                              step_fn=jstep_fn, save_every=3,
+                              injector=JFaultInjector(fail_at=(4, 9)))
+            run = FaultTolerantRunner(Checkpointer(d2), max_restarts=3)
+            final = run.run(total_steps=12,
+                            state={"params": p, "opt_state": opt.init(p)},
+                            step_fn=step_fn, save_every=3,
+                            injector=FaultInjector(fail_at=(4, 9)))
+        assert run.restarts == jrun.restarts == 2
+        assert _max_diff(final["params"],
+                         _from_jax(jfinal["params"], final["params"])) < 2e-4
+
+    def test_failure_before_any_checkpoint_restarts_from_the_start(self):
+        """No checkpoint yet: step 0 again, from the state given (the
+        reference keeps the failed run's state)."""
+        seen = []
+
+        def step_fn(i, st):
+            seen.append(i)
+            return {"x": st["x"] + 1}
+
+        with tempfile.TemporaryDirectory() as d:
+            runner = FaultTolerantRunner(Checkpointer(d), max_restarts=1)
+            final = runner.run(total_steps=4, state={"x": torch.zeros(())},
+                               step_fn=step_fn, save_every=3,
+                               injector=FaultInjector(fail_at=(2,)))
+        assert seen == [0, 1, 0, 1, 2, 3] and float(final["x"]) == 4.0
+
+    def test_resumes_from_an_existing_checkpoint(self):
+        with tempfile.TemporaryDirectory() as d:
+            ck = Checkpointer(d)
+            ck.save(3, {"x": torch.full((2,), 3.0)})
+            runner = FaultTolerantRunner(ck)
+            seen = []
+
+            def step_fn(i, st):
+                seen.append(i)
+                return {"x": st["x"] + 1}
+
+            final = runner.run(total_steps=5, state={"x": torch.zeros(2)},
+                               step_fn=step_fn, save_every=10)
+        assert seen == [3, 4] and torch.equal(final["x"],
+                                              torch.full((2,), 5.0))
+
+    def test_exceeding_restarts_raises(self):
+        with tempfile.TemporaryDirectory() as d:
+            runner = FaultTolerantRunner(Checkpointer(d), max_restarts=1)
+
+            def bad_step(i, st):
+                raise RuntimeError("permafail")
+
+            with pytest.raises(RuntimeError, match="max_restarts"):
+                runner.run(total_steps=3, state={"x": torch.zeros(1)},
+                           step_fn=bad_step, save_every=1)
+
+    def test_remesh_places_on_a_device(self):
+        tree = {"a": torch.ones(2), "b": [torch.zeros(1), 3]}
+        out = remesh(tree, "cpu")
+        assert out["a"].device.type == "cpu" and out["b"][1] == 3
+        with pytest.raises(NotImplementedError, match="shardings"):
+            remesh(tree, {"a": None})
+
+
+class TestDataPipeline:
+    @pytest.mark.parametrize("args", [(2, 8, 100, 3), (4, 33, 151936, 0),
+                                      (1, 1, 7, 11)])
+    def test_tokens_identical_to_the_references(self, args):
+        batch, seq, vocab, seed = args
+        ours = SyntheticLM(batch, seq, vocab, seed=seed, device="cpu")
+        theirs = JSyntheticLM(batch, seq, vocab, seed=seed)
+        for step in (0, 5, 17):
+            a, b = ours.create(step), theirs.create(step)
+            for k in ("tokens", "labels"):
+                assert a[k].dtype == torch.int32
+                np.testing.assert_array_equal(a[k].numpy(), np.asarray(b[k]))
+
+    def test_synthetic_deterministic(self):
+        src = SyntheticLM(batch=2, seq=8, vocab=100, seed=3, device="cpu")
+        a, b = src.create(5), src.create(5)
+        assert torch.equal(a["tokens"], b["tokens"])
+        assert torch.equal(a["labels"][:, :-1], a["tokens"][:, 1:])
+
+    def test_prefetcher_order_and_ut(self):
+        src = SyntheticLM(batch=1, seq=4, vocab=50, device="cpu")
+        pf = Prefetcher(src, depth=2, n_steps=5)
+        got = list(pf)
+        assert [s for s, _ in got] == [0, 1, 2, 3, 4]  # ordered, then UT
+        jsteps = [s for s, _ in JPrefetcher(JSyntheticLM(1, 4, 50), depth=2,
+                                            n_steps=5)]
+        assert jsteps == [s for s, _ in got]
+        assert torch.equal(got[3][1]["tokens"], src.create(3)["tokens"])
+
+    def test_shard_batch_places_and_refuses_a_mesh(self):
+        b = {"tokens": torch.ones(2, 3, dtype=torch.int32)}
+        assert shard_batch(b, None, device="cpu")["tokens"].device.type \
+            == "cpu"
+        with pytest.raises(NotImplementedError, match="item 12"):
+            shard_batch(b, object())
+        with pytest.raises(NotImplementedError, match="item 12"):
+            Prefetcher(SyntheticLM(1, 4, 50, device="cpu"), mesh=object())
+
+    def test_source_runs_on_the_card_by_default(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SyntheticLM(1, 4, 50)
+
+
+class TestLMAsNetwork:
+    def test_train_network_verifies_and_steps(self):
+        _, _, m, p = pair("qwen2-0.5b")
+        opt = AdamW(lr=1e-3)
+        net = as_network(m, opt)
+        assert net.name == "train[qwen2-0.5b]"
+        report = verify(net)  # gppBuilder accepts the training topology
+        assert report.checks
+        src = SyntheticLM(batch=4, seq=16, vocab=m.cfg.vocab, device="cpu")
+        worker = next(pd for pd in net.procs.values()
+                      if pd.name == "train_step")
+        p2, o2, metrics = worker.fn((p, opt.init(p), src.create(0)))
+        assert np.isfinite(float(metrics["loss"]))
+        assert int(o2["step"]) == 1
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def test_train_cli(capsys):
+    from repro_torch.launch import train as launcher
+    res = launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps",
+                         "8", "--batch", "4", "--seq", "32", "--device",
+                         "cpu"])
+    out = capsys.readouterr().out
+    assert "network train[qwen2-0.5b] verified" in out
+    assert "loss" in out and res["step"] == 8
+    assert np.isfinite(res["history"][-1]["loss"])
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "single"], ["--mesh", "multi"]])
+def test_train_cli_refuses_a_mesh(flag):
+    from repro_torch.launch import train as launcher
+    with pytest.raises(SystemExit, match="item 12"):
+        launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
+                       "cpu", *flag])
+
+
+def test_train_cli_checkpoints(tmp_path, capsys):
+    from repro_torch.launch import train as launcher
+    launcher.main(["--arch", "mamba2-2.7b", "--reduced", "--steps", "4",
+                   "--batch", "2", "--seq", "16", "--device", "cpu",
+                   "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
+    assert Checkpointer(str(tmp_path)).steps_on_disk() == [2, 4]
+    assert "network train[mamba2-2.7b] verified" in capsys.readouterr().out
+
+
+def test_example_recovers_the_injected_failure():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_train_lm.py"),
+         "--device", "cpu", "--steps", "20", "--batch", "2", "--seq", "32"],
+        env=_env(), capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "restarts survived: 1" in out.stdout
+    assert "injected node failure at step 10" in out.stderr
