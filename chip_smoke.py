@@ -3540,6 +3540,357 @@ def run_train_phase(torch, dev, counts, params) -> None:
     print(f"[train] phase 18 wall: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 19: the mesh, 2 ranks sharing the card ------------------------------
+
+MESH_RANKS = 2
+# 19b's gates on the bf16 step against one device, set from the readings
+# of `tools/mesh_phase.py tp` on the card: as it is, the loss 2.7e-4 off,
+# the gradients 7.2e-3 of a leaf's max, the AdamW update 6.0e-8 off;
+# with the mesh's softmax scale 1 % too large, 1.4e-5, 2.0e-2, 1.2e-7;
+# 10 % too large, 6.9e-4, 0.17, 1.2e-7.  The loss cannot tell a 1 % scale
+# from bf16's rounding (nor can f32's 1e-4 gate: 3.8e-6); the gradients
+# can.  The AdamW gate is f32 rounding: an ulp of 1.0 is 1.2e-7.
+TP_STEP_LOSS_GATE = 4e-4
+TP_STEP_GRAD_GATE = 1e-2
+TP_STEP_ADAMW_GATE = 1e-6
+
+
+def digest(arrays) -> str:
+    """sha256 over the bytes of ``arrays`` in order (bit-for-bit gates
+    across processes without shipping the images)."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _rank_grads(torch, model, params, batch):
+    """(loss, {key path: gradient}) through the training step's own
+    ``_value_and_grad`` (DTensor leaves stay sharded)."""
+    import torch.utils._pytree as pytree
+    from repro_torch.train.train_loop import _value_and_grad
+    loss, _, grads = _value_and_grad(model, params, batch)
+    flat, _ = pytree.tree_flatten_with_path(grads)
+    return loss, {pytree.keystr(k): g for k, g in flat}
+
+
+def _shard_rel(mesh_tree, one_tree) -> float:
+    """The worst leaf of ``mesh_tree`` (DTensors) against the same tree on
+    one device, each rank on its own shard (no collective): max |diff|
+    over the whole one-device leaf's max |value|.  The key bias ``bk`` is
+    held to its sibling ``bq``'s scale, as in phase 18b: its exact
+    gradient is zero, so both sides hold rounding."""
+    import torch.utils._pytree as pytree
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.parallel.axes import is_dtensor
+    got = dict((pytree.keystr(k), v) for k, v in
+               pytree.tree_flatten_with_path(mesh_tree)[0])
+    want = dict((pytree.keystr(k), v) for k, v in
+                pytree.tree_flatten_with_path(one_tree)[0])
+    worst = 0.0
+    for key, leaf in got.items():
+        one = want[key]
+        if is_dtensor(leaf):
+            one = distribute_tensor(one, leaf.device_mesh, leaf.placements,
+                                    src_data_rank=None).to_local()
+            leaf = leaf.to_local()
+        scale = float(want[key.replace("['bk']", "['bq']")].abs().max())
+        worst = max(worst, float((leaf - one).abs().max())
+                    / max(scale, 1e-30))
+    return worst
+
+
+def tp_phase(rank: int, dev, reduced: bool, counted, out: dict) -> None:
+    """19b in each rank: full-width qwen2-0.5b (``reduced``: the reduced
+    one) on a (1, 2) ``data × model`` mesh.  In f32, the loss and the
+    gradients of the mesh against one device (rank 0).  Then one training
+    step of the default config (bf16 compute), timed, against the same
+    step on one device (every rank): the loss, the step's gradients (its
+    first moments, (1 - b1) times the clipped gradient) on each rank's
+    shards, and its new parameters against the plain AdamW applied to the
+    mesh's own gradients on each rank's shards."""
+    import dataclasses
+
+    import torch
+    import torch.utils._pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.launch.mesh import make_mesh, train_rules
+    from repro_torch.models import Model
+    from repro_torch.parallel.axes import is_dtensor, shard_ctx
+    from repro_torch.train import AdamW
+    from repro_torch.train.train_loop import make_train_step, place_state
+    mesh2 = make_mesh((1, MESH_RANKS), ("data", "model"), device=dev.type)
+    rules = train_rules()
+    cfg = get_config("qwen2-0.5b", reduced=reduced)
+    batch = SyntheticLM(4, 64 if reduced else 1024, cfg.vocab,
+                        device=dev).create(0)
+    db = shard_batch(batch, mesh2, rules.batch)
+    model32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
+    params = model32.init(seed=0, device=dev)  # phase 6's weights
+    if rank == 0:
+        loss1, grads1 = _rank_grads(torch, model32, params, batch)
+    opt = AdamW()
+    dp, dopt = place_state(params, opt.init(params), mesh2, rules)
+    with shard_ctx(mesh2, rules):
+        loss, grads = counted("tp_grads_f32", lambda: _rank_grads(
+            torch, model32, dp, db))
+    whole = {k: g.full_tensor() for k, g in grads.items()}  # every rank
+    loss = float(loss.full_tensor())
+    out["tp_loss"] = loss
+    if rank == 0:
+        out["tp_loss_err"] = abs(loss - float(loss1))
+        out["tp_grad_rel"] = _shard_rel(whole, grads1)
+        del grads1
+    del whole, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # one training step of the default config (bf16 compute), timed
+    step = make_train_step(Model(cfg), opt)
+    with shard_ctx(mesh2, rules):
+        new_p, new_o, metrics = counted("tp_step", lambda: step(dp, dopt,
+                                                                db))
+    out["tp_step_loss"] = float(metrics["loss"].full_tensor())
+    _, one_o, one_m = step(params, opt.init(params), batch)
+    out["tp_step_loss_one"] = float(one_m["loss"])
+    out["tp_step_loss_err"] = abs(out["tp_step_loss"]
+                                  - out["tp_step_loss_one"])
+    out["tp_step_grad_rel"] = _shard_rel(new_o["m"], one_o["m"])
+    del one_o
+    local = lambda t: pytree.tree_map(  # noqa: E731
+        lambda x: x.to_local() if is_dtensor(x) else x, t)
+    plain = dataclasses.replace(opt, clip_norm=None)
+    grads = pytree.tree_map(lambda m: m / (1 - opt.b1), local(new_o["m"]))
+    want, _, _ = plain.update(grads, plain.init(grads), local(dp))
+    out["tp_step_adamw_err"] = max(
+        float((a - b).abs().max()) for a, b in
+        zip(pytree.tree_leaves(local(new_p)), pytree.tree_leaves(want)))
+    del dp, dopt, new_p, new_o, params, grads, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_counter(device: str):
+    """(out, counted): ``counted(label, fn)`` runs ``fn()`` on the mesh and
+    records in ``out`` its wall, its kernel launches and its collectives
+    under ``label``."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel import collectives as C
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = {"launches": {k: 0 for k in launch_counts()}, "walls": {},
+           "parts": {}, "stats": {}}
+
+    def counted(label, fn):
+        sync()
+        reset_launch_counts()
+        C.reset_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out["walls"][label] = time.perf_counter() - t0
+        got = launch_counts()
+        out["parts"][label] = {k: v for k, v in got.items() if v}
+        out["stats"][label] = C.stats()
+        for k, v in got.items():
+            out["launches"][k] += v
+        return res
+
+    return out, counted
+
+
+def mesh_rank(rank: int, farm_digest: str, edge_digest: str,
+              args: tuple, device: str = "cuda",
+              reduced: bool = False) -> dict:
+    """One rank of phase 19's world (every rank runs this, SPMD, on
+    ``cuda:0``; ``device="cpu"`` and ``reduced`` (a reduced qwen2) make a
+    quick dry run of the same code on the CPU).  Returns its gates, walls,
+    launch counts (of the mesh runs only) and collectives."""
+    import numpy as np
+    import torch
+    from repro_torch import workloads
+    from repro_torch.core import build
+    from repro_torch.interop import tree_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.pipeline import pipeline_forward, split_stages
+    W, H, bands, iters, n_img, size = args
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    out, counted = mesh_counter(device)
+
+    # 19a: the paper's networks, one block of the batch a rank
+    mesh = make_mesh((MESH_RANKS,), ("data",), device=device)
+    farm = build(workloads.mandelbrot_farm(width=W, height=H, bands=bands,
+                                           iterations=iters, axis="data"),
+                 mesh)
+    img = counted("farm", lambda: workloads.assemble(
+        farm.run(instances=bands)["collect"]))
+    out["farm_equal"] = digest([img]) == farm_digest
+    imgs = tree_from_numpy(workloads.synthetic_images(n_img, size), dev)
+    pipe = build(workloads.image_pipeline(imgs, axis="data",
+                                          nodes=MESH_RANKS), mesh)
+    edges = counted("image", lambda: pipe.run(instances=n_img)["collector"])
+    out["image_equal"] = digest(edges) == edge_digest
+    del imgs, pipe, edges
+    systems, truths = workloads.jacobi_systems(2, 4096)
+    systems = tree_from_numpy(systems, dev)
+    one = build(workloads.jacobi(systems, n=4096, nodes=MESH_RANKS,
+                                 tol=1e-6), device=dev).run(
+        instances=2)["collector"]
+    jac = build(workloads.jacobi(systems, n=4096, nodes=MESH_RANKS,
+                                 tol=1e-6, axis="data"), mesh)
+    got = counted("jacobi", lambda: jac.run(instances=2)["collector"])
+    out["jacobi_equal"] = all(np.array_equal(a, b) for a, b in zip(got, one))
+    out["jacobi_err"] = max(float(np.max(np.abs(x - t)))
+                            for x, t in zip(got, truths))
+    del systems, jac
+
+    # 19b: full-width qwen2-0.5b, tensor-parallel over a (1, 2) mesh
+    tp_phase(rank, dev, reduced, counted, out)
+
+    # 19c: GPipe over 2 stages and the int8 ring over 2 ranks
+    stage = make_mesh((MESH_RANKS,), ("stage",), device=device)
+    rng = np.random.default_rng(0)
+    ws = torch.from_numpy((rng.normal(size=(8, 256, 256)) * 0.06).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(16, 64, 256)).astype(
+        np.float32)).to(dev)
+
+    def block_fn(lp, h):
+        for w in lp:
+            h = torch.tanh(h @ w)
+        return h
+
+    got = counted("pipeline", lambda: pipeline_forward(
+        block_fn, split_stages(ws, MESH_RANKS), x, mesh=stage,
+        n_stages=MESH_RANKS, n_micro=4))
+    # the layers in order on each microbatch (cuBLAS picks its kernel by
+    # the row count, so the whole batch at once differs by rounding)
+    seq = torch.cat([block_fn(ws, m) for m in x.chunk(4)])
+    out["pipeline_err"] = float((got - seq).abs().max())
+    out["pipeline_whole_err"] = float((got - block_fn(ws, x)).abs().max())
+    g = torch.from_numpy((np.random.default_rng(2).normal(
+        size=(MESH_RANKS, 1 << 20)) * 0.01).astype(np.float32)).to(dev)
+    exact = g.sum(0)
+    r1, err = counted("ring", lambda: C.ring_allreduce_int8(
+        g[rank], mesh, "data", MESH_RANKS))
+    r2, _ = C.ring_allreduce_int8(g[rank], mesh, "data", MESH_RANKS,
+                                  error=err)
+    scale = float(exact.abs().max())
+    out["ring_rel"] = (float((r1 - exact).abs().max()) / scale,
+                       float(((r1 + r2) / 2 - exact).abs().max()) / scale)
+    return out
+
+
+def _kinds(stats: dict) -> str:
+    return ", ".join(f"{k} {v['calls']}x {v['bytes'] / 1e6:.1f} MB"
+                     for k, v in sorted(stats.items())) or "none"
+
+
+def run_mesh_phase(torch, farm_digest, edge_digest, args) -> dict:
+    """Phase 19: a world of 2 ranks sharing ``cuda:0``, gated against the
+    digests of phase 2's image and phase 3's edge maps; returns the kernel
+    launches of its mesh runs, summed over the ranks."""
+    import multiprocessing
+    import threading
+    from repro_torch.launch.mesh import run_world, world_backend
+    t_phase = time.perf_counter()
+    shm_before = set(os.listdir("/dev/shm"))
+    threads_before = set(threading.enumerate())
+    backend = world_backend("cuda")
+    print(f"[mesh] {MESH_RANKS} ranks on cuda:0, backend {backend}: gloo "
+          "carries every collective, each CUDA tensor staged through host "
+          "memory (NCCL refuses two ranks on one GPU)")
+    res = run_world(mesh_rank, MESH_RANKS, farm_digest, edge_digest, args,
+                    device="cuda", timeout=300, join_timeout=900)
+    W, H, bands, iters, n_img, size = args
+    for r, o in enumerate(res):
+        print(f"[mesh] rank {r} walls: " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in o["walls"].items()))
+        print(f"[mesh] rank {r} launches: {o['parts']}")
+        check(o["farm_equal"], f"19a rank {r}: the farm differs from phase 2")
+        check(o["parts"]["farm"] == {"mandelbrot": bands // MESH_RANKS},
+              f"19a rank {r}: farm launches {o['parts']['farm']}")
+        check(o["image_equal"], f"19a rank {r}: the pipeline differs from "
+              "phase 3")
+        check(o["parts"]["image"] == {"stencil": n_img},
+              f"19a rank {r}: pipeline launches {o['parts']['image']}")
+        check(o["jacobi_equal"], f"19a rank {r}: Jacobi differs from one "
+              "device")
+        check(o["jacobi_err"] < 1e-3, f"19a rank {r}: Jacobi error "
+              f"{o['jacobi_err']}")
+        for label in ("tp_grads_f32", "tp_step"):
+            check(o["parts"][label] == {"flash_attention": 48},
+                  f"19b rank {r}: {label} launches {o['parts'][label]}")
+        check(math.isfinite(o["tp_step_loss"]), f"19b rank {r}: loss")
+        check(o["tp_step_loss_err"] < TP_STEP_LOSS_GATE, f"19b rank {r}: "
+              f"the bf16 step's loss differs by {o['tp_step_loss_err']}")
+        check(o["tp_step_grad_rel"] < TP_STEP_GRAD_GATE, f"19b rank {r}: a "
+              f"bf16 gradient leaf differs by {o['tp_step_grad_rel']} of "
+              "its max")
+        check(o["tp_step_adamw_err"] < TP_STEP_ADAMW_GATE, f"19b rank {r}: "
+              f"the AdamW update differs by {o['tp_step_adamw_err']}")
+        check(o["pipeline_err"] == 0.0, f"19c rank {r}: pipeline differs "
+              f"by {o['pipeline_err']}")
+        rel1, rel2 = o["ring_rel"]
+        check(rel1 < 0.05 and rel2 < rel1, f"19c rank {r}: ring {rel1}, "
+              f"{rel2}")
+    o = res[0]
+    print(f"[mesh] 19a farm (64 bands of (32, 4096), 1000 iterations) == "
+          f"phase 2: True, {bands // MESH_RANKS} mandelbrot launches a rank; "
+          f"image pipeline == phase 3: True, {n_img} stencil launches a "
+          f"rank; Jacobi (2 systems, n=4096, 2 nodes) == one device: True, "
+          f"max|x - x_true| {o['jacobi_err']:.2e}")
+    print(f"[mesh] 19a collectives (rank 0): farm {_kinds(o['stats']['farm'])}"
+          f"; image {_kinds(o['stats']['image'])}; Jacobi "
+          f"{_kinds(o['stats']['jacobi'])}")
+    print(f"[mesh] 19b qwen2-0.5b full width f32 on (1, 2), (4, 1024): loss "
+          f"{o['tp_loss']:.6f}, against one device {o['tp_loss_err']:.3e} "
+          f"(gate 1e-4); worst gradient leaf {o['tp_grad_rel']:.3e} of its "
+          "max (gate 1e-3); 48 flash launches a rank")
+    check(o["tp_loss_err"] < 1e-4, "19b: loss differs from one device by "
+          f"{o['tp_loss_err']}")
+    check(o["tp_grad_rel"] < 1e-3, "19b: a gradient leaf differs by "
+          f"{o['tp_grad_rel']} of its max")
+    worst = lambda k: max(r[k] for r in res)  # noqa: E731
+    print(f"[mesh] 19b train step bf16 (default config): loss "
+          f"{o['tp_step_loss']:.5f}, one device {o['tp_step_loss_one']:.5f}"
+          f", {o['tp_step_loss_err']:.3e} off (gate {TP_STEP_LOSS_GATE}); "
+          f"the worst gradient leaf (the step's first moments, each rank's "
+          f"shards) {worst('tp_step_grad_rel'):.3e} of its max (gate "
+          f"{TP_STEP_GRAD_GATE}); new weights against the plain AdamW of "
+          f"the mesh's gradients {worst('tp_step_adamw_err'):.3e} (gate "
+          f"{TP_STEP_ADAMW_GATE}); step wall {o['walls']['tp_step']:.3f} s "
+          f"(the first on the mesh; f32 loss and grads "
+          f"{o['walls']['tp_grads_f32']:.3f} s)")
+    print(f"[mesh] 19b collectives a step (rank 0): "
+          f"{_kinds(o['stats']['tp_step'])}")
+    print(f"[mesh] 19c pipeline_forward over 2 stages == the layers in "
+          f"order on each microbatch: True (0.0); against the whole batch "
+          f"at once {o['pipeline_whole_err']:.3e}; int8 ring rel {o['ring_rel'][0]:.4f}, with error "
+          f"feedback {o['ring_rel'][1]:.4f}; ring collectives "
+          f"{_kinds(o['stats']['ring'])}")
+    left = [p.name for p in multiprocessing.active_children()
+            if p.name.startswith("rank")]
+    check(not left, f"phase 19 left rank processes: {left}")
+    threads = set(threading.enumerate()) - threads_before
+    check(not threads, f"phase 19 left threads: {threads}")
+    new_shm = set(os.listdir("/dev/shm")) - shm_before
+    check(not new_shm, f"phase 19 left /dev/shm entries: {sorted(new_shm)}")
+    launched = {k: sum(r["launches"][k] for r in res) for k in o["launches"]}
+    print(f"[mesh] phase 19 launches (both ranks): {launched}; no rank "
+          f"process, thread or /dev/shm entry left; phase 19 wall: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3599,6 +3950,7 @@ def main() -> int:
     run_sim_phase(torch, launch_counts, farm_img, (W, H, BANDS, ITERS))
     run_costs_phase(torch, launch_counts, farm_img, edge_maps, entries,
                     (W, H, BANDS, ITERS), 16, 2048)
+    mesh_refs = (digest([farm_img]), digest(edge_maps))  # phase 19's gates
     del farm_img, edge_maps
     # phase 16 is its own path: it must launch no kernel
     before_farm = launch_counts()
@@ -3665,6 +4017,11 @@ def main() -> int:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 19 (2 ranks sharing the card) is counted apart, from 0, in its
+    # ranks, and added
+    launched_19 = run_mesh_phase(torch, *mesh_refs,
+                                 (W, H, BANDS, ITERS, 16, 2048))
+    launched = {k: v + launched_19[k] for k, v in launched.items()}
     torch.cuda.reset_peak_memory_stats()
     memory(torch, "before the MoE phases")
     reset_launch_counts()  # the MoE path starts here

@@ -12,8 +12,16 @@ parallel):
   workers become the batch dimension.
 
 Both run on one device, the card unless the caller passes ``device="cpu"``;
-the emitted items are moved there.  PyTorch runs eagerly, so a non-batched
-Worker (and every Engine) runs as a loop over the items of the batch
+the emitted items are moved there.  Built over a mesh
+(:class:`repro_torch.launch.mesh.Mesh`, inside a world of its ranks), the
+fused and streaming runs are one SPMD program: a FAN with an ``axis`` gives
+each rank its block of the batch, the stages run on the local block, and
+every point where the batch must be whole again (a cast, a MERGE with an
+axis, a COMBINE, a Collect, an Engine with an axis of its own) gathers the
+blocks in rank order (:func:`repro_torch.parallel.collectives.merge_gather`)
+— the folds then run in item order as on one device, so results stay
+bit-identical.  PyTorch runs eagerly, so a non-batched Worker (and every
+Engine) runs as a loop over the items of the batch
 followed by ``torch.stack`` — the same per-item calls as the oracle, which
 is what keeps the two bit-identical even where the stage launches a
 hand-written kernel that ``torch.func.vmap`` could not batch.
@@ -37,6 +45,7 @@ import torch.utils._pytree as pytree
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..device import as_tensor_tree, resolve_device, to_device
+from ..parallel.collectives import block, merge_gather
 from .dataflow import Distribution, Kind, Network, NetworkError, ProcessDef
 from .verify import verify
 
@@ -156,22 +165,69 @@ class StageLog:
 
 
 class CompiledNetwork:
-    """A verified network bound to one device, executable as one fused
-    program (``run``), stage by stage with logging (``run(logged=True)``) or
-    as a stream of microbatches (``run_streaming``).
+    """A verified network bound to one device (and optionally a mesh of
+    ranks), executable as one fused program (``run``), stage by stage with
+    logging (``run(logged=True)``) or as a stream of microbatches
+    (``run_streaming``).
     """
 
     def __init__(self, net: Network, mesh=None, device=None):
-        if mesh is not None:
-            raise NetworkError("the PyTorch port runs on one device: "
-                               "mesh must be None")
         self.net = net
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.device_mesh()  # raises outside a world of the mesh's size
+            if device is None:
+                device = mesh.device
+            elif torch.device(device).type != mesh.device.type:
+                raise NetworkError(f"device {device} is not the mesh's "
+                                   f"{mesh.device}")
         self.device = resolve_device(device)
         self.report = verify(net)
         self.order = net.toposort()
         self.logs: list[StageLog] = []
         self.stream_stats = None  # set by run_streaming
         self._streams: dict = {}  # StreamExecutor cache (stage fns persist)
+
+    # -- the mesh: where a wire's batch lies ---------------------------------
+    def _mesh_axis(self, axis):
+        """``axis`` cut to the axes of the mesh (None without a mesh or
+        when none of them is there)."""
+        if self.mesh is None or axis is None:
+            return None
+        axes = tuple(a for a in (axis if isinstance(axis, tuple) else (axis,))
+                     if a in self.mesh.shape)
+        if not axes:
+            return None
+        return axes if isinstance(axis, tuple) else axes[0]
+
+    def _scatter(self, x, axis):
+        """(this rank's block of the batch ``x`` over ``axis``, the axis it
+        is sharded over).  A batch that does not split into the axis' ranks
+        stays whole on every rank: ``(x, None)``."""
+        ax = self._mesh_axis(axis)
+        if ax is None:
+            return x, None
+        n = 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            n *= self.mesh.shape[a]
+        if _leading(x) % n:
+            return x, None
+        return pytree.tree_map(
+            lambda l: block(l, self.mesh, ax) if isinstance(l, torch.Tensor)
+            else l, x), ax
+
+    def _whole(self, x, ax):
+        """The whole batch of a wire sharded over ``ax`` (None: it is)."""
+        if ax is None:
+            return x
+        return pytree.tree_map(
+            lambda l: merge_gather(l, self.mesh, ax)
+            if isinstance(l, torch.Tensor) else l, x)
+
+    def _engine_axis(self, p: ProcessDef) -> bool:
+        """Does the Engine shard its item over the mesh itself?"""
+        return (p.kind is Kind.ENGINE and self.mesh is not None
+                and getattr(p.engine, "axis", None) is not None)
 
     # -- shared stage path ---------------------------------------------------
     def stage_fn(self, name: str) -> Optional[Callable]:
@@ -189,7 +245,8 @@ class CompiledNetwork:
                 return lambda x: p.fn(x, *p.modifier)
             return lambda x: map_items(lambda v: p.fn(v, *p.modifier), x)
         if p.kind is Kind.ENGINE:
-            return lambda x: map_items(p.engine.apply, x)
+            return lambda x: map_items(
+                lambda it: p.engine.apply(it, mesh=self.mesh), x)
         if p.kind is Kind.REDUCER and p.distribution is Distribution.COMBINE:
             def _comb(*vals):
                 acc = vals[0]
@@ -238,6 +295,7 @@ class CompiledNetwork:
         batched outputs destined for host-side collectors.
         """
         net = self.net
+        # each wire: (value, the mesh axis its batch is sharded over or None)
         wires: dict[tuple[str, str], Any] = {}
         results: dict[str, Any] = {}
         host_streams: dict[str, Any] = {}
@@ -245,36 +303,47 @@ class CompiledNetwork:
         def _in(name: str) -> list:
             return [wires[(p, name)] for p in net.predecessors(name)]
 
+        def _whole_in(name: str) -> list:
+            return [self._whole(x, ax) for x, ax in _in(name)]
+
         for name in self.order:
             p = net.procs[name]
             succs = net.successors(name)
             if p.kind is Kind.EMIT:
                 for s in succs:
-                    wires[(name, s)] = batch
+                    wires[(name, s)] = (batch, None)
             elif p.kind is Kind.SPREADER:
-                (x,) = _in(name)
-                if p.distribution is Distribution.FAN and len(succs) > 1:
-                    outs = _fan_split(x, len(succs))
-                else:  # single successor, or casts: all read the same value
-                    outs = [x for _ in succs]
+                (x,) = _whole_in(name)
+                if p.distribution is Distribution.FAN:
+                    outs = (_fan_split(x, len(succs)) if len(succs) > 1
+                            else [x])
+                    outs = [self._scatter(o, p.axis) for o in outs]
+                else:  # casts: all read the same whole value
+                    outs = [(x, None) for _ in succs]
                 for j, s in enumerate(succs):
                     wires[(name, s)] = outs[j]
             elif p.kind in (Kind.WORKER, Kind.ENGINE):
-                (x,) = _in(name)
+                ((x, ax),) = _in(name)
+                if self._engine_axis(p):  # it shards each whole item itself
+                    x, ax = self._whole(x, ax), None
                 out = call(name, p.kind.value, self.stage_fn(name), x)
                 for s in succs:
-                    wires[(name, s)] = out
+                    wires[(name, s)] = (out, ax)
             elif p.kind is Kind.REDUCER:
-                xs = _in(name)
                 if p.distribution is Distribution.COMBINE:
                     # fold across branches, then across the batch axis
-                    out = call(name, "reducer", self.stage_fn(name), *xs)
+                    out = (call(name, "reducer", self.stage_fn(name),
+                                *_whole_in(name)), None)
+                elif len(net.predecessors(name)) == 1 and (
+                        self._mesh_axis(p.axis) is None):
+                    (out,) = _in(name)  # MERGE of one stream: a wire
                 else:  # MERGE
-                    out = xs[0] if len(xs) == 1 else _fan_merge(xs)
+                    xs = _whole_in(name)
+                    out = (xs[0] if len(xs) == 1 else _fan_merge(xs), None)
                 for s in succs:
                     wires[(name, s)] = out
             elif p.kind is Kind.COLLECT:
-                xs = _in(name)
+                xs = _whole_in(name)
                 x = xs[0] if len(xs) == 1 else _fan_merge(xs)
                 if p.jit_combine:
                     results[name] = call(name, "collect",
@@ -507,6 +576,7 @@ def _fold_batch(combine: Callable, x, init=None):
 
 
 def build(net: Network, mesh=None, *, device=None) -> CompiledNetwork:
-    """Verify + bind the network to ``device`` (``None``: the card) — the
-    gppBuilder entry point."""
+    """Verify + bind the network to ``device`` (``None``: the card, or the
+    mesh's device) and, optionally, to a ``mesh`` of ranks (inside a world
+    of its size) — the gppBuilder entry point."""
     return CompiledNetwork(net, mesh=mesh, device=device)

@@ -509,14 +509,27 @@ class StreamExecutor:
         for each Collect (pre-fold), the host-side collect streams, and the
         work-stealing lanes this chunk occupies.
         """
-        net = self.net
+        net, cn = self.net, self.cn
         wires: dict[tuple[str, str], Any] = {}
+        # over a mesh: the axis a wire's chunk is sharded over (absent: the
+        # chunk is whole on every rank), as in the fused run
+        sharded: dict[tuple[str, str], Any] = {}
         collect_streams: dict[str, Any] = {}
         host_streams: dict[str, Any] = {}
         lanes_used: list[int] = []
 
-        def _pop_in(name: str) -> list:
-            return [wires.pop((q, name)) for q in net.predecessors(name)]
+        def _pop_in(name: str, whole: bool = True) -> list:
+            xs = []
+            for q in net.predecessors(name):
+                x, ax = wires.pop((q, name)), sharded.pop((q, name), None)
+                xs.append(x if x is _SKIP or not whole
+                          else cn._whole(x, ax))
+            return xs
+
+        def _scatter(name: str, s: str, x) -> None:
+            if x is not _SKIP and p.distribution is Distribution.FAN:
+                x, sharded[(name, s)] = cn._scatter(x, p.axis)
+            wires[(name, s)] = x
 
         for name in self.order:
             p = net.procs[name]
@@ -540,17 +553,17 @@ class StreamExecutor:
                             lanes_used.append(lane)
                         take = lane % len(succs)
                         for j, s in enumerate(succs):
-                            wires[(name, s)] = x if j == take else _SKIP
+                            _scatter(name, s, x if j == take else _SKIP)
                     else:  # heterogeneous branches: item-level round-robin —
                         # every chunk must split evenly or assignment drifts
                         # from the sequential oracle's
                         outs = _fan_split(x, len(succs))
                         for j, s in enumerate(succs):
-                            wires[(name, s)] = outs[j]
+                            _scatter(name, s, outs[j])
                 else:  # one successor, or casts: every successor reads the
                     # same value (stages never write their inputs)
                     for s in succs:
-                        wires[(name, s)] = x
+                        _scatter(name, s, x)
             elif p.kind in (Kind.WORKER, Kind.ENGINE):
                 if name in self._chain_members:
                     continue  # runs inside its chain head's fused stage
@@ -559,7 +572,12 @@ class StreamExecutor:
                 # a fused chain's output feeds the TAIL's successors
                 out_of, succs = ((chain[-1], net.successors(chain[-1]))
                                  if chain else (name, succs))
-                (x,) = _pop_in(name)
+                ax = sharded.get((net.predecessors(name)[0], name))
+                if any(cn._engine_axis(net.procs[m])  # it shards each
+                       for m in chain or (name,)):    # whole item itself
+                    (x,), ax = _pop_in(name), None
+                else:
+                    (x,) = _pop_in(name, whole=False)
                 if x is _SKIP:
                     out = _SKIP
                 else:
@@ -570,6 +588,8 @@ class StreamExecutor:
                     self.stats.donation.setdefault(label, [0, 0])
                 for s in succs:
                     wires[(out_of, s)] = out
+                    if ax is not None:
+                        sharded[(out_of, s)] = ax
             elif p.kind is Kind.REDUCER:
                 xs = [v for v in _pop_in(name) if v is not _SKIP]
                 if p.distribution is Distribution.COMBINE:

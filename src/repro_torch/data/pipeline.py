@@ -59,20 +59,24 @@ class SyntheticLM(TokenSource):
 
 def shard_batch(batch: dict, mesh=None, batch_axes=("pod", "data"),
                 device=None) -> dict:
-    """Place a host batch on ``device`` (``None``: the card).  A mesh is
-    refused: sharding over several cards is the port's last slice."""
-    del batch_axes
-    if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch: the port runs on one device; a mesh comes with "
-            "the multi-device slice (ROADMAP §1 item 12)")
-    return to_device(batch, resolve_device(device))
+    """Place a host batch on ``device`` (``None``: the card) or, given a
+    mesh (inside a world of its ranks), as DTensors sharded over the batch
+    axes the mesh has (``batch_specs``: a leaf whose batch does not divide
+    them, or a 0-d one, is replicated).  Every rank passes the same whole
+    batch and keeps its own rows."""
+    if mesh is None:
+        return to_device(batch, resolve_device(device))
+    from ..parallel.axes import ShardingRules
+    from ..parallel.sharding import batch_specs, place, to_shardings
+    rules = ShardingRules(batch=batch_axes)
+    return place(batch, to_shardings(batch_specs(batch, mesh, rules), mesh))
 
 
 class Prefetcher:
     """Emit with a buffered channel: background thread + bounded queue.
-    Iterating yields ``(step, batch)`` in order, each batch on ``device``,
-    then stops (the universal terminator)."""
+    Iterating yields ``(step, batch)`` in order, each batch on ``device``
+    (or sharded over ``mesh``, :func:`shard_batch`), then stops (the
+    universal terminator)."""
 
     def __init__(self, source: TokenSource, *, mesh=None, depth: int = 2,
                  start_step: int = 0, n_steps: Optional[int] = None,
@@ -81,9 +85,10 @@ class Prefetcher:
         self.mesh = mesh
         # the source's own device unless one is given (None: the card)
         self.device = resolve_device(
-            device if device is not None else getattr(source, "device", None))
-        if mesh is not None:  # refuse up front, not in the worker thread
-            shard_batch({}, mesh)
+            device if device is not None else getattr(source, "device", None)
+            if mesh is None else mesh.device)
+        if mesh is not None:  # bind it here, not in the worker thread
+            mesh.device_mesh()
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._thread = threading.Thread(

@@ -25,11 +25,13 @@ that of the plain version, recomputed from the saved q, k, v with its
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ...parallel.axes import is_dtensor
 from .. import _autograd, _launches
 from . import kernel, ref
 
@@ -54,6 +56,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"mha: causal attention needs Sq <= Sk, got "
                          f"{Sq} > {Sk}")
     scale = scale if scale is not None else D ** -0.5
+    if is_dtensor(q):
+        return _mha_sharded(q, k, v, causal=causal, scale=scale)
     if q.device.type == "cpu":
         return ref.mha(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
@@ -73,6 +77,52 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 mha.launches = 0
+
+
+def _mha_sharded(q, k, v, *, causal: bool, scale: float):
+    """``mha`` of DTensors: each rank runs the op (the kernel on the card)
+    on its own batch rows and query heads, through ``local_map``.
+
+    q keeps a shard of its batch dim (0) or head dim (1) and gathers any
+    other; k and v follow q's batch shards, and q's head shards where K
+    divides them.  Where it does not, k and v stay whole on the rank, the
+    rank takes the KV heads of its own query groups (h // (H/K)), and the
+    gradients of k and v are summed over the ranks."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = q.device_mesh
+    H, K = q.shape[1], k.shape[1]
+    qp = [pl if isinstance(pl, Shard) and pl.dim in (0, 1) else Replicate()
+          for pl in q.placements]
+    head_dims = [i for i, pl in enumerate(qp) if pl == Shard(1)]
+    # k and v split their heads as q's only where K divides all the ways
+    select = K % math.prod(dm.size(i) for i in head_dims) != 0
+    kp = [Replicate() if select and i in head_dims else pl
+          for i, pl in enumerate(qp)]
+    # each rank's gradient of whole k and v holds only its own heads'
+    # share: a partial sum over the head ways, not a replica
+    kg = [Partial() if select and i in head_dims else pl
+          for i, pl in enumerate(qp)]
+    h0 = 0
+    for i in head_dims:  # the first query head of this rank
+        h0 = h0 * dm.size(i) + dm.get_local_rank(i)
+
+    def local(ql, kl, vl):
+        if select:
+            idx = (torch.arange(ql.shape[1]) + h0 * ql.shape[1]) // (H // K)
+            u = idx.unique_consecutive()
+            if torch.equal(idx, u.repeat_interleave(len(idx) // len(u))):
+                idx = u  # whole groups: keep the GQA layout
+            idx = idx.to(kl.device)
+            kl, vl = kl.index_select(1, idx), vl.index_select(1, idx)
+        return mha(ql, kl, vl, causal=causal, scale=scale)
+
+    # a list is the placements of one output (a tuple would be one per
+    # output)
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kg, kg), device_mesh=dm,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def _launch(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:

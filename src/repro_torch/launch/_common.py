@@ -7,9 +7,11 @@ launchers, whose flags they take.
 
 ``--autoscale`` / ``--min-hosts`` / ``--max-hosts`` describe an
 :class:`~repro_torch.cluster.AutoscalePolicy` (:func:`autoscale_policy`).
-``--virtual-devices`` parses as it does in the JAX package and then
-refuses (:func:`refuse_later_flags`): it fakes XLA host devices, which a
-PyTorch process has none of.
+``--virtual-devices N`` (the JAX package fakes N XLA host devices) runs
+the training launcher as a world of N local ranks
+(:func:`repro_torch.launch.mesh.run_world`).  The cluster and serve
+launchers parse it and refuse it (:func:`refuse_later_flags`): their
+``device`` transport places hosts on cards, not on the ranks of a mesh.
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ def add_cluster_flags(ap: argparse.ArgumentParser, *,
                          "thread hosts whose tensors stay on the card)")
     ap.add_argument("--virtual-devices", type=int, default=0, metavar="N",
                     help="an XLA flag of the JAX package's launcher; "
-                         "refused here (multi-device comes last, ROADMAP "
-                         "§1 item 12)")
+                         "refused here: hosts sit on cards, not on mesh "
+                         "ranks (ROADMAP §1 item 12)")
     ap.add_argument("--tcmalloc", action="store_true",
                     help="LD_PRELOAD tcmalloc (when present on the image) "
                          "so every spawned host inherits the faster "
@@ -93,8 +95,9 @@ def refuse_later_flags(args) -> None:
     port cannot honour yet."""
     if getattr(args, "virtual_devices", 0):
         raise SystemExit(
-            "--virtual-devices fakes XLA host devices for the JAX package; "
-            "the port's multi-device path comes last (ROADMAP §1 item 12)")
+            "--virtual-devices: this launcher's device transport places "
+            "hosts on cards, not on the ranks of a mesh; only the training "
+            "launcher runs a world of ranks (ROADMAP §1 item 12)")
 
 
 def apply_runtime_env(args) -> None:

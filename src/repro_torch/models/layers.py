@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import ops as fops, ref as fref
-from ..parallel.axes import act
+from ..parallel.axes import act, is_dtensor
 
 # --------------------------------------------------------------------------
 # init helpers (weights drawn on the generator's device)
@@ -340,7 +340,16 @@ def embedding_init(gen: torch.Generator, cfg, dtype) -> dict:
 
 
 def embed(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    w = p["embed"]
+    if is_dtensor(w):  # the lookup of rows sharded over a mesh has no
+        # sharding rule that holds in its backward: the table is whole on
+        # every rank for the lookup, through F.embedding
+        from torch.distributed.tensor import Replicate
+        w = w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+        x = F.embedding(tokens.long(), w)
+    else:
+        x = w[tokens.long()]
+    x = x.to(getattr(torch, cfg.compute_dtype))
     if cfg.embed_scale:  # the scale rounds to x's dtype first, as in JAX
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return act(x, "batch", "seq", "d")

@@ -42,6 +42,7 @@ import torch
 import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.axes import act
 from . import layers, mamba, moe
 
 __all__ = ["structure", "init_params", "forward", "hidden_states",
@@ -251,6 +252,9 @@ def _nll_dense(cfg, params, hidden, labels):
     """Summed negative log-likelihood of ``labels`` under the float32
     logits of ``hidden``."""
     logits = layers.unembed(params["embedding"], cfg, hidden).float()
+    # the vocab gather has no sharding rule: the logits' rows are whole on
+    # every rank of a mesh (a no-op on one device)
+    logits = act(logits, "batch", "seq", None)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.sum(logz - gold)

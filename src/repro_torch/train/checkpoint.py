@@ -32,6 +32,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..device import resolve_device
+from ..parallel.axes import is_dtensor
 
 __all__ = ["Checkpointer"]
 
@@ -67,11 +68,19 @@ def _to_host(leaf) -> np.ndarray:
     the tree after ``save`` returns never reaches an async write."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if is_dtensor(t):  # a leaf sharded over a mesh: its whole value
+            t = t.full_tensor()
         t = t.cpu() if t.device.type != "cpu" else t.clone()
         if t.dtype == torch.bfloat16:
             return t.contiguous().view(torch.int16).numpy().view(np.uint16)
         return t.numpy()
     return np.array(leaf)
+
+
+def _rank() -> int:
+    """This process's rank in a running world (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _dtype_name(leaf, host: np.ndarray) -> str:
@@ -92,7 +101,9 @@ class Checkpointer:
     # -- save ----------------------------------------------------------------
     def save(self, step: int, tree: Any) -> None:
         leaves, structure = _flatten(tree)
-        host = [_to_host(l) for l in leaves]
+        host = [_to_host(l) for l in leaves]  # every rank of a mesh gathers
+        if _rank() != 0:
+            return  # the ranks of a world share one directory: rank 0 writes
         dtypes = [_dtype_name(l, h) for l, h in zip(leaves, host)]
         self.wait()  # one write in flight at a time — a sync save after an
         # async one must not race it for the LATEST pointer
@@ -162,9 +173,12 @@ class Checkpointer:
         return sorted(out)
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device=None) -> tuple[int, Any]:
+                device=None, shardings: Any = None) -> tuple[int, Any]:
         """Restore into the structure of ``like``, every leaf a tensor on
-        ``device`` (``None``: the card).
+        ``device`` (``None``: the card).  ``shardings`` (a tree of
+        :class:`repro_torch.parallel.sharding.NamedSharding` shaped like
+        ``like``) places each leaf on a mesh instead — the elastic-remesh
+        path: a checkpoint written on one mesh restores onto any other.
 
         When ``step`` is None, a corrupt latest snapshot (a leaf truncated
         by a torn write, an unparseable manifest, a structure mismatch,
@@ -172,9 +186,10 @@ class Checkpointer:
         raising; only when *no* step on disk restores is the newest step's
         error raised.  An explicit ``step`` is strict.
         """
-        dev = resolve_device(device)
+        dev = (_mesh_device(shardings) if shardings is not None
+               else resolve_device(device))
         if step is not None:
-            return self._load_step(step, like, dev)
+            return self._load_step(step, like, dev, shardings)
         latest = self.latest_step()
         candidates = self.steps_on_disk()
         if latest is not None and latest not in candidates:
@@ -184,14 +199,14 @@ class Checkpointer:
         first_err: Optional[Exception] = None
         for s in sorted(candidates, reverse=True):
             try:
-                return self._load_step(s, like, dev)
+                return self._load_step(s, like, dev, shardings)
             except Exception as e:  # corrupt/partial step: try the previous
                 if first_err is None:
                     first_err = e
         raise first_err  # type: ignore[misc]
 
-    def _load_step(self, step: int, like: Any,
-                   device: torch.device) -> tuple[int, Any]:
+    def _load_step(self, step: int, like: Any, device: torch.device,
+                   shardings: Any = None) -> tuple[int, Any]:
         name = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(name, "manifest.json")) as f:
             manifest = json.load(f)
@@ -207,4 +222,15 @@ class Checkpointer:
                 t = torch.from_numpy(arr if arr.flags.c_contiguous
                                      else np.ascontiguousarray(arr))
             out.append(t.to(device))
+        if shardings is not None:
+            sh, _ = _flatten(shardings)
+            out = [s.place(t) for s, t in zip(sh, out)]
         return step, _unflatten(structure, out)
+
+
+def _mesh_device(shardings) -> torch.device:
+    """The device of the mesh a tree of shardings places leaves on."""
+    from ..parallel.sharding import NamedSharding
+    first = next(s for s in pytree.tree_leaves(shardings)
+                 if isinstance(s, NamedSharding))
+    return first.mesh.device

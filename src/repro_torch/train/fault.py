@@ -9,9 +9,12 @@ contract here is:
   a restore from the last atomic checkpoint and a retry, with bounded
   restarts.  A restored leaf lands on the device of its leaf in the state
   the runner was given.
-* **re-placement**: :func:`remesh` re-places a (params, opt_state) tree on
-  a device.  The reference re-places it on new shardings of a mesh (fewer
-  or more hosts); shardings come with the port's multi-device slice.
+* **elastic re-mesh**: :func:`remesh` re-places a (params, opt_state)
+  tree onto *new* shardings, possibly of a different mesh (fewer or more
+  hosts): each leaf is gathered whole, then placed by its new
+  :class:`~repro_torch.parallel.sharding.NamedSharding`.  Because
+  optimizer state shards like params, shrinking the data axis just works.
+  Given a device instead, it re-places the tree on that one device.
 * **straggler mitigation**: within one step there is nothing to mitigate;
   at the host layers the GPP any-channel semantics give work stealing (the
   serving scheduler hands a request to the first free slot, and the data
@@ -28,6 +31,8 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..device import resolve_device, to_device
+from ..parallel.axes import is_dtensor
+from ..parallel.sharding import place
 from .checkpoint import Checkpointer
 
 __all__ = ["remesh", "FaultTolerantRunner", "FaultInjector"]
@@ -35,15 +40,21 @@ __all__ = ["remesh", "FaultTolerantRunner", "FaultInjector"]
 log = logging.getLogger("repro_torch.fault")
 
 
-def remesh(tree: Any, device=None) -> Any:
-    """``tree`` with every tensor leaf on ``device`` (``None``: the card).
-    One device only: the reference's new shardings of a mesh wait for the
-    multi-device slice (ROADMAP §1 item 12)."""
-    if device is not None and not isinstance(device, (str, torch.device)):
-        raise NotImplementedError(
-            "remesh: shardings over a mesh come with the multi-device "
-            "slice; pass a device")
-    return to_device(tree, resolve_device(device))
+def remesh(tree: Any, new_shardings: Any = None) -> Any:
+    """Re-place ``tree`` onto ``new_shardings`` (a tree of the same
+    structure of :class:`~repro_torch.parallel.sharding.NamedSharding`,
+    possibly of a different mesh), or, given a device (``None``: the
+    card), move every tensor leaf to it."""
+    if new_shardings is None or isinstance(new_shardings,
+                                           (str, torch.device)):
+        return to_device(_whole(tree), resolve_device(new_shardings))
+    return place(_whole(tree), new_shardings)
+
+
+def _whole(tree):
+    """Every DTensor leaf gathered whole (a collective over its mesh)."""
+    return pytree.tree_map(
+        lambda l: l.full_tensor() if is_dtensor(l) else l, tree)
 
 
 def _device_of(tree) -> Optional[torch.device]:

@@ -17,6 +17,7 @@ the kernel ops' plain versions (:mod:`repro_torch.kernels._autograd`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Optional
@@ -26,11 +27,15 @@ import torch.utils._pytree as pytree
 
 from ..core import (AnyFanOne, Collect, Emit, Network, OneFanAny, Worker)
 from ..core.stream import stack_microbatches
+from ..data.pipeline import shard_batch
 from ..device import resolve_device
 from ..models import Model
+from ..parallel.axes import ShardingRules, is_dtensor, shard_ctx
+from ..parallel.sharding import P, NamedSharding, param_shardings, place
 from .optimizer import AdamW
 
-__all__ = ["TrainState", "make_train_step", "as_network", "train"]
+__all__ = ["TrainState", "make_train_step", "as_network", "train",
+           "place_state"]
 
 
 @dataclasses.dataclass
@@ -49,8 +54,11 @@ def _value_and_grad(model: Model, params, batch):
         loss, metrics = model.loss_fn(pytree.tree_unflatten(live, spec),
                                       batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
+    grads = [torch.zeros_like(p) if g is None else
+             # a sharded leaf's gradient takes the leaf's own placements
+             # (a DTensor's gradient comes back as its backward left it)
+             g.redistribute(p.device_mesh, p.placements) if is_dtensor(g)
+             else g for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, pytree.tree_unflatten(grads, spec)
 
@@ -111,6 +119,18 @@ def as_network(model: Model, opt: AdamW, *, grad_accum: int = 1,
     return net
 
 
+def place_state(params, opt_state, mesh, rules: ShardingRules):
+    """(params, opt_state) as DTensors on ``mesh``: each parameter and its
+    two moments by ``param_specs``, the step count replicated."""
+    sh = param_shardings(params, mesh, rules)
+    opt_sh = {"m": sh, "v": sh, "step": NamedSharding(mesh, P())}
+    return place(params, sh), place(opt_state, opt_sh)
+
+
+def _scalar(v) -> float:
+    return float(v.full_tensor() if is_dtensor(v) else v)
+
+
 def train(model: Model, source, *, steps: int, opt: Optional[AdamW] = None,
           mesh=None, grad_accum: int = 1, seed: int = 0, device=None,
           checkpointer=None, ckpt_every: int = 0, params=None,
@@ -121,23 +141,32 @@ def train(model: Model, source, *, steps: int, opt: Optional[AdamW] = None,
     weights are drawn from ``seed``.  Returns {"params", "opt_state",
     "history", "step"}; each history entry holds the step's metrics as
     floats, its ``step`` and the ``wall_s`` since the loop started (a
-    logged step waits for the device)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train: the port trains on one device; a mesh comes with the "
-            "multi-device slice (ROADMAP §1 item 12)")
+    logged step waits for the device).
+
+    Given a ``mesh`` (every rank of its world runs this loop), the weights
+    and moments are placed by ``param_specs`` and each batch by
+    ``batch_specs`` under ``train_rules(model.cfg.seq_shard)``, and every
+    step runs under ``shard_ctx`` with those rules."""
     opt = opt or AdamW()
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     if params is None:
         params = model.init(seed=seed, device=dev)
     if opt_state is None:
         opt_state = opt.init(params)
+    if mesh is not None:
+        from ..launch.mesh import train_rules
+        rules = train_rules(model.cfg.seq_shard)
+        params, opt_state = place_state(params, opt_state, mesh, rules)
     step_fn = make_train_step(model, opt, grad_accum=grad_accum)
     history = []
     t0 = time.monotonic()
     for i in range(start_step, start_step + steps):
-        batch = {k: v.to(dev) for k, v in source.create(i).items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        batch = source.create(i)
+        batch = (shard_batch(batch, mesh, rules.batch) if mesh is not None
+                 else {k: v.to(dev) for k, v in batch.items()})
+        with (shard_ctx(mesh, rules) if mesh is not None
+              else contextlib.nullcontext()):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         if on_step is not None:
             on_step(i, params, opt_state, metrics)
         if ckpt_every and checkpointer is not None \
@@ -145,7 +174,7 @@ def train(model: Model, source, *, steps: int, opt: Optional[AdamW] = None,
             checkpointer.save(i + 1, {"params": params,
                                       "opt_state": opt_state})
         if (i - start_step) % log_every == 0 or i == start_step + steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}
+            m = {k: _scalar(v) for k, v in metrics.items()}
             m["step"] = i
             m["wall_s"] = time.monotonic() - t0
             history.append(m)

@@ -49,10 +49,11 @@ GREY = (0.299, 0.587, 0.114)
 # -- Mandelbrot farm (§6.6) ---------------------------------------------------
 
 def mandelbrot_farm(*, width: int, height: int, bands: int,
-                    iterations: int) -> Network:
+                    iterations: int, axis=None) -> Network:
     """Row bands of the window x0 = -2.2, y0 = -1.15, delta = 3 / width
-    (``examples/mandelbrot.py``) fanned over ``bands`` workers; the Collect
-    gathers ``{row0: counts}`` on the host."""
+    (``examples/mandelbrot.py``) fanned over ``bands`` workers (block-sharded
+    over the mesh ``axis`` when built over a mesh); the Collect gathers
+    ``{row0: counts}`` on the host."""
     if height % bands:
         raise ValueError(f"height={height} not divisible by bands={bands}")
     band_h = height // bands
@@ -74,7 +75,7 @@ def mandelbrot_farm(*, width: int, height: int, bands: int,
 
     return DataParallelCollect(
         create=create, function=render_band, collector=collector, init={},
-        workers=bands, name="mandelbrot")
+        workers=bands, axis=axis, name="mandelbrot")
 
 
 def mandelbrot_factory(width: int, height: int, bands: int,
@@ -105,10 +106,13 @@ def synthetic_images(n: int, size: int) -> list[np.ndarray]:
     return imgs
 
 
-def image_pipeline(images: list, taps=EDGE5) -> Network:
+def image_pipeline(images: list, taps=EDGE5, *, axis=None,
+                   nodes: int = 1) -> Network:
     """Emit → StencilEngine(greyscale) → StencilEngine(``taps``, EDGE5 by
-    default) → Collect; ``images`` are (H, W, 3) float32 tensors, all on one
-    device.  The Collect gathers the edge maps as numpy arrays."""
+    default; its rows split over the ``nodes`` ranks of the mesh ``axis``
+    when built over a mesh) → Collect; ``images`` are (H, W, 3) float32
+    tensors, all on one device.  The Collect gathers the edge maps as numpy
+    arrays."""
     weights = torch.tensor(GREY, dtype=torch.float32,
                            device=images[0].device)
 
@@ -119,7 +123,8 @@ def image_pipeline(images: list, taps=EDGE5) -> Network:
     net.add(
         Emit(lambda i: images[i], name="emit"),
         StencilEngine(functionMethod=grey, name="engine1"),
-        StencilEngine(convolutionData=taps, name="engine2"),
+        StencilEngine(convolutionData=taps, axis=axis, nodes=nodes,
+                      name="engine2"),
         Collect(lambda acc, x: acc + [x.cpu().numpy()], init=[],
                 name="collector"),
     )
@@ -153,9 +158,11 @@ def jacobi_systems(n_systems: int, n: int):
     return systems, truths
 
 
-def jacobi(systems: list, *, n: int, nodes: int, tol: float) -> Network:
-    """Emit → MultiCoreEngine(Jacobi, ``nodes`` partitions, tolerance loop)
-    → Collect of the solutions (numpy); ``systems`` hold tensors."""
+def jacobi(systems: list, *, n: int, nodes: int, tol: float,
+           axis=None) -> Network:
+    """Emit → MultiCoreEngine(Jacobi, ``nodes`` partitions, tolerance loop;
+    one partition a rank of the mesh ``axis`` when built over a mesh) →
+    Collect of the solutions (numpy); ``systems`` hold tensors."""
 
     # -- the user's sequential methods (paper Listing 15 names) -----------
     def partitionMethod(state, lo, size):
@@ -183,7 +190,7 @@ def jacobi(systems: list, *, n: int, nodes: int, tol: float) -> Network:
                         partitionMethod=partitionMethod,
                         calculationMethod=calculationMethod,
                         updateMethod=updateMethod, errorMethod=errorMethod,
-                        tol=tol, name="mcEngine"),
+                        tol=tol, axis=axis, name="mcEngine"),
         Collect(lambda acc, st: acc + [st["x"].cpu().numpy()], init=[],
                 name="collector"),
     )

@@ -1,0 +1,402 @@
+"""The rank bodies of ``tests/test_torch_distributed.py``: each runs in
+every rank of a world started by ``repro_torch.launch.mesh.run_world`` and
+returns what the tests check.  This module imports no JAX (each spawned
+rank imports it), only torch and the port."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.utils._pytree as pytree
+
+from repro_torch.launch.mesh import make_mesh, train_rules
+from repro_torch.parallel.collectives import HostStagedGroup
+
+CPU = "cpu"
+
+
+class AlwaysStaged(HostStagedGroup):
+    """The card's ``hoststaged`` group, copying CPU tensors through its
+    host buffers too, so the CPU worlds run its staging."""
+
+    @staticmethod
+    def _staged(tensors: list) -> bool:
+        return True
+
+
+STAGED = "alwaysstaged"
+if STAGED.upper() not in dist.Backend._plugins:  # in every spawned rank
+    dist.Backend.register_backend(STAGED, AlwaysStaged, devices=["cpu"])
+
+
+def reduced_model(arch: str = "qwen2-0.5b"):
+    """(model, seed-0 params, an (8, 16) batch) on the CPU, f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    cfg = get_config(arch, reduced=True)
+    model = Model(cfg)
+    batch = SyntheticLM(batch=8, seq=16, vocab=cfg.vocab,
+                        device=CPU).create(0)
+    return model, model.init(seed=0, device=CPU), batch
+
+
+def pipeline_inputs():
+    rng = np.random.default_rng(0)
+    L, D = 8, 16
+    ws = (rng.normal(size=(L, D, D)) * 0.2).astype(np.float32)
+    x = rng.normal(size=(8, 4, D)).astype(np.float32)
+    return ws, x
+
+
+def grey_images(n: int = 2, size: int = 32) -> np.ndarray:
+    from repro_torch import workloads
+    imgs = np.stack(workloads.synthetic_images(n, size))
+    return (imgs @ np.asarray(workloads.GREY, np.float32)).astype(np.float32)
+
+
+# (H, K, causal) of attention whose K does not divide a 4-way model axis:
+# 3 query heads a rank across group borders, 2 heads of one group, 1 head
+MHA_CASES = ((12, 3, True), (8, 2, False), (4, 1, True))
+
+
+def mha_inputs(H: int, K: int) -> tuple:
+    """q and w (2, H, 16, 8), k and v (2, K, 16, 8): attention's inputs
+    and the weights of the loss sum(o * w)."""
+    rng = np.random.default_rng(10 * H + K)
+    shapes = ((2, H, 16, 8), (2, K, 16, 8), (2, K, 16, 8), (2, H, 16, 8))
+    return tuple(rng.normal(size=s).astype(np.float32) for s in shapes)
+
+
+def ring_inputs() -> np.ndarray:
+    rng = np.random.default_rng(2)
+    return (rng.normal(size=(8, 1000)) * 0.01).astype(np.float32)
+
+
+def _whole(tree):
+    return pytree.tree_map(
+        lambda l: l.full_tensor() if hasattr(l, "full_tensor") else l, tree)
+
+
+def _by_path(tree) -> dict:
+    flat, _ = pytree.tree_flatten_with_path(tree)
+    return {pytree.keystr(p): v for p, v in flat}
+
+
+def _max_diff(a, b) -> float:
+    """The largest difference between leaves at the same key path (a
+    restored tree has its dicts' keys sorted)."""
+    a, b = _by_path(a), _by_path(b)
+    assert a.keys() == b.keys()
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+# --------------------------------------------------------------------------
+# the world of 8 ranks
+# --------------------------------------------------------------------------
+
+def world8(rank: int, ckpt_dir: str) -> dict:
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.collectives import (combine_psum, psum_bf16,
+                                                  ring_allreduce_int8)
+    from repro_torch.train import Checkpointer
+    out = {}
+    # the int8 ring with error feedback (the reference's 8 devices)
+    mesh = make_mesh((8,), ("dp",), device=CPU)
+    g = torch.from_numpy(ring_inputs())
+    exact = g.sum(0)
+    r1, err = ring_allreduce_int8(g[rank], mesh, "dp", 8)
+    r2, _ = ring_allreduce_int8(g[rank], mesh, "dp", 8, error=err)
+    scale = float(exact.abs().max())
+    out["ring_rel1"] = float((r1 - exact).abs().max()) / scale
+    out["ring_rel2"] = float(((r1 + r2) / 2 - exact).abs().max()) / scale
+    # the additive COMBINE, in f32 and with a bf16 payload
+    x = torch.full((3,), 1.0 + rank / 3)
+    out["psum"] = (combine_psum(x, mesh, "dp"), psum_bf16(x, mesh, "dp"))
+    # a checkpoint written on a (4, 2) mesh
+    model, params, _ = reduced_model()
+    mesh_a = make_mesh((4, 2), ("data", "model"), device=CPU)
+    placed = sh.place(params, sh.param_shardings(params, mesh_a,
+                                                 train_rules()))
+    out["sharded_leaves"] = sum(
+        any(not p.is_replicate() for p in leaf.placements)
+        for leaf in pytree.tree_leaves(placed))
+    Checkpointer(ckpt_dir).save(5, {"params": placed})
+    return out
+
+
+# --------------------------------------------------------------------------
+# the world of 4 ranks
+# --------------------------------------------------------------------------
+
+def _networks(rank: int, out: dict) -> None:
+    from repro_torch import workloads
+    from repro_torch.core import DataParallelCollect, build
+    from repro_torch.interop import tree_from_numpy
+    mesh = make_mesh((4,), ("data",), device=CPU)
+
+    # the farm of tests/test_distributed.py: the Collect folds the
+    # gathered blocks in item order
+    net = DataParallelCollect(
+        create=lambda i: torch.tensor(float(i)), function=lambda x: x * x,
+        collector=lambda a, x: a + x, init=torch.tensor(0.0), workers=8,
+        axis="data", jit_combine=True)
+    cn = build(net, mesh)
+    out["farm_sum"] = float(cn.run(instances=64)["collect"])
+    out["farm_sum_streaming"] = float(
+        cn.run_streaming(instances=64, microbatch_size=16)["collect"])
+
+    # the Mandelbrot farm, its bands block-sharded over the ranks
+    kw = dict(width=64, height=32, bands=8, iterations=50)
+    one = workloads.assemble(build(workloads.mandelbrot_farm(**kw),
+                                   device=CPU).run(instances=8)["collect"])
+    cm = build(workloads.mandelbrot_farm(**kw, axis="data"), mesh)
+    fused = workloads.assemble(cm.run(instances=8)["collect"])
+    strm = workloads.assemble(
+        cm.run_streaming(instances=8, microbatch_size=4)["collect"])
+    out["mandelbrot_equal"] = bool(np.array_equal(fused, one)
+                                   and np.array_equal(strm, one))
+
+    # the image pipeline, its EDGE5 engine's rows over the ranks
+    imgs = tree_from_numpy(workloads.synthetic_images(4, 32),
+                           torch.device(CPU))
+    one = build(workloads.image_pipeline(imgs), device=CPU).run(
+        instances=4)["collector"]
+    cp = build(workloads.image_pipeline(imgs, axis="data", nodes=4), mesh)
+    got = cp.run(instances=4)["collector"] + cp.run_streaming(
+        instances=4, microbatch_size=2)["collector"]
+    out["pipeline_equal"] = all(np.array_equal(a, b)
+                                for a, b in zip(got, one + one))
+
+    # Jacobi, one partition a rank
+    systems, _ = workloads.jacobi_systems(2, 64)
+    systems = tree_from_numpy(systems, torch.device(CPU))
+    one = build(workloads.jacobi(systems, n=64, nodes=4, tol=1e-6),
+                device=CPU).run(instances=2)["collector"]
+    cj = build(workloads.jacobi(systems, n=64, nodes=4, tol=1e-6,
+                                axis="data"), mesh)
+    got = cj.run(instances=2)["collector"]
+    got_s = cj.run_streaming(instances=2, microbatch_size=1)["collector"]
+    out["jacobi_equal"] = all(np.array_equal(a, b) and np.array_equal(a, c)
+                              for a, b, c in zip(got, got_s, one))
+    out["jacobi"] = np.stack(got)
+
+    # EDGE5 (and k = 1, 3) with halos against one device
+    from repro_torch.core.engine import Stencil
+    grey = torch.from_numpy(grey_images())
+    equal = True
+    for taps in (workloads.EDGE5, ((2.0,),), workloads.EDGE3):
+        for img in grey:
+            a = Stencil(kernel=taps, axis="data", nodes=4).apply(img, mesh)
+            b = Stencil(kernel=taps).apply(img)
+            equal = equal and torch.equal(a, b)
+    out["stencil_equal"] = equal
+    out["edge5"] = torch.stack([Stencil(kernel=workloads.EDGE5, axis="data",
+                                        nodes=4).apply(img, mesh)
+                                for img in grey])
+
+
+def _pipeline(rank: int, out: dict) -> None:
+    from repro_torch.parallel.pipeline import pipeline_forward, split_stages
+    mesh = make_mesh((4,), ("stage",), device=CPU)
+    ws, x = (torch.from_numpy(a) for a in pipeline_inputs())
+
+    def block_fn(lp, h):
+        for w in lp:
+            h = torch.tanh(h @ w)
+        return h
+
+    got = pipeline_forward(block_fn, split_stages(ws, 4), x, mesh=mesh,
+                           n_stages=4, n_micro=4)
+    out["pipeline_err"] = float((got - block_fn(ws, x)).abs().max())
+    out["pipeline"] = got
+
+
+def _train_step(rank: int, out: dict, arch: str = "qwen2-0.5b") -> None:
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.axes import shard_ctx
+    from repro_torch.train.train_loop import _value_and_grad
+    model, params, batch = reduced_model(arch)
+    loss0, _, grads0 = _value_and_grad(model, params, batch)
+    mesh = make_mesh((2, 2), ("data", "model"), device=CPU)
+    rules = train_rules()
+    dp = sh.place(params, sh.param_shardings(params, mesh, rules))
+    db = sh.place(batch, sh.to_shardings(sh.batch_specs(batch, mesh, rules),
+                                         mesh))
+    with shard_ctx(mesh, rules):
+        loss, _, grads = _value_and_grad(model, dp, db)
+    grads = _whole(grads)
+    out["loss_one"], out["loss_mesh"] = float(loss0), float(_whole(loss))
+    out["grad_err"] = _max_diff(grads, grads0)
+    out["grads"] = grads
+
+
+def mha_select(n: int, cases, dev) -> list:
+    """``mha`` of q sharded on its heads over an n-way model axis on
+    ``dev``, k and v whole on every rank (K does not divide the axis):
+    for each (H, K, causal) of ``cases``, the output and the gradients of
+    q, k and v of the loss sum(o * w), and their largest difference from
+    one device's on the CPU."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels.flash_attention.ops import mha
+    dm = make_mesh((n,), ("model",), device=dev.type).device_mesh()
+    res = []
+    for H, K, causal in cases:
+        inputs = [torch.from_numpy(a) for a in mha_inputs(H, K)]
+
+        def run(q, k, v, w):
+            live = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = mha(*live, causal=causal)
+            return [o.detach(), *torch.autograd.grad((o * w).sum(), live)]
+
+        one = run(*inputs)
+        got = run(*(distribute_tensor(t.to(dev), dm, [pl],
+                                      src_data_rank=None)
+                    for t, pl in zip(inputs, (Shard(1), Replicate(),
+                                              Replicate(), Shard(1)))))
+        got = [t.full_tensor().cpu() for t in got]
+        res.append((got, max(float((a - b).abs().max())
+                             for a, b in zip(got, one))))
+    return res
+
+
+def _train_loop(rank: int, out: dict) -> None:
+    from repro_torch.data import Prefetcher, SyntheticLM
+    from repro_torch.train import train
+    model, params, _ = reduced_model()
+    src = SyntheticLM(batch=8, seq=16, vocab=model.cfg.vocab, device=CPU)
+    one = train(model, src, steps=2, device=CPU, params=params, log_every=1)
+    mesh = make_mesh((2, 2), ("data", "model"), device=CPU)
+    res = train(model, src, steps=2, mesh=mesh, params=params, log_every=1)
+    out["train_losses"] = ([h["loss"] for h in one["history"]],
+                           [h["loss"] for h in res["history"]])
+    out["train_param_err"] = _max_diff(_whole(res["params"]), one["params"])
+    pf = Prefetcher(src, mesh=mesh, n_steps=2)
+    got = list(pf)
+    tok = got[1][1]["tokens"]
+    out["prefetch"] = ([s for s, _ in got], [str(p) for p in tok.placements],
+                       bool(torch.equal(tok.full_tensor(),
+                                        src.create(1)["tokens"])))
+
+
+def _checkpoint_remesh(rank: int, out: dict, ckpt_dir: str) -> None:
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import Checkpointer, remesh
+    _, params, _ = reduced_model()
+    mesh_b = make_mesh((2, 2), ("data", "model"), device=CPU)
+    sh_b = sh.param_shardings(params, mesh_b, train_rules())
+    step, back = Checkpointer(ckpt_dir).restore({"params": params},
+                                                shardings={"params": sh_b})
+    leaves = pytree.tree_leaves(back["params"])
+    out["restore"] = (step, _max_diff(_whole(back["params"]), params),
+                      {leaf.device_mesh.size() for leaf in leaves})
+    # re-place onto a (1, 4) mesh: the model axis now 4 wide
+    mesh_c = make_mesh((1, 4), ("data", "model"), device=CPU)
+    sh_c = sh.param_shardings(params, mesh_c, train_rules())
+    moved = remesh(back["params"], sh_c)
+    wq = moved["segments"][0]["attn"]["wq"]
+    out["remesh"] = (_max_diff(_whole(moved), params),
+                     [str(p) for p in wq.placements],
+                     tuple(wq.to_local().shape))
+
+
+def world4(rank: int, ckpt_dir: str) -> dict:
+    from repro_torch.parallel.collectives import reset_stats, stats
+    out: dict = {}
+    reset_stats()
+    _networks(rank, out)
+    _pipeline(rank, out)
+    _train_step(rank, out)
+    out["gemma"] = {}
+    _train_step(rank, out["gemma"], "gemma-2b")  # K = 1 on a 2-way axis
+    out["mha_select"] = mha_select(4, MHA_CASES, torch.device(CPU))
+    _train_loop(rank, out)
+    _checkpoint_remesh(rank, out, ckpt_dir)
+    out["stats"] = stats()
+    return out
+
+
+# --------------------------------------------------------------------------
+# the card's world of 2 ranks (tests/test_torch_gpu.py)
+# --------------------------------------------------------------------------
+
+def gpu_world(rank: int) -> dict:
+    """Two ranks sharing the card: the farm, EDGE5 with halos, a reduced
+    qwen2 TP step, attention with 3 KV heads over 2 ranks, the int8 ring
+    and GPipe, each with the kernel launches of its mesh run."""
+    from repro_torch import workloads
+    from repro_torch.core import build
+    from repro_torch.core.engine import Stencil
+    from repro_torch.device import to_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.axes import shard_ctx
+    from repro_torch.parallel.collectives import ring_allreduce_int8
+    from repro_torch.parallel.pipeline import pipeline_forward, split_stages
+    from repro_torch.train.train_loop import _value_and_grad
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((2,), ("data",))
+    out = {}
+
+    kw = dict(width=256, height=64, bands=8, iterations=200)
+    one = workloads.assemble(build(workloads.mandelbrot_farm(**kw),
+                                   device=dev).run(instances=8)["collect"])
+    reset_launch_counts()
+    got = workloads.assemble(build(workloads.mandelbrot_farm(
+        **kw, axis="data"), mesh).run(instances=8)["collect"])
+    out["farm"] = (bool(np.array_equal(one, got)),
+                   launch_counts()["mandelbrot"])
+
+    grey = torch.from_numpy(grey_images(2, 64)).to(dev)
+    reset_launch_counts()
+    a = [Stencil(kernel=workloads.EDGE5, axis="data", nodes=2).apply(g, mesh)
+         for g in grey]
+    n = launch_counts()["stencil"]
+    b = [Stencil(kernel=workloads.EDGE5).apply(g) for g in grey]
+    out["stencil"] = (all(torch.equal(x, y) for x, y in zip(a, b)), n)
+
+    model, params, batch = reduced_model()
+    loss_cpu, _, grads_cpu = _value_and_grad(model, params, batch)
+    mesh2 = make_mesh((1, 2), ("data", "model"))
+    rules = train_rules()
+    dp = sh.place(to_device(params, dev),
+                  sh.param_shardings(params, mesh2, rules))
+    db = sh.place(to_device(batch, dev), sh.to_shardings(
+        sh.batch_specs(batch, mesh2, rules), mesh2))
+    reset_launch_counts()
+    with shard_ctx(mesh2, rules):
+        loss, _, grads = _value_and_grad(model, dp, db)
+    out["tp"] = (abs(float(_whole(loss)) - float(loss_cpu)),
+                 _max_diff(to_device(_whole(grads), torch.device(CPU)),
+                           grads_cpu),
+                 launch_counts()["flash_attention"], model.cfg.n_layers)
+
+    reset_launch_counts()
+    errs = [e for _, e in mha_select(2, [(6, 3, True)], dev)]
+    out["mha_select"] = (errs, launch_counts()["flash_attention"])
+
+    g = torch.from_numpy(ring_inputs()[:2]).to(dev)
+    exact = g.sum(0)
+    r1, err = ring_allreduce_int8(g[rank], mesh, "data", 2)
+    r2, _ = ring_allreduce_int8(g[rank], mesh, "data", 2, error=err)
+    scale = float(exact.abs().max())
+    out["ring"] = (float((r1 - exact).abs().max()) / scale,
+                   float(((r1 + r2) / 2 - exact).abs().max()) / scale)
+
+    stage_mesh = make_mesh((2,), ("stage",))
+    ws, x = (torch.from_numpy(v).to(dev) for v in pipeline_inputs())
+
+    def block_fn(lp, h):
+        for w in lp:
+            h = torch.tanh(h @ w)
+        return h
+
+    got = pipeline_forward(block_fn, split_stages(ws, 2), x,
+                           mesh=stage_mesh, n_stages=2, n_micro=4)
+    # the layers in order on each microbatch: cuBLAS picks its kernel by
+    # the row count, so the whole batch at once differs by rounding
+    seq = torch.cat([block_fn(ws, m) for m in x.chunk(4)])
+    out["pipeline_err"] = float((got - seq).abs().max())
+    return out

@@ -290,9 +290,13 @@ def test_fold_order_is_the_oracle_order():
 
 
 def test_mesh_refused():
+    """A mesh builds only inside a world of its ranks (the SPMD runs are
+    ``tests/test_torch_distributed.py``'s); in one process it is refused,
+    naming the world it needs."""
+    from repro_torch.launch.mesh import make_mesh
     net = _pattern(tcore, "pipe", 1, 2)
-    with pytest.raises(tcore.NetworkError, match="mesh must be None"):
-        tcore.build(net, mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="needs a world of 2 ranks"):
+        tcore.build(net, mesh=make_mesh((2,), ("data",), device="cpu"))
 
 
 def test_oracle_matches_jax_on_the_builder_farm():

@@ -1377,3 +1377,63 @@ def test_serve_kill_scenario_on_card(cuda):
     r = sim.run_serve_kill_scenario(1)
     assert r.ok, r.describe()
     assert r.fired >= 1 and r.recoveries >= 1
+
+
+# -- the mesh: 2 ranks sharing the card ----------------------------------------
+
+@pytest.fixture(scope="module")
+def card_world():
+    """One world of 2 ranks on ``cuda:0`` (the host-staged gloo backend:
+    NCCL refuses two ranks on one GPU) for every mesh check below; it
+    leaves no rank process behind."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    import multiprocessing
+
+    import _torch_dist_worlds as worlds
+    from repro_torch.launch.mesh import run_world
+    res = run_world(worlds.gpu_world, 2, device="cuda", timeout=120)
+    assert not [p for p in multiprocessing.active_children()
+                if p.name.startswith("rank")]
+    return res
+
+
+def test_mesh_farm_on_card_equals_one_device(card_world):
+    """The Mandelbrot farm's 8 bands over 2 ranks: the one-device image,
+    4 launches on each rank."""
+    assert all(r["farm"] == (True, 4) for r in card_world)
+
+
+def test_mesh_stencil_halo_on_card_equals_one_device(card_world):
+    """EDGE5 with a 2-row halo from each neighbour: one launch an image on
+    each rank, equal to the one-device image."""
+    assert all(r["stencil"] == (True, 2) for r in card_world)
+
+
+def test_mesh_tp_step_on_card_equals_cpu(card_world):
+    """Reduced qwen2 (f32) on a (1, 2) mesh on the card, heads split over
+    the ranks: loss and gradients within 1e-4 of the CPU's, flash
+    launched once a layer on each rank."""
+    for r in card_world:
+        loss_err, grad_err, flash, layers = r["tp"]
+        assert loss_err < 1e-4 and grad_err < 1e-4, r["tp"]
+        assert flash == layers, r["tp"]
+
+
+def test_mesh_mha_selects_kv_heads_on_card(card_world):
+    """6 query heads over 2 ranks with 3 KV heads, which 2 does not
+    divide: each rank launches flash once on its 3 heads and their KV
+    heads; the output and the gradients of q, k and v (k's and v's summed
+    over the ranks) within 1e-4 of the CPU's."""
+    for r in card_world:
+        errs, flash = r["mha_select"]
+        assert max(errs) < 1e-4 and flash == 1, r["mha_select"]
+
+
+def test_mesh_ring_and_pipeline_on_card(card_world):
+    """The int8 ring's two gates over 2 ranks; GPipe over 2 stages equal
+    to the layers applied in order to each microbatch."""
+    for r in card_world:
+        rel1, rel2 = r["ring"]
+        assert rel1 < 0.05 and rel2 < rel1, r["ring"]
+        assert r["pipeline_err"] == 0.0, r["pipeline_err"]

@@ -36,7 +36,9 @@ def test_import_loads_no_jax_and_no_repro_module():
                     "train.train_loop", "train.fault", "data",
                     "data.pipeline", "kernels._autograd",
                     "launch._common", "launch.cluster", "launch.serve",
-                    "launch.train",
+                    "launch.train", "launch.mesh", "parallel.axes",
+                    "parallel.sharding", "parallel.collectives",
+                    "parallel.pipeline",
                     "serve.engine", "serve.scheduler"):
             assert f"repro_torch.{mod}" in names, mod
         bad = sorted(m for m in sys.modules
@@ -55,7 +57,7 @@ def test_import_loads_no_jax_and_no_repro_module():
 def test_sources_name_no_jax_import():
     files = [*sorted((SRC / "repro_torch").rglob("*.py")),
              *sorted((ROOT / "examples").glob("torch_*.py")),
-             ROOT / "chip_smoke.py"]
+             ROOT / "chip_smoke.py", ROOT / "tools" / "mesh_phase.py"]
     for f in files:
         text = f.read_text()
         for needle in ("import jax", "from jax", "from repro.",

@@ -36,6 +36,8 @@ from repro.train import (AdamW as JAdamW, Checkpointer as JCheckpointer,
                          make_train_step as jmake_train_step)
 from repro_torch.core import verify
 from repro_torch.data import Prefetcher, SyntheticLM, shard_batch
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel.sharding import P, NamedSharding
 from repro_torch.interop import params_from_numpy
 from repro_torch.train import (AdamW, Checkpointer, FaultInjector,
                                FaultTolerantRunner, make_train_step, remesh,
@@ -131,8 +133,11 @@ class TestTrainStep:
                                  "opt_state": res["opt_state"]},
                                 device="cpu")
         assert step == 4 and _max_diff(back["params"], res["params"]) == 0
-        with pytest.raises(NotImplementedError, match="item 12"):
-            train(m, src, steps=1, device="cpu", mesh=object())
+        # a mesh trains SPMD inside a world of its ranks
+        # (tests/test_torch_distributed.py); in one process it is refused
+        with pytest.raises(RuntimeError, match="needs a world of 4 ranks"):
+            train(m, src, steps=1, device="cpu",
+                  mesh=make_mesh((2, 2), ("data", "model"), device="cpu"))
 
     def test_train_runs_on_the_card_by_default(self, monkeypatch):
         _, _, m, _ = pair("qwen2-0.5b")
@@ -249,11 +254,15 @@ class TestFaultTolerance:
                            step_fn=bad_step, save_every=1)
 
     def test_remesh_places_on_a_device(self):
+        """A device re-places every leaf there; new shardings place the
+        tree on their mesh, which needs a world of its ranks
+        (``test_torch_distributed.py::test_remesh_onto_new_shardings``)."""
         tree = {"a": torch.ones(2), "b": [torch.zeros(1), 3]}
         out = remesh(tree, "cpu")
         assert out["a"].device.type == "cpu" and out["b"][1] == 3
-        with pytest.raises(NotImplementedError, match="shardings"):
-            remesh(tree, {"a": None})
+        mesh = make_mesh((2,), ("data",), device="cpu")
+        with pytest.raises(RuntimeError, match="needs a world of 2 ranks"):
+            remesh({"a": torch.ones(2)}, {"a": NamedSharding(mesh, P())})
 
 
 class TestDataPipeline:
@@ -286,13 +295,17 @@ class TestDataPipeline:
         assert torch.equal(got[3][1]["tokens"], src.create(3)["tokens"])
 
     def test_shard_batch_places_and_refuses_a_mesh(self):
+        """Without a mesh the batch lands on the device; a mesh shards it
+        inside a world of its ranks (``test_torch_distributed.py``), and
+        is refused, naming that world, in one process."""
         b = {"tokens": torch.ones(2, 3, dtype=torch.int32)}
         assert shard_batch(b, None, device="cpu")["tokens"].device.type \
             == "cpu"
-        with pytest.raises(NotImplementedError, match="item 12"):
-            shard_batch(b, object())
-        with pytest.raises(NotImplementedError, match="item 12"):
-            Prefetcher(SyntheticLM(1, 4, 50, device="cpu"), mesh=object())
+        mesh = make_mesh((2,), ("data",), device="cpu")
+        with pytest.raises(RuntimeError, match="needs a world of 2 ranks"):
+            shard_batch(b, mesh)
+        with pytest.raises(RuntimeError, match="needs a world of 2 ranks"):
+            Prefetcher(SyntheticLM(1, 4, 50, device="cpu"), mesh=mesh)
 
     def test_source_runs_on_the_card_by_default(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -333,8 +346,11 @@ def test_train_cli(capsys):
 
 @pytest.mark.parametrize("flag", [["--mesh", "single"], ["--mesh", "multi"]])
 def test_train_cli_refuses_a_mesh(flag):
+    """The production mesh needs a world of 256 or 512 ranks; one process
+    is refused, naming it."""
     from repro_torch.launch import train as launcher
-    with pytest.raises(SystemExit, match="item 12"):
+    need = 512 if flag[1] == "multi" else 256
+    with pytest.raises(SystemExit, match=f"needs a world of {need} ranks"):
         launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
                        "cpu", *flag])
 
