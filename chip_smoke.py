@@ -208,6 +208,20 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    steps, lr 1e-2).  One full-width train step is then traced, with the
    plain backwards' share of the busy time.
 
+20. (run last, after the MoE phases) the dry-run held against the card:
+   20a, five cells of ``python -m repro_torch.launch.dryrun`` (qwen2-0.5b
+   × train_4k, zamba2-1.2b × long_500k, deepseek-moe-16b × decode_32k,
+   whisper-tiny × decode_32k on 16x16; phi3.5-moe-42b-a6.6b × train_4k on
+   2x16x16, memory only) traced with fake CUDA tensors in a process of
+   their own, started before the kernel builds: each ``ok``, no kernel
+   launched and no device byte allocated by the traces; 20b, 18a's step
+   traced: its peak (argument + temp bytes) within 15 % of the card's
+   peak over that step and its FLOPs within 2 % of the step's executed
+   count (``dryrun_step_flops``); 20c, 19b's bf16 step traced in a fake
+   world of 2: the same collective calls and result bytes of each kind
+   as 19b's rank 0 counted on the card, exactly.  Phase 20 launches
+   nothing.
+
 Peak and free device memory are printed after each MoE phase.
 
 Phase 1 times each Mandelbrot band on its own as well (the fastest and
@@ -3332,6 +3346,7 @@ def per_step_records(torch, counts):
     """Records each train step's launches, loss and wall (the step waits
     for the device): wraps ``make_train_step`` in the training loop's
     module while the block runs."""
+    from repro_torch.launch.dryrun import tree_bytes  # before the patch
     from repro_torch.train import train_loop
     real = train_loop.make_train_step
     steps: list = []
@@ -3342,12 +3357,20 @@ def per_step_records(torch, counts):
         def run(*a):
             before = counts()
             torch.cuda.synchronize()
+            # the step's own peak (phase 20b): the bytes resident beside
+            # its arguments are subtracted from the card's peak over it
+            peak_before = torch.cuda.max_memory_allocated()
+            other = torch.cuda.memory_allocated() - tree_bytes(a)
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             out = step(*a)
             loss = float(out[2]["loss"])
             steps.append({"launches": {k: v - before[k]
                                        for k, v in counts().items()},
-                          "loss": loss, "s": time.perf_counter() - t0})
+                          "loss": loss, "s": time.perf_counter() - t0,
+                          "peak_before": peak_before,
+                          "step_peak": torch.cuda.max_memory_allocated()
+                          - other, "arg_bytes": tree_bytes(a)})
             return out
 
         return run
@@ -3359,10 +3382,12 @@ def per_step_records(torch, counts):
         train_loop.make_train_step = real
 
 
-def run_train_launcher(torch, counts) -> None:
+def run_train_launcher(torch, counts) -> list:
     """18a: full-width qwen2-0.5b trained through ``python -m
     repro_torch.launch.train``'s ``main``: 8 steps of (4, 1024), the
-    default config (f32 params, bf16 compute, ``remat="full"``)."""
+    default config (f32 params, bf16 compute, ``remat="full"``).  Returns
+    each step's (arguments' bytes, the card's peak over the step less the
+    bytes resident beside its arguments), for phase 20b."""
     import io
     from repro_torch.launch import train as launcher
     args = ["--arch", "qwen2-0.5b", "--steps", "8", "--batch", "4", "--seq",
@@ -3397,7 +3422,8 @@ def run_train_launcher(torch, counts) -> None:
           f": losses {', '.join(f'{x:.4f}' for x in losses)}; flash "
           f"launches a step {steps[0]['launches']['flash_attention']} (24 "
           f"forward + 24 recompute), no other kernel")
-    peak = torch.cuda.max_memory_allocated()
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [s["peak_before"] for s in steps])
     print(f"[train] 18a step wall p50 (steps 2-7) {p50 * 1e3:.1f} ms, "
           f"{T / p50:.0f} tokens/s; peak device memory {peak / 2**30:.2f} "
           f"GiB, {(peak - resident) / 2**30:.2f} GiB above the "
@@ -3408,6 +3434,7 @@ def run_train_launcher(torch, counts) -> None:
           f"{QWEN2_PARAMS:,}, T = {T}, L = {L}, B = {B}, H = {H}, hd = {hd},"
           f" S = {S}: {6.0 * QWEN2_PARAMS * T:.4e} + {attn:.4e} = "
           f"{flops:.4e} FLOP a step (remat's recompute not counted)")
+    return [(s["arg_bytes"], s["step_peak"]) for s in steps]
 
 
 def run_train_grads(torch, dev, counts, params) -> None:
@@ -3524,13 +3551,13 @@ def profile_train_step(torch, dev, params) -> None:
           f" of busy {busy_ms:.2f} ms (wall {wall_ms:.1f} ms)")
 
 
-def run_train_phase(torch, dev, counts, params) -> None:
+def run_train_phase(torch, dev, counts, params) -> list:
     """Phase 18 (18a-18c): training on the card, on phase 6's weights
     (``params``, f32, left unchanged); the caller counts its launches from
-    0."""
+    0.  Returns 18a's step peaks (:func:`run_train_launcher`)."""
     import gc
     t_phase = time.perf_counter()
-    run_train_launcher(torch, counts)
+    peaks = run_train_launcher(torch, counts)
     gc.collect()
     torch.cuda.empty_cache()
     run_train_grads(torch, dev, counts, params)
@@ -3538,6 +3565,7 @@ def run_train_phase(torch, dev, counts, params) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[train] phase 18 wall: {time.perf_counter() - t_phase:.1f} s")
+    return peaks
 
 
 # -- phase 19: the mesh, 2 ranks sharing the card ------------------------------
@@ -3620,6 +3648,7 @@ def tp_phase(rank: int, dev, reduced: bool, counted, out: dict) -> None:
     import torch.utils._pytree as pytree
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.launch.dryrun import CostCounter
     from repro_torch.launch.mesh import make_mesh, train_rules
     from repro_torch.models import Model
     from repro_torch.parallel.axes import is_dtensor, shard_ctx
@@ -3652,9 +3681,11 @@ def tp_phase(rank: int, dev, reduced: bool, counted, out: dict) -> None:
         torch.cuda.empty_cache()
     # one training step of the default config (bf16 compute), timed
     step = make_train_step(Model(cfg), opt)
-    with shard_ctx(mesh2, rules):
+    costs = CostCounter()  # phase 20c traces this step in a fake world
+    with shard_ctx(mesh2, rules), costs:
         new_p, new_o, metrics = counted("tp_step", lambda: step(dp, dopt,
                                                                 db))
+    out["tp_step_costs"] = {"calls": costs.calls, "coll": costs.coll}
     out["tp_step_loss"] = float(metrics["loss"].full_tensor())
     _, one_o, one_m = step(params, opt.init(params), batch)
     out["tp_step_loss_one"] = float(one_m["loss"])
@@ -3794,10 +3825,12 @@ def _kinds(stats: dict) -> str:
                      for k, v in sorted(stats.items())) or "none"
 
 
-def run_mesh_phase(torch, farm_digest, edge_digest, args) -> dict:
+def run_mesh_phase(torch, farm_digest, edge_digest, args) -> tuple:
     """Phase 19: a world of 2 ranks sharing ``cuda:0``, gated against the
     digests of phase 2's image and phase 3's edge maps; returns the kernel
-    launches of its mesh runs, summed over the ranks."""
+    launches of its mesh runs, summed over the ranks, and rank 0's
+    collectives of 19b's bf16 step counted at dispatch (phase 20c traces
+    the same step and must count the same)."""
     import multiprocessing
     import threading
     from repro_torch.launch.mesh import run_world, world_backend
@@ -3871,7 +3904,8 @@ def run_mesh_phase(torch, farm_digest, edge_digest, args) -> dict:
           f"(the first on the mesh; f32 loss and grads "
           f"{o['walls']['tp_grads_f32']:.3f} s)")
     print(f"[mesh] 19b collectives a step (rank 0): "
-          f"{_kinds(o['stats']['tp_step'])}")
+          f"{_kinds(o['stats']['tp_step'])}; counted at dispatch (phase "
+          f"20c's counter): {o['tp_step_costs']['calls']}")
     print(f"[mesh] 19c pipeline_forward over 2 stages == the layers in "
           f"order on each microbatch: True (0.0); against the whole batch "
           f"at once {o['pipeline_whole_err']:.3e}; int8 ring rel {o['ring_rel'][0]:.4f}, with error "
@@ -3888,7 +3922,245 @@ def run_mesh_phase(torch, farm_digest, edge_digest, args) -> dict:
     print(f"[mesh] phase 19 launches (both ranks): {launched}; no rank "
           f"process, thread or /dev/shm entry left; phase 19 wall: "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return launched
+    return launched, dict(o["tp_step_costs"], stats=o["stats"]["tp_step"])
+
+
+# -- phase 20: the dry-run --------------------------------------------------------
+
+# 20a: cells traced on the production meshes in a fresh process (the
+# multi-pod cell records memory only, as in the reference's sweep)
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False),
+                ("zamba2-1.2b", "long_500k", False),
+                ("deepseek-moe-16b", "decode_32k", False),
+                ("whisper-tiny", "decode_32k", False),
+                ("phi3.5-moe-42b-a6.6b", "train_4k", True))
+# 20b's gates: the traced peak (argument + temp bytes) of 18a's step
+# against the card's peak over that step, and the traced FLOPs against
+# the step's executed FLOPs (dryrun_step_flops)
+DRYRUN_PEAK_GATE = 0.15
+DRYRUN_FLOP_GATE = 0.02
+
+
+def dryrun_cells() -> int:
+    """20a's process (``python3 chip_smoke.py --dryrun-cells``): trace
+    :data:`DRYRUN_CELLS` with ``repro_torch.launch.dryrun`` (fake CUDA
+    tensors in fake worlds of 256 and 512 ranks), printing each record as
+    a ``[dryrun-cell]`` JSON line, then one ``[dryrun-end]`` line with the
+    kernel launches and the device bytes this process allocated."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    # PyTorch's first fake CUDA tensor probes the CUDA context with one
+    # real 1-element tensor (for autograd); counted apart, before the
+    # traces
+    with FakeTensorMode():
+        torch.empty(1, device="cuda")
+    probe = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for arch, shape, multi in DRYRUN_CELLS:
+        try:
+            rec = dryrun.lower_cell(arch, shape, multi_pod=multi,
+                                    with_costs=not multi, verbose=False)
+        except Exception as exc:  # reported, and failed by the parent
+            rec = {"arch": arch, "shape": shape, "ok": False,
+                   "error": repr(exc)[-1000:]}
+        print("[dryrun-cell] " + json.dumps(rec), flush=True)
+    print("[dryrun-end] " + json.dumps({
+        "launches": launch_counts(),
+        "allocated": torch.cuda.memory_allocated(),
+        "max_allocated": torch.cuda.max_memory_allocated(),
+        "context_probe": probe, "fake_cuda": torch.cuda.is_available(),
+        "wall": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def start_dryrun_cells():
+    """Start 20a's process now (it is host work: it runs beside the
+    kernel builds and phase 1); :func:`run_dryrun_phase` reads it."""
+    import tempfile
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--dryrun-cells"], stdout=out, stderr=err,
+                            cwd=ROOT, text=True)
+    return proc, out, err
+
+
+def stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
+def dryrun_step_flops(cfg, B: int, S: int) -> float:
+    """The FLOPs one train step of ``cfg`` (dense, tied embeddings, remat
+    full) executes on the card at (B, S), T = B·S, from 18a's count of
+    6·N·T + 6·L·B·H·hd·S·(S+1) (:func:`run_train_launcher`):
+
+    * the matmuls: 6·T·N_mm (forward 2, backward 4, with N_mm the matrix
+      weights: the layers' N_layers and the tied embedding's V·D, used by
+      the unembedding); remat's recompute adds the layers' forward,
+      2·T·(N_layers − L·D·F): ``torch.utils.checkpoint`` stops
+      recomputing at the last activation the backward saves, so each
+      layer's down projection is not run again;
+    * attention: the flash kernel's 2·B·H·hd·S·(S+1) in the forward and
+      again in the recompute; its backward is the plain version's,
+      recomputed and differentiated on the whole (S, S) logits:
+      4·B·H·S²·hd forward and 8·B·H·S²·hd backward, 12·B·H·S²·hd a layer.
+    """
+    L, D, H, K, F = cfg.n_layers, cfg.d_model, cfg.n_heads, \
+        cfg.n_kv_heads, cfg.d_ff
+    hd, T = cfg.hd, B * S
+    n_layers = L * (D * (H * hd + 2 * K * hd) + H * hd * D + 3 * D * F)
+    n_mm = n_layers + cfg.vocab * D
+    flash = 2.0 * B * H * hd * S * (S + 1)
+    return (6.0 * T * n_mm + 2.0 * T * (n_layers - L * D * F)
+            + L * (2 * flash + 12.0 * B * H * S * S * hd))
+
+
+def trace_tp_step(torch):
+    """19b's bf16 step (full-width qwen2-0.5b, (4, 1024), default config,
+    on (1, 2)) traced in a fake world of 2 with fake CUDA tensors, its
+    arguments made and placed as :func:`tp_phase` makes them: the
+    dry-run's counter over it."""
+    import torch.utils._pytree as pytree
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.dryrun import CostCounter
+    from repro_torch.launch.mesh import fake_world, make_mesh, train_rules
+    from repro_torch.models import Model
+    from repro_torch.parallel.axes import shard_ctx
+    from repro_torch.train import AdamW
+    from repro_torch.train.train_loop import make_train_step, place_state
+    cfg = get_config("qwen2-0.5b")
+    rules, opt = train_rules(), AdamW()
+    with fake_world(MESH_RANKS):
+        mesh2 = make_mesh((1, MESH_RANKS), ("data", "model"), device="cuda")
+        mesh2.device_mesh()
+        with FakeTensorMode():
+            params = pytree.tree_map(lambda t: t.to("cuda"), Model(cfg).init(
+                seed=0, device="cpu"))
+            batch = {k: torch.zeros((4, 1024), dtype=torch.int32,
+                                    device="cuda")
+                     for k in ("tokens", "labels")}
+            dp, dopt = place_state(params, opt.init(params), mesh2, rules)
+            db = shard_batch(batch, mesh2, rules.batch)
+            step = make_train_step(Model(cfg), opt)
+            costs = CostCounter()
+            with shard_ctx(mesh2, rules), costs:
+                step(dp, dopt, db)
+    return costs
+
+
+def run_dryrun_phase(torch, counts, cells, step_peaks, tp_costs) -> None:
+    """Phase 20: the dry-run, held against the card.  20a reads the cells
+    traced in their own process since the start (each ``ok``; no kernel
+    launched, no device byte allocated there).  20b traces 18a's step and
+    holds its peak against the card's over that step and its FLOPs
+    against the executed count (``step_peaks``: 18a's).  20c traces 19b's
+    step in a fake world of 2 and holds its collectives, call for call and
+    byte for byte, against what 19b's rank 0 ran (``tp_costs``)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    before = counts()
+    proc, out, err = cells
+    try:
+        proc.wait(timeout=900)
+    finally:
+        stop(proc)
+    out.seek(0)
+    err.seek(0)
+    lines = out.read().splitlines()
+    errors = err.read()
+    check(proc.returncode == 0, f"20a: the dry-run process exited "
+          f"{proc.returncode}: {errors[-2000:]}")
+    recs = [json.loads(x.split(" ", 1)[1]) for x in lines
+            if x.startswith("[dryrun-cell] ")]
+    ends = [json.loads(x.split(" ", 1)[1]) for x in lines
+            if x.startswith("[dryrun-end] ")]
+    check(len(recs) == len(DRYRUN_CELLS) and len(ends) == 1,
+          f"20a: {len(recs)} records: {lines[-5:]} {errors[-2000:]}")
+    for rec in recs:
+        check(rec["ok"], f"20a: {rec['arch']} × {rec['shape']} failed: "
+              f"{rec.get('error')}")
+        mem = rec["mem"]
+        line = (f"[dryrun] 20a {rec['arch']} × {rec['shape']} × "
+                f"{rec['mesh']}: mem(arg+tmp)="
+                f"{(mem['argument_bytes'] + mem['temp_bytes']) / 2**30:.2f}"
+                f"GiB (argument {mem['argument_bytes']:,} B, temp "
+                f"{mem['temp_bytes']:,} B, output {mem['output_bytes']:,} B;"
+                f" traced in {rec['lower_s']} s)")
+        if "flops_per_dev" in rec:
+            line += (f" flops/dev={rec['flops_per_dev']:.3e} bytes/dev="
+                     f"{rec['bytes_per_dev']:.3e} coll/dev="
+                     f"{rec['coll_bytes_per_dev']:.3e} "
+                     f"{rec['coll_calls']}")
+        print(line)
+    end = ends[0]
+    check(not any(end["launches"].values()),
+          f"20a: the traces launched kernels: {end['launches']}")
+    check(end["allocated"] == 0 and end["max_allocated"] == 0,
+          f"20a: the traces allocated device memory: {end}")
+    print(f"[dryrun] 20a: {len(recs)} cells ok, fake CUDA tensors: "
+          f"{end['fake_cuda']}; no kernel launched and 0 device bytes "
+          f"allocated by the traces in that process (PyTorch's context "
+          f"probe for fake CUDA tensors before them: {end['context_probe']}"
+          f" B); its wall {end['wall']:.1f} s (run beside phases 1-19)")
+
+    # 20b: 18a's step, traced, against the card
+    cfg = get_config("qwen2-0.5b")
+    B, S = 4, 1024
+    tr = dryrun._trace_variant(cfg, ShapeConfig("train_1k", S, B, "train"),
+                               None, None, device="cuda")
+    check(len(step_peaks) == 8, f"20b: 18a recorded {len(step_peaks)} "
+          "steps")
+    predicted = tr.argument_bytes + tr.temp_bytes
+    arg_card, peak = step_peaks[2]  # a warm step
+    rel = abs(predicted - peak) / peak
+    print(f"[dryrun] 20b qwen2-0.5b full width (4, 1024) train step "
+          f"(18a's, remat full): traced peak {predicted / 2**30:.3f} GiB "
+          f"(argument {tr.argument_bytes:,} B, temp {tr.temp_bytes:,} B), "
+          f"the card's {peak / 2**30:.3f} GiB (step 2: max_memory_allocated "
+          f"over the step less the bytes resident beside its {arg_card:,} "
+          f"argument bytes), off by {rel:.2%} (gate "
+          f"{DRYRUN_PEAK_GATE:.0%}); steps 0-7: " + ", ".join(
+              f"{p / 2**30:.3f}" for _, p in step_peaks) + " GiB")
+    check(tr.argument_bytes == arg_card, f"20b: traced arguments "
+          f"{tr.argument_bytes} B, the card's {arg_card} B")
+    check(rel <= DRYRUN_PEAK_GATE, f"20b: traced peak {predicted} B against "
+          f"the card's {peak} B")
+    executed = dryrun_step_flops(cfg, B, S)
+    frel = abs(tr.flops - executed) / executed
+    print(f"[dryrun] 20b FLOPs: traced {tr.flops:.6e}, executed "
+          f"{executed:.6e} = 6·T·N_mm + 2·T·(N_layers − L·D·F) + "
+          f"L·(2·flash + 12·B·H·S²·hd) (18a's 6·N·T + 6·L·B·H·hd·S·(S+1) "
+          f"with remat's recompute and the plain attention backward), off "
+          f"by {frel:.3%} (gate {DRYRUN_FLOP_GATE:.0%}); traced in "
+          f"{tr.seconds:.1f} s")
+    check(frel <= DRYRUN_FLOP_GATE, f"20b: traced FLOPs {tr.flops} against "
+          f"{executed}")
+
+    # 20c: 19b's step in a fake world of 2 against its real ranks
+    t0 = time.perf_counter()
+    costs = trace_tp_step(torch)
+    real = tp_costs
+    staged = real["stats"]
+    print(f"[dryrun] 20c 19b's bf16 step traced in a fake world of "
+          f"{MESH_RANKS} ({time.perf_counter() - t0:.1f} s): calls "
+          f"{costs.calls}, result bytes {costs.coll}; 19b's rank 0 on the "
+          f"card: calls {real['calls']}, bytes {real['coll']}; the "
+          f"host-staged group's own count there: {_kinds(staged)}")
+    check(costs.calls == real["calls"], f"20c: calls {costs.calls} traced, "
+          f"{real['calls']} on the card")
+    check(costs.coll == real["coll"], f"20c: bytes {costs.coll} traced, "
+          f"{real['coll']} on the card")
+    launched = {k: v - before[k] for k, v in counts().items()}
+    check(not any(launched.values()), f"phase 20 launched {launched}")
+    print(f"[dryrun] phase 20 launches: {launched}; phase 20 wall: "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -3896,6 +4168,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    cells = start_dryrun_cells()  # phase 20a, host work beside the rest
+    try:
+        return phases(torch, cells)
+    finally:
+        stop(cells[0])
+
+
+def phases(torch, cells) -> int:
     from repro_torch.kernels import _build, launch_counts, \
         reset_launch_counts
 
@@ -4005,7 +4285,7 @@ def main() -> int:
     # phase 18 (training, on phase 6's weights) is counted apart, from 0,
     # and added to the main path's counts
     reset_launch_counts()
-    run_train_phase(torch, dev, launch_counts, params)
+    step_peaks = run_train_phase(torch, dev, launch_counts, params)
     train_launched = launch_counts()
     print(f"[train] phase 18 launches: {train_launched}")
     launched = {k: v + train_launched[k] for k, v in launched.items()}
@@ -4019,7 +4299,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 19 (2 ranks sharing the card) is counted apart, from 0, in its
     # ranks, and added
-    launched_19 = run_mesh_phase(torch, *mesh_refs,
+    launched_19, tp_costs = run_mesh_phase(torch, *mesh_refs,
                                  (W, H, BANDS, ITERS, 16, 2048))
     launched = {k: v + launched_19[k] for k, v in launched.items()}
     torch.cuda.reset_peak_memory_stats()
@@ -4047,6 +4327,9 @@ def main() -> int:
                     lambda: backend.decode(last, adv))
         del backend
 
+    del moe_model, moe_params, moe_toks
+    run_dryrun_phase(torch, launch_counts, cells, step_peaks, tp_costs)
+
     for e in entries:
         e["launches"] = launched[e["name"]] + moe_launched[e["name"]]
         check(e["launches"] > 0, f"{e['name']}: never launched on the path")
@@ -4066,4 +4349,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dryrun_cells() if sys.argv[1:] == ["--dryrun-cells"]
+             else main())

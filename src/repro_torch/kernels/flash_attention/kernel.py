@@ -19,16 +19,31 @@ def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
     return bool(_lib().flash_attention_tensor_cores(DTYPES[dtype], head_dim))
 
 
-def readable(t: torch.Tensor, tensor_cores: bool) -> torch.Tensor:
-    """``t`` if :func:`launch` can read it in place (head dim contiguous
-    and, on the tensor cores, a 16-byte aligned base with batch, head and
-    seq strides multiples of 8 elements: ``aligned_rows`` in the C code),
-    else a copy in a fresh contiguous buffer, which has both."""
+def tensor_core_rule(dtype: torch.dtype, head_dim: int) -> bool:
+    """:func:`tensor_core_path` without the library (bf16 at head dims 16
+    to 128, ``tensor_cores`` in the C code), for tensors that hold no data;
+    a card test holds the two equal."""
+    return dtype == torch.bfloat16 and head_dim in (16, 32, 64, 128)
+
+
+def readable_layout(t: torch.Tensor, tensor_cores: bool,
+                    base: int = 0) -> bool:
+    """Can :func:`launch` read ``t`` in place: head dim contiguous and, on
+    the tensor cores, a 16-byte aligned start (``base``, the storage's
+    address, plus the view's offset) with batch, head and seq strides
+    multiples of 8 elements (``aligned_rows`` in the C code)?"""
     ok = t.stride(3) == 1
     if ok and tensor_cores:
-        ok = t.data_ptr() % 16 == 0 and all(
-            t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1)
-    if ok:
+        ok = (base + t.storage_offset() * t.element_size()) % 16 == 0 \
+            and all(t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1)
+    return ok
+
+
+def readable(t: torch.Tensor, tensor_cores: bool) -> torch.Tensor:
+    """``t`` if :func:`launch` can read it in place (:func:`readable_layout`
+    at its storage's address), else a copy in a fresh contiguous buffer,
+    which can be."""
+    if readable_layout(t, tensor_cores, t.untyped_storage().data_ptr()):
         return t
     return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
 

@@ -21,6 +21,15 @@ Under grad mode the CUDA branch runs the launch inside a
 that of the plain version, recomputed from the saved q, k, v with its
 (B, H, Sq, Sk) f32 logits; the CPU branch is the plain version itself.
 ``mha.launches`` counts the kernel launches.
+
+The launch is the custom op ``torch.ops.repro_torch.flash_attention``.
+Given tensors that hold no data on the card's path (fake CUDA tensors, or
+fake ones inside :func:`repro_torch.device.card_model`, as the dry-run
+traces the card's path) its fake rule returns the output that
+:func:`_launch` would allocate, with its shape, dtype and strides, and
+builds, calls and counts nothing; ``FlopCounterMode`` counts it by
+:func:`flops`, the kernel's own count.  A tensor with data always takes
+the launch.
 """
 
 from __future__ import annotations
@@ -30,12 +39,14 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
+from ...device import on_card
 from ...parallel.axes import is_dtensor
 from .. import _autograd, _launches
 from . import kernel, ref
 
-__all__ = ["mha"]
+__all__ = ["mha", "flops"]
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -58,9 +69,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else D ** -0.5
     if is_dtensor(q):
         return _mha_sharded(q, k, v, causal=causal, scale=scale)
-    if q.device.type == "cpu":
-        return ref.mha(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
+    if not on_card(q):
+        if q.device.type == "cpu":
+            return ref.mha(q, k, v, causal=causal, scale=scale)
         raise ValueError(f"mha: unsupported device {q.device}")
     if q.dtype not in kernel.DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -72,7 +83,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{kernel.HEAD_DIMS[-1]}, got {D}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("mha: q, k and v must lie on one device")
-    return _autograd.launch(_launch, ref.mha, q, k, v, causal=causal,
+    return _autograd.launch(_kernel_op, ref.mha, q, k, v, causal=causal,
                             scale=scale)
 
 
@@ -109,12 +120,16 @@ def _mha_sharded(q, k, v, *, causal: bool, scale: float):
         h0 = h0 * dm.size(i) + dm.get_local_rank(i)
 
     def local(ql, kl, vl):
-        if select:
-            idx = (torch.arange(ql.shape[1]) + h0 * ql.shape[1]) // (H // K)
-            u = idx.unique_consecutive()
-            if torch.equal(idx, u.repeat_interleave(len(idx) // len(u))):
-                idx = u  # whole groups: keep the GQA layout
-            idx = idx.to(kl.device)
+        if select:  # the KV head of each local query head, from shapes
+            n, G = ql.shape[1], H // K
+            heads = [(h0 * n + j) // G for j in range(n)]
+            uniq = sorted(set(heads))
+            whole = heads == [u for u in uniq for _ in range(n // len(uniq))]
+            # made on the device: no copy from the host
+            idx = (torch.arange(uniq[0], uniq[-1] + 1, device=kl.device)
+                   if whole else  # whole groups: keep the GQA layout
+                   torch.div(torch.arange(n, device=kl.device) + h0 * n, G,
+                             rounding_mode="floor"))
             kl, vl = kl.index_select(1, idx), vl.index_select(1, idx)
         return mha(ql, kl, vl, causal=causal, scale=scale)
 
@@ -138,3 +153,40 @@ def _launch(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
     kernel.launch(q, k, v, o, causal=causal, scale=scale)
     _launches.count(mha)
     return o if Dk == D else o[..., :D]
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _kernel_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, scale: float) -> torch.Tensor:
+    return _launch(q, k, v, causal=causal, scale=scale)
+
+
+@_kernel_op.register_fake
+def _(q, k, v, causal, scale):
+    """The output :func:`_launch` allocates: q's layout where the kernel
+    reads q in place, a fresh contiguous one where q is padded or copied
+    (the same rules, read from shapes, strides and offsets alone)."""
+    B, H, Sq, D = q.shape
+    Dk = next(d for d in kernel.HEAD_DIMS if d >= D)
+    if Dk != D:  # o[..., :D] of a contiguous (B, H, Sq, Dk) buffer
+        return torch.empty_strided((B, H, Sq, D), (H * Sq * Dk, Sq * Dk, Dk, 1),
+                                   dtype=q.dtype, device=q.device)
+    if kernel.readable_layout(q, kernel.tensor_core_rule(q.dtype, D)):
+        return torch.empty_like(q)
+    return q.new_empty(q.shape)
+
+
+def flops(B: int, H: int, Sq: int, Sk: int, D: int, causal: bool) -> float:
+    """The kernel's FLOP count: 4·D per (query, key) pair it computes, the
+    pairs of the causal triangle (query i sees keys up to i + Sk - Sq) or
+    all Sq·Sk."""
+    pairs = (Sq * (Sk - Sq + 1) + Sq * (Sq - 1) // 2) if causal else Sq * Sk
+    return 4.0 * D * B * H * pairs
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, scale, *_, out_shape=None,
+           **__) -> int:
+    B, H, Sq, D = q_shape
+    return int(flops(B, H, Sq, k_shape[2], D, causal))

@@ -17,12 +17,20 @@ that of the plain grouped product (:func:`.ref.gmm`), recomputed from the
 saved x and w; the routing indices carry no gradient.  The CPU branch is
 the plain version itself.  ``moe_apply.launches`` counts the kernel
 launches.
+
+The launch is the custom op ``torch.ops.repro_torch.moe_gmm``.  Given
+tensors that hold no data on the card's path (see
+:func:`repro_torch.device.card_model`) its fake rule returns y (T, F) in
+x's dtype and builds, calls and counts nothing; ``FlopCounterMode`` counts
+it as 2·T·D·F.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from ...device import on_card
 from .. import _autograd, _launches
 from . import kernel, ref
 
@@ -115,9 +123,9 @@ def moe_apply(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor, *,
     if expert_of.dtype.is_floating_point or expert_of.dtype == torch.bool:
         raise TypeError(f"moe_apply: expert_of must be an integer tensor, "
                         f"got {expert_of.dtype}")
-    if x.device.type == "cpu":
-        return ref.gmm(x, expert_of, w)
-    if x.device.type != "cuda":
+    if not on_card(x):
+        if x.device.type == "cpu":
+            return ref.gmm(x, expert_of, w)
         raise ValueError(f"moe_apply: unsupported device {x.device}")
     if expert_of.device != x.device or w.device != x.device:
         raise ValueError("moe_apply: x, expert_of and w must lie on one "
@@ -126,10 +134,30 @@ def moe_apply(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor, *,
         raise TypeError(f"moe_apply: the CUDA kernel takes x and w in "
                         f"float32, bfloat16 or float16, got {x.dtype}, "
                         f"{w.dtype}")
-    return _autograd.launch(_launch, _plain, x, expert_of, w, tile_m=tile_m)
+    return _autograd.launch(_kernel_op, _plain, x, expert_of, w,
+                            tile_m=tile_m)
 
 
 moe_apply.launches = 0
+
+
+@torch.library.custom_op("repro_torch::moe_gmm", mutates_args=(),
+                         device_types="cuda")
+def _kernel_op(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor,
+               tile_m: int) -> torch.Tensor:
+    return _launch(x, expert_of, w, tile_m=tile_m)
+
+
+@_kernel_op.register_fake
+def _(x, expert_of, w, tile_m):
+    return x.new_empty((x.shape[0], w.shape[2]))
+
+
+@register_flop_formula(torch.ops.repro_torch.moe_gmm)
+def _flops(x_shape, e_shape, w_shape, *_, out_shape=None, **__) -> int:
+    """2·rows·D·F: the kernel computes every token row once and skips the
+    padding."""
+    return 2 * x_shape[0] * x_shape[1] * w_shape[2]
 
 
 def _plain(x, expert_of, w, *, tile_m: int) -> torch.Tensor:

@@ -20,16 +20,27 @@ One launch takes P <= ``kernel.MAX_P`` and N <= ``kernel.MAX_N``; a wider
 input runs as several launches (:func:`_pieces`), since the scan's P columns
 are independent and its N rows enter y only through sums over N.
 ``ssd.launches`` counts the kernel launches.
+
+The launches are the custom ops ``torch.ops.repro_torch.ssd_scan`` (y) and
+``ssd_scan_state`` (y and the state).  Given tensors that hold no data on
+the card's path (see :func:`repro_torch.device.card_model`) their fake
+rules return the outputs :func:`_op` allocates and build, call and count
+nothing; ``FlopCounterMode`` counts them by :func:`flops`.
 """
 
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from ...device import on_card
+from ...parallel.axes import is_dtensor
 from .. import _autograd, _launches
 from . import kernel, ref
 
-__all__ = ["ssd"]
+__all__ = ["ssd", "flops"]
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = 64, return_state: bool = False):
@@ -58,9 +69,13 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, return_state: bool = False):
         raise ValueError(f"ssd: x {tuple(x.shape)} does not fit dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)} (same batch and S, G | H)")
-    if x.device.type == "cpu":
-        return ref.ssd(x, dt, A, B, C, chunk=chunk, return_state=return_state)
-    if x.device.type != "cuda":
+    if is_dtensor(x):
+        return _ssd_sharded(x, dt, A, B, C, chunk=chunk,
+                            return_state=return_state)
+    if not on_card(x):
+        if x.device.type == "cpu":
+            return ref.ssd(x, dt, A, B, C, chunk=chunk,
+                           return_state=return_state)
         raise ValueError(f"ssd: unsupported device {x.device}")
     if any(t.device != x.device for t in (dt, A, B, C)):
         raise ValueError("ssd: x, dt, A, B and C must lie on one device")
@@ -72,11 +87,115 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, return_state: bool = False):
     if not (dt.dtype.is_floating_point and A.dtype.is_floating_point):
         raise TypeError(f"ssd: dt and A must be floating point, got "
                         f"{dt.dtype}, {A.dtype}")
-    return _autograd.launch(_op, ref.ssd, x, dt, A, B, C, chunk=chunk,
-                            return_state=return_state)
+    return _autograd.launch(_kernel_op, ref.ssd, x, dt, A, B, C,
+                            chunk=chunk, return_state=return_state)
 
 
 ssd.launches = 0
+
+
+def _ssd_sharded(x, dt, A, B, C, *, chunk: int, return_state: bool):
+    """``ssd`` of DTensors: each rank runs the op (the kernel on the card)
+    on its own batch rows and heads, through ``local_map``.  x keeps a
+    shard of its batch dim (0) or head dim (2) and gathers any other; dt
+    and A follow it; B and C follow its batch shards and split their
+    groups with its heads where the head ways divide G, else stay whole
+    (each rank's heads then read group 0 of G = 1, or the groups are
+    gathered with the heads); the gradients of inputs a rank holds whole
+    are summed over the ranks that split the work.  The state comes back
+    as (batch, H, N, P): one dim cannot carry both the batch and the head
+    shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = x.device_mesh
+    H, G = x.shape[2], B.shape[2]
+    xp = [pl if isinstance(pl, Shard) and pl.dim in (0, 2) else Replicate()
+          for pl in x.placements]
+    head_ways = math.prod(dm.size(i) for i, pl in enumerate(xp)
+                          if pl == Shard(2))
+    if G > 1 and G % head_ways:  # groups cannot follow the heads' split
+        xp = [Replicate() if pl == Shard(2) else pl for pl in xp]
+    bp = xp if G > 1 else [Replicate() if pl == Shard(2) else pl
+                           for pl in xp]
+    ap = [Shard(0) if pl == Shard(2) else Replicate() for pl in xp]
+
+    def local(xl, dtl, Al, Bl, Cl):
+        res = ssd(xl, dtl, Al, Bl, Cl, chunk=chunk,
+                  return_state=return_state)
+        if not return_state:
+            return res
+        y, hT = res
+        b, _, h, p = xl.shape
+        return y, hT.reshape(b, h, Bl.shape[3], p)
+
+    # a rank's gradient of a whole input holds only its own rows' or
+    # heads' share: A's is a partial sum over the batch ways, B's and C's
+    # over the head ways they do not split with
+    ag = [Partial() if pl == Shard(0) else a for pl, a in zip(xp, ap)]
+    bg = [Partial() if pl == Shard(2) and b == Replicate() else b
+          for pl, b in zip(xp, bp)]
+    hp = [Shard(1) if pl == Shard(2) else pl for pl in xp]
+    return local_map(local, out_placements=(xp, hp) if return_state else xp,
+                     in_placements=(xp, xp, ap, bp, bp),
+                     in_grad_placements=(xp, xp, ag, bg, bg), device_mesh=dm,
+                     redistribute_inputs=True)(x, dt, A, B, C)
+
+
+def _kernel_op(x, dt, A, B, C, *, chunk: int, return_state: bool):
+    """:func:`_op` as a custom op: one for y alone, one for y and the
+    state."""
+    del chunk
+    if return_state:
+        return torch.ops.repro_torch.ssd_scan_state(x, dt, A, B, C)
+    return torch.ops.repro_torch.ssd_scan(x, dt, A, B, C)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cuda")
+def _scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+          B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    return _op(x, dt, A, B, C, chunk=64, return_state=False)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_state", mutates_args=(),
+                         device_types="cuda")
+def _scan_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _op(x, dt, A, B, C, chunk=64, return_state=True)
+
+
+@_scan.register_fake
+def _(x, dt, A, B, C):
+    return x.new_empty(x.shape)  # y as _op allocates it: contiguous
+
+
+@_scan_state.register_fake
+def _(x, dt, A, B, C):
+    b, _, H, P = x.shape
+    return x.new_empty(x.shape), x.new_empty((b * H, B.shape[3], P),
+                                             dtype=torch.float32)
+
+
+def flops(b: int, S: int, H: int, P: int, G: int, N: int,
+          chunk: int = 64) -> float:
+    """The kernel's FLOP count (its chunks of 64 steps): C·Bᵀ once per group
+    over the causal pairs of each chunk, W·x over the same pairs per head,
+    C·h and the state update N·P multiply-adds a step per head."""
+    rows = [chunk] * (S // chunk) + ([S % chunk] if S % chunk else [])
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    return 2.0 * b * G * N * pairs + b * H * (2.0 * P * pairs
+                                              + 4.0 * N * P * S)
+
+
+def _flop_formula(x_shape, dt_shape, A_shape, B_shape, C_shape, *_,
+                  out_shape=None, **__) -> int:
+    b, S, H, P = x_shape
+    return int(flops(b, S, H, P, B_shape[2], B_shape[3]))
+
+
+register_flop_formula(torch.ops.repro_torch.ssd_scan)(_flop_formula)
+register_flop_formula(torch.ops.repro_torch.ssd_scan_state)(_flop_formula)
 
 
 def _op(x, dt, A, B, C, *, chunk: int, return_state: bool):

@@ -21,6 +21,7 @@ refuses two ranks of one communicator on one GPU.  With one card per rank
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import multiprocessing as mp
@@ -37,7 +38,7 @@ import torch
 import torch.utils._pytree as pytree
 
 __all__ = ["Mesh", "make_production_mesh", "make_mesh", "serve_rules",
-           "train_rules", "run_world", "world_backend"]
+           "train_rules", "run_world", "world_backend", "fake_world"]
 
 
 class Mesh:
@@ -131,6 +132,26 @@ def serve_rules(*, kv_seq_shard: bool = True):
 # --------------------------------------------------------------------------
 # worlds of local ranks
 # --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """This process as rank 0 of a world of ``n`` ranks over the ``fake``
+    backend: collectives return at once and move nothing, so a
+    ``DeviceMesh`` of any size comes up (each axis its sub-groups) and
+    ``DTensor`` gives rank 0's shards.  Refuses when a process group is
+    already up; destroys its own on exit, also after an error."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"fake_world({n}): a process group of "
+            f"{dist.get_world_size()} ranks is already up in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
 
 def world_backend(device_type: str) -> str:
     """The backend of a world whose ranks compute on ``device_type`` and

@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from ..parallel.axes import act
+from ..parallel.axes import act, is_dtensor
 from . import layers
 from .transformer import _layer, _layers, _restack, remat
 
@@ -173,11 +173,15 @@ def loss_fn(cfg, params, batch, **_):
     loss), with ``nll``, ``aux`` (0) and ``perplexity`` metrics."""
     logits, aux = forward(cfg, params, batch["tokens"],
                           frames=batch.get("frames"))
-    logits = logits.float()
     labels = batch["labels"]
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = torch.mean(logz - gold)
+    # the vocab gather has no sharding rule: whole in vocab on a mesh
+    logits = act(logits.float(), "batch", "seq", None)
+    if is_dtensor(logits):
+        nll = layers.nll_sum(logits, labels) / labels.numel()
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = torch.mean(logz - gold)
     return nll, {"nll": nll, "aux": aux,
                  "perplexity": torch.exp(torch.clamp(nll, max=20.0))}
 

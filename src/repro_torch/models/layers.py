@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..device import on_card
 from ..kernels.flash_attention import ops as fops, ref as fref
 from ..parallel.axes import act, is_dtensor
 
@@ -148,7 +149,7 @@ def _sdpa(q, k, v, *, causal: bool, attn_chunk: int = 0) -> torch.Tensor:
     package runs them: chunked when ``attn_chunk`` is set, else dense (its
     Pallas kernel computes the same function)."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if q.device.type == "cuda":
+    if on_card(q):
         ot = fops.mha(qt, kt, vt, causal=causal)
     elif attn_chunk:
         ot = fref.mha_chunked(qt, kt, vt, causal=causal, chunk=attn_chunk)
@@ -157,18 +158,148 @@ def _sdpa(q, k, v, *, causal: bool, attn_chunk: int = 0) -> torch.Tensor:
     return ot.transpose(1, 2)
 
 
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) → (B, S, n, hd).  A DTensor whose last dim is split
+    over ranks off the head boundaries (n heads on more ways than divide
+    them) is gathered along those ways first, as GSPMD reshards it."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        dm = t.device_mesh
+        last = (Shard(t.ndim - 1), Shard(-1))
+        ways = math.prod(dm.size(i) for i, p in enumerate(t.placements)
+                         if p in last)
+        if n % ways:
+            t = t.redistribute(dm, [Replicate() if p in last else p
+                                    for p in t.placements])
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
 def _write_rows(buf: torch.Tensor, new: torch.Tensor,
                 start: torch.Tensor) -> None:
     """``buf[b, start[b]:start[b] + S] = new[b]`` for every row b, in place.
 
     ``start`` is clamped to ``[0, T - S]`` as ``dynamic_update_slice`` clamps
     it, and stays on the device (no host read of the cache index)."""
+    if is_dtensor(buf):
+        return _write_rows_sharded(buf, new, start)
     B, S = new.shape[:2]
     T = buf.shape[1]
     lo = start.clamp(0, T - S).long()
     pos = lo[:, None] + torch.arange(S, device=buf.device)[None, :]
     rows = torch.arange(B, device=buf.device)[:, None].expand(B, S)
     buf[rows, pos] = new.to(buf.dtype)
+
+
+def _seq_block(dm, placements, T: int) -> tuple[list, int, int]:
+    """The mesh dims that split dim 1 (a cache's positions) of a DTensor,
+    and this rank's block of positions: (dims, first, length)."""
+    from torch.distributed.tensor import Shard
+    dims = [i for i, p in enumerate(placements) if p == Shard(1)]
+    ways, block = 1, 0
+    for i in dims:
+        ways *= dm.size(i)
+        block = block * dm.size(i) + dm.get_local_rank(i)
+    return dims, block * (T // ways), T // ways
+
+
+def _write_rows_sharded(buf, new, start) -> None:
+    """:func:`_write_rows` into a DTensor cache whose positions (dim 1)
+    may be split over ranks (the ``kv_seq`` rule): each rank writes, in
+    place through ``local_map``, the rows of its batch shard that fall in
+    its own block of positions.  A row's S positions taken modulo the
+    block length are distinct for S up to that length, so a position
+    outside the block rewrites its own old value at a slot no other
+    position of the row uses; a longer S is written block by block."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm, bp = buf.device_mesh, list(buf.placements)
+    T, S = buf.shape[1], new.shape[1]
+    _, off, Tl = _seq_block(dm, bp, T)
+    new_p = [Replicate() if p == Shard(1) else p for p in bp]
+    idx_p = [p if p == Shard(0) else Replicate() for p in bp]
+
+    def local(b, n, st):
+        lo = st.clamp(0, T - S).long()
+        rows = torch.arange(b.shape[0], device=b.device)[:, None]
+        for j in range(0, S, Tl):
+            nj = n[:, j:j + Tl].to(b.dtype)
+            pos = lo[:, None] + j + torch.arange(nj.shape[1],
+                                                 device=b.device)[None, :]
+            inside = (pos >= off) & (pos < off + Tl)
+            slot = torch.remainder(pos - off, Tl)
+            r = rows.expand_as(slot)
+            keep = inside.reshape(inside.shape + (1,) * (nj.ndim - 2))
+            b[r, slot] = torch.where(keep, nj, b[r, slot])
+        return b
+
+    local_map(local, out_placements=bp, in_placements=(bp, new_p, idx_p),
+              device_mesh=dm, redistribute_inputs=True)(buf, new, start)
+
+
+def _cached_attention(q, k, v, idx, dtype):
+    """Attention of q (B, S, H, hd) over the cache's k, v (B, T, K, hd):
+    row b's queries sit at positions idx_b + [0, S) and see the keys up to
+    their own.  GQA via a grouped einsum — never materialise repeated
+    KV."""
+    B, S, H, hd = q.shape
+    K, T = k.shape[2], k.shape[1]
+    qg = q.reshape(B, S, K, H // K, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                          k.float()) * (hd ** -0.5)
+    ki = torch.arange(T, device=q.device)[None, None, None, None, :]
+    qi = (idx.to(q.device)[:, None, None, None, None]
+          + torch.arange(S, device=q.device)[None, None, None, :, None])
+    logits = logits.masked_fill(~(ki <= qi), float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    ot = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(),
+                      v.float())
+    return ot.reshape(B, S, H, hd).to(dtype)
+
+
+def _cached_attention_sharded(q, k, v, idx, dtype):
+    """:func:`_cached_attention` over DTensor caches whose positions may
+    be split over ranks (flash-decoding over ranks): each rank scores its
+    own block of keys, the ranks' maxima meet in one all-reduce, and each
+    rank's exponentiated sums and partial output, scaled to that maximum,
+    in another; the output is then whole on every rank of those ways.  q
+    follows the cache's batch and head shards."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm, kp = k.device_mesh, list(k.placements)
+    T, hd = k.shape[1], q.shape[3]
+    dims, off, _ = _seq_block(dm, kp, T)
+    groups = [dm.get_group(i) for i in dims]
+    qp = [Replicate() if p == Shard(1) else p for p in kp]
+    ip = [p if p == Shard(0) else Replicate() for p in kp]
+
+    def local(ql, kl, vl, il):
+        B, S, H, _ = ql.shape
+        K, Tl = kl.shape[2], kl.shape[1]
+        qg = ql.reshape(B, S, K, H // K, hd)
+        logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                              kl.float()) * (hd ** -0.5)
+        ki = off + torch.arange(Tl, device=ql.device)[None, None, None,
+                                                       None, :]
+        qi = (il[:, None, None, None, None]
+              + torch.arange(S, device=ql.device)[None, None, None, :, None])
+        logits = logits.masked_fill(~(ki <= qi), float("-inf"))
+        m = logits.amax(dim=-1, keepdim=True)
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        # every query sees key 0, so the maximum over all ranks is finite
+        e = torch.exp(logits - m)
+        lse = e.sum(dim=-1, keepdim=True)
+        ot = torch.einsum("bkgst,btkd->bkgsd", e, vl.float())
+        both = torch.cat([ot, lse], dim=-1)
+        for g in groups:
+            both = funcol.all_reduce(both, "sum", g)
+        ot = both[..., :hd] / both[..., hd:]
+        return ot.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(dtype)
+
+    return local_map(local, out_placements=qp,
+                     in_placements=(qp, kp, kp, ip), device_mesh=dm,
+                     redistribute_inputs=True)(q, k, v, idx)
 
 
 def attention(p: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
@@ -195,9 +326,9 @@ def attention(p: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, -1, K, hd)
-    v = v.reshape(B, -1, K, hd)
+    q = _split_heads(q, H, hd)
+    k = _split_heads(k, K, hd)
+    v = _split_heads(v, K, hd)
     q = act(q, "batch", "seq", "heads", None)
     k = act(k, "batch", "seq", "heads", None)
     if kv_input is None:  # RoPE only for self-attention
@@ -230,21 +361,8 @@ def attention(p: dict, cfg, x: torch.Tensor, *, positions: torch.Tensor,
             _write_rows(cache["v"], v, idx)
             new_cache = {"k": cache["k"], "v": cache["v"], "index": new_idx}
             k, v = cache["k"], cache["v"]
-        # per-row causality: row b's queries sit at positions idx_b + [0,S).
-        # GQA via a grouped einsum — never materialise repeated KV.
-        T = k.shape[1]
-        group = H // K
-        qg = q.reshape(B, S, K, group, hd)
-        logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
-                              k.float()) * (hd ** -0.5)
-        ki = torch.arange(T, device=x.device)[None, None, None, None, :]
-        qi = (idx.to(x.device)[:, None, None, None, None]
-              + torch.arange(S, device=x.device)[None, None, None, :, None])
-        logits = logits.masked_fill(~(ki <= qi), float("-inf"))
-        probs = torch.softmax(logits, dim=-1)
-        ot = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(),
-                          v.float())
-        out = ot.reshape(B, S, H, hd).to(x.dtype)
+        out = (_cached_attention_sharded if is_dtensor(k)
+               else _cached_attention)(q, k, v, idx, x.dtype)
     else:
         out = _sdpa(q, k, v, causal=causal, attn_chunk=cfg.attn_chunk)
     out = out.reshape(B, S, H * hd)
@@ -353,6 +471,26 @@ def embed(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.embed_scale:  # the scale rounds to x's dtype first, as in JAX
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return act(x, "batch", "seq", "d")
+
+
+def nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Σ (logsumexp(logits) − logits[label]) over every (b, s) of float32
+    logits (B, S, V) whole in V.  For DTensors each rank sums its own rows
+    through ``local_map`` (the backward of the label gather has no sharding
+    rule that stays on the rank's rows), leaving a partial sum over the
+    batch and sequence ways."""
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        rows = (Shard(0), Shard(1))
+        lp = [pl if pl in rows else Replicate() for pl in logits.placements]
+        op = [Partial() if pl in rows else Replicate() for pl in lp]
+        return local_map(nll_sum, out_placements=op, in_placements=(lp, lp),
+                         device_mesh=logits.device_mesh,
+                         redistribute_inputs=True)(logits, labels)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(logz - gold)
 
 
 def unembed(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
-from ..parallel.axes import act
+from ..parallel.axes import act, is_dtensor
 from . import layers
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_cache", "mamba_decode_step"]
@@ -79,13 +79,17 @@ def mamba_apply(p: dict, cfg, x: torch.Tensor, *, return_state: bool = False):
     B, S, D = x.shape
     di, H, P, N, G, conv_dim, ck = _dims(cfg)
     proj = act(x @ p["in_proj"].to(x.dtype), "batch", "seq", "ff")
-    z, xBC_raw, dt = _split_proj(cfg, proj)
+    # z, xBC and dt split the ff dim off the ranks' boundaries: on a mesh
+    # it is gathered once, before the three slices
+    z, xBC_raw, dt = _split_proj(cfg, act(proj, "batch", "seq", None))
     xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
     # views of xBC: the kernel reads them through their strides
-    xs = xBC[..., :di].reshape(B, S, H, P)
+    xs = act(xBC[..., :di].reshape(B, S, H, P), "batch", "seq", "heads",
+             None)
     Bm = xBC[..., di:di + G * N].reshape(B, S, G, N)
     Cm = xBC[..., di + G * N:].reshape(B, S, G, N)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    dt = act(F.softplus(dt.float() + p["dt_bias"].float()), "batch", "seq",
+             "heads")
     A = -torch.exp(p["A_log"].float())  # (H,)
     res = ssd_ops.ssd(xs, dt, A, Bm, Cm, chunk=cfg.ssm.chunk,
                       return_state=return_state)
@@ -99,7 +103,9 @@ def mamba_apply(p: dict, cfg, x: torch.Tensor, *, return_state: bool = False):
         pad = torch.zeros((B, ck - 1, conv_dim), dtype=xBC_raw.dtype,
                           device=x.device)
         conv_state = torch.cat([pad, xBC_raw], dim=1)[:, -(ck - 1):]
-        return out, {"conv": conv_state, "h": hT.reshape(B, H, N, P)}
+        # the sharded op gives the state as (B, H, N, P) already
+        return out, {"conv": conv_state, "h": hT.reshape(B, H, N, P)
+                     if hT.ndim == 3 else hT}
     return out
 
 
@@ -114,6 +120,32 @@ def mamba_cache(cfg, batch: int, dtype, device, stack: int = 0) -> dict:
         "h": torch.zeros(lead + (batch, H, N, P), dtype=torch.float32,
                          device=device),
     }
+
+
+def _recurrence(h, xs, dt, A, Bm, Cm):
+    """One step of the SSD recurrence on h (B, H, N, P), xs (B, H, P), dt
+    (B, H), A (H,), Bm, Cm (B, H, N): (y (B, H, P), h_new).  DTensors run
+    it through ``local_map`` on each rank's batch rows and heads (h's
+    shards), where the flat (B·H) layout of the step exists only
+    locally."""
+    def step(h, xs, dt, A, Bm, Cm):
+        B, H, N, P = h.shape
+        y, h_new = ssd_ref.ssd_decode_step(
+            h.reshape(B * H, N, P), xs.reshape(B * H, P), dt.reshape(B * H),
+            A.repeat(B), Bm.reshape(B * H, N), Cm.reshape(B * H, N))
+        return y.reshape(B, H, P), h_new.reshape(B, H, N, P)
+
+    if not is_dtensor(h):
+        return step(h, xs, dt, A, Bm, Cm)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    hp = [pl if isinstance(pl, Shard) and pl.dim in (0, 1) else Replicate()
+          for pl in h.placements]
+    ap = [Shard(0) if pl == Shard(1) else Replicate() for pl in hp]
+    return local_map(step, out_placements=(hp, hp),
+                     in_placements=(hp, hp, hp, ap, hp, hp),
+                     device_mesh=h.device_mesh,
+                     redistribute_inputs=True)(h, xs, dt, A, Bm, Cm)
 
 
 def mamba_decode_step(p: dict, cfg, x: torch.Tensor, cache: dict,
@@ -140,12 +172,8 @@ def mamba_decode_step(p: dict, cfg, x: torch.Tensor, cache: dict,
         Cm = Cm.repeat_interleave(H // G, dim=1)
     dtv = F.softplus(dt.float()[:, 0, :] + p["dt_bias"].float())  # (B, H)
     A = -torch.exp(p["A_log"].float())
-    y, h_new = ssd_ref.ssd_decode_step(
-        cache["h"].reshape(B * H, N, P), xs.reshape(B * H, P),
-        dtv.reshape(B * H), A.repeat(B), Bm.reshape(B * H, N),
-        Cm.reshape(B * H, N))
-    h_new = h_new.reshape(B, H, N, P)
-    y = y.reshape(B, H, P) + p["D_skip"].float()[None, :, None] * xs.float()
+    y, h_new = _recurrence(cache["h"], xs, dtv, A, Bm, Cm)
+    y = y + p["D_skip"].float()[None, :, None] * xs.float()
     y = y.reshape(B, 1, di).to(x.dtype)
     y = layers.rmsnorm(p["gate_norm"], y * F.silu(z), eps=cfg.norm_eps)
     out = y @ p["out_proj"].to(x.dtype)

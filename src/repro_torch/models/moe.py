@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.moe_gmm import ops as gmm_ops
-from ..parallel.axes import act
+from ..parallel.axes import act, is_dtensor
 from . import layers
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_ragged", "capacity"]
@@ -73,9 +73,9 @@ def _stack_init(gen: torch.Generator, shape, dtype,
         .mul_(scale).to(dtype)
 
 
-def _dispatch_combine(probs: torch.Tensor, k: int, C: int):
+def _route_groups(probs: torch.Tensor, k: int, C: int):
     """probs: (B, S, E) f32 → dispatch (B, S, E, C) 0/1, combine f32, the
-    kept gates' sum (B, S), and the aux load-balancing loss.  A loop over
+    kept gates' sum (B, S), and each group's aux term.  A loop over
     the k choices, mesh-tf style; a choice at position ≥ C in its expert's
     buffer is dropped (its one-hot row is zero, as ``jax.nn.one_hot`` gives
     for an index out of range)."""
@@ -100,11 +100,33 @@ def _dispatch_combine(probs: torch.Tensor, k: int, C: int):
         combine += slot * g[..., None, None]
         count_e = count_e + torch.sum(e_onehot * keep[..., None], dim=1)
         gates_sum = gates_sum + g * keep
-    # aux loss (switch-style): E · Σ_e f_e · p̄_e, per group then averaged
+    # aux loss (switch-style): each group's Σ_e f_e · p̄_e (the callers
+    # take E times their mean)
     frac_tokens = torch.mean(F.one_hot(topi[..., 0], E).to(cd), dim=1)
     mean_probs = torch.mean(probs, dim=1)
-    aux = E * torch.mean(torch.sum(frac_tokens * mean_probs, dim=-1))
-    return dispatch, combine, gates_sum, aux
+    return dispatch, combine, gates_sum, torch.sum(frac_tokens * mean_probs,
+                                                   dim=-1)
+
+
+def _dispatch_combine(probs: torch.Tensor, k: int, C: int):
+    """probs: (B, S, E) f32 → dispatch (B, S, E, C) 0/1, combine f32, the
+    kept gates' sum (B, S), and the aux load-balancing loss.  Each group
+    (batch row) is routed on its own (:func:`_route_groups`), so DTensor
+    probs are routed through ``local_map`` on each rank's rows."""
+    if is_dtensor(probs):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        pp = [pl if pl == Shard(0) else Replicate()
+              for pl in probs.placements]
+        route = local_map(_route_groups, out_placements=(pp,) * 4,
+                          in_placements=(pp, None, None),
+                          device_mesh=probs.device_mesh,
+                          redistribute_inputs=True)
+    else:
+        route = _route_groups
+    dispatch, combine, gates_sum, per_group = route(probs, k, C)
+    return dispatch, combine, gates_sum, probs.shape[-1] * torch.mean(
+        per_group)
 
 
 def moe_apply_ragged(p: dict, cfg, x: torch.Tensor):
@@ -138,6 +160,25 @@ def moe_apply_ragged(p: dict, cfg, x: torch.Tensor):
     return act(y, "batch", "seq", "d"), aux
 
 
+def _combine_experts(combine, ye):
+    """y (B, S, D) = Σ_e,c combine (B, S, E, C) · ye (E, B, C, D).  With
+    DTensors each rank sums over its own experts and capacity slots
+    through ``local_map`` (the einsum's flattened (e, c) dim has no
+    sharding rule), leaving a partial sum over the expert ways."""
+    if not is_dtensor(ye):
+        return torch.einsum("bsec,ebcd->bsd", combine, ye)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    yp = [pl if pl in (Shard(0), Shard(1)) else Replicate()
+          for pl in ye.placements]
+    cp = [{Shard(0): Shard(2), Shard(1): Shard(0)}.get(pl, pl) for pl in yp]
+    op = [{Shard(0): Partial(), Shard(1): Shard(0)}.get(pl, pl) for pl in yp]
+    return local_map(lambda c, e: torch.einsum("bsec,ebcd->bsd", c, e),
+                     out_placements=op, in_placements=(cp, yp),
+                     device_mesh=ye.device_mesh,
+                     redistribute_inputs=True)(combine, ye)
+
+
 def moe_apply(p: dict, cfg, x: torch.Tensor):
     """x: (B, S, D) → (y, aux_loss)."""
     if cfg.moe_ragged:
@@ -163,7 +204,7 @@ def moe_apply(p: dict, cfg, x: torch.Tensor):
     h = act(F.silu(g) * u, "expert", "batch", None, "ff")
     ye = act(torch.einsum("ebcf,efd->ebcd", h, w["down"].to(cd)),
              "expert", "batch", None, "d")
-    y = torch.einsum("bsec,ebcd->bsd", combine.to(cd), ye)
+    y = _combine_experts(combine.to(cd), ye)
     if m.n_shared:
         y = y + layers.mlp(p["shared"], cfg, x, act_fn="swiglu")
     return act(y, "batch", "seq", "d"), aux

@@ -255,9 +255,7 @@ def _nll_dense(cfg, params, hidden, labels):
     # the vocab gather has no sharding rule: the logits' rows are whole on
     # every rank of a mesh (a no-op on one device)
     logits = act(logits, "batch", "seq", None)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.sum(logz - gold)
+    return layers.nll_sum(logits, labels)
 
 
 def _nll_chunked(cfg, params, hidden, labels):

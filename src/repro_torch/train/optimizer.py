@@ -77,7 +77,9 @@ class AdamW:
     def _lr(self, step: torch.Tensor) -> torch.Tensor:
         if callable(self.lr):
             return self.lr(step)
-        return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
+        # filled on the device: no copy from the host each step
+        return torch.full((), self.lr, dtype=torch.float32,
+                          device=step.device)
 
     def init(self, params) -> dict:
         """Zero moments in float32 beside each parameter, and step 0."""

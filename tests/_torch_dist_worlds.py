@@ -301,6 +301,86 @@ def _checkpoint_remesh(rank: int, out: dict, ckpt_dir: str) -> None:
                      tuple(wq.to_local().shape))
 
 
+# the families the mesh slice left: MoE (capacity), SSM, hybrid, the
+# encoder-decoder and the VLM, each a (2, 2) train step against one device
+FAMILY_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b", "zamba2-1.2b",
+                "whisper-tiny", "qwen2-vl-2b")
+# sharded serving: decode on a (1, 4) mesh with the caches' positions over
+# the model axis (serve_rules' kv_seq)
+SERVE_ARCHS = ("qwen2-0.5b", "zamba2-1.2b")
+SERVE_LEN, SERVE_PROMPT, SERVE_STEPS = 8, 3, 4
+
+
+def serve_tokens(vocab: int) -> list:
+    """The prompt (2, SERVE_PROMPT) and SERVE_STEPS single-token steps
+    (2, 1) of the decode checks, as numpy int32."""
+    rng = np.random.default_rng(7)
+    return ([rng.integers(0, vocab, (2, SERVE_PROMPT), dtype=np.int32)]
+            + [rng.integers(0, vocab, (2, 1), dtype=np.int32)
+               for _ in range(SERVE_STEPS)])
+
+
+def _decode_logits(model, params, cache, steps) -> list:
+    out = []
+    for tok in steps:
+        logits, cache = model.decode_step(params, cache, tok)
+        out.append(_whole(logits).float())
+    return out
+
+
+def _serve(rank: int, out: dict) -> None:
+    """Prefill and 4 decode steps of each serve arch (f32) on one device
+    and on a (1, 4) mesh whose caches are placed by ``cache_specs`` under
+    ``serve_rules()`` (their positions split over the model axis)."""
+    from repro_torch.launch.mesh import serve_rules
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.axes import shard_ctx
+    mesh = make_mesh((1, 4), ("data", "model"), device=CPU)
+    rules = serve_rules()
+    for arch in SERVE_ARCHS:
+        model, params, _ = reduced_model(arch)
+        steps = [torch.from_numpy(t) for t in serve_tokens(model.cfg.vocab)]
+        one = _decode_logits(model, params, model.init_cache(
+            2, SERVE_LEN, device=CPU), steps)
+        cache = model.init_cache(2, SERVE_LEN, device=CPU)
+        dc = sh.place(cache, sh.to_shardings(sh.cache_specs(cache, mesh,
+                                                            rules), mesh))
+        dp = sh.place(params, sh.param_shardings(params, mesh, rules))
+        ds = [sh.place(t, sh.to_shardings(sh.batch_specs(t, mesh, rules),
+                                          mesh)) for t in steps]
+        with shard_ctx(mesh, rules):
+            got = _decode_logits(model, dp, dc, ds)
+        k = next(seg["k"] for seg in dc["segments"] if "k" in seg)
+        out[arch] = {"logits": got,
+                     "err": max(float((a - b).abs().max())
+                                for a, b in zip(got, one)),
+                     # (…, B, T, K, hd): T split over the model axis
+                     "positions_split": str(k.placements[-1])
+                     == f"S({k.ndim - 3})"}
+
+
+def _dryrun_step(rank: int, out: dict) -> None:
+    """The dry-run's reduced qwen2 train step (``launch.dryrun.step_args``
+    and ``run_step``, real tensors) on (2, 2), rank 0 counting its
+    collectives with the dry-run's counter; the local bytes of its
+    arguments."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.axes import shard_ctx
+    model, params, _ = reduced_model()
+    mesh = make_mesh((2, 2), ("data", "model"), device=CPU)
+    rules = train_rules()
+    shape = ShapeConfig("tp", 16, 8, "train")
+    args = dryrun.step_args(model, shape, mesh, rules, torch.device(CPU),
+                            params=params)
+    counter = dryrun.CostCounter()
+    counter.known(args)
+    with shard_ctx(mesh, rules), counter:
+        dryrun.run_step(model, shape, args)
+    out["argument_bytes"] = dryrun.tree_bytes(args)
+    out["coll_calls"], out["coll_kinds"] = counter.calls, counter.coll
+
+
 def world4(rank: int, ckpt_dir: str) -> dict:
     from repro_torch.parallel.collectives import reset_stats, stats
     out: dict = {}
@@ -314,6 +394,13 @@ def world4(rank: int, ckpt_dir: str) -> dict:
     _train_loop(rank, out)
     _checkpoint_remesh(rank, out, ckpt_dir)
     out["stats"] = stats()
+    for arch in FAMILY_ARCHS:
+        out[arch] = {}
+        _train_step(rank, out[arch], arch)
+    out["serve"] = {}
+    _serve(rank, out["serve"])
+    out["dryrun_step"] = {}
+    _dryrun_step(rank, out["dryrun_step"])
     return out
 
 

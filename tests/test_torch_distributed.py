@@ -92,7 +92,8 @@ out["jacobi"] = np.stack(jcore.build(net, mesh=mesh).run(
 # seed-0 weights, loss and grads on (2, 2)
 mesh = make_mesh((2, 2), ("data", "model"))
 rules = train_rules()
-for arch, pre in (("qwen2-0.5b", ""), ("gemma-2b", "gemma:")):
+for arch, pre in (("qwen2-0.5b", ""), ("gemma-2b", "gemma:"),
+                  *((a, a + ":") for a in worlds.FAMILY_ARCHS)):
     jm, jp, _, _ = pair(arch)
     batch = SyntheticLM(batch=8, seq=16, vocab=jm.cfg.vocab).create(0)
     sh = shlib.to_shardings(shlib.param_specs(jp, mesh, rules), mesh)
@@ -125,6 +126,24 @@ for i, (H, K, causal) in enumerate(worlds.MHA_CASES):
            *jax.jit(jax.grad(loss, (0, 1, 2)), **shard)(q, k, v)]
     for name, a in zip(("o", "dq", "dk", "dv"), got):
         out[f"mha{{i}}:{{name}}"] = np.asarray(a)
+
+# decode on (1, 4) under serve_rules(): the caches placed by cache_specs
+# (their positions over the model axis), prefill then single steps
+from repro.launch.mesh import serve_rules
+mesh = make_mesh((1, 4), ("data", "model"))
+rules = serve_rules()
+for arch in worlds.SERVE_ARCHS:
+    jm, jp, _, _ = pair(arch)
+    cache = jm.init_cache(2, worlds.SERVE_LEN)
+    sh = shlib.to_shardings(shlib.param_specs(jp, mesh, rules), mesh)
+    csh = shlib.to_shardings(shlib.cache_specs(cache, mesh, rules), mesh)
+    jp = jax.tree_util.tree_map(jax.device_put, jp, sh)
+    cache = jax.tree_util.tree_map(jax.device_put, cache, csh)
+    with shard_ctx(mesh, rules):
+        step = jax.jit(jm.decode_step)
+        for i, tok in enumerate(worlds.serve_tokens(jm.cfg.vocab)):
+            logits, cache = step(jp, cache, jnp.asarray(tok))
+            out[f"serve:{{arch}}:{{i}}"] = np.asarray(logits)
 np.savez({npz!r}, **out)
 """
 
@@ -303,6 +322,76 @@ def test_mesh_loss_and_grads_against_jax_kv_heads_replicated(w4, jax_run):
     for path, g in ours.items():
         np.testing.assert_allclose(g.numpy(), ref["gemma:grad:" + path],
                                    atol=1e-4, rtol=0, err_msg=path)
+
+
+@pytest.mark.parametrize("arch", worlds.FAMILY_ARCHS)
+def test_family_mesh_invariance(w4, arch):
+    """The MoE (capacity path), SSM, hybrid, encoder-decoder and VLM
+    families on (2, 2) under the reference's gate: the loss within 1e-4
+    of one device, and every gradient leaf too."""
+    for r in w4:
+        got = r[arch]
+        assert abs(got["loss_mesh"] - got["loss_one"]) < 1e-4
+        assert got["grad_err"] < 1e-4
+
+
+@pytest.mark.parametrize("arch", worlds.FAMILY_ARCHS)
+def test_family_loss_and_grads_against_jax(w4, jax_run, arch):
+    ref, got = jax_run(), w4[0][arch]
+    assert abs(got["loss_mesh"] - float(ref[arch + ":loss"])) < 1e-4
+    pre = arch + ":grad:"
+    ours = _leaf_paths(got["grads"])
+    assert set(ours) == {k[len(pre):] for k in ref if k.startswith(pre)}
+    for path, g in ours.items():
+        np.testing.assert_allclose(g.numpy(), ref[pre + path], atol=1e-4,
+                                   rtol=0, err_msg=path)
+
+
+@pytest.mark.parametrize("arch", worlds.SERVE_ARCHS)
+def test_sharded_decode_equals_one_device(w4, arch):
+    """Prefill and 4 decode steps on (1, 4) with the caches' positions
+    split over the model axis (serve_rules' kv_seq: each rank writes and
+    scores its own block, flash-decoding over the ranks): the f32 logits
+    within 1e-5 of one device on every rank."""
+    for r in w4:
+        got = r["serve"][arch]
+        assert got["positions_split"] and got["err"] < 1e-5
+
+
+@pytest.mark.parametrize("arch", worlds.SERVE_ARCHS)
+def test_sharded_decode_against_jax(w4, jax_run, arch):
+    ref, got = jax_run(), w4[0]["serve"][arch]["logits"]
+    assert len(got) == 1 + worlds.SERVE_STEPS
+    for i, logits in enumerate(got):
+        np.testing.assert_allclose(logits.numpy(), ref[f"serve:{arch}:{i}"],
+                                   atol=1e-4, rtol=0, err_msg=str(i))
+
+
+@pytest.fixture(scope="module")
+def fake_tp_step():
+    """The dry-run's trace of the reduced qwen2 train step on (2, 2), in a
+    fake world of 4 in this process (torn down on exit)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh, train_rules
+    with fake_world(4):
+        return dryrun._trace_variant(
+            get_config("qwen2-0.5b", reduced=True),
+            ShapeConfig("tp", 16, 8, "train"),
+            make_mesh((2, 2), ("data", "model")), train_rules(),
+            device="cpu")
+
+
+def test_fake_world_counts_the_real_worlds_collectives(w4, fake_tp_step):
+    """The same step in a real world of 4 (rank 0 counting with the
+    dry-run's counter) and traced in a fake world of 4: the same calls
+    and result bytes of each kind of collective, exactly, and argument
+    bytes equal to the real rank's local shard bytes."""
+    real = w4[0]["dryrun_step"]
+    assert fake_tp_step.coll_calls == real["coll_calls"]
+    assert fake_tp_step.coll_kinds == real["coll_kinds"]
+    assert set(real["coll_calls"]) >= {"all-gather", "all-reduce"}
+    assert fake_tp_step.argument_bytes == real["argument_bytes"]
 
 
 @pytest.mark.parametrize("case", range(len(worlds.MHA_CASES)))

@@ -1437,3 +1437,83 @@ def test_mesh_ring_and_pipeline_on_card(card_world):
         rel1, rel2 = r["ring"]
         assert rel1 < 0.05 and rel2 < rel1, r["ring"]
         assert r["pipeline_err"] == 0.0, r["pipeline_err"]
+
+
+# -- the dry-run's fake path on the card (phase 20) ----------------------------
+
+@pytest.mark.parametrize("op", ["mha", "ssd", "moe_apply"])
+def test_kernel_ops_on_fake_cuda_tensors_launch_nothing_on_card(cuda, op):
+    """On the card's host, fake CUDA tensors take each op's fake rule:
+    the output's shape, dtype and device, no launch, no device byte."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import launch_counts
+    torch.cuda.synchronize()
+    before, allocated = launch_counts(), torch.cuda.memory_allocated()
+    with FakeTensorMode():
+        if op == "mha":
+            q = torch.empty(4, 14, 2048, 64, dtype=torch.bfloat16,
+                            device=cuda)
+            k = torch.empty(4, 2, 2048, 64, dtype=torch.bfloat16,
+                            device=cuda)
+            outs, want = [fa_ops.mha(q, k, k)], [((4, 14, 2048, 64),
+                                                  torch.bfloat16)]
+        elif op == "ssd":
+            x = torch.empty(2, 256, 8, 64, device=cuda)
+            dt = torch.empty(2, 256, 8, device=cuda)
+            B = torch.empty(2, 256, 1, 128, device=cuda)
+            outs = list(ssd_ops.ssd(x, dt, torch.empty(8, device=cuda), B, B,
+                                    return_state=True))
+            want = [((2, 256, 8, 64), torch.float32),
+                    ((16, 128, 64), torch.float32)]
+        else:
+            x = torch.empty(300, 64, dtype=torch.bfloat16, device=cuda)
+            outs = [gmm_ops.moe_apply(x, torch.zeros(300, dtype=torch.int64,
+                                                     device=cuda),
+                                      torch.empty(4, 64, 96, device=cuda))]
+            want = [((300, 96), torch.bfloat16)]
+        got = [(tuple(t.shape), t.dtype) for t in outs]
+        assert all(t.device.type == "cuda" for t in outs)
+    torch.cuda.synchronize()
+    assert got == want
+    assert launch_counts() == before
+    assert torch.cuda.memory_allocated() == allocated
+
+
+def test_flash_tensor_core_rule_equals_the_kernels(cuda):
+    """The fake rule's tensor-core choice (Python) equals the C code's."""
+    from repro_torch.kernels.flash_attention import kernel
+    for dtype in kernel.DTYPES:
+        for d in kernel.HEAD_DIMS:
+            assert kernel.tensor_core_rule(dtype, d) == \
+                kernel.tensor_core_path(dtype, d), (dtype, d)
+
+
+@pytest.mark.parametrize("cell", [("qwen2-0.5b", "train_4k"),
+                                  ("zamba2-1.2b", "long_500k")])
+def test_dryrun_reduced_cells_on_card(cuda, cell, monkeypatch):
+    """On the card's host the dry-run traces with fake CUDA tensors: two
+    reduced cells give the record that fake CPU tensors standing for the
+    card's give on the same host (the representation a host without CUDA
+    takes), with no launch and no device byte, and the argument and output
+    bytes a host without a card gives (``tests/_torch_dryrun_records.py``;
+    the other numbers follow the host's ``DTensor`` rules).  Only the
+    unfused traffic may differ between the two representations, by 1e-3
+    of it: some aten ops decompose differently for CUDA and CPU tensors
+    (the train cell read 134,217,728 B of 1.47e12 apart)."""
+    import _torch_dryrun_records as records
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import dryrun
+    assert dryrun._trace_device("cuda")[0].type == "cuda"
+    before, allocated = launch_counts(), torch.cuda.memory_allocated()
+    got = records.reduced_record(*cell)
+    assert launch_counts() == before
+    assert torch.cuda.memory_allocated() == allocated
+    want = records.REDUCED_CELLS[cell]["mem"]
+    for key in ("argument_bytes", "output_bytes"):
+        assert got["mem"][key] == want[key], key
+    monkeypatch.setattr(dryrun, "_trace_device",
+                        lambda device: (torch.device("cpu"), True))
+    cpu = records.reduced_record(*cell)
+    b_cpu, b_cuda = cpu.pop("bytes_per_dev"), got.pop("bytes_per_dev")
+    assert abs(b_cpu - b_cuda) <= 1e-3 * b_cuda
+    assert cpu == got

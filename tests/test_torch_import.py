@@ -36,7 +36,8 @@ def test_import_loads_no_jax_and_no_repro_module():
                     "train.train_loop", "train.fault", "data",
                     "data.pipeline", "kernels._autograd",
                     "launch._common", "launch.cluster", "launch.serve",
-                    "launch.train", "launch.mesh", "parallel.axes",
+                    "launch.train", "launch.mesh", "launch.dryrun",
+                    "parallel.axes",
                     "parallel.sharding", "parallel.collectives",
                     "parallel.pipeline",
                     "serve.engine", "serve.scheduler"):
