@@ -885,6 +885,9 @@ def check_moe_gmm(torch, dev) -> dict:
     cases = [(up, bf16, "uniform", True), (down, bf16, "uniform", True),
              (up, f32, "uniform", False), (down, f32, "uniform", False),
              (up, bf16, "one expert", False), (dec, bf16, "uniform", True),
+             # a rank of phase 21's mesh: 32 of the 64 experts held, the
+             # rows of the other 32 (ids >= 32) skipped and left 0
+             ((8192, 6, 64, 2048, 1408, 128), bf16, "half held", False),
              ((4, 6, 64, 1408, 2048, 128), bf16, "uniform", False),
              ((64, 1, 4, 16, 32, 16), f32, "uniform", False),
              ((200, 1, 8, 32, 64, 16), f32, "uniform", False),
@@ -901,8 +904,13 @@ def check_moe_gmm(torch, dev) -> dict:
             eo.fill_(E // 2)
         eo = eo.to(dev)
         w = (torch.randn(E, D, F, generator=g) / D ** 0.5).to(dev)
+        if routing == "half held":
+            w = w[:E // 2].contiguous()
         got = ops.moe_apply(x, eo, w, tile_m=tile)
         want = ref.gmm(x, eo, w)
+        far = eo >= w.shape[0]
+        check(not got[far].any(), f"moe_gmm {routing}: a row of no held "
+              "expert is not 0")
         scale = float(want.float().abs().max())
         rtol, atol = ((1e-2, 1e-2 * scale) if dtype == bf16 else
                       (1e-5, 1e-5) if D <= 32 else (1e-4, 1e-4 * scale))
@@ -4163,6 +4171,263 @@ def run_dryrun_phase(torch, counts, cells, step_peaks, tp_costs) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 21: the ragged MoE path on a mesh, 2 ranks sharing the card --------
+
+# deepseek-moe-16b at full width with its depth cut to 4 layers (the dense
+# layer 0 and 3 MoE layers; 32 of the 64 experts a rank): two ranks on one
+# card each build the model before placing it, and the whole depth would
+# be 2 x 33 GB in bf16.  Shapes (batch, seq) of 21a's f32 forward, loss and
+# gradients and of 21b's bf16 forward; 21c's prefill (batch, prompt) and
+# its decode steps.  The reduced ones are the CPU rehearsal's.
+RAGGED_LAYERS = 4
+RAGGED_SHAPES = ((2, 512), (2, 1024), (4, 32, 8))
+RAGGED_SHAPES_REDUCED = ((2, 32), (2, 64), (4, 8, 4))
+# the gates against one device, set from `tools/mesh_phase.py ragged`'s
+# readings on the card: as it is, the f32 forward's logits 2.0e-6 off in
+# norm (max|diff| 1.5e-5), the loss 1.9e-6, the worst gradient leaf
+# 2.0e-6 of its max, the bf16 forward 2.3e-2 in norm (max|diff| 0.53: bf16
+# rounding flips near-ties of the top-6 routing), the f32 prefill and
+# decode 2.1e-6 in norm (max|diff| 1.3e-5); with one rank's expert offset
+# off by one, 0.32, 1.0e-2, 1.98, 0.26 and 0.30.  The logits are gated in
+# norm (||mesh - one|| / ||one||): their max|diff| in f32 is 1e-5 of
+# logits up to ~10.
+RAGGED_GATES = {"a_forward": 1e-4, "a_loss": 1e-4, "a_grad": 1e-3,
+                "b_forward": 8e-2, "c_logits": 1e-4}
+
+
+def ragged_cfg(reduced: bool, **over):
+    """Phase 21's deepseek-moe-16b: its depth cut to ``RAGGED_LAYERS``, on
+    the ragged path."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-moe-16b",
+                                          reduced=reduced),
+                               n_layers=RAGGED_LAYERS, moe_ragged=True,
+                               **over)
+
+
+def ragged_launches(cfg, steps: int) -> dict:
+    """Each stage's kernel launches on a rank: 3 grouped matmuls a MoE
+    layer and one flash launch a layer in a forward (twice under remat,
+    whose backward recomputes the forward); the prefill and the ``steps``
+    decode steps attend through the cache and launch no flash."""
+    moe, fwd = 3 * (cfg.n_layers - 1), cfg.n_layers
+    again = 2 if cfg.remat == "full" else 1
+    return {"a_forward_f32": {"moe_gmm": moe, "flash_attention": fwd},
+            "a_grads_f32": {"moe_gmm": again * moe,
+                            "flash_attention": again * fwd},
+            "b_forward_bf16": {"moe_gmm": moe, "flash_attention": fwd},
+            "c_prefill_f32": {"moe_gmm": moe},
+            "c_decode_f32": {"moe_gmm": steps * moe}}
+
+
+def _errs(got, want) -> tuple:
+    """(max |got - want|, ||got - want|| / ||want||) in float32."""
+    d = got.float() - want.float()
+    return (float(d.abs().max()),
+            float(d.norm() / want.float().norm().clamp_min(1e-30)))
+
+
+def ragged_rank(rank: int, device: str = "cuda",
+                reduced: bool = False) -> dict:
+    """One rank of phase 21 (SPMD on ``cuda:0``; ``device="cpu"`` with
+    ``reduced`` is the CPU rehearsal): ``ragged_cfg`` on a (1, 2) ``data ×
+    model`` mesh, the experts split over the model axis.  21a: the f32
+    forward, loss and every gradient leaf under ``train_rules()``; 21b:
+    the bf16 forward; 21c: under ``serve_rules()``, a prefill and decode
+    steps with the caches' positions over the model axis.  Rank 0 runs
+    each on one device too and returns the errors and walls; every rank
+    returns its launches, walls, collectives and peak memory."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.launch.mesh import make_mesh, serve_rules, train_rules
+    from repro_torch.models import Model
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.axes import shard_ctx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out, counted = mesh_counter(device)
+    out["one_walls"], out["reduced"] = {}, reduced
+
+    def one(label, fn):  # rank 0's one-device run, timed
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out["one_walls"][label] = time.perf_counter() - t0
+        return res
+
+    (Ba, Sa), (Bb, Sb), (Bc, Sc, steps) = (RAGGED_SHAPES_REDUCED if reduced
+                                           else RAGGED_SHAPES)
+    cfg = ragged_cfg(reduced)
+    m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
+    params = m32.init(seed=0, device=dev)
+    mesh = make_mesh((1, MESH_RANKS), ("data", "model"), device=device)
+    rules = train_rules()
+    dp = sh.place(params, sh.param_shardings(params, mesh, rules))
+    out["experts_local"] = int(
+        dp["segments"][1]["moe"]["experts"]["gate"].to_local().shape[1])
+
+    # 21a: f32 forward, loss and gradients under train_rules()
+    batch = SyntheticLM(Ba, Sa, cfg.vocab, device=dev).create(0)
+    db = shard_batch(batch, mesh, rules.batch)
+    with torch.no_grad():
+        with shard_ctx(mesh, rules):
+            logits, _ = counted("a_forward_f32", lambda: m32.forward(
+                dp, db["tokens"]))
+        logits = logits.full_tensor()
+        if rank == 0:
+            want, _ = one("a_forward_f32", lambda: m32.forward(
+                params, batch["tokens"]))
+            out["a_forward"] = _errs(logits, want)
+            del want
+        del logits
+    with shard_ctx(mesh, rules):
+        loss, grads = counted("a_grads_f32", lambda: _rank_grads(
+            torch, m32, dp, db))
+    out["a_loss"] = float(loss.full_tensor())
+    if rank == 0:
+        loss1, grads1 = one("a_grads_f32", lambda: _rank_grads(
+            torch, m32, params, batch))
+        out["a_loss_err"] = abs(out["a_loss"] - float(loss1))
+    worst = (0.0, "")
+    for key in sorted(grads):  # a leaf at a time: no whole second tree
+        whole = grads.pop(key).full_tensor()
+        if rank == 0:
+            ref = grads1.pop(key)
+            rel = float((whole - ref).abs().max()
+                        / ref.abs().max().clamp_min(1e-30))
+            worst = max(worst, (rel, key))
+        del whole
+    if rank == 0:
+        out["a_grad"] = worst
+        del grads1
+    del grads, loss
+
+    # 21b: the bf16 forward (the default config's compute dtype)
+    mb = Model(cfg)
+    toks = SyntheticLM(Bb, Sb, cfg.vocab, device=dev).create(1)["tokens"]
+    dt = shard_batch({"tokens": toks}, mesh, rules.batch)["tokens"]
+    with torch.no_grad():
+        with shard_ctx(mesh, rules):
+            logits, _ = counted("b_forward_bf16", lambda: mb.forward(dp, dt))
+        logits = logits.full_tensor()
+        if rank == 0:
+            want, _ = one("b_forward_bf16", lambda: mb.forward(params, toks))
+            out["b_forward"] = _errs(logits, want)
+            del want
+        del logits
+
+    # 21c: prefill and decode steps under serve_rules(), f32
+    srules = serve_rules()
+    ds = sh.place(dp, sh.param_shardings(params, mesh, srules))
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, cfg.vocab, (Bc, n), generator=g,
+                             dtype=torch.int32).to(dev)
+               for n in [Sc] + [1] * steps]
+    cache = m32.init_cache(Bc, Sc + steps, device=dev)
+    dc = sh.place(cache, sh.to_shardings(sh.cache_specs(cache, mesh, srules),
+                                         mesh))
+    dtoks = [sh.place(t, sh.to_shardings(sh.batch_specs(t, mesh, srules),
+                                         mesh)) for t in prompts]
+
+    def decode(p, c, tokens):
+        got = []
+        for t in tokens:
+            logits, c = m32.decode_step(p, c, t)
+            got.append(logits.full_tensor() if hasattr(logits, "full_tensor")
+                       else logits)
+        return got
+
+    with torch.no_grad():
+        with shard_ctx(mesh, srules):
+            got = counted("c_prefill_f32", lambda: decode(ds, dc, dtoks[:1]))
+            got += counted("c_decode_f32", lambda: decode(ds, dc, dtoks[1:]))
+        if rank == 0:
+            c1 = m32.init_cache(Bc, Sc + steps, device=dev)
+            want = one("c_prefill_f32", lambda: decode(params, c1,
+                                                       prompts[:1]))
+            want += one("c_decode_f32", lambda: decode(params, c1,
+                                                       prompts[1:]))
+            out["c_logits"] = _errs(torch.cat(got, 1), torch.cat(want, 1))
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                       else None)
+    del dp, ds, dc, params
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def report_ragged(res, gates=None) -> dict:
+    """Phase 21's lines from its ranks' results, gated when ``gates`` (a
+    dict like ``RAGGED_GATES``) is given; returns the launches summed over
+    the ranks."""
+    o = res[0]
+    cfg = ragged_cfg(o["reduced"])
+    want = ragged_launches(cfg, (RAGGED_SHAPES_REDUCED if o["reduced"]
+                                 else RAGGED_SHAPES)[2][2])
+    for r, x in enumerate(res):
+        print(f"[ragged] rank {r} launches: {x['parts']}")
+        print(f"[ragged] rank {r} walls: " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in x["walls"].items())
+            + (f"; peak memory {x['peak_gib']:.2f} GiB"
+               if x["peak_gib"] is not None else ""))
+        print(f"[ragged] rank {r} collectives: " + "; ".join(
+            f"{k} {_kinds(v)}" for k, v in x["stats"].items()))
+        if gates is not None:
+            for label, n in want.items():
+                got = {k: v for k, v in x["parts"][label].items()
+                       if k in n}
+                check(got == n, f"21 rank {r}: {label} launched "
+                      f"{x['parts'][label]}, not {n}")
+    print(f"[ragged] one device (rank 0) walls: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in o["one_walls"].items()))
+    print(f"[ragged] {cfg.name} cut to {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+          f"({o['experts_local']} a rank) on (1, {MESH_RANKS}): 21a f32 "
+          f"forward max|diff| {o['a_forward'][0]:.3e}, rel "
+          f"{o['a_forward'][1]:.3e}; loss {o['a_loss']:.6f}, "
+          f"{o['a_loss_err']:.3e} off; worst gradient leaf "
+          f"{o['a_grad'][0]:.3e} of its max ({o['a_grad'][1]})")
+    print(f"[ragged] 21b bf16 forward max|diff| {o['b_forward'][0]:.3e}, "
+          f"rel {o['b_forward'][1]:.3e}; 21c serve_rules prefill + decode "
+          f"f32 logits max|diff| {o['c_logits'][0]:.3e}, rel "
+          f"{o['c_logits'][1]:.3e}")
+    if gates is not None:
+        for key, val in (("a_forward", o["a_forward"][1]),
+                         ("a_loss", o["a_loss_err"]),
+                         ("a_grad", o["a_grad"][0]),
+                         ("b_forward", o["b_forward"][1]),
+                         ("c_logits", o["c_logits"][1])):
+            check(val < gates[key], f"21: {key} {val} >= gate {gates[key]}")
+            print(f"[ragged] gate {key}: {val:.3e} < {gates[key]}")
+    return {k: sum(x["launches"][k] for x in res) for k in o["launches"]}
+
+
+def run_ragged_phase(torch) -> dict:
+    """Phase 21: ``ragged_rank`` in a world of 2 ranks sharing ``cuda:0``,
+    gated; returns its kernel launches summed over the ranks."""
+    import multiprocessing
+    from repro_torch.launch.mesh import run_world
+    t_phase = time.perf_counter()
+    res = run_world(ragged_rank, MESH_RANKS, device="cuda", timeout=300,
+                    join_timeout=900)
+    launched = report_ragged(res, RAGGED_GATES)
+    left = [p.name for p in multiprocessing.active_children()
+            if p.name.startswith("rank")]
+    check(not left, f"phase 21 left rank processes: {left}")
+    print(f"[ragged] phase 21 launches (both ranks): {launched}; phase 21 "
+          f"wall: {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4302,6 +4567,9 @@ def phases(torch, cells) -> int:
     launched_19, tp_costs = run_mesh_phase(torch, *mesh_refs,
                                  (W, H, BANDS, ITERS, 16, 2048))
     launched = {k: v + launched_19[k] for k, v in launched.items()}
+    # phase 21 (the ragged MoE path on 2 ranks) likewise
+    launched_21 = run_ragged_phase(torch)
+    launched = {k: v + launched_21[k] for k, v in launched.items()}
     torch.cuda.reset_peak_memory_stats()
     memory(torch, "before the MoE phases")
     reset_launch_counts()  # the MoE path starts here

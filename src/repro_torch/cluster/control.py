@@ -361,7 +361,8 @@ class ClusterController:
     def _bind_devices(self) -> None:
         """Each thread host's device: the deployment's, or for the
         ``device`` transport host *h* on ``cuda:(h % device_count)`` (every
-        host on one card shares it), with each cut channel bound to its
+        host on one card shares it; with virtual devices, on virtual device
+        ``h % N``), with each cut channel bound to its
         consumer's device.  The device follows the host's id, so a replan
         never moves a surviving host's warm executor to another card.
         Process hosts resolve their own."""
@@ -370,7 +371,8 @@ class ClusterController:
             return
         base = resolve_device(self.cfg.device)
         if isinstance(t, DeviceTransport):
-            split = t.device_split(max(self._live) + 1, base)
+            split = t.device_split(max(self._live) + 1, base,
+                                   t.virtual_devices)
             self._devices = {h: split[h] for h in self._live}
             t.bind({(c.src, c.dst): self._devices[self.plan.assignment[c.dst]]
                     for c in self.plan.cut})

@@ -1613,21 +1613,30 @@ class DeviceTransport(InProcess):
     ``cuda:(h % device_count)`` (on one card every host shares ``cuda:0``),
     and a send places the chunk on the consumer host's device.  The
     placement is eager: PyTorch has no jit to fold it into, and on one card
-    it is a no-op."""
+    it is a no-op.  With ``virtual_devices`` N > 0 the hosts go round-robin
+    over N virtual devices instead (:meth:`device_split`)."""
 
     name = "device"
 
-    def __init__(self):
+    def __init__(self, virtual_devices: int = 0):
         super().__init__()
+        self.virtual_devices = int(virtual_devices)
         self._dst_device: dict = {}
 
     @staticmethod
-    def device_split(n_hosts: int, base: torch.device) -> list:
+    def device_split(n_hosts: int, base: torch.device,
+                     virtual: int = 0) -> list:
         """Each host's device: round-robin over the CUDA devices, or
-        ``base`` for every host when the deployment runs off the card."""
-        devs = ([torch.device("cuda", i)
-                 for i in range(torch.cuda.device_count())]
-                if base.type == "cuda" else [base])
+        ``base`` for every host when the deployment runs off the card.
+        With ``virtual`` N > 0, host *h* sits on virtual device ``h % N``,
+        as the JAX package's ``JaxMesh.device_split`` places it on N faked
+        devices: virtual device *i* is ``cuda:(i % device_count)`` on the
+        card, ``base`` off it."""
+        if base.type == "cuda":
+            k = torch.cuda.device_count()
+            devs = [torch.device("cuda", i % k) for i in range(virtual or k)]
+        else:
+            devs = [base] * max(virtual, 1)
         return [devs[h % len(devs)] for h in range(n_hosts)]
 
     def bind(self, dst_devices: dict) -> None:

@@ -166,7 +166,7 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(min(tile_rows[tile], tile_m) - r0, kBM);
   if (rows <= 0) return;  // all padding
   const int e = tile_expert[tile];
-  if (e < 0 || e >= n_expert) return;  // ops.sort_by_expert never gives it
+  if (e < 0 || e >= n_expert) return;  // rows of no local expert
   const long long row0 = (long long)tile * tile_m + r0;
   const int c0 = col_blk * kBN;
   const TW* wb = w + (long long)e * d * f + c0;
@@ -331,7 +331,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int rows = min(min(tile_rows[tile], tile_m) - r0, kBM);
   if (rows <= 0) return;  // all padding
   const int e = tile_expert[tile];
-  if (e < 0 || e >= n_expert) return;  // ops.sort_by_expert never gives it
+  if (e < 0 || e >= n_expert) return;  // rows of no local expert
   const long long row0 = (long long)tile * tile_m + r0;
   const int c0 = col_blk * kBN;
   const TW* wb = w + (long long)e * d * f;

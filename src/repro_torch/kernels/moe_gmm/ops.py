@@ -4,7 +4,8 @@ needs.
 
 On the card the kernel runs or the call raises; nothing falls back to the
 plain version.  The routing stays on the device without a host sync: the
-padded capacity ``(⌈T / tile_m⌉ + E) · tile_m`` is a Python int, the
+padded capacity ``(⌈T / tile_m⌉ + E + 1) · tile_m`` is a Python int (the
+one more group holds the rows of experts past w's E), the
 per-expert counts come from ``scatter_add_`` (``bincount`` on CUDA reads
 its maximum back to the host), and the number of valid rows of each tile
 is computed beside the tile's expert, so the kernel skips the padding.
@@ -105,16 +106,20 @@ def sort_by_expert(x: torch.Tensor, expert_of: torch.Tensor, n_expert: int,
 
 def moe_apply(x: torch.Tensor, expert_of: torch.Tensor, w: torch.Tensor, *,
               tile_m: int = 128) -> torch.Tensor:
-    """Per-token expert matmul.  x: (T, D); expert_of: (T,) int in
-    [0, E); w: (E, D, F).  Returns (T, F) in x's dtype, summed in float32
-    with w rounded to x's dtype.
+    """Per-token expert matmul.  x: (T, D); expert_of: (T,) int ≥ 0;
+    w: (E, D, F).  Returns (T, F) in x's dtype, summed in float32 with w
+    rounded to x's dtype.  A row whose expert is ≥ E belongs to an expert
+    this rank does not hold (the experts are split over the ranks of a
+    mesh): its row of y is 0, and so is its gradient.
 
     A CPU tensor takes the plain version (:func:`ref.gmm`).  A CUDA tensor
     is routed as :func:`sort_by_expert` routes it and multiplied by the
     kernel (f32, bf16 or f16 x and w; a strided x or w is copied once, an
     f16 w beside a bf16 x is rounded to bf16 once), which reads each
     token's row of x through the routing and writes its row of y in place:
-    no padded copy is made, and the padding is never computed."""
+    no padded copy is made, and the padding is never computed.  Rows of
+    no local expert are routed as one more group, expert E, whose tiles
+    the kernel skips."""
     if x.ndim != 2 or expert_of.ndim != 1 or w.ndim != 3 \
             or expert_of.shape[0] != x.shape[0] or w.shape[1] != x.shape[1]:
         raise ValueError(f"moe_apply: x (T, D), expert_of (T,) and w "
@@ -156,7 +161,9 @@ def _(x, expert_of, w, tile_m):
 @register_flop_formula(torch.ops.repro_torch.moe_gmm)
 def _flops(x_shape, e_shape, w_shape, *_, out_shape=None, **__) -> int:
     """2·rows·D·F: the kernel computes every token row once and skips the
-    padding."""
+    padding.  Rows of no local expert count too: the formula is one
+    device's work, of which a rank of an expert-split mesh does its
+    share."""
     return 2 * x_shape[0] * x_shape[1] * w_shape[2]
 
 
@@ -181,8 +188,12 @@ def _launch(x, expert_of, w, *, tile_m: int) -> torch.Tensor:
 def _routed_product(x, expert_of, w, tile_m, launch):
     """Route (:func:`route`) and ``launch(x, tile_expert, tile_rows,
     row_src, w, y, tile_m)``: the kernel gathers x's rows and scatters y's
-    itself, so no padded copy of either is made."""
-    tile_expert, tile_rows, row_src = route(expert_of, w.shape[0], tile_m)
-    y = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
+    itself, so no padded copy of either is made.  Rows of an expert ≥ E
+    form group E, whose tiles the kernel skips (``e >= n_expert``): y
+    starts zeroed, so their rows stay 0."""
+    E = w.shape[0]
+    tile_expert, tile_rows, row_src = route(expert_of.clamp(max=E), E + 1,
+                                            tile_m)
+    y = torch.zeros((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
     launch(x, tile_expert, tile_rows, row_src, w, y, tile_m)
     return y

@@ -20,12 +20,15 @@ def gmm(x: torch.Tensor, expert_of: torch.Tensor,
         w: torch.Tensor) -> torch.Tensor:
     """x: (T, D) tokens; expert_of: (T,) int expert id per token; w:
     (E, D, F).  Returns (T, F) in x's dtype: each token through its own
-    expert, ``(x.float() @ w[e].to(x.dtype).float()).to(x.dtype)``."""
-    T, F = x.shape[0], w.shape[2]
+    expert, ``(x.float() @ w[e].to(x.dtype).float()).to(x.dtype)``, and 0
+    for a token of an expert ≥ E (one this rank does not hold)."""
+    T, E, F = x.shape[0], w.shape[0], w.shape[2]
     order = torch.argsort(expert_of, stable=True)
-    counts = torch.bincount(expert_of.long(), minlength=w.shape[0]).tolist()
+    # ids ≥ E sort last and are counted apart: their rows stay 0
+    counts = torch.bincount(expert_of.long().clamp(max=E),
+                            minlength=E + 1)[:E].tolist()
     xs = x[order]
-    ys = torch.empty((T, F), dtype=x.dtype, device=x.device)
+    ys = torch.zeros((T, F), dtype=x.dtype, device=x.device)
     start = 0
     for e, n in enumerate(counts):
         if n:
@@ -43,9 +46,12 @@ def gmm_tiled_ref(x: torch.Tensor, tile_expert: torch.Tensor,
     """Tile-aligned contract of the kernel: x (T, D) sorted by expert and
     group-padded so row tile i belongs entirely to expert
     ``tile_expert[i]``.  Returns (T, F) in x's dtype (every row, padding
-    included)."""
+    included); a tile of an expert ≥ E, which the kernel skips, gives 0."""
     T, D = x.shape
+    E = w.shape[0]
     n = T // tile_m
+    te = tile_expert.long()
     xt = x.reshape(n, tile_m, D).float()
-    wt = w[tile_expert.long()].to(x.dtype).float()  # (n, D, F)
-    return torch.bmm(xt, wt).reshape(T, -1).to(x.dtype)
+    wt = w[te.clamp(max=E - 1)].to(x.dtype).float()  # (n, D, F)
+    y = torch.where(te[:, None, None] < E, torch.bmm(xt, wt), 0.0)
+    return y.reshape(T, -1).to(x.dtype)

@@ -9,9 +9,10 @@ launchers, whose flags they take.
 :class:`~repro_torch.cluster.AutoscalePolicy` (:func:`autoscale_policy`).
 ``--virtual-devices N`` (the JAX package fakes N XLA host devices) runs
 the training launcher as a world of N local ranks
-(:func:`repro_torch.launch.mesh.run_world`).  The cluster and serve
-launchers parse it and refuse it (:func:`refuse_later_flags`): their
-``device`` transport places hosts on cards, not on the ranks of a mesh.
+(:func:`repro_torch.launch.mesh.run_world`).  In the cluster and serve
+launchers it gives the ``device`` transport N virtual devices to place its
+hosts on (:func:`transport_of`), as the JAX package's ``jaxmesh``
+transport places host *h* on device ``h % N``.
 """
 
 from __future__ import annotations
@@ -52,9 +53,14 @@ def add_cluster_flags(ap: argparse.ArgumentParser, *,
                     help="cut-channel transport between hosts ('device': "
                          "thread hosts whose tensors stay on the card)")
     ap.add_argument("--virtual-devices", type=int, default=0, metavar="N",
-                    help="an XLA flag of the JAX package's launcher; "
-                         "refused here: hosts sit on cards, not on mesh "
-                         "ranks (ROADMAP §1 item 12)")
+                    help="place the device transport's hosts on N virtual "
+                         "devices: host h on virtual device h %% N, which "
+                         "is cuda:((h %% N) %% card count) on the card and "
+                         "--device off it. Other transports take the flag "
+                         "and are unchanged by it: in the JAX package it "
+                         "is also an XLA environment variable (the device "
+                         "count its sharded stages see), which has no "
+                         "counterpart here")
     ap.add_argument("--tcmalloc", action="store_true",
                     help="LD_PRELOAD tcmalloc (when present on the image) "
                          "so every spawned host inherits the faster "
@@ -90,22 +96,25 @@ def autoscale_policy(args):
     return AutoscalePolicy(min_hosts=lo, max_hosts=hi)
 
 
-def refuse_later_flags(args) -> None:
-    """``SystemExit`` naming the part of the port that brings a flag the
-    port cannot honour yet."""
-    if getattr(args, "virtual_devices", 0):
-        raise SystemExit(
-            "--virtual-devices: this launcher's device transport places "
-            "hosts on cards, not on the ranks of a mesh; only the training "
-            "launcher runs a world of ranks (ROADMAP §1 item 12)")
+def transport_of(args):
+    """The ``transport=`` of a deployment: the ``--transport`` name, or
+    for ``device`` with ``--virtual-devices N`` a transport that places
+    its hosts on N virtual devices."""
+    n = int(getattr(args, "virtual_devices", 0) or 0)
+    if args.transport != "device" or not n:
+        return args.transport
+    from ..cluster.transport import make_transport
+    return make_transport("device", virtual_devices=n)
 
 
 def apply_runtime_env(args) -> None:
     """Process-environment set-up a launcher applies right after
-    ``parse_args``, before it spawns a host: refuse what the port cannot
-    honour yet, and (opt-in via ``--tcmalloc``, when present on the image)
-    preload tcmalloc for the spawned hosts."""
-    refuse_later_flags(args)
+    ``parse_args``, before it spawns a host: refuse a negative
+    ``--virtual-devices``, and (opt-in via ``--tcmalloc``, when present on
+    the image) preload tcmalloc for the spawned hosts."""
+    if (getattr(args, "virtual_devices", 0) or 0) < 0:
+        raise SystemExit(f"--virtual-devices: need N >= 0, got "
+                         f"{args.virtual_devices}")
     if getattr(args, "tcmalloc", False) and "LD_PRELOAD" not in os.environ:
         for lib in _TCMALLOC_CANDIDATES:
             if os.path.exists(lib):

@@ -26,13 +26,16 @@ and resizes it, printing every decision.
 
 The flags and printed lines are the JAX package's launcher's, with
 ``device`` for its ``jaxmesh`` transport, plus ``--device``.
+``--virtual-devices N`` places the ``device`` transport's hosts on N
+virtual devices (host *h* on ``h % N``) and prints where each host sits.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ._common import add_cluster_flags, apply_runtime_env, autoscale_policy
+from ._common import (add_cluster_flags, apply_runtime_env,
+                      autoscale_policy, transport_of)
 
 
 # module-level factories: the process transports spawn fresh interpreters
@@ -157,7 +160,7 @@ def main(argv=None) -> None:
 
     if args.resume_from:
         dep = ClusterDeployment.adopt(args.resume_from, factory=factory,
-                                      transport=args.transport,
+                                      transport=transport_of(args),
                                       trace=bool(args.trace))
         plan = dep.plan
         ev = dep.events[-1]
@@ -190,7 +193,7 @@ def main(argv=None) -> None:
         print(plan.describe())
         print(f"[cluster] CSP refinement (partitioned [T= unpartitioned, "
               f"both directions): {check_refinement(net, plan)}")
-        dep = ClusterDeployment(net, plan=plan, transport=args.transport,
+        dep = ClusterDeployment(net, plan=plan, transport=transport_of(args),
                                 microbatch_size=args.microbatch,
                                 factory=factory, trace=bool(args.trace),
                                 snapshot_every=args.snapshot_every,
@@ -199,6 +202,15 @@ def main(argv=None) -> None:
                                 profile=profile,
                                 autoscale=autoscale_policy(args),
                                 device=args.device)
+    n_virtual = getattr(dep.transport, "virtual_devices", 0)
+    if n_virtual:
+        from ..device import resolve_device
+        hosts = plan.hosts()
+        split = dep.transport.device_split(
+            max(hosts) + 1, resolve_device(args.device), n_virtual)
+        print(f"[cluster] {n_virtual} virtual devices: " + ", ".join(
+            f"host {h} on virtual device {h % n_virtual} ({split[h]})"
+            for h in hosts))
     with dep:
         if args.resume_from and dep.controller._needs_recovery:
             t0 = time.perf_counter()

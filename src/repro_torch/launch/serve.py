@@ -9,7 +9,9 @@ The flags and report lines are those of the JAX package's serve launcher,
 plus ``--device``.  ``--hosts 0`` (default) decodes in-process
 (:class:`LocalDecodeBackend`); ``--hosts N`` parks the decode farm warm on
 a :class:`~repro_torch.cluster.ClusterDeployment` over ``--transport``
-(``--autoscale`` lets it resize itself between decode steps).
+(``--autoscale`` lets it resize itself between decode steps;
+``--virtual-devices N`` places the ``device`` transport's hosts on N
+virtual devices).
 ``--arrival-rate R`` replays an open-loop Poisson arrival trace at R
 requests/s instead of submitting everything up front; the report adds TTFT
 and per-token latency percentiles over the completed responses.
@@ -23,7 +25,7 @@ import sys
 import time
 
 from ._common import (add_cluster_flags, add_model_flags, apply_runtime_env,
-                      autoscale_policy)
+                      autoscale_policy, transport_of)
 
 
 def _pct(xs: list, q: float) -> float:
@@ -78,7 +80,7 @@ def main(argv=None) -> list:
                      if args.n_slots % s == 0)
         backend = ClusterDecodeBackend(
             spec, n_slots=args.n_slots, shards=shards, hosts=args.hosts,
-            transport=args.transport, max_len=args.max_len,
+            transport=transport_of(args), max_len=args.max_len,
             autoscale=autoscale_policy(args), device=args.device)
         model = backend.model
         where = (f"cluster[{args.transport}x{args.hosts}h/{shards} shards] "

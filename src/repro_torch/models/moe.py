@@ -13,7 +13,9 @@ names (``router``, ``experts`` {``gate``, ``up``, ``down``} stacked
   every expert product is one launch of the grouped-matmul kernel
   (:mod:`..kernels.moe_gmm`) on the card, the plain version on the CPU.  It
   drops nothing, so it equals the capacity path wherever that one is
-  dropless.  Its aux loss is global over the tokens.
+  dropless.  Its aux loss is global over the tokens.  On a mesh each rank
+  routes its own tokens and multiplies on its own slice of the experts
+  (:func:`_ragged_sharded`), as GSPMD splits the JAX package's.
 
 The router runs in float32; the expert weights enter the products in the
 compute dtype (the capacity path casts them, the ragged path's kernel
@@ -129,32 +131,99 @@ def _dispatch_combine(probs: torch.Tensor, k: int, C: int):
         per_group)
 
 
-def moe_apply_ragged(p: dict, cfg, x: torch.Tensor):
-    """Capacity-free MoE through the grouped-matmul op: one row per
-    (token, choice), each expert product one kernel launch on the card.
-    x: (B, S, D) → (y, aux)."""
-    m = cfg.moe
+def _ragged(x, router, gate, up, down, *, m, lo: int = 0):
+    """The ragged path on plain tensors, over the experts ``[lo, lo + E')``
+    that ``gate``, ``up`` and ``down`` (E', ...) hold: x (B, S, D) → y
+    (B, S, D) in x's dtype, and the aux loss's per-expert sums over these
+    tokens, the top-choice counts and the router probabilities (E,) f32.
+    A choice of another expert routes as id E' and adds 0 to y (the op's
+    contract), and the sums keep only the held experts' columns, so each
+    is a share whose sum over the ranks that split the experts is the
+    whole."""
     B, S, D = x.shape
-    E, k = m.n_experts, m.top_k
-    cd = x.dtype
+    E, El, k = m.n_experts, gate.shape[0], m.top_k
     xf = x.reshape(-1, D)
     T = xf.shape[0]
-    logits = xf.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
     topv, topi = torch.topk(probs, k, dim=-1)  # (T, k)
     if m.router_norm_topk:
         topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     xs_rep = torch.repeat_interleave(xf, k, dim=0)  # (T·k, D)
     eo = topi.reshape(-1)
-    w = p["experts"]  # rounded to cd by the op
-    g = gmm_ops.moe_apply(xs_rep, eo, w["gate"])
-    u = gmm_ops.moe_apply(xs_rep, eo, w["up"])
-    h = F.silu(g) * u
-    yd = gmm_ops.moe_apply(h, eo, w["down"])
+    if El < E:  # another rank's expert: the op's phantom id El
+        eo = torch.where((eo >= lo) & (eo < lo + El), eo - lo, El)
+    # the weights are rounded to x's dtype by the op
+    h = F.silu(gmm_ops.moe_apply(xs_rep, eo, gate)) \
+        * gmm_ops.moe_apply(xs_rep, eo, up)
+    yd = gmm_ops.moe_apply(h, eo, down)
     y = torch.sum(yd.reshape(T, k, D) * topv[..., None].to(yd.dtype), dim=1)
-    y = y.reshape(B, S, D).to(cd)
-    frac = torch.mean(F.one_hot(topi[:, 0], E).float(), dim=0)
-    aux = E * torch.sum(frac * torch.mean(probs, dim=0))
+    # scatter_add_, not one_hot: on the card one_hot reads its input's
+    # range back to the host
+    count = probs.new_zeros(E).scatter_add_(0, topi[:, 0],
+                                            probs.new_ones(T))
+    psum = probs.sum(0)
+    if El < E:
+        count, psum = (F.pad(t[lo:lo + El], (lo, E - lo - El))
+                       for t in (count, psum))
+    return y.reshape(B, S, D).to(x.dtype), count, psum
+
+
+def _ragged_sharded(p: dict, m, x):
+    """:func:`_ragged` of DTensors through ``local_map``: each rank routes
+    its own tokens (x's batch or sequence shards on the axes that do not
+    split the experts; x is gathered over those that do) and runs the
+    grouped products (the kernel on the card) on its own slice of the
+    experts, sharded on dim 0 by the ``expert`` rule.  y comes back as a
+    partial sum over the expert ways, the sums as partial sums over the
+    token and expert ways.  Where the rules leave the experts whole, every
+    rank holds all of them and y is not partial.  The gradients follow
+    the shares: x's is partial over the expert ways, the router's over
+    both, the experts' over the token ways."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    w = p["experts"]
+    dm = x.device_mesh
+    n = dm.ndim
+    wp = [Shard(0) if pl == Shard(0) else Replicate()
+          for pl in w["gate"].placements]
+    ed = [i for i in range(n) if wp[i] == Shard(0)]
+    xp = [pl if i not in ed and isinstance(pl, Shard) and pl.dim in (0, 1)
+          else Replicate() for i, pl in enumerate(x.placements)]
+    td = [i for i in range(n) if xp[i] != Replicate()]
+    ways, lo = 1, 0
+    for i in ed:  # this rank's first expert: Shard(0) splits in mesh order
+        ways *= dm.size(i)
+        lo = lo * dm.size(i) + dm.get_local_rank(i)
+    lo *= m.n_experts // ways
+    rep = [Replicate()] * n
+    yp = [Partial() if i in ed else pl for i, pl in enumerate(xp)]
+    sp = [Partial() if i in ed or i in td else Replicate() for i in range(n)]
+    xg = [Partial() if i in ed else pl for i, pl in enumerate(xp)]
+    wg = [Partial() if i in td else pl for i, pl in enumerate(wp)]
+    y, count, psum = local_map(
+        lambda *t: _ragged(*t, m=m, lo=lo), out_placements=(yp, sp, sp),
+        in_placements=(xp, rep, wp, wp, wp),
+        in_grad_placements=(xg, sp, wg, wg, wg), device_mesh=dm,
+        redistribute_inputs=True)(x, p["router"], w["gate"], w["up"],
+                                  w["down"])
+    return y, count.redistribute(dm, rep), psum.redistribute(dm, rep)
+
+
+def moe_apply_ragged(p: dict, cfg, x: torch.Tensor):
+    """Capacity-free MoE through the grouped-matmul op: one row per
+    (token, choice), each expert product one kernel launch on the card.
+    x: (B, S, D) → (y, aux).  DTensors go through :func:`_ragged_sharded`;
+    the aux loss, E · Σ_e frac_e · mean_prob_e over all the tokens, is
+    taken from the sums after they are reduced over the ranks."""
+    m = cfg.moe
+    if is_dtensor(x):
+        y, count, psum = _ragged_sharded(p, m, x)
+    else:
+        w = p["experts"]
+        y, count, psum = _ragged(x, p["router"], w["gate"], w["up"],
+                                 w["down"], m=m)
+    T = x.shape[0] * x.shape[1]
+    aux = m.n_experts * torch.sum((count / T) * (psum / T))
     if m.n_shared:
         y = y + layers.mlp(p["shared"], cfg, x, act_fn="swiglu")
     return act(y, "batch", "seq", "d"), aux

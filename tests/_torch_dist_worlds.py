@@ -5,6 +5,8 @@ rank imports it), only torch and the port."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -30,12 +32,35 @@ if STAGED.upper() not in dist.Backend._plugins:  # in every spawned rank
     dist.Backend.register_backend(STAGED, AlwaysStaged, devices=["cpu"])
 
 
-def reduced_model(arch: str = "qwen2-0.5b"):
-    """(model, seed-0 params, an (8, 16) batch) on the CPU, f32."""
+def variant(arch_id: str):
+    """(arch, overrides) of an arch id: ``<arch>/ragged`` is the MoE arch
+    on its ragged grouped-matmul path, ``<arch>/ragged/e<N>`` that with N
+    experts."""
+    arch, *path = arch_id.split("/")
+    over: dict = {"moe_ragged": True} if path[:1] == ["ragged"] else {}
+    if path[1:]:
+        over["n_experts"] = int(path[1].removeprefix("e"))
+    return arch, over
+
+
+def configure(cfg, overrides: dict):
+    """``cfg`` (either package's) with ``overrides``; ``n_experts``
+    replaces its MoE config's."""
+    over = dict(overrides)
+    if "n_experts" in over:
+        over["moe"] = dataclasses.replace(cfg.moe,
+                                          n_experts=over.pop("n_experts"))
+    return dataclasses.replace(cfg, **over)
+
+
+def reduced_model(arch_id: str = "qwen2-0.5b"):
+    """(model, seed-0 params, an (8, 16) batch) on the CPU, f32, of an
+    arch id (:func:`variant`)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.models import Model
-    cfg = get_config(arch, reduced=True)
+    arch, over = variant(arch_id)
+    cfg = configure(get_config(arch, reduced=True), over)
     model = Model(cfg)
     batch = SyntheticLM(batch=8, seq=16, vocab=cfg.vocab,
                         device=CPU).create(0)
@@ -301,13 +326,17 @@ def _checkpoint_remesh(rank: int, out: dict, ckpt_dir: str) -> None:
                      tuple(wq.to_local().shape))
 
 
-# the families the mesh slice left: MoE (capacity), SSM, hybrid, the
-# encoder-decoder and the VLM, each a (2, 2) train step against one device
+# the families the mesh slice left: MoE (capacity and ragged), SSM,
+# hybrid, the encoder-decoder and the VLM, each a (2, 2) train step against
+# one device; the ragged path also with 3 experts, which the 2-way model
+# axis does not divide (the rules leave them whole on every rank)
 FAMILY_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b", "zamba2-1.2b",
-                "whisper-tiny", "qwen2-vl-2b")
+                "whisper-tiny", "qwen2-vl-2b", "deepseek-moe-16b/ragged",
+                "phi3.5-moe-42b-a6.6b/ragged", "deepseek-moe-16b/ragged/e3")
 # sharded serving: decode on a (1, 4) mesh with the caches' positions over
-# the model axis (serve_rules' kv_seq)
-SERVE_ARCHS = ("qwen2-0.5b", "zamba2-1.2b")
+# the model axis (serve_rules' kv_seq), and the MoE's experts too
+SERVE_ARCHS = ("qwen2-0.5b", "zamba2-1.2b", "deepseek-moe-16b",
+               "deepseek-moe-16b/ragged")
 SERVE_LEN, SERVE_PROMPT, SERVE_STEPS = 8, 3, 4
 
 
@@ -328,28 +357,38 @@ def _decode_logits(model, params, cache, steps) -> list:
     return out
 
 
-def _serve(rank: int, out: dict) -> None:
-    """Prefill and 4 decode steps of each serve arch (f32) on one device
-    and on a (1, 4) mesh whose caches are placed by ``cache_specs`` under
-    ``serve_rules()`` (their positions split over the model axis)."""
+def sharded_decode(arch: str, mesh, dev) -> tuple:
+    """Prefill and 4 decode steps of ``arch`` (f32): the logits on one
+    CPU device, and on ``mesh`` (its ranks on ``dev``) with the caches
+    placed by ``cache_specs`` under ``serve_rules()`` (their positions
+    split over the model axis); and the placed cache."""
+    from repro_torch.device import to_device
     from repro_torch.launch.mesh import serve_rules
     from repro_torch.parallel import sharding as sh
     from repro_torch.parallel.axes import shard_ctx
-    mesh = make_mesh((1, 4), ("data", "model"), device=CPU)
     rules = serve_rules()
+    model, params, _ = reduced_model(arch)
+    steps = [torch.from_numpy(t) for t in serve_tokens(model.cfg.vocab)]
+    one = _decode_logits(model, params, model.init_cache(
+        2, SERVE_LEN, device=CPU), steps)
+    cache = model.init_cache(2, SERVE_LEN, device=dev)
+    dc = sh.place(cache, sh.to_shardings(sh.cache_specs(cache, mesh, rules),
+                                         mesh))
+    dp = sh.place(to_device(params, dev),
+                  sh.param_shardings(params, mesh, rules))
+    ds = [sh.place(t.to(dev), sh.to_shardings(sh.batch_specs(t, mesh, rules),
+                                              mesh)) for t in steps]
+    with shard_ctx(mesh, rules):
+        got = [t.cpu() for t in _decode_logits(model, dp, dc, ds)]
+    return got, one, dc
+
+
+def _serve(rank: int, out: dict) -> None:
+    """Prefill and 4 decode steps of each serve arch on one device and on
+    a (1, 4) mesh (:func:`sharded_decode`)."""
+    mesh = make_mesh((1, 4), ("data", "model"), device=CPU)
     for arch in SERVE_ARCHS:
-        model, params, _ = reduced_model(arch)
-        steps = [torch.from_numpy(t) for t in serve_tokens(model.cfg.vocab)]
-        one = _decode_logits(model, params, model.init_cache(
-            2, SERVE_LEN, device=CPU), steps)
-        cache = model.init_cache(2, SERVE_LEN, device=CPU)
-        dc = sh.place(cache, sh.to_shardings(sh.cache_specs(cache, mesh,
-                                                            rules), mesh))
-        dp = sh.place(params, sh.param_shardings(params, mesh, rules))
-        ds = [sh.place(t, sh.to_shardings(sh.batch_specs(t, mesh, rules),
-                                          mesh)) for t in steps]
-        with shard_ctx(mesh, rules):
-            got = _decode_logits(model, dp, dc, ds)
+        got, one, dc = sharded_decode(arch, mesh, CPU)
         k = next(seg["k"] for seg in dc["segments"] if "k" in seg)
         out[arch] = {"logits": got,
                      "err": max(float((a - b).abs().max())
@@ -410,8 +449,9 @@ def world4(rank: int, ckpt_dir: str) -> dict:
 
 def gpu_world(rank: int) -> dict:
     """Two ranks sharing the card: the farm, EDGE5 with halos, a reduced
-    qwen2 TP step, attention with 3 KV heads over 2 ranks, the int8 ring
-    and GPipe, each with the kernel launches of its mesh run."""
+    qwen2 TP step, the reduced deepseek's ragged MoE path in a train step
+    and in sharded decode, attention with 3 KV heads over 2 ranks, the
+    int8 ring and GPipe, each with the kernel launches of its mesh run."""
     from repro_torch import workloads
     from repro_torch.core import build
     from repro_torch.core.engine import Stencil
@@ -459,6 +499,28 @@ def gpu_world(rank: int) -> dict:
                  _max_diff(to_device(_whole(grads), torch.device(CPU)),
                            grads_cpu),
                  launch_counts()["flash_attention"], model.cfg.n_layers)
+
+    # the ragged MoE path: the reduced deepseek's 4 experts split over
+    # the model axis, 2 a rank, in a train step and in sharded decode
+    model, params, batch = reduced_model("deepseek-moe-16b/ragged")
+    gmm_per_forward = 3 * (model.cfg.n_layers - 1)
+    loss_cpu, _, grads_cpu = _value_and_grad(model, params, batch)
+    dp = sh.place(to_device(params, dev),
+                  sh.param_shardings(params, mesh2, rules))
+    db = sh.place(to_device(batch, dev), sh.to_shardings(
+        sh.batch_specs(batch, mesh2, rules), mesh2))
+    reset_launch_counts()
+    with shard_ctx(mesh2, rules):
+        loss, _, grads = _value_and_grad(model, dp, db)
+    out["ragged_train"] = (
+        abs(float(_whole(loss)) - float(loss_cpu)),
+        _max_diff(to_device(_whole(grads), torch.device(CPU)), grads_cpu),
+        launch_counts()["moe_gmm"], gmm_per_forward)
+    reset_launch_counts()
+    got, one, _ = sharded_decode("deepseek-moe-16b/ragged", mesh2, dev)
+    out["ragged_decode"] = (
+        max(float((a - b).abs().max()) for a, b in zip(got, one)),
+        launch_counts()["moe_gmm"], gmm_per_forward * len(got))
 
     reset_launch_counts()
     errs = [e for _, e in mha_select(2, [(6, 3, True)], dev)]

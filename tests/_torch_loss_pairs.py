@@ -3,26 +3,18 @@ in both packages on the same weights, and the loss with its gradient
 through each (``jax.value_and_grad``; ``torch.autograd.grad`` over the
 port's leaves)."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from _torch_dist_worlds import configure, variant
 from repro.configs import get_config as jget_config
 from repro.models import Model as JModel
 from repro_torch.configs import get_config
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import Model
-
-
-def variant(arch_id):
-    """(arch, overrides): ``<arch>/ragged`` is the MoE arch on its ragged
-    grouped-matmul path."""
-    arch, _, path = arch_id.partition("/")
-    return arch, ({"moe_ragged": True} if path == "ragged" else {})
 
 
 def pair(arch_id, **overrides):
@@ -35,10 +27,8 @@ def pair(arch_id, **overrides):
     do."""
     arch, extra = variant(arch_id)
     overrides = {**extra, **overrides}
-    jm = JModel(dataclasses.replace(jget_config(arch, reduced=True),
-                                    **overrides))
-    m = Model(dataclasses.replace(get_config(arch, reduced=True),
-                                  **overrides))
+    jm = JModel(configure(jget_config(arch, reduced=True), overrides))
+    m = Model(configure(get_config(arch, reduced=True), overrides))
     like = m.init(seed=0, device="cpu")
     weights = pytree.tree_map(lambda t: t.numpy(), like)
     jp = jax.tree_util.tree_map(jnp.asarray, weights)

@@ -745,6 +745,18 @@ class TestDeviceTransport:
         assert DeviceTransport.device_split(
             2, torch.device("cpu")) == [torch.device("cpu")] * 2
 
+    def test_hosts_round_robin_over_virtual_devices(self, monkeypatch):
+        """``--virtual-devices 3`` on 2 cards: host h on virtual device
+        h % 3, which is cuda:((h % 3) % 2), as the JAX package's
+        ``JaxMesh.device_split`` over 3 faked devices; off the card every
+        host on the deployment's device."""
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        assert DeviceTransport.device_split(5, torch.device("cuda", 0), 3) \
+            == [torch.device("cuda", i) for i in (0, 1, 0, 0, 1)]
+        assert DeviceTransport.device_split(
+            3, torch.device("cpu"), 4) == [torch.device("cpu")] * 3
+        assert DeviceTransport(virtual_devices=3).virtual_devices == 3
+
     def test_send_places_on_the_consumer_device(self):
         t = DeviceTransport()
         t.setup([("a", "b")], {})

@@ -326,7 +326,8 @@ def test_mesh_loss_and_grads_against_jax_kv_heads_replicated(w4, jax_run):
 
 @pytest.mark.parametrize("arch", worlds.FAMILY_ARCHS)
 def test_family_mesh_invariance(w4, arch):
-    """The MoE (capacity path), SSM, hybrid, encoder-decoder and VLM
+    """The MoE (capacity and ragged paths; the ragged one also with its
+    experts whole on every rank), SSM, hybrid, encoder-decoder and VLM
     families on (2, 2) under the reference's gate: the loss within 1e-4
     of one device, and every gradient leaf too."""
     for r in w4:
@@ -351,8 +352,9 @@ def test_family_loss_and_grads_against_jax(w4, jax_run, arch):
 def test_sharded_decode_equals_one_device(w4, arch):
     """Prefill and 4 decode steps on (1, 4) with the caches' positions
     split over the model axis (serve_rules' kv_seq: each rank writes and
-    scores its own block, flash-decoding over the ranks): the f32 logits
-    within 1e-5 of one device on every rank."""
+    scores its own block, flash-decoding over the ranks), and the MoE's
+    experts split over it on both paths: the f32 logits within 1e-5 of one
+    device on every rank."""
     for r in w4:
         got = r["serve"][arch]
         assert got["positions_split"] and got["err"] < 1e-5

@@ -704,6 +704,34 @@ def test_moe_gmm_row_gather_touches_token_rows_only(cuda, x_dtype):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(8192, 6, 64, 2048, 1408, 128),
+                                   (300, 2, 8, 256, 192, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_moe_gmm_rows_of_no_local_expert(cuda, shape, x_dtype):
+    """Half the experts on this rank (a rank of an expert-split mesh, the
+    first at deepseek-moe-16b's gate shape): the rows of the other half
+    carry ids ≥ E.  One launch; those rows of y are exactly 0, the rest
+    match the plain version; the gradient (the plain backward) is 0 on
+    their x rows."""
+    x, eo, w = _gmm_inputs(shape, x_dtype, torch.float32, cuda, seed=11)
+    w = w[:shape[2] // 2].contiguous()
+    far = eo >= w.shape[0]
+    x.requires_grad_(True)
+    before = gmm_ops.moe_apply.launches
+    got = gmm_ops.moe_apply(x, eo, w, tile_m=shape[5])
+    want = gmm_ref.gmm(x.detach(), eo, w)
+    torch.cuda.synchronize()
+    assert gmm_ops.moe_apply.launches == before + 1
+    assert 0 < int(far.sum()) < far.numel()
+    assert not got[far].any() and not want[far].any()
+    rtol, atol = _gmm_tol(shape, x_dtype, want)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    (gx,) = torch.autograd.grad(got.float().sum(), x)
+    assert not gx[far].any() and bool(gx[~far].any())
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 def test_moe_gmm_past_the_old_row_block_limit(cuda, x_dtype):
     """4.3 M rows at D = F = 16: 33,6xx row tiles of 128, more than the
     65,535 row blocks a grid.y held (two 64-row slices a tile on the FMA
@@ -1418,6 +1446,27 @@ def test_mesh_tp_step_on_card_equals_cpu(card_world):
         loss_err, grad_err, flash, layers = r["tp"]
         assert loss_err < 1e-4 and grad_err < 1e-4, r["tp"]
         assert flash == layers, r["tp"]
+
+
+def test_mesh_ragged_moe_train_step_on_card_equals_cpu(card_world):
+    """The reduced deepseek's ragged MoE path (f32) on a (1, 2) mesh on
+    the card, 2 of its 4 experts a rank: loss and gradients within 1e-4
+    of one CPU device, and every grouped matmul of the forward a kernel
+    launch on each rank (3 a MoE layer; the backward is the plain one)."""
+    for r in card_world:
+        loss_err, grad_err, gmm, want = r["ragged_train"]
+        assert loss_err < 1e-4 and grad_err < 1e-4, r["ragged_train"]
+        assert gmm == want > 0, r["ragged_train"]
+
+
+def test_mesh_ragged_moe_decode_on_card_equals_cpu(card_world):
+    """Prefill and 4 decode steps of the reduced deepseek's ragged path
+    under serve_rules() on (1, 2), the caches' positions and the experts
+    split over the ranks: f32 logits within 1e-5 of one CPU device, and
+    3 grouped-matmul launches a MoE layer a step on each rank."""
+    for r in card_world:
+        err, gmm, want = r["ragged_decode"]
+        assert err < 1e-5 and gmm == want > 0, r["ragged_decode"]
 
 
 def test_mesh_mha_selects_kv_heads_on_card(card_world):

@@ -9,8 +9,8 @@ with ``--resume-from``: the adopted deployment replays the pending batch
 from that snapshot and stays equal to the oracle.  The port's farm total
 equals the JAX launcher's ``make_mandelbrot`` through ``run_sequential``
 at the same flags.  ``--cut cost``, ``--calibrate`` and the autoscale
-flags compute; ``--virtual-devices`` refuses, naming the part that brings
-it.  Spawned hosts and launchers make this file slow, so it stands alone
+flags compute; so does ``--virtual-devices``, which places the ``device``
+transport's hosts on virtual devices.  Spawned hosts and launchers make this file slow, so it stands alone
 for ``--dist loadfile`` to spread.
 """
 
@@ -226,12 +226,18 @@ def test_total_equals_the_jax_launchers_farm():
             np.abs(img.astype(np.int64) - jimg).sum())
 
 
-@pytest.mark.parametrize("flags,slice_name", [
-    pytest.param(["--virtual-devices", "2"], "item 12",
-                 id="flags5-item 12")])
-def test_later_flags_name_their_slice(flags, slice_name):
-    with pytest.raises(SystemExit, match=slice_name.replace(".", r"\.")):
-        launcher.parse_args(["--device", CPU, *flags])
+@pytest.mark.parametrize("flags,placed", [
+    pytest.param(["--virtual-devices", "4"],
+                 "host 0 on virtual device 0 (cpu), host 1 on virtual "
+                 "device 1 (cpu)", id="flags5-item 12")])
+def test_later_flags_name_their_slice(capsys, flags, placed):
+    """A flag that an earlier slice refused computes now:
+    ``--virtual-devices 4`` over the ``device`` transport puts host h on
+    virtual device h % 4 (all on the CPU here) and still equals the
+    sequential oracle; the ``pipe`` transport takes the flag unchanged."""
+    out = _run(capsys, *flags, transport="device")
+    assert f"[cluster] 4 virtual devices: {placed}" in out
+    assert "virtual devices" not in _run(capsys, *flags, transport="pipe")
 
 
 def _run(capsys, *flags, workload="pipeline", transport="inprocess"):

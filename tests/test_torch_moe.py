@@ -149,6 +149,65 @@ def test_kernel_branch_routing_equals_oracle(T, D, F, E, tile):
                                rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("T,D,F,E,tile", CASES)
+def test_moe_apply_rows_of_no_local_expert(T, D, F, E, tile):
+    """A row whose expert is ≥ E (an expert another rank of the mesh
+    holds) gives a zero row of y and zero gradients; the other rows equal
+    the JAX package's Pallas op on them alone, and so do the gradients of
+    their x rows and of w (through the op's plain version, the backward
+    that the card's op recomputes)."""
+    x, eo, w = _inputs(T, D, F, 2 * E, seed=1)  # half the ids are ≥ E
+    w = w[:E]
+    mine = eo < E
+    xt, et, wt = (t.requires_grad_(t.is_floating_point())
+                  for t in _t(x, eo, w))
+    got = ops.moe_apply(xt, et, wt, tile_m=tile)
+    assert 0 < int(mine.sum()) < T
+    assert torch.equal(got[torch.from_numpy(~mine)], torch.zeros(
+        (int((~mine).sum()), F)))
+    want = jops.moe_apply(jnp.asarray(x[mine]), jnp.asarray(eo[mine]),
+                          jnp.asarray(w), tile_m=tile, tile_f=16,
+                          interpret=True)
+    np.testing.assert_allclose(got[torch.from_numpy(mine)].detach().numpy(),
+                               np.asarray(want), rtol=TOL, atol=TOL)
+    cot = np.random.default_rng(2).normal(size=(T, F)).astype(np.float32)
+    gx, gw = torch.autograd.grad(got, (xt, wt), torch.from_numpy(cot))
+    assert not gx[torch.from_numpy(~mine)].any()
+    jgx, jgw = jax.grad(lambda a, b: jnp.sum(
+        jref.gmm(a, jnp.asarray(eo[mine]), b) * cot[mine]), (0, 1))(
+        jnp.asarray(x[mine]), jnp.asarray(w))
+    np.testing.assert_allclose(gx[torch.from_numpy(mine)].numpy(),
+                               np.asarray(jgx), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(jgw), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("T,D,F,E,tile", CASES)
+def test_kernel_branch_skips_rows_of_no_local_expert(T, D, F, E, tile):
+    """The CUDA branch's routing of ids ≥ E on CPU tensors, with a
+    stand-in launch that does what the kernel does: a tile whose expert is
+    ≥ E is skipped and writes nothing.  Those rows come back 0 (y starts
+    zeroed), every other row as the oracle gives it."""
+    x, eo, w = _inputs(T, D, F, 2 * E, seed=3)
+    xt, et, wt = _t(x, eo, w[:E])
+    skipped = []
+
+    def launch(x_, tile_expert, tile_rows, row_src, w_, y, tile_m):
+        for t, (e, n) in enumerate(zip(tile_expert.tolist(),
+                                       tile_rows.tolist())):
+            if n <= 0 or e >= w_.shape[0]:  # the kernel's early returns
+                skipped.append(n)
+                continue
+            src = row_src[t * tile_m:t * tile_m + n].long()
+            y[src] = (x_[src].float() @ w_[e].float()).to(y.dtype)
+
+    got = ops._routed_product(xt, et, wt, tile, launch)
+    assert sum(skipped) == int((et >= E).sum()) > 0
+    assert not got[et >= E].any()
+    np.testing.assert_allclose(got.numpy(), ref.gmm(xt, et, wt).numpy(),
+                               rtol=TOL, atol=TOL)
+
+
 def test_gmm_rounds_weights_to_x_dtype():
     """bf16 tokens with f32 weights give the numbers of casting the
     weights to bf16 first (what the kernel does in registers)."""

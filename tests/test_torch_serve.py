@@ -296,13 +296,19 @@ def test_launcher_serves_cluster_reduced_on_cpu(capsys):
                for r in done)
 
 
-def test_launcher_refuses_virtual_devices():
-    """``--virtual-devices`` fakes XLA host devices: refused, naming the
-    multi-device item that brings it."""
-    with pytest.raises(SystemExit, match="item 12"):
-        serve_launcher.main(["--arch", "qwen2-0.5b", "--reduced",
-                             "--device", "cpu", "--hosts", "2",
-                             "--virtual-devices", "4"])
+def test_launcher_refuses_virtual_devices(capsys):
+    """``--virtual-devices`` no longer refuses: over the ``device``
+    transport it puts the decode farm's 2 hosts on 4 virtual devices (all
+    the CPU here), and the served tokens are those without the flag."""
+    args = ["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+            "--requests", "5", "--slots", "4", "--max-new", "4", "--hosts",
+            "2", "--transport", "device"]
+    plain = serve_launcher.main(args)
+    done = serve_launcher.main(args + ["--virtual-devices", "4"])
+    out = capsys.readouterr().out
+    assert "(cluster[devicex2h/2 shards] cpu): 5 requests" in out
+    assert {r.rid: r.tokens for r in done} == {r.rid: r.tokens
+                                               for r in plain}
 
 
 def test_launcher_serves_mamba2_reduced_on_cpu(capsys):

@@ -4,6 +4,8 @@
     python3 tools/mesh_phase.py cpu    # a dry run on the CPU, small sizes
     python3 tools/mesh_phase.py tp     # 19b's readings, sound and wrong
     python3 tools/mesh_phase.py tp cpu # the same on the CPU, reduced qwen2
+    python3 tools/mesh_phase.py ragged      # phase 21's readings, sound and
+    python3 tools/mesh_phase.py ragged cpu  # wrong (CPU: reduced deepseek)
 
 It computes phase 2's farm image and phase 3's edge maps on one device
 (fused), then runs ``chip_smoke.run_mesh_phase`` (on the CPU: the rank body
@@ -16,6 +18,14 @@ takes a softmax scale 1% and 10% too large.  It prints each run's
 readings (the loss and gradients against one device in f32, the bf16
 step's loss, gradients and AdamW update), from which 19b's gates are
 set.
+
+``ragged`` runs phase 21 (``chip_smoke.ragged_rank``: deepseek-moe-16b's
+ragged MoE path on a (1, 2) mesh, the experts split over the ranks) alone,
+ungated, once as it is and once deliberately wrong: the rank that holds
+the upper half of the experts takes its first expert one too low, so
+each of its local experts computes with its neighbour's weights, one
+expert is computed by both ranks and the last by none.  Phase 21's gates are set from these
+readings.
 """
 import os
 import sys
@@ -48,20 +58,45 @@ def tp_rank(rank: int, wrong: float, device: str) -> dict:
             if k.startswith("tp_") or k in ("walls", "parts")}
 
 
+def ragged_rank(rank: int, wrong: int, device: str) -> dict:
+    """Phase 21 in one rank; ``wrong`` > 0 moves the first expert of every
+    rank but the first that many experts down (0: as it is)."""
+    if wrong:
+        from repro_torch.models import moe
+        real = moe._ragged
+
+        def off(*t, m, lo=0):
+            return real(*t, m=m, lo=lo - wrong if lo else lo)
+
+        moe._ragged = off
+    return cs.ragged_rank(rank, device, device == "cpu")
+
+
 if __name__ == "__main__":
     import torch
     from repro_torch import workloads
     from repro_torch.core import build
     from repro_torch.interop import tree_from_numpy
     from repro_torch.launch.mesh import run_world
-    cpu = sys.argv[1:] in (["cpu"], ["tp", "cpu"])
+    cpu = sys.argv[2:] == ["cpu"] or sys.argv[1:] == ["cpu"]
     t = time.time()
     if not cpu:
         from repro_torch.kernels import _build
-        _build.build_all(["flash_attention"] if sys.argv[1:] == ["tp"]
-                         else ["mandelbrot", "stencil", "flash_attention"])
+        _build.build_all({"tp": ["flash_attention"],
+                          "ragged": ["flash_attention", "moe_gmm"]}.get(
+            sys.argv[1] if sys.argv[1:] else "",
+            ["mandelbrot", "stencil", "flash_attention"]))
         print("build", time.time() - t, flush=True)
         print("gpu:", cs.gpu_name_and_power())
+    if sys.argv[1:2] == ["ragged"]:
+        device = "cpu" if cpu else "cuda"
+        for wrong in (0, 1):
+            res = run_world(ragged_rank, 2, wrong, device, device=device,
+                            timeout=300, join_timeout=900)
+            print(f"expert offset off by {wrong}:", flush=True)
+            cs.report_ragged(res)
+        print("total", time.time() - t)
+        sys.exit(0)
     if sys.argv[1:2] == ["tp"]:
         device = "cpu" if cpu else "cuda"
         for wrong in (0.0, *WRONG_SCALES):
