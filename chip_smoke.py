@@ -3833,12 +3833,22 @@ def _kinds(stats: dict) -> str:
                      for k, v in sorted(stats.items())) or "none"
 
 
+def staged_bytes(stats: dict) -> tuple:
+    """(output bytes, bytes copied between the card and the host) of the
+    collectives the ``hoststaged`` group ran in ``stats``
+    (``collectives.stats()``), over every kind."""
+    staged = [v for k, v in stats.items() if k.startswith("staged:")]
+    return (sum(v["bytes"] for v in staged),
+            sum(v["staged_bytes"] for v in staged))
+
+
 def run_mesh_phase(torch, farm_digest, edge_digest, args) -> tuple:
     """Phase 19: a world of 2 ranks sharing ``cuda:0``, gated against the
     digests of phase 2's image and phase 3's edge maps; returns the kernel
     launches of its mesh runs, summed over the ranks, and rank 0's
     collectives of 19b's bf16 step counted at dispatch (phase 20c traces
-    the same step and must count the same)."""
+    the same step and must count the same), as the staged group counted
+    them, and the step's wall."""
     import multiprocessing
     import threading
     from repro_torch.launch.mesh import run_world, world_backend
@@ -3930,7 +3940,8 @@ def run_mesh_phase(torch, farm_digest, edge_digest, args) -> tuple:
     print(f"[mesh] phase 19 launches (both ranks): {launched}; no rank "
           f"process, thread or /dev/shm entry left; phase 19 wall: "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return launched, dict(o["tp_step_costs"], stats=o["stats"]["tp_step"])
+    return launched, dict(o["tp_step_costs"], stats=o["stats"]["tp_step"],
+                          wall=o["walls"]["tp_step"])
 
 
 # -- phase 20: the dry-run --------------------------------------------------------
@@ -4411,9 +4422,10 @@ def report_ragged(res, gates=None) -> dict:
     return {k: sum(x["launches"][k] for x in res) for k in o["launches"]}
 
 
-def run_ragged_phase(torch) -> dict:
+def run_ragged_phase(torch) -> tuple:
     """Phase 21: ``ragged_rank`` in a world of 2 ranks sharing ``cuda:0``,
-    gated; returns its kernel launches summed over the ranks."""
+    gated; returns its kernel launches summed over the ranks, and rank 0's
+    collectives of 21c's decode steps and their wall."""
     import multiprocessing
     from repro_torch.launch.mesh import run_world
     t_phase = time.perf_counter()
@@ -4425,7 +4437,8 @@ def run_ragged_phase(torch) -> dict:
     check(not left, f"phase 21 left rank processes: {left}")
     print(f"[ragged] phase 21 launches (both ranks): {launched}; phase 21 "
           f"wall: {time.perf_counter() - t_phase:.1f} s")
-    return launched
+    return launched, {"stats": res[0]["stats"]["c_decode_f32"],
+                      "wall": res[0]["walls"]["c_decode_f32"]}
 
 
 def main() -> int:
@@ -4568,7 +4581,7 @@ def phases(torch, cells) -> int:
                                  (W, H, BANDS, ITERS, 16, 2048))
     launched = {k: v + launched_19[k] for k, v in launched.items()}
     # phase 21 (the ragged MoE path on 2 ranks) likewise
-    launched_21 = run_ragged_phase(torch)
+    launched_21, decode_costs = run_ragged_phase(torch)
     launched = {k: v + launched_21[k] for k, v in launched.items()}
     torch.cuda.reset_peak_memory_stats()
     memory(torch, "before the MoE phases")
@@ -4605,6 +4618,15 @@ def phases(torch, cells) -> int:
         f"{e['name']} launches={e['launches']} check="
         f"{'exact' if e['max_abs_err'] == 0 else e['max_abs_err']}"
         for e in entries))
+    staged = []
+    for label, c in (("19b bf16 TP step", tp_costs),
+                     (f"21c ragged decode, {RAGGED_SHAPES[2][2]} steps",
+                      decode_costs)):
+        out_b, copied = staged_bytes(c["stats"])
+        staged.append(f"{label}: {out_b:,} B out, {copied:,} B copied "
+                      f"between the card and the host, wall "
+                      f"{c['wall']:.3f} s")
+    print("[mesh] staged collectives (rank 0): " + "; ".join(staged))
     print(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

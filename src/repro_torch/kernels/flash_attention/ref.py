@@ -19,10 +19,13 @@ def _logits(qg: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.einsum("bkgqd,bkld->bkgql", qg.float(), k.float()) * scale
 
 
-def _probs_v(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    probs = torch.softmax(logits, dim=-1)
+def _pv(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bkgql,bkld->bkgqd", probs.to(v.dtype).float(),
                         v.float())
+
+
+def _probs_v(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return _pv(torch.softmax(logits, dim=-1), v)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -46,7 +49,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
         ki = torch.arange(Sk, device=q.device)[None, :]
         logits = logits.masked_fill(~(ki <= qi), float("-inf"))
-    out = _probs_v(logits, v)
+    probs = torch.softmax(logits, dim=-1)
+    del logits  # the softmax's backward reads only its output: free these
+    out = _pv(probs, v)
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 

@@ -174,8 +174,7 @@ def loss_fn(cfg, params, batch, **_):
     logits, aux = forward(cfg, params, batch["tokens"],
                           frames=batch.get("frames"))
     labels = batch["labels"]
-    # the vocab gather has no sharding rule: whole in vocab on a mesh
-    logits = act(logits.float(), "batch", "seq", None)
+    logits = logits.float()
     if is_dtensor(logits):
         nll = layers.nll_sum(logits, labels) / labels.numel()
     else:

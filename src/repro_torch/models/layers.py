@@ -276,9 +276,12 @@ def _cached_attention_sharded(q, k, v, idx, dtype):
     def local(ql, kl, vl, il):
         B, S, H, _ = ql.shape
         K, Tl = kl.shape[2], kl.shape[1]
-        qg = ql.reshape(B, S, K, H // K, hd)
-        logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
-                              kl.float()) * (hd ** -0.5)
+        qg = ql.reshape(B, S, K, H // K, hd).float()
+        # one KV head at a time: a float32 copy of the rank's whole block
+        # of the cache would outweigh everything else a step holds
+        logits = torch.stack([
+            torch.einsum("bsgd,btd->bgst", qg[:, :, h], kl[:, :, h].float())
+            for h in range(K)], dim=1) * (hd ** -0.5)
         ki = off + torch.arange(Tl, device=ql.device)[None, None, None,
                                                        None, :]
         qi = (il[:, None, None, None, None]
@@ -290,7 +293,9 @@ def _cached_attention_sharded(q, k, v, idx, dtype):
         # every query sees key 0, so the maximum over all ranks is finite
         e = torch.exp(logits - m)
         lse = e.sum(dim=-1, keepdim=True)
-        ot = torch.einsum("bkgst,btkd->bkgsd", e, vl.float())
+        ot = torch.stack([
+            torch.einsum("bgst,btd->bgsd", e[:, h], vl[:, :, h].float())
+            for h in range(K)], dim=1)
         both = torch.cat([ot, lse], dim=-1)
         for g in groups:
             both = funcol.all_reduce(both, "sum", g)
@@ -457,29 +462,175 @@ def embedding_init(gen: torch.Generator, cfg, dtype) -> dict:
     return p
 
 
-def embed(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    w = p["embed"]
-    if is_dtensor(w):  # the lookup of rows sharded over a mesh has no
-        # sharding rule that holds in its backward: the table is whole on
-        # every rank for the lookup, through F.embedding
-        from torch.distributed.tensor import Replicate
-        w = w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
-        x = F.embedding(tokens.long(), w)
-    else:
-        x = w[tokens.long()]
+def _split_dims(t, dim: int) -> list:
+    """The mesh dims over which DTensor ``t`` splits its dim ``dim``."""
+    from torch.distributed.tensor import Shard
+    return [i for i, pl in enumerate(t.placements)
+            if pl in (Shard(dim), Shard(dim - t.ndim))]
+
+
+def _first_index(t, placements, dim: int) -> int:
+    """The global index of this rank's first entry along ``dim`` of
+    DTensor ``t`` placed by ``placements``, as DTensor lays out shards
+    (each mesh dim that splits ``dim``, in mesh order, cuts the block
+    before it into chunks of ceil(size / ways)), so a dim the ranks split
+    unevenly is right too."""
+    from torch.distributed.tensor import Shard
+    dm = t.device_mesh
+    size, first = t.shape[dim], 0
+    for i, pl in enumerate(placements):
+        if pl == Shard(dim):
+            chunk = -(-size // dm.size(i))
+            start = min(dm.get_local_rank(i) * chunk, size)
+            first += start
+            size = min(chunk, size - start)
+    return first
+
+
+def _as_dtensor(t, dm):
+    """``t`` as a DTensor on ``dm``: a plain tensor is the same on every
+    rank (replicated)."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
+                              run_check=False)
+
+
+def _row_placements(t, split: list) -> list:
+    """DTensor ``t``'s shards of its leading two dims (batch, sequence) on
+    the mesh dims not in ``split``, ``Replicate`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [pl if pl in (Shard(0), Shard(1)) and i not in split
+            else Replicate() for i, pl in enumerate(t.placements)]
+
+
+def _scaled(x: torch.Tensor, cfg) -> torch.Tensor:
+    """Looked-up embeddings in the compute dtype, scaled by √d where the
+    arch asks for it."""
     x = x.to(getattr(torch, cfg.compute_dtype))
     if cfg.embed_scale:  # the scale rounds to x's dtype first, as in JAX
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    return x
+
+
+def _embed_vocab_parallel(w, tokens, vocab: list, cfg):
+    """The lookup of table rows split over the mesh dims ``vocab``, in
+    Megatron-LM's vocab-parallel form, through ``local_map``: each rank
+    looks up the tokens that fall in its rows [lo, hi) and zeroes the
+    others, so the embeddings come back as a partial sum over the vocab
+    ways (exact: one rank holds each row).  The table's gradient is an
+    index-add into the rank's own rows, ``Shard(0)`` with no collective
+    (partial over the ways that split the tokens)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = w.device_mesh
+    n = dm.ndim
+    wp = [Shard(0) if i in vocab else Replicate() for i in range(n)]
+    tokens = _as_dtensor(tokens, dm)
+    tp = _row_placements(tokens, vocab)
+    lo = _first_index(w, wp, 0)
+
+    def local(wl, ids):
+        inside = (ids >= lo) & (ids < lo + wl.shape[0])
+        x = _scaled(wl[torch.where(inside, ids - lo, 0).long()], cfg)
+        return x.masked_fill(~inside[..., None], 0)
+
+    xp = [Partial() if i in vocab else tp[i] for i in range(n)]
+    wg = [Partial() if isinstance(tp[i], Shard) else wp[i]
+          for i in range(n)]
+    return local_map(local, out_placements=xp, in_placements=(wp, tp),
+                     in_grad_placements=(wg, tp), device_mesh=dm,
+                     redistribute_inputs=True)(w, tokens)
+
+
+def embed(p: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """The embeddings of ``tokens`` in the compute dtype.  A DTensor table
+    whose rows are split over a mesh is looked up vocab-parallel
+    (:func:`_embed_vocab_parallel`); one whose rows are whole is gathered
+    whole for the lookup (the fallback of a vocab the ways do not
+    divide)."""
+    w = p["embed"]
+    if not is_dtensor(w):
+        x = _scaled(w[tokens.long()], cfg)
+    elif _split_dims(w, 0):
+        x = _embed_vocab_parallel(w, tokens, _split_dims(w, 0), cfg)
+    else:  # through F.embedding, which has a DTensor rule
+        from torch.distributed.tensor import Replicate
+        w = w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+        x = _scaled(F.embedding(tokens.long(), w), cfg)
     return act(x, "batch", "seq", "d")
+
+
+class _VocabShare(torch.autograd.Function):
+    """One rank's share of the cross-entropy of float32 logits whose vocab
+    is split over ranks: per row, Σ exp(l − m) over the rank's columns
+    (m the row's maximum over every rank) and the gold logit where the
+    label is one of the rank's columns [lo, lo + V_local) (0 elsewhere),
+    stacked (..., 2).  Both sum over the vocab ways to the row's whole
+    values.  The backward is softmax − one-hot on the rank's own columns,
+    from the upstream gradients of the two sums (1/Σexp and −1 times the
+    loss's), with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, m, labels, lo: int):
+        inside = (labels >= lo) & (labels < lo + logits.shape[-1])
+        col = torch.where(inside, labels - lo, 0).long()[..., None]
+        sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+        gold = torch.gather(logits, -1, col)[..., 0].masked_fill(~inside, 0)
+        ctx.save_for_backward(logits, m, col, inside)
+        return torch.stack([sumexp, gold], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, m, col, inside = ctx.saved_tensors
+        grad = torch.exp(logits - m[..., None]) * g[..., :1]
+        grad.scatter_add_(-1, col, (g[..., 1] * inside)[..., None])
+        return grad, None, None, None
+
+
+def _nll_vocab_parallel(logits, labels, vocab: list) -> torch.Tensor:
+    """:func:`nll_sum` of logits whose vocab is split over the mesh dims
+    ``vocab``: the rows' maxima meet as a max over the vocab ways, then
+    each rank's Σexp and gold logit (:class:`_VocabShare`) as a sum, both
+    as ``DTensor`` redistributions of ``Partial`` outputs; the logits'
+    gradient stays on each rank's columns."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    dm = logits.device_mesh
+    n = dm.ndim
+    rp = _row_placements(logits, vocab)
+    lp = [Shard(2) if i in vocab else rp[i] for i in range(n)]
+    labels = _as_dtensor(labels, dm)
+    lo = _first_index(logits, lp, 2)
+    with torch.no_grad():
+        m = local_map(lambda lg: lg.amax(dim=-1),
+                      out_placements=[Partial("max") if i in vocab else rp[i]
+                                      for i in range(n)],
+                      in_placements=(lp,), device_mesh=dm,
+                      redistribute_inputs=True)(logits)
+    m = m.redistribute(dm, rp)
+    parts = local_map(lambda lg, mx, y: _VocabShare.apply(lg, mx, y, lo),
+                      out_placements=[Partial() if i in vocab else rp[i]
+                                      for i in range(n)],
+                      in_placements=(lp, rp, rp), device_mesh=dm,
+                      redistribute_inputs=True)(logits, m, labels)
+    parts = parts.redistribute(dm, rp)
+    return torch.sum(m + torch.log(parts[..., 0]) - parts[..., 1])
 
 
 def nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Σ (logsumexp(logits) − logits[label]) over every (b, s) of float32
-    logits (B, S, V) whole in V.  For DTensors each rank sums its own rows
-    through ``local_map`` (the backward of the label gather has no sharding
-    rule that stays on the rank's rows), leaving a partial sum over the
-    batch and sequence ways."""
+    logits (B, S, V).  For DTensors, logits whose vocab is split over
+    ranks take the vocab-parallel cross-entropy
+    (:func:`_nll_vocab_parallel`); logits whole in V are summed by each
+    rank over its own rows through ``local_map`` (the backward of the label
+    gather has no sharding rule that stays on the rank's rows).  Either
+    leaves a partial sum over the batch and sequence ways."""
     if is_dtensor(logits):
+        vocab = _split_dims(logits, 2)
+        if vocab:
+            return _nll_vocab_parallel(logits, labels, vocab)
         from torch.distributed.tensor import Partial, Replicate, Shard
         from torch.distributed.tensor.experimental import local_map
         rows = (Shard(0), Shard(1))

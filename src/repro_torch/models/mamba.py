@@ -61,11 +61,12 @@ def _split_proj(cfg, proj):
 
 def _causal_conv(xBC, w, b):
     """Depthwise causal conv over seq: xBC (B, S, C), w (k, C).  The taps
-    accumulate in f32 in the reference's order j = 0..k-1."""
+    accumulate in f32 in the reference's order j = 0..k-1, from zeros laid
+    out as xBC is (a DTensor's own shards, never its global shape)."""
     k = w.shape[0]
     S = xBC.shape[1]
     pad = F.pad(xBC, (0, 0, k - 1, 0))
-    out = torch.zeros(xBC.shape, dtype=torch.float32, device=xBC.device)
+    out = torch.zeros_like(xBC, dtype=torch.float32)
     for j in range(k):
         out = out + pad[:, j:j + S, :].float() * w[j].float()
     return F.silu(out + b.float()).to(xBC.dtype)
@@ -99,10 +100,9 @@ def mamba_apply(p: dict, cfg, x: torch.Tensor, *, return_state: bool = False):
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = layers.rmsnorm(p["gate_norm"], y * F.silu(z), eps=cfg.norm_eps)
     out = act(y @ p["out_proj"].to(x.dtype), "batch", "seq", "d")
-    if return_state:
-        pad = torch.zeros((B, ck - 1, conv_dim), dtype=xBC_raw.dtype,
-                          device=x.device)
-        conv_state = torch.cat([pad, xBC_raw], dim=1)[:, -(ck - 1):]
+    if return_state:  # the last ck - 1 inputs, zeros in front of a short S
+        conv_state = F.pad(xBC_raw[:, -(ck - 1):],
+                           (0, 0, max(ck - 1 - S, 0), 0))
         # the sharded op gives the state as (B, H, N, P) already
         return out, {"conv": conv_state, "h": hT.reshape(B, H, N, P)
                      if hT.ndim == 3 else hT}

@@ -7,8 +7,10 @@ names (``router``, ``experts`` {``gate``, ``up``, ``down``} stacked
 
 * The capacity path (the configs' default): each batch row is a group with
   capacity C = ceil(S · k / E · cf); dispatch and combine are (B, S, E, C)
-  one-hots contracted with einsums, and choices past an expert's capacity
-  are dropped.  Its aux loss is averaged over the groups.
+  slots scattered from each token's choices and contracted with einsums,
+  and choices past an expert's capacity are dropped.  On a mesh each rank
+  builds the slots of its own experts only.  Its aux loss is averaged
+  over the groups.
 * The ragged path (``cfg.moe_ragged``): tokens are sorted by expert and
   every expert product is one launch of the grouped-matmul kernel
   (:mod:`..kernels.moe_gmm`) on the card, the plain version on the CPU.  It
@@ -24,6 +26,7 @@ rounds them in registers and writes no cast copy).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -31,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.moe_gmm import ops as gmm_ops
-from ..parallel.axes import act, is_dtensor
+from ..parallel.axes import act, current_ctx, is_dtensor, placements
 from . import layers
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_ragged", "capacity"]
@@ -75,58 +78,97 @@ def _stack_init(gen: torch.Generator, shape, dtype,
         .mul_(scale).to(dtype)
 
 
-def _route_groups(probs: torch.Tensor, k: int, C: int):
-    """probs: (B, S, E) f32 → dispatch (B, S, E, C) 0/1, combine f32, the
-    kept gates' sum (B, S), and each group's aux term.  A loop over
-    the k choices, mesh-tf style; a choice at position ≥ C in its expert's
-    buffer is dropped (its one-hot row is zero, as ``jax.nn.one_hot`` gives
-    for an index out of range)."""
+def _route_choices(probs: torch.Tensor, k: int, C: int):
+    """probs: (B, S, E) f32 → each token's k choices, mesh-tf style: the
+    gates ``topv`` and experts ``topi`` (B, S, k), each choice's position
+    ``pos`` (B, S, k) in its expert's capacity buffer (C where it is
+    dropped: position ≥ C), the kept gates' sum (B, S) and each group's
+    (batch row's) aux term Σ_e f_e · p̄_e (the callers take E times their
+    mean).  Only (B, S, E) tensors: cheap next to the (B, S, E, C) slots."""
     B, S, E = probs.shape
     cd = probs.dtype
-    dispatch = torch.zeros((B, S, E, C), dtype=cd, device=probs.device)
-    combine = torch.zeros_like(dispatch)
     count_e = torch.zeros((B, E), dtype=cd, device=probs.device)
     gates_sum = torch.zeros((B, S), dtype=cd, device=probs.device)
     topv, topi = torch.topk(probs, k, dim=-1)  # (B, S, k), descending
+    pos = []
     for choice in range(k):
         g = topv[..., choice]
         e_onehot = F.one_hot(topi[..., choice], E).to(cd)
         # position of each token within its expert's capacity buffer
-        pos = torch.cumsum(e_onehot, dim=1) - e_onehot + count_e[:, None, :]
-        pos_tok = torch.sum(pos * e_onehot, dim=-1)  # (B, S)
+        at = torch.cumsum(e_onehot, dim=1) - e_onehot + count_e[:, None, :]
+        pos_tok = torch.sum(at * e_onehot, dim=-1)  # (B, S)
         keep = (pos_tok < C).to(cd)
-        idx = torch.where(pos_tok < C, pos_tok, 0).long()
-        pos_onehot = F.one_hot(idx, C).to(cd) * keep[..., None]
-        slot = e_onehot[..., None] * pos_onehot[:, :, None, :]
-        dispatch += slot
-        combine += slot * g[..., None, None]
+        pos.append(torch.where(pos_tok < C, pos_tok, C).long())
         count_e = count_e + torch.sum(e_onehot * keep[..., None], dim=1)
         gates_sum = gates_sum + g * keep
-    # aux loss (switch-style): each group's Σ_e f_e · p̄_e (the callers
-    # take E times their mean)
     frac_tokens = torch.mean(F.one_hot(topi[..., 0], E).to(cd), dim=1)
     mean_probs = torch.mean(probs, dim=1)
-    return dispatch, combine, gates_sum, torch.sum(frac_tokens * mean_probs,
-                                                   dim=-1)
+    return (topv, topi, torch.stack(pos, dim=-1), gates_sum,
+            torch.sum(frac_tokens * mean_probs, dim=-1))
+
+
+def _slots(topv, topi, pos, C: int, lo: int, El: int):
+    """dispatch (B, S, El, C) 0/1 and combine f32 of the experts
+    [lo, lo + El), scattered from the choices of :func:`_route_choices`:
+    a kept choice of one of these experts puts 1 (dispatch) and its gate
+    (combine) at (b, s, e − lo, pos); a choice that is dropped or of
+    another expert adds 0 at column 0 (a token picks k distinct experts,
+    so no entry takes two values)."""
+    B, S, k = topi.shape
+    mine = (topi >= lo) & (topi < lo + El) & (pos < C)
+    col = torch.where(mine, (topi - lo) * C + pos, 0).reshape(B * S, k)
+    m = mine.to(topv.dtype).reshape(B * S, k)
+    dispatch = topv.new_zeros((B * S, El * C)).scatter_add_(1, col, m)
+    combine = topv.new_zeros((B * S, El * C)).scatter_add_(
+        1, col, topv.reshape(B * S, k) * m)
+    return (dispatch.reshape(B, S, El, C), combine.reshape(B, S, El, C))
 
 
 def _dispatch_combine(probs: torch.Tensor, k: int, C: int):
     """probs: (B, S, E) f32 → dispatch (B, S, E, C) 0/1, combine f32, the
     kept gates' sum (B, S), and the aux load-balancing loss.  Each group
-    (batch row) is routed on its own (:func:`_route_groups`), so DTensor
-    probs are routed through ``local_map`` on each rank's rows."""
-    if is_dtensor(probs):
-        from torch.distributed.tensor import Replicate, Shard
-        from torch.distributed.tensor.experimental import local_map
-        pp = [pl if pl == Shard(0) else Replicate()
-              for pl in probs.placements]
-        route = local_map(_route_groups, out_placements=(pp,) * 4,
-                          in_placements=(pp, None, None),
-                          device_mesh=probs.device_mesh,
-                          redistribute_inputs=True)
+    (batch row) is routed on its own.
+
+    DTensor probs are routed through ``local_map`` in two steps.  Every
+    rank takes the choices of its own rows over all E experts
+    (:func:`_route_choices`, on (B, S, E) tensors), so ``keep``, the gates'
+    sum and the aux term are whole and equal on the ranks that split the
+    experts; then each builds the slots of its own experts only
+    (:func:`_slots`), returned ``Shard(2)`` over the expert ways that the
+    ``expert`` rule gives (B, S, E, C), so no rank holds all E experts'
+    columns.  A gate's gradient comes from the one rank whose columns hold
+    it (a partial sum over the expert ways)."""
+    if not is_dtensor(probs):
+        topv, topi, pos, gates_sum, per_group = _route_choices(probs, k, C)
+        dispatch, combine = _slots(topv, topi, pos, C, 0, probs.shape[-1])
     else:
-        route = _route_groups
-    dispatch, combine, gates_sum, per_group = route(probs, k, C)
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        dm = probs.device_mesh
+        n = dm.ndim
+        ctx = current_ctx()
+        want = (placements(ctx.act_spec((*probs.shape, C), "batch", "seq",
+                                        "expert", None), ctx.mesh)
+                if ctx.mesh is not None else [Replicate()] * n)
+        ed = [i for i in range(n) if want[i] == Shard(2)]
+        rp = [pl if pl == Shard(0) and i not in ed else Replicate()
+              for i, pl in enumerate(probs.placements)]
+        topv, topi, pos, gates_sum, per_group = local_map(
+            functools.partial(_route_choices, k=k, C=C),
+            out_placements=(rp,) * 5, in_placements=(rp,), device_mesh=dm,
+            redistribute_inputs=True)(probs)
+        ways, lo = 1, 0
+        for i in ed:  # this rank's first expert: Shard(2) splits in mesh order
+            ways *= dm.size(i)
+            lo = lo * dm.size(i) + dm.get_local_rank(i)
+        El = probs.shape[-1] // ways
+        sp = [Shard(2) if i in ed else rp[i] for i in range(n)]
+        vg = [Partial() if i in ed else rp[i] for i in range(n)]
+        dispatch, combine = local_map(
+            functools.partial(_slots, C=C, lo=lo * El, El=El),
+            out_placements=(sp, sp), in_placements=(rp, rp, rp),
+            in_grad_placements=(vg, rp, rp), device_mesh=dm,
+            redistribute_inputs=True)(topv, topi, pos)
     return dispatch, combine, gates_sum, probs.shape[-1] * torch.mean(
         per_group)
 
@@ -260,7 +302,10 @@ def moe_apply(p: dict, cfg, x: torch.Tensor):
     probs = torch.softmax(logits, dim=-1)
     dispatch, combine, gates_sum, aux = _dispatch_combine(probs, k, C)
     if m.router_norm_topk:
-        combine = combine / torch.clamp_min(gates_sum[..., None, None], 1e-9)
+        norm = torch.clamp_min(gates_sum[..., None, None], 1e-9)
+        # in place where no gradient needs combine as it was
+        combine = (combine / norm if combine.requires_grad
+                   else combine.div_(norm))
     cd = x.dtype
     dispatch = act(dispatch.to(cd), "batch", "seq", "expert", None)
     combine = act(combine.float(), "batch", "seq", "expert", None)

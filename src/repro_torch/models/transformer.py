@@ -42,7 +42,6 @@ import torch
 import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.axes import act
 from . import layers, mamba, moe
 
 __all__ = ["structure", "init_params", "forward", "hidden_states",
@@ -209,7 +208,8 @@ def _positions(cfg, tokens, offset=0):
         pos = pos + (off[:, None] if off.ndim == 1 else off)
     else:
         pos = pos + offset
-    pos = pos.expand(B, S)
+    # laid out as tokens (a DTensor batch's own rows, not its global B)
+    pos = pos + torch.zeros_like(tokens, dtype=torch.int32)
     if cfg.mrope:
         pos = pos[..., None].expand(B, S, 3)
     return pos
@@ -250,11 +250,9 @@ def forward(cfg, params, tokens, *, positions=None, input_embeds=None):
 
 def _nll_dense(cfg, params, hidden, labels):
     """Summed negative log-likelihood of ``labels`` under the float32
-    logits of ``hidden``."""
+    logits of ``hidden`` (on a mesh, vocab-parallel where the logits' vocab
+    is split: :func:`layers.nll_sum`)."""
     logits = layers.unembed(params["embedding"], cfg, hidden).float()
-    # the vocab gather has no sharding rule: the logits' rows are whole on
-    # every rank of a mesh (a no-op on one device)
-    logits = act(logits, "batch", "seq", None)
     return layers.nll_sum(logits, labels)
 
 

@@ -34,12 +34,17 @@ if STAGED.upper() not in dist.Backend._plugins:  # in every spawned rank
 
 def variant(arch_id: str):
     """(arch, overrides) of an arch id: ``<arch>/ragged`` is the MoE arch
-    on its ragged grouped-matmul path, ``<arch>/ragged/e<N>`` that with N
-    experts."""
+    on its ragged grouped-matmul path, ``/e<N>`` gives it N experts, and
+    ``/chunk<N>`` takes the loss over sequence chunks of N."""
     arch, *path = arch_id.split("/")
-    over: dict = {"moe_ragged": True} if path[:1] == ["ragged"] else {}
-    if path[1:]:
-        over["n_experts"] = int(path[1].removeprefix("e"))
+    over: dict = {}
+    for part in path:
+        if part == "ragged":
+            over["moe_ragged"] = True
+        elif part.startswith("chunk"):
+            over["loss_chunk"] = int(part.removeprefix("chunk"))
+        else:
+            over["n_experts"] = int(part.removeprefix("e"))
     return arch, over
 
 
@@ -329,10 +334,12 @@ def _checkpoint_remesh(rank: int, out: dict, ckpt_dir: str) -> None:
 # the families the mesh slice left: MoE (capacity and ragged), SSM,
 # hybrid, the encoder-decoder and the VLM, each a (2, 2) train step against
 # one device; the ragged path also with 3 experts, which the 2-way model
-# axis does not divide (the rules leave them whole on every rank)
+# axis does not divide (the rules leave them whole on every rank); and
+# qwen2 with its vocab-parallel loss over two checkpointed sequence chunks
 FAMILY_ARCHS = ("deepseek-moe-16b", "mamba2-2.7b", "zamba2-1.2b",
                 "whisper-tiny", "qwen2-vl-2b", "deepseek-moe-16b/ragged",
-                "phi3.5-moe-42b-a6.6b/ragged", "deepseek-moe-16b/ragged/e3")
+                "phi3.5-moe-42b-a6.6b/ragged", "deepseek-moe-16b/ragged/e3",
+                "qwen2-0.5b/chunk8")
 # sharded serving: decode on a (1, 4) mesh with the caches' positions over
 # the model axis (serve_rules' kv_seq), and the MoE's experts too
 SERVE_ARCHS = ("qwen2-0.5b", "zamba2-1.2b", "deepseek-moe-16b",
@@ -420,6 +427,172 @@ def _dryrun_step(rank: int, out: dict) -> None:
     out["coll_calls"], out["coll_kinds"] = counter.calls, counter.coll
 
 
+# vocab-parallel lookup and cross-entropy: (vocab, tied) — 10 rows split
+# 5 | 5 over the 2-way model axis, 7 left whole (the replication fallback)
+VOCAB_CASES = ((10, True), (10, False), (7, True), (7, False))
+VOCAB_D, VOCAB_B, VOCAB_S = 8, 4, 6
+
+
+def vocab_inputs(V: int) -> dict:
+    """The table, head, hidden states, lookup weights, tokens and labels
+    (numpy) of a vocab case; the ids include both sides of the shard
+    boundary V // 2 and both ends of the vocab."""
+    rng = np.random.default_rng(V)
+    D, B, S = VOCAB_D, VOCAB_B, VOCAB_S
+    ids = rng.integers(0, V, (2, B, S)).astype(np.int32)
+    ids[:, 0, :4] = [V // 2 - 1, V // 2, 0, V - 1]
+    ids[1, 1, :4] = [V // 2, V // 2 - 1, V - 1, 0]
+    f32 = np.float32
+    return {"embed": (rng.normal(size=(V, D)) * 0.5).astype(f32),
+            "lm_head": (rng.normal(size=(D, V)) * 0.5).astype(f32),
+            "hidden": rng.normal(size=(B, S, D)).astype(f32),
+            "r": rng.normal(size=(B, S, D)).astype(f32),
+            "tokens": ids[0], "labels": ids[1]}
+
+
+def vocab_cfg(tied: bool):
+    """The fields of a config that embed, unembed and the loss read (the
+    tied case scales the embeddings, as gemma-2b does)."""
+    import types
+    return types.SimpleNamespace(compute_dtype="float32", d_model=VOCAB_D,
+                                 tied_embeddings=tied, embed_scale=tied)
+
+
+def vocab_loss(cfg, params, hidden, r, tokens, labels):
+    """nll_sum of the unembedded hidden states plus Σ lookup · r."""
+    from repro_torch.models import layers
+    logits = layers.unembed(params, cfg, hidden).float()
+    x = layers.embed(params, cfg, tokens)
+    return layers.nll_sum(logits, labels) + (x * r).sum(), logits
+
+
+def _vocab_case(V: int, tied: bool) -> dict:
+    """One vocab case on one device and on a (2, 2) mesh under
+    ``train_rules()``: the loss, the gradients of the table (and head) and
+    hidden states, the placements of the logits and the table's
+    gradient."""
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.axes import shard_ctx
+    cfg = vocab_cfg(tied)
+    a = {k: torch.from_numpy(v) for k, v in vocab_inputs(V).items()}
+    params = {"embed": a["embed"]}
+    if not tied:
+        params["lm_head"] = a["lm_head"]
+    data = {k: a[k] for k in ("hidden", "r", "tokens", "labels")}
+
+    def run(p, d):
+        live = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        h = d["hidden"].detach().requires_grad_(True)
+        loss, logits = vocab_loss(cfg, live, h, d["r"], d["tokens"],
+                                  d["labels"])
+        grads = torch.autograd.grad(loss, [*live.values(), h])
+        return loss, logits, dict(zip([*live, "hidden"], grads))
+
+    loss1, _, g1 = run(params, data)
+    mesh = make_mesh((2, 2), ("data", "model"), device=CPU)
+    rules = train_rules()
+    dp = sh.place(params, sh.param_shardings(params, mesh, rules))
+    dd = sh.place(data, sh.to_shardings(sh.batch_specs(data, mesh, rules),
+                                        mesh))
+    with shard_ctx(mesh, rules):
+        loss, logits, g = run(dp, dd)
+    return {"loss_one": float(loss1), "loss_mesh": float(_whole(loss)),
+            "grads": {k: _whole(v) for k, v in g.items()},
+            "grad_err": max(float((_whole(v) - g1[k]).abs().max())
+                            for k, v in g.items()),
+            "logits": str(logits.placements[-1]),
+            "embed_grad": [str(pl) for pl in g["embed"].placements]}
+
+
+def _vocab_parallel(rank: int, out: dict) -> None:
+    for V, tied in VOCAB_CASES:
+        out[f"{V}:{tied}"] = _vocab_case(V, tied)
+
+
+# capacity-path routing of (B, S, E) probabilities, k choices, capacity C
+# (below the choices' need: some are dropped)
+ROUTE_B, ROUTE_S, ROUTE_E, ROUTE_K, ROUTE_C = 4, 12, 4, 2, 4
+
+
+def route_probs() -> np.ndarray:
+    rng = np.random.default_rng(11)
+    logits = rng.normal(size=(ROUTE_B, ROUTE_S, ROUTE_E)) * 2
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+
+def _expert_routing(rank: int, out: dict) -> None:
+    """``_dispatch_combine`` on one device and on two meshes with the
+    experts over the model axis: (2, 2) (2 of the 4 experts a rank, the
+    batch rows over the data axis) and (1, 4) (one expert a rank, the rows
+    whole).  Each rank's shards of dispatch, combine and the gates' sum
+    against one device's (its rows and experts' columns) bit for bit, and
+    the aux loss whole (on (2, 2) its mean over the data ways sums in
+    another order); the routing's gradient (through combine, the gates'
+    sum and aux) against one device's."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.axes import shard_ctx
+    probs = torch.from_numpy(route_probs())
+    w = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(ROUTE_B, ROUTE_S, ROUTE_E, ROUTE_C)).astype(np.float32))
+
+    def run(pr, wt):
+        pr = pr.detach().requires_grad_(True)
+        got = moe._dispatch_combine(pr, ROUTE_K, ROUTE_C)
+        loss = (got[1] * wt).sum() + got[2].sum() + got[3]
+        return [t.detach() for t in got], torch.autograd.grad(loss, pr)[0]
+
+    one, g1 = run(probs, w)
+    out["kept"] = float(one[0].sum())
+    rules = train_rules()
+    for dims in ((2, 2), (1, 4)):
+        mesh = make_mesh(dims, ("data", "model"), device=CPU)
+        rows = sh.NamedSharding(mesh, sh.P("data"))
+        with shard_ctx(mesh, rules):
+            got, g = run(rows.place(probs), rows.place(w))
+        same = [bool(torch.equal(a.to_local(), distribute_tensor(
+            b, a.device_mesh, a.placements, src_data_rank=None).to_local()))
+            for a, b in zip(got[:3], one)]
+        out[dims] = {"same": same,
+                     "aux_err": float((_whole(got[3]) - one[3]).abs()),
+                     "dispatch": ([str(pl) for pl in got[0].placements],
+                                  tuple(got[0].to_local().shape)),
+                     "grad_err": float((_whole(g) - g1).abs().max())}
+
+
+def _model_forwards(rank: int, out: dict) -> None:
+    """Two whole forwards on (2, 2) against one device: reduced deepseek on
+    the capacity path (its experts split over the model axis), and reduced
+    qwen2-vl-2b fed ``input_embeds`` from the vocab-parallel lookup."""
+    from repro_torch.models import layers
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.axes import shard_ctx
+    mesh = make_mesh((2, 2), ("data", "model"), device=CPU)
+    rules = train_rules()
+    for arch in ("deepseek-moe-16b", "qwen2-vl-2b"):
+        model, params, batch = reduced_model(arch)
+        tokens = batch["tokens"]
+        embeds = arch == "qwen2-vl-2b"
+
+        def fwd(p, t):
+            kw = ({"input_embeds": layers.embed(p["embedding"], model.cfg,
+                                                t)} if embeds else {})
+            return model.forward(p, t, **kw)[0]
+
+        with torch.no_grad():
+            one = fwd(params, tokens)
+            dp = sh.place(params, sh.param_shardings(params, mesh, rules))
+            dt = sh.place(tokens, sh.to_shardings(
+                sh.batch_specs(tokens, mesh, rules), mesh))
+            with shard_ctx(mesh, rules):
+                got = fwd(dp, dt)
+        out[arch] = {"logits": _whole(got), "tokens": tokens,
+                     "err": float((_whole(got) - one).abs().max()),
+                     "vocab_split": str(got.placements[-1]) == "S(2)"}
+
+
 def world4(rank: int, ckpt_dir: str) -> dict:
     from repro_torch.parallel.collectives import reset_stats, stats
     out: dict = {}
@@ -440,6 +613,11 @@ def world4(rank: int, ckpt_dir: str) -> dict:
     _serve(rank, out["serve"])
     out["dryrun_step"] = {}
     _dryrun_step(rank, out["dryrun_step"])
+    for key, body in (("vocab", _vocab_parallel),
+                      ("routing", _expert_routing),
+                      ("forwards", _model_forwards)):
+        out[key] = {}
+        body(rank, out[key])
     return out
 
 

@@ -12,23 +12,23 @@ RECORD_KEYS = ("mem", "flops_per_dev", "bytes_per_dev", "coll_bytes_per_dev",
 REDUCED_CELLS = {
     ("qwen2-0.5b", "train_4k"): {
         "mem": {"argument_bytes": 858372, "output_bytes": 334108,
-                "temp_bytes": 14707737620, "code_bytes": 0},
+                "temp_bytes": 14204486676, "code_bytes": 0},
         "flops_per_dev": 1966893694976.0,
-        "bytes_per_dev": 1471843182912.0,
-        "coll_bytes_per_dev": 1294019096.0,
-        "coll_kinds": {"all-gather": 470417408.0, "all-reduce": 403391756.0,
-                       "reduce-scatter": 16818176.0},
-        "coll_calls": {"all-gather": 26, "all-reduce": 33,
-                       "reduce-scatter": 11}},
+        "bytes_per_dev": 1462569740596.0,
+        "coll_bytes_per_dev": 1362299416.0,
+        "coll_kinds": {"all-gather": 403177472.0, "all-reduce": 471155980.0,
+                       "reduce-scatter": 16809984.0},
+        "coll_calls": {"all-gather": 24, "all-reduce": 36,
+                       "reduce-scatter": 10}},
     ("zamba2-1.2b", "long_500k"): {
         "mem": {"argument_bytes": 33633344, "output_bytes": 33559408,
                 "temp_bytes": 1844157, "code_bytes": 0},
         "flops_per_dev": 34348352.0,
-        "bytes_per_dev": 702559698.0,
-        "coll_bytes_per_dev": 1636344.0,
-        "coll_kinds": {"all-gather": 1602624.0, "all-reduce": 16656.0,
+        "bytes_per_dev": 912166167.0,
+        "coll_bytes_per_dev": 1571832.0,
+        "coll_kinds": {"all-gather": 1537088.0, "all-reduce": 17168.0,
                        "reduce-scatter": 408.0},
-        "coll_calls": {"all-gather": 31, "all-reduce": 40,
+        "coll_calls": {"all-gather": 30, "all-reduce": 41,
                        "reduce-scatter": 8}},
 }
 

@@ -369,6 +369,108 @@ def test_sharded_decode_against_jax(w4, jax_run, arch):
                                    atol=1e-4, rtol=0, err_msg=str(i))
 
 
+# -- vocab-parallel lookup and cross-entropy, expert-sharded routing ------------
+
+def _jax_vocab(V: int, tied: bool):
+    """The JAX package's loss of a vocab case on one device (its
+    ``_nll_dense`` and ``embed``) and its gradients."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import layers as jlayers
+    from repro.models.transformer import _nll_dense
+    a = worlds.vocab_inputs(V)
+    cfg = worlds.vocab_cfg(tied)
+    names = ["embed"] + ([] if tied else ["lm_head"])
+
+    def loss(p, h):
+        x = jlayers.embed(p, cfg, jnp.asarray(a["tokens"]))
+        return (_nll_dense(cfg, {"embedding": p}, h,
+                           jnp.asarray(a["labels"]))
+                + jnp.sum(x * a["r"]))
+
+    p = {k: jnp.asarray(a[k]) for k in names}
+    val, (gp, gh) = jax.value_and_grad(loss, (0, 1))(p, jnp.asarray(
+        a["hidden"]))
+    return float(val), {**{k: np.asarray(v) for k, v in gp.items()},
+                        "hidden": np.asarray(gh)}
+
+
+@pytest.mark.parametrize("V,tied", worlds.VOCAB_CASES)
+def test_vocab_parallel_loss_and_grads_equal_one_device(w4, V, tied):
+    """The lookup and the cross-entropy on (2, 2), tied and untied, with
+    ids on both sides of the table's shard boundary: the loss and every
+    gradient within the mesh gate of one device on every rank.  A vocab
+    the 2-way model axis splits keeps the logits split (``S(2)``) and
+    gives the table a ``S(0)`` gradient; 7 rows stay whole (the
+    replication fallback)."""
+    for r in w4:
+        got = r["vocab"][f"{V}:{tied}"]
+        assert abs(got["loss_mesh"] - got["loss_one"]) < 1e-4
+        assert got["grad_err"] < 1e-4
+        if V % 2:
+            assert got["logits"] == "R" and "S(0)" not in got["embed_grad"]
+        else:
+            assert got["logits"] == "S(2)" and got["embed_grad"] == [
+                "P(sum)", "S(0)"]
+
+
+@pytest.mark.parametrize("V,tied", worlds.VOCAB_CASES)
+def test_vocab_parallel_loss_and_grads_against_jax(w4, V, tied):
+    """The same against the JAX package's ``_nll_dense`` and ``embed`` on
+    one device, within the mesh gate."""
+    want, wgrads = _jax_vocab(V, tied)
+    got = w4[0]["vocab"][f"{V}:{tied}"]
+    assert abs(got["loss_mesh"] - want) < 1e-4
+    assert set(got["grads"]) == set(wgrads)
+    for k, g in got["grads"].items():
+        np.testing.assert_allclose(g.numpy(), wgrads[k], atol=1e-4, rtol=0,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("dims", [(2, 2), (1, 4)])
+def test_expert_sharded_routing_equals_one_device(w4, dims):
+    """Capacity routing with the 4 experts over the model axis, on (2, 2)
+    (the rows over the data axis) and (1, 4): each rank builds dispatch
+    and combine for its own rows and its own experts' columns only, and
+    they and the gates' sum equal one device's there bit for bit (choices
+    past the capacity dropped); the aux loss equals one device's (on
+    (2, 2) within rounding of its mean over the data ways); the routing's
+    gradient within 1e-5 of one device."""
+    B, S, E, C = (worlds.ROUTE_B, worlds.ROUTE_S, worlds.ROUTE_E,
+                  worlds.ROUTE_C)
+    for r in w4:
+        got = r["routing"][dims]
+        assert got["same"] == [True] * 3
+        assert got["aux_err"] == 0.0 if dims[0] == 1 else \
+            got["aux_err"] < 1e-6
+        assert got["dispatch"] == (["S(0)", "S(2)"],
+                                   (B // dims[0], S, E // dims[1], C))
+        assert got["grad_err"] < 1e-5
+        assert r["routing"]["kept"] < B * S * worlds.ROUTE_K
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen2-vl-2b"])
+def test_model_forward_on_the_mesh(w4, arch):
+    """Reduced deepseek on the capacity path and qwen2-vl-2b fed
+    ``input_embeds`` from the vocab-parallel lookup, on (2, 2): the logits
+    split over the vocab, within 1e-5 of one device on every rank and
+    within 1e-4 of the JAX package's forward."""
+    import jax.numpy as jnp
+    from _torch_loss_pairs import pair
+    from repro.models import layers as jlayers
+    for r in w4:
+        assert r["forwards"][arch]["vocab_split"]
+        assert r["forwards"][arch]["err"] < 1e-5
+    got = w4[0]["forwards"][arch]
+    jm, jp, _, _ = pair(arch)
+    tokens = jnp.asarray(got["tokens"].numpy())
+    kw = ({"input_embeds": jlayers.embed(jp["embedding"], jm.cfg, tokens)}
+          if arch == "qwen2-vl-2b" else {})
+    want = np.asarray(jm.forward(jp, tokens, **kw)[0])
+    np.testing.assert_allclose(got["logits"].numpy(), want, atol=1e-4,
+                               rtol=0)
+
+
 @pytest.fixture(scope="module")
 def fake_tp_step():
     """The dry-run's trace of the reduced qwen2 train step on (2, 2), in a

@@ -236,6 +236,70 @@ def test_reduced_cells_give_their_records(cell):
     assert records.reduced_record(*cell) == records.REDUCED_CELLS[cell]
 
 
+# -- per-device memory as the mesh grows (fake worlds, reduced archs) ---------
+
+def _temp(cfg, shape, dims, axes, rules) -> int:
+    """The temp bytes of one step of ``cfg`` at ``shape`` traced on a mesh
+    of ``dims`` × ``axes`` in a fake world of its size (the card's path)."""
+    import math
+    with fake_world(math.prod(dims)):
+        return dryrun._trace_variant(_serving(cfg, shape.kind), shape,
+                                     make_mesh(dims, axes), rules).temp_bytes
+
+
+def _wide_vocab(arch: str = "qwen2-0.5b", vocab: int = 8192):
+    """A reduced arch whose vocab (8192 × d_model 128) is its largest
+    dim."""
+    import dataclasses
+    return dataclasses.replace(get_config(arch, reduced=True), vocab=vocab)
+
+
+def test_train_temp_falls_with_the_model_ways():
+    """A train step whose vocab is its largest dim, (2, 2) → (2, 4): the
+    logits and the loss stay split over the vocab (model) ways, so the
+    temp bytes fall to at most 0.6× (whole-vocab logits kept them)."""
+    cfg, shape = _wide_vocab(), ShapeConfig("t", 64, 8, "train")
+    axes = ("data", "model")
+    two = _temp(cfg, shape, (2, 2), axes, train_rules())
+    four = _temp(cfg, shape, (2, 4), axes, train_rules())
+    assert four <= 0.6 * two
+
+
+def test_decode_temp_below_the_table():
+    """A decode step on (1, 4) looks its tokens up in each rank's rows of
+    the table: its temp bytes stay below the bf16 table's whole bytes
+    (the table gathered whole for the lookup exceeded them)."""
+    cfg = _wide_vocab()
+    got = _temp(cfg, ShapeConfig("d", 64, 8, "decode"), (1, 4),
+                ("data", "model"), serve_rules())
+    assert 0 < got < cfg.vocab * cfg.d_model * 2
+
+
+def test_ssm_prefill_temp_does_not_grow_with_the_world():
+    """Fault 17 at reduced width: mamba2's prefill of 16 rows on 8 ranks
+    (``data``) and on 16 (``pod × data``, one row a rank) holds at most
+    0.6× the temp bytes on the larger world, as the reference's halve (the
+    causal conv's zeros took the batch's global shape, and grew)."""
+    cfg = get_config("mamba2-2.7b", reduced=True)
+    shape = ShapeConfig("p", 64, 16, "prefill")
+    n = _temp(cfg, shape, (8,), ("data",), serve_rules())
+    two_n = _temp(cfg, shape, (2, 8), ("pod", "data"), serve_rules())
+    assert two_n <= 0.6 * n
+
+
+def test_capacity_prefill_temp_falls_with_the_expert_ways():
+    """deepseek's capacity path, (1, 2) → (1, 4) with its 4 experts over
+    the model axis: each rank builds dispatch and combine for its own
+    experts only, so the temp bytes fall to at most 0.6× (whole in E on
+    every rank they stayed)."""
+    cfg = get_config("deepseek-moe-16b", reduced=True)
+    shape = ShapeConfig("p", 256, 2, "prefill")
+    axes = ("data", "model")
+    two = _temp(cfg, shape, (1, 2), axes, serve_rules())
+    four = _temp(cfg, shape, (1, 4), axes, serve_rules())
+    assert four <= 0.6 * two
+
+
 def test_dryrun_cli_single_cell():
     """The reference's launcher test, on the port: one 16x16 cell from the
     command line, with its costs, well inside 120 s."""
