@@ -22,10 +22,11 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    prints a logged run's netlog report;
 12. (run here, after phase 5) drives the cluster runtime on the card: one
    warm ``ClusterDeployment`` of the farm at phase 2's width each over 2
-   and 4 thread hosts whose tensors stay on the card (``device``) and over
-   2 spawned host processes (``pipe``, and ``shm`` with 8 MiB slots), 3
-   batches each, then the image pipeline at phase 3's size cut between its
-   two engines over ``device``, ``pipe`` and ``shm`` (at the largest
+   and 4 thread hosts whose tensors stay on the card (``device``, 3
+   batches each) and over 2 spawned host processes (``pipe``, and ``shm``
+   with 8 MiB slots, 2 batches each), then the image pipeline at phase 3's
+   size cut between its two engines over ``device`` (3 batches), ``pipe``
+   and ``shm`` (2 batches each; the latter at the largest
    microbatch up to 16 whose ring fits in the free ``/dev/shm``, which it
    prints): the partition must refine the network (CSP, both directions),
    every batch must equal phases 2 and 3 exactly, thread hosts must launch
@@ -33,10 +34,11 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    batch), each spawned host checks inside its own process that every
    band launched its own Mandelbrot kernel once and is a CUDA tensor, and
    over ``shm`` every chunk must go through a slot and every segment be
-   unlinked after the close.  Then the farm over 2 process hosts (``pipe``
-   and ``shm``): batches 0 and 1, host 1 killed, batch 2 failing, and
-   ``recover(mode="restart")`` replaying it equal to phase 2 at epoch 2
-   with host 1 restarted; and the farm over 4 ``device`` hosts whose
+   unlinked after the close.  The farm's process-host deployments
+   (``pipe`` and ``shm``) go on past their warm batch: host 1 killed, the
+   next batch failing, and ``recover(mode="restart")`` replaying it equal
+   to phase 2 at epoch 2 with host 1 restarted.  Then the farm over 4
+   ``device`` hosts whose
    worker raises once in batch 1, ``recover(mode="rebalance")`` moving it
    onto a survivor, the new plan refining the network, the replay equal to
    phase 2 and launching here exactly the bands it re-streams.  It prints
@@ -121,8 +123,9 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    margin there), every request joining and leaving once; how many equal
    phase 7's 4-slot run and the one-slot oracle is printed, not gated;
    16b ``scale(3)`` over ``device`` after the first step: ``reconfigure``,
-   refined, epoch 2, streams equal 16a; 16c host 1 of 2 ``pipe`` hosts
-   killed after step 3: the next step recovers, streams equal 16a, the
+   refined, epoch 2, streams equal 16a; 16c host 1 of 16a's 2 ``pipe``
+   hosts killed after step 3 of a second serving of the 8 requests (the
+   same deployment, warm): the next step recovers, streams equal 16a, the
    kill → step-done wall printed; 16d a durable farm over ``device``
    closed after 4 steps and adopted by a fresh backend: every request
    answered once, streams equal 16a, the persist spans' bytes printed;
@@ -189,6 +192,25 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    checks of phase 7; every decode step launches the grouped matmul 81
    times and nothing else.
 
+22. (run after phase 18, on the card emptied of every earlier model, before
+   phases 19 and 21 and the MoE phases) gemma-2b (18 layers, d=2048, 8/1
+   heads of 256, GeGLU, vocab 256000), glm4-9b (40 layers, d=4096, 32/2
+   heads, half the head dim rotated, vocab 151552; 37.6 GB of f32
+   weights) and qwen2-vl-2b (28 layers, d=1536, 12/2 heads, M-RoPE
+   sections (16, 24, 24), vocab 151936) in turn at their published
+   configs (f32 params, bf16 compute), each freed before the next: 22a
+   phase 6's forward checks on (4, 2048) seeded tokens, exactly 18 / 40 /
+   28 flash launches a forward (gemma's at D = 256, the others' at 128)
+   and no other kernel; 22b (qwen2-vl-2b) one bf16 forward through
+   ``input_embeds`` (the text's embeddings with 1024 seeded patch
+   embeddings, a 32 x 32 image at position 64) and 3-D positions whose
+   t, h and w streams differ over the image: finite, 28 flash launches,
+   logits moved by the image; 22c 8 requests served as in phase 7 with no
+   kernel launched (gemma and qwen2-vl through the launcher's ``main``,
+   glm4 through a ``ServeEngine`` on the forward's weights); 22d one
+   traced bf16 forward (busy, idle, flash's share) and one traced decode
+   step of 4 slots, and the peak memory;
+   the phase prints its wall;
 18. (run after phase 17 and the profiles below, on phase 6's weights)
    training on the card: 18a trains full-width qwen2-0.5b through
    ``python -m repro_torch.launch.train``'s ``main`` (8 steps of (4, 1024),
@@ -233,11 +255,12 @@ in float32, bfloat16 and float16, at widths whose rows are not whole
 than k, and times it on 2048 x 2048 images in the three types (EDGE5 and
 random taps); the flash-attention kernel
 against its plain version on the qwen2 forward's shape (B=4, H=14, K=2,
-S=2048, D=64) and deepseek's (B=4, H=16, K=16, D=128), the reference
-tests' shapes, and without causality at an encoder's (Sq = Sk) and
-cross-attention's shapes (Sq = 1 and 1 < Sq < Sk), in float32 (the FMA
-path) and bf16 (the tensor cores), timed at both forward shapes and at
-whisper-tiny's encoder (4, 6, 6, 1500, 1500, 64) and decode-step
+S=2048, D=64), deepseek's (B=4, H=16, K=16, D=128) and gemma-2b's (B=4,
+H=8, K=1, D=256), the reference tests' shapes, and without causality at
+an encoder's (Sq = Sk) and cross-attention's shapes (Sq = 1 and 1 < Sq <
+Sk), in float32 (the FMA path) and bf16 (the tensor cores), timed at the
+three forward shapes (gemma's also in float16, through the FMA path) and
+at whisper-tiny's encoder (4, 6, 6, 1500, 1500, 64) and decode-step
 cross-attention (Sq = 1 against 1500 frames) without causality, beside
 ``scaled_dot_product_attention`` (the yardstick; the port never calls it);
 the SSD-scan kernel, y and final state, on the mamba2 and zamba2
@@ -274,7 +297,7 @@ images.
 Kernel launch counts are reset just before phase 2 and read after phase 9
 (the thread hosts of phases 12, 13 and 15 and the simulated hosts of
 phases 14 and 15 count with them; phase 16, which must launch nothing, is
-counted apart, from 0; phases 17 and 18 are counted apart, from 0, and
+counted apart, from 0; phases 17, 18 and 22 are counted apart, from 0, and
 added),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
@@ -429,6 +452,24 @@ def profile_run(torch, label: str, fn) -> tuple:
     if shares:
         print(f"[profile] {label}: kernel shares: " + ", ".join(shares))
     return avgs, busy_ms, wall_ms
+
+
+def profile_model(torch, model, params, toks, note: str = "") -> None:
+    """One traced bf16 forward on ``toks`` and one traced decode step of
+    ``LocalDecodeBackend`` (4 slots, max_len 128, after a warm-up step),
+    labelled with the arch's name and ``note``."""
+    import numpy as np
+    from repro_torch.serve import LocalDecodeBackend
+    name, (B, S) = model.cfg.name, toks.shape
+    with torch.inference_mode():
+        profile_run(torch, f"{name} forward bf16 ({B}, {S}){note}",
+                    lambda: model.forward(params, toks))
+        backend = LocalDecodeBackend(model, params, n_slots=4, max_len=128)
+        last, adv = np.arange(1, 5, dtype=np.int32), np.ones(4, bool)
+        backend.decode(last, adv)  # warm-up
+        profile_run(torch, f"{name} decode step (4 slots){note}",
+                    lambda: backend.decode(last, adv))
+        del backend
 
 
 def bound(flops: float, nbytes: float,
@@ -628,18 +669,23 @@ def scaled_errors(got, want) -> tuple:
 
 
 def check_flash(torch, dev) -> dict:
-    """The flash kernel against its plain version: the qwen2 and deepseek
-    forwards' shapes and the reference tests' shapes, f32 and bf16, causal;
-    an encoder's and cross-attention's shapes without causality; times at
-    the two forwards' shapes and whisper-tiny's encoder and cross-attention
-    shapes (bf16: the tensor-core path)."""
+    """The flash kernel against its plain version: the qwen2, deepseek,
+    gemma, glm4 and qwen2-vl forwards' shapes and the reference tests'
+    shapes, f32 and bf16, causal; an encoder's and cross-attention's shapes
+    without causality; times at the qwen2, deepseek and gemma forwards'
+    shapes (gemma's also in f16, the FMA path) and whisper-tiny's encoder
+    and cross-attention shapes (bf16: the tensor-core path)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
     path = (4, 14, 2, 2048, 2048, 64)  # qwen2-0.5b: GQA group of 7, D=64
     deepseek = (4, 16, 16, 2048, 2048, 128)  # deepseek-moe-16b: MHA, D=128
-    causal_shapes = [path, deepseek, (1, 4, 2, 64, 64, 32),
+    gemma = (4, 8, 1, 2048, 2048, 256)  # gemma-2b: MQA, D=256
+    glm4 = (4, 32, 2, 2048, 2048, 128)  # glm4-9b: GQA group of 16
+    qwen2_vl = (4, 12, 2, 2048, 2048, 128)  # qwen2-vl-2b: GQA group of 6
+    causal_shapes = [path, deepseek, gemma, glm4, qwen2_vl,
+                     (1, 4, 2, 64, 64, 32),
                      (2, 8, 1, 96, 96, 64), (2, 4, 4, 128, 128, 32),
                      (1, 2, 2, 33, 33, 16),  # ragged
                      (2, 4, 2, 1, 80, 32)]   # decode
@@ -650,9 +696,11 @@ def check_flash(torch, dev) -> dict:
         (4, 6, 6, 1, 1500, 64)
     open_shapes = [whisper_enc, whisper_cross, (2, 8, 2, 77, 300, 128)]
     # the shapes timed in bf16, beside scaled_dot_product_attention: the
-    # forwards of phases 6 and 10, and whisper-tiny's (phase 17) encoder
-    # and a decode step's cross-attention over 1500 frames
+    # forwards of phases 6, 10 and 22 (gemma-2b), and whisper-tiny's
+    # (phase 17) encoder and a decode step's cross-attention over 1500
+    # frames; gemma's also in f16, through the FMA path
     timed = {(path, True): "qwen2-0.5b", (deepseek, True): "deepseek-moe-16b",
+             (gemma, True): "gemma-2b",
              (whisper_enc, False): "whisper-tiny encoder",
              (whisper_cross, False): "whisper-tiny decode step's "
                                      "cross-attention"}
@@ -692,13 +740,18 @@ def check_flash(torch, dev) -> dict:
             label = timed.get((shape, causal))
             if label is None or dtype != torch.bfloat16:
                 continue
-            t = timed_turns(
-                torch, {"plain": lambda: ref.mha(q, k, v, causal=causal),
-                        "kernel": lambda: ops.mha(q, k, v, causal=causal),
-                        "library": lambda: F.scaled_dot_product_attention(
-                            q, k, v, is_causal=causal, enable_gqa=True)},
-                {"plain": 3, "kernel": 10, "library": 10},
-                flush=flush_buf.zero_)
+            fns = {"plain": lambda: ref.mha(q, k, v, causal=causal),
+                   "kernel": lambda: ops.mha(q, k, v, causal=causal),
+                   "library": lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=causal, enable_gqa=True)}
+            if shape == gemma:  # the same inputs in f16: the FMA path
+                check(not kernel.tensor_core_path(torch.float16, D),
+                      "flash f16 D=256 is no longer the FMA path")
+                qh, kh, vh = (t.half() for t in (q, k, v))
+                fns["fma"] = lambda: ops.mha(qh, kh, vh, causal=causal)
+            t = timed_turns(torch, fns, {"plain": 3, "kernel": 10,
+                                         "library": 10, "fma": 5},
+                            flush=flush_buf.zero_)
             pairs = B * H * (sum(min(Sk, i + Sk - Sq + 1) for i in range(Sq))
                              if causal else Sq * Sk)
             flops = 4.0 * D * pairs
@@ -712,6 +765,13 @@ def check_flash(torch, dev) -> dict:
                   f"{'causal ' if causal else ''}FLOP at the bf16 peak, "
                   f"{nbytes / 1e6:.2f} MB), "
                   f"roofline {bound_ms / t['kernel']:.1%}")
+            if "fma" in t:
+                print(f"[kernel] flash_attention {label} shape f16 (FMA "
+                      f"path): {t['fma']:.4f} ms "
+                      f"({flops / t['fma'] / 1e9:.1f} TFLOP/s), roofline "
+                      f"{bound_ms / t['fma']:.1%}; bf16 tensor cores "
+                      f"{t['fma'] / t['kernel']:.1f}x faster")
+                del qh, kh, vh
             if shape == path:
                 entry = {"name": "flash_attention", "route": "cuda",
                          "source": "src/repro_torch/kernels/csrc/"
@@ -1257,6 +1317,41 @@ def tensor_core_instructions(torch, name: str) -> int:
     return sum("HMMA" in ln or "HGMMA" in ln for ln in sass.splitlines())
 
 
+def entry_name(mangled: str) -> str:
+    """The head of a mangled entry function's name without its anonymous
+    namespace (``_ZN<n>_GLOBAL__N_...``, n characters long), e.g.
+    ``2tc16flash_mma_kernelILi256EEEvPK13__nv_bf``."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    if m:
+        mangled = mangled[3 + len(m.group(1)) + int(m.group(1)):]
+    return mangled[:44]
+
+
+def build_kernels(torch, names) -> None:
+    """Build ``names`` with one ``nvcc`` each, all at once; print ptxas's
+    registers and any spill of each entry function, and the tensor-core
+    instructions of the bf16 libraries' SASS, which must be above 0."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    logs = _build.build_all(names)
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
+    for name, log in logs.items():
+        entry = ""
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = entry_name(line.split("'")[1])
+            elif "registers" in line or re.search(r"[1-9]\d* bytes spill",
+                                                  line):
+                print(f"  {name} {entry}: {line.strip()}")
+    for name in ("flash_attention", "moe_gmm", "ssd_scan"):  # bf16 paths
+        if name not in names:
+            continue
+        n = tensor_core_instructions(torch, name)
+        print(f"sass: {name}: {n} tensor-core instructions (HMMA/HGMMA "
+              "lines of cuobjdump -sass)")
+        check(n > 0, f"{name}: no tensor-core instruction in its SASS")
+
+
 # -- phases 2-5: the main path ----------------------------------------------------
 
 def three_modes(torch, net, n, mb, counts, kernel):
@@ -1401,14 +1496,16 @@ def checked_farm(width, height, bands, iterations):
 
 
 def run_deployment(torch, label, net, plan, transport, factory, n, batches,
-                   counts, kernel, per_batch, same_as, microbatch=16):
+                   counts, kernel, per_batch, same_as, microbatch=16,
+                   after=None):
     """One warm ``ClusterDeployment``: refinement, ``batches`` batches each
     checked by ``same_as`` and by the parent's ``kernel`` launches
     (``per_batch``), the walls, the bytes crossing the cut a batch and,
     over the shared-memory ring, each batch's chunks by path (every chunk
-    must go through a slot) and no ``/dev/shm`` segment left after the
-    close.  Prints the cluster report.  Returns the walls in ms (start,
-    then one a batch)."""
+    must go through a slot); then ``after(dep)`` (its output replaces the
+    last batch's in the report), and no host process and no ``/dev/shm``
+    segment left after the close.  Prints the cluster report.  Returns the
+    walls in ms (start, then one a batch)."""
     from repro_torch.cluster import ClusterDeployment, check_refinement
     from repro_torch.cluster.transport import SharedMemoryRing
     from repro_torch.core import netlog
@@ -1455,6 +1552,8 @@ def run_deployment(torch, label, net, plan, transport, factory, n, batches,
                   f"exact: True, {kernel} launches here {launched}, cut "
                   f"bytes {sent}{paths}, stage builds "
                   f"{sum(r.jit_builds for r in out.reports)}")
+        if after is not None:
+            out = after(dep)
         procs = list(dep.controller._procs.values())
         names = ring.owned_names() if ring is not None else []
     check(not any(p.is_alive() for p in procs),
@@ -1488,65 +1587,45 @@ def shm_free_bytes() -> int:
     return st.f_bavail * st.f_frsize
 
 
-def run_kill_recovery(torch, transport, farm_img, args, batches=3) -> None:
-    """Batches 0 and 1 of the farm over 2 process hosts, then SIGKILL host
-    1 (the Collect's); batch 2 fails with the dead host found, and
+def kill_and_recover(torch, dep, label, farm_img, bands):
+    """On a warm farm deployment over 2 process hosts: SIGKILL host 1 (the
+    Collect's); the next batch fails with the dead host found, and
     ``recover(mode="restart")`` respawns it and replays the batch, which
     must equal phase 2's image bit for bit, at epoch >= 2, with host 1
-    named as restarted and the plan re-proved."""
+    named as restarted and the plan re-proved.  Returns the replay's
+    output."""
     import numpy as np
     from repro_torch import workloads
-    from repro_torch.cluster import (ClusterDeployment, ClusterError,
-                                     check_refinement, partition)
-    from repro_torch.cluster.transport import SharedMemoryRing
-    from repro_torch.core import netlog
-    label = f"mandelbrot {'shm' if transport != 'pipe' else 'pipe'} x2 kill"
-    net = checked_farm(*args)
-    plan = partition(net, hosts=2)
-    check(check_refinement(net, plan), f"[cluster] {label}: no refinement")
-    with ClusterDeployment(net, plan=plan, transport=transport,
-                           microbatch_size=16, factory=(checked_farm, args),
-                           timeout_s=300) as dep:
-        for b in range(batches - 1):
-            out = dep.run(instances=args[2])
-            check(np.array_equal(workloads.assemble(out["collect"]),
-                                 farm_img),
-                  f"[cluster] {label}: batch {b} differs")
-        t_kill = time.perf_counter()
-        dep.kill_host(1)
-        try:
-            dep.run(instances=args[2])
-        except ClusterError as exc:
-            dead = [r.host for r in exc.reports if not r.ok
-                    and "died" in (r.error or "")]
-            check(dead == [1], f"[cluster] {label}: dead hosts {dead}")
-        else:
-            raise SmokeFailure(f"[cluster] {label}: batch {batches - 1} ran "
-                               "with host 1 killed")
-        t_detect = time.perf_counter()
-        out = dep.recover(mode="restart")
-        torch.cuda.synchronize()
-        t_done = time.perf_counter()
-        check(np.array_equal(workloads.assemble(out["collect"]), farm_img),
-              f"[cluster] {label}: the replayed batch differs from phase 2")
-        (ev,) = dep.events
-        check(dep.epoch >= 2 and ev.restarted == [1] and ev.dead == [1]
-              and ev.refined is True,
-              f"[cluster] {label}: recovery event {ev.describe()}")
-        procs = list(dep.controller._procs.values())
-        names = (transport.owned_names()
-                 if isinstance(transport, SharedMemoryRing) else [])
-    check(not any(p.is_alive() for p in procs),
-          f"[cluster] {label}: a host process outlived the deployment")
-    if names:
-        check_unlinked(transport, names, label)
-    print(netlog.cluster_report(dep.plan, out.reports, events=dep.events))
+    from repro_torch.cluster import ClusterError
+    label = f"{label} kill"
+    t_kill = time.perf_counter()
+    dep.kill_host(1)
+    try:
+        dep.run(instances=bands)
+    except ClusterError as exc:
+        dead = [r.host for r in exc.reports if not r.ok
+                and "died" in (r.error or "")]
+        check(dead == [1], f"[cluster] {label}: dead hosts {dead}")
+    else:
+        raise SmokeFailure(f"[cluster] {label}: a batch ran with host 1 "
+                           "killed")
+    t_detect = time.perf_counter()
+    out = dep.recover(mode="restart")
+    torch.cuda.synchronize()
+    t_done = time.perf_counter()
+    check(np.array_equal(workloads.assemble(out["collect"]), farm_img),
+          f"[cluster] {label}: the replayed batch differs from phase 2")
+    (ev,) = dep.events
+    check(dep.epoch >= 2 and ev.restarted == [1] and ev.dead == [1]
+          and ev.refined is True,
+          f"[cluster] {label}: recovery event {ev.describe()}")
     print(f"[cluster] {label}: {ev.describe()}")
     print(f"[cluster] {label}: kill -> failure found "
           f"{(t_detect - t_kill) * 1e3:.1f} ms, recover() (restart + replay) "
           f"{(t_done - t_detect) * 1e3:.1f} ms, kill -> replayed result "
           f"{(t_done - t_kill) * 1e3:.1f} ms; replay exact: True, epoch "
           f"{dep.epoch}")
+    return out
 
 
 def failing_farm(args, state: dict):
@@ -1651,17 +1730,23 @@ def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
          torch.empty(16, H // bands, W, dtype=torch.int32, device="meta")))
     same_img = lambda out: np.array_equal(  # noqa: E731
         workloads.assemble(out["collect"]), farm_img)
+    # over the process hosts, a cold and a warm batch, then host 1 killed
+    # and the batch recovered, in the same deployment
     for transport, hosts, factory in (
             ("device", 2, workloads.mandelbrot_factory),
             ("device", 4, workloads.mandelbrot_factory),
             ("pipe", 2, checked_farm),
             (SharedMemoryRing(slot_bytes=farm_slot), 2, checked_farm)):
         name = getattr(transport, "name", transport)
+        label = f"mandelbrot {name} x{hosts}"
         net = factory(*args)
-        run_deployment(torch, f"mandelbrot {name} x{hosts}", net,
-                       partition(net, hosts=hosts), transport,
-                       (factory, args), bands, 3, counts, "mandelbrot",
-                       bands if name == "device" else 0, same_img)
+        run_deployment(torch, label, net, partition(net, hosts=hosts),
+                       transport, (factory, args), bands,
+                       3 if name == "device" else 2, counts, "mandelbrot",
+                       bands if name == "device" else 0, same_img,
+                       after=None if name == "device" else
+                       lambda dep, label=label: kill_and_recover(
+                           torch, dep, label, farm_img, bands))
 
     def same_edges(out):
         got = out["collector"]
@@ -1675,7 +1760,8 @@ def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
     plan = partition(net, assignment=assignment)
     for transport in ("device", "pipe"):
         run_deployment(torch, f"image {transport} x2", net, plan, transport,
-                       factory, n_img, 3, counts, "stencil",
+                       factory, n_img, 3 if transport == "device" else 2,
+                       counts, "stencil",
                        n_img if transport == "device" else 0, same_edges)
     # the ring holds `capacity` chunks of mb grey f32 images: the largest
     # microbatch (up to 16) whose ring fits in what /dev/shm has free
@@ -1694,10 +1780,8 @@ def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
           f"{grey_slot(mb)} bytes; 16 needs {cap * grey_slot(16)})")
     run_deployment(torch, f"image shm x2 mb {mb}", net, plan,
                    SharedMemoryRing(slot_bytes=grey_slot(mb)), factory,
-                   n_img, 3, counts, "stencil", 0, same_edges,
+                   n_img, 2, counts, "stencil", 0, same_edges,
                    microbatch=mb)
-    for transport in ("pipe", SharedMemoryRing(slot_bytes=farm_slot)):
-        run_kill_recovery(torch, transport, farm_img, args)
     rebalance_ms = run_rebalance(torch, counts, farm_img, args)
     check(not multiprocessing.active_children(),
           "[cluster] host processes still running after phase 12")
@@ -2629,7 +2713,7 @@ def run_farm_phase(torch, model, params, phase7) -> None:
     m2 = {r.rid: eng.poll(r.rid).tokens for r in reqs}
     del eng
 
-    # 16a: 2 device hosts, then 2 pipe hosts
+    # 16a: 2 device hosts, then 2 pipe hosts (kept warm for 16c)
     streams = {}
     for transport in ("device", "pipe"):
         label = f"[farm] 16a {transport}"
@@ -2643,7 +2727,9 @@ def run_farm_phase(torch, model, params, phase7) -> None:
         print(f"{label}: backend built and deployment started in "
               f"{up:.1f} s; a shard's cache {cache_mb:.2f} MB; epoch "
               f"{be.dep.epoch}, recoveries {be.recoveries}")
-        free(be)
+        if transport == "device":
+            free(be)
+    pipe_be = be
     check(streams["device"] == streams["pipe"],
           "[farm] 16a: the device and pipe farms' streams differ")
     diff = first_difference(streams["device"], m2)
@@ -2691,9 +2777,10 @@ def run_farm_phase(torch, model, params, phase7) -> None:
           f"streams equal 16a")
     free(be)
 
-    # 16c: host 1 of 2 pipe hosts killed after step 3
+    # 16c: host 1 of 16a's 2 pipe hosts killed after step 3 of a second
+    # serving of the same requests
     label = "[farm] 16c pipe kill_host(1)"
-    be = farm_backend("pipe")
+    be = pipe_be
     killed = {}
 
     def kill(eng):
@@ -2717,6 +2804,7 @@ def run_farm_phase(torch, model, params, phase7) -> None:
                       for e in be.dep.events)
           + "; streams equal 16a")
     free(be)
+    del pipe_be  # its queues' feeder threads end once it is collected
 
     # 16d: a durable farm closed after 4 steps, adopted by a fresh one
     label = "[farm] 16d device adopt"
@@ -3266,6 +3354,92 @@ def run_capacity_forward(torch, model, params, toks, counts, per_forward):
           f"{walls[0]:.1f} ms), aux {float(aux):.4f}; dropped "
           f"{dropped:.2%} of the token-choices over {n_moe} MoE layers "
           "(not gated: not dropless, so it differs from the ragged path)")
+
+
+# -- phase 22: the dense and VLM archs at full width ---------------------------
+
+# (arch, flash launches a forward: one a layer) of phase 22
+WIDE_ARCHS = (("gemma-2b", 18), ("glm4-9b", 40), ("qwen2-vl-2b", 28))
+# 22b's image: its first position and its (rows, columns) of patches
+VLM_IMAGE = (64, (32, 32))
+
+
+def run_vlm_embeds_forward(torch, dev, counts, model, params, toks,
+                           per_forward) -> None:
+    """22b: qwen2-vl-2b's bf16 ``forward(positions=, input_embeds=)``: the
+    text's embeddings with a block of seeded patch embeddings (an image of
+    ``VLM_IMAGE``'s grid) and 3-D positions whose t, h and w streams
+    differ over the image, so the three M-RoPE sections rotate by
+    different positions.  Finite logits, exactly ``per_forward`` launches,
+    and logits that differ from the text-only forward's."""
+    from repro_torch.models import layers, transformer
+    B, S = toks.shape
+    start, grid = VLM_IMAGE
+    n = grid[0] * grid[1]
+    want = {k: per_forward.get(k, 0) for k in counts()}
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.inference_mode():
+        embeds = layers.embed(params["embedding"], model.cfg, toks)
+        patches = torch.randn((B, n, embeds.shape[-1]), generator=g,
+                              device=dev) * embeds.float().std()
+        embeds[:, start:start + n] = patches.to(embeds.dtype)
+        pos = transformer.mrope_positions(B, S, start, grid, device=dev)
+        img = pos[:, start:start + n]
+        check(bool((img[..., 0] != img[..., 1]).any()
+                   and (img[..., 1] != img[..., 2]).any()),
+              "22b: the image's t, h and w positions do not differ")
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, toks, positions=pos,
+                                  input_embeds=embeds)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in counts().items()}
+        check(launched == want, f"22b forward launched {launched}, not "
+                                f"{want}")
+        check(logits.shape == (B, S, model.cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"22b: logits {tuple(logits.shape)}, or not finite")
+        text, _ = model.forward(params, toks)
+        moved = float((logits[:, start:].float()
+                       - text[:, start:].float()).abs().max())
+        del logits, text
+    check(moved > 0, "22b: the image left the logits unchanged")
+    print(f"[lm] {model.cfg.name} forward bf16 ({B}, {S}) through "
+          f"input_embeds + 3-D positions ({n} seeded patch embeddings, a "
+          f"{grid[0]} x {grid[1]} image at position {start}; t/h/w "
+          f"sections {model.cfg.mrope_sections}): {wall_ms:.1f} ms, finite "
+          f"logits, launches {per_forward}; max |logits - text-only "
+          f"logits| from the image on {moved:.3f}")
+
+
+def run_wide_phase(torch, dev, counts) -> None:
+    """Phase 22: gemma-2b, glm4-9b and qwen2-vl-2b in turn at their
+    published configs (f32 params, bf16 compute): 22a phase 6's forward
+    checks, 22b (qwen2-vl-2b) the forward through ``input_embeds`` and 3-D
+    positions, 22c 8 requests served (glm4-9b on the forward's weights:
+    the launcher's ``main`` would build a second 37.6 GB copy), 22d one
+    traced bf16 forward and one traced decode step (4 slots); each model
+    freed before the next."""
+    import gc
+    t_phase = time.perf_counter()
+    for arch, n_flash in WIDE_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        per_forward = {"flash_attention": n_flash}
+        model, params, toks = run_forward(torch, dev, counts, arch, 4, 2048,
+                                          per_forward)
+        if model.cfg.mrope:
+            run_vlm_embeds_forward(torch, dev, counts, model, params, toks,
+                                   per_forward)
+        run_serve(torch, model, params, counts,
+                  launcher_main=arch != "glm4-9b")
+        profile_model(torch, model, params, toks)
+        memory(torch, f"phase 22, {arch}")
+        del model, params, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[lm] phase 22 wall: {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- phase 18: training on the card -------------------------------------------
@@ -4454,8 +4628,7 @@ def main() -> int:
 
 
 def phases(torch, cells) -> int:
-    from repro_torch.kernels import _build, launch_counts, \
-        reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
 
     t_start = time.perf_counter()
     card = gpu_name_and_power()
@@ -4466,24 +4639,8 @@ def phases(torch, cells) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    t0 = time.perf_counter()
-    logs = _build.build_all(["mandelbrot", "stencil", "flash_attention",
-                             "ssd_scan", "moe_gmm"])
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
-    for name, log in logs.items():
-        entry = ""
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = re.sub(r"^_ZN12_GLOBAL__N_1\d+", "",
-                               line.split("'")[1])[:44]
-            elif "registers" in line or re.search(r"[1-9]\d* bytes spill",
-                                                  line):
-                print(f"  {name} {entry}: {line.strip()}")
-    for name in ("flash_attention", "moe_gmm", "ssd_scan"):  # bf16 paths
-        n = tensor_core_instructions(torch, name)
-        print(f"sass: {name}: {n} tensor-core instructions (HMMA/HGMMA "
-              "lines of cuobjdump -sass)")
-        check(n > 0, f"{name}: no tensor-core instruction in its SASS")
+    build_kernels(torch, ["mandelbrot", "stencil", "flash_attention",
+                          "ssd_scan", "moe_gmm"])
 
     W, H, BANDS, ITERS = 4096, 2048, 64, 1000
     entries = [check_mandelbrot(torch, dev, W, H, BANDS, ITERS),
@@ -4534,24 +4691,14 @@ def phases(torch, cells) -> int:
     # where the time goes: one more fused run of each kernel workload, one
     # more forward and one decode step of each served model, one more
     # zamba2 forward
-    import numpy as np
     from repro_torch.core import build
-    from repro_torch.serve import LocalDecodeBackend
     profile_run(torch, "mandelbrot fused", lambda: build(farm).run(
         instances=BANDS))
     profile_run(torch, "image fused", lambda: build(pipeline).run(
         instances=16))
+    profile_model(torch, model, params, toks)
+    profile_model(torch, *ssm)
     with torch.inference_mode():
-        for m, p, t in ((model, params, toks), ssm):
-            name = m.cfg.name
-            profile_run(torch, f"{name} forward bf16 (4, 2048)",
-                        lambda: m.forward(p, t))
-            backend = LocalDecodeBackend(m, p, n_slots=4, max_len=128)
-            last, adv = np.arange(1, 5, dtype=np.int32), np.ones(4, bool)
-            backend.decode(last, adv)  # warm-up
-            profile_run(torch, f"{name} decode step (4 slots)",
-                        lambda: backend.decode(last, adv))
-            del backend
         m, p, t = hybrid
         profile_run(torch, f"{m.cfg.name} forward bf16 (4, 2048)",
                     lambda: m.forward(p, t))
@@ -4575,6 +4722,13 @@ def phases(torch, cells) -> int:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 22 (the dense and VLM archs at full width, one model at a time
+    # on the emptied card) is counted apart, from 0, and added
+    reset_launch_counts()
+    run_wide_phase(torch, dev, launch_counts)
+    wide_launched = launch_counts()
+    print(f"[lm] phase 22 launches: {wide_launched}")
+    launched = {k: v + wide_launched[k] for k, v in launched.items()}
     # phase 19 (2 ranks sharing the card) is counted apart, from 0, in its
     # ranks, and added
     launched_19, tp_costs = run_mesh_phase(torch, *mesh_refs,
@@ -4597,16 +4751,7 @@ def phases(torch, cells) -> int:
               per_decode={"moe_gmm": 81}, launcher_main=False)
     memory(torch, "phase 11, deepseek-moe-16b serving")
     moe_launched = launch_counts()
-    with torch.inference_mode():
-        profile_run(torch, "deepseek-moe-16b forward bf16 (4, 2048), ragged",
-                    lambda: moe_model.forward(moe_params, moe_toks))
-        backend = LocalDecodeBackend(moe_model, moe_params, n_slots=4,
-                                     max_len=128)
-        last, adv = np.arange(1, 5, dtype=np.int32), np.ones(4, bool)
-        backend.decode(last, adv)  # warm-up
-        profile_run(torch, "deepseek-moe-16b decode step (4 slots), ragged",
-                    lambda: backend.decode(last, adv))
-        del backend
+    profile_model(torch, moe_model, moe_params, moe_toks, ", ragged")
 
     del moe_model, moe_params, moe_toks
     run_dryrun_phase(torch, launch_counts, cells, step_peaks, tp_costs)

@@ -5,7 +5,7 @@
 // q (B, H, Sq, D) and k, v (B, K, Sk, D), query head h reading kv head
 // h / (H / K), with the online softmax (running max m, running sum l, f32
 // accumulator acc) so the (Sq, Sk) logits never reach device memory.  Inputs
-// are f32 or bf16; every product and sum is f32; the output is q's type.
+// are f32, bf16 or f16; every product and sum is f32; the output is q's type.
 //
 // What bounds it on this card: operations.  The causal work is about
 // 2 * B * H * Sq * Sk * D multiply-adds against (q + k + v + o) bytes read or
@@ -14,11 +14,10 @@
 // (989 TFLOP/s) bind before the memory (3.35 TB/s).
 //
 // Two paths, chosen by dtype and head dim:
-// * bf16 with D in {16, 32, 64, 128} (the models' compute type and head
-//   dims): the tensor cores, in FlashAttention-2's shape.  One block of 4
-//   warps per (b * H + h, 64-row q tile), one warp per 16 q rows.  The Q
-//   fragments are loaded once into registers with ldmatrix; K and V tiles
-//   of 64 rows arrive by 16-byte cp.async into a double-buffered ring in
+// * bf16 with D in {16, 32, 64, 128, 256} (the models' compute type and
+//   head dims): the tensor cores, in FlashAttention-2's shape.  One block
+//   of 4 warps per (b * H + h, 64-row q tile), one warp per 16 q rows.  K
+//   and V tiles arrive by 16-byte cp.async into a double-buffered ring in
 //   shared memory (the next tile's copies fly while this one is computed),
 //   read through the strides, so the model's (B, S, H, D) layout stays in
 //   place.  S = Q K^T runs as m16n8k16 mma.sync in registers; the online
@@ -28,10 +27,13 @@
 //   ldmatrix.trans; the accumulator is f32.  Rows are padded to D + 8
 //   elements so every ldmatrix is free of bank conflicts.  A warp skips the
 //   kv tiles past its own causal frontier and a warp whose rows all lie past
-//   Sq computes nothing.  D = 256 would need more registers than a thread
-//   has (O alone is 128 floats a thread) and takes the FMA path.
-// * f32, f16 (no model of the repo computes in f16: untuned) and bf16 at
-//   D = 256: the f32 FMA units.  256 threads per
+//   Sq computes nothing.  Up to D = 128 the Q fragments are loaded once
+//   into registers and kv tiles are 64 rows.  At D = 256 (gemma) O alone
+//   is 128 floats a thread, so Q stays in shared memory and is read by
+//   ldmatrix at each depth step, and kv tiles are 32 rows (S is 16 floats
+//   a thread, and the ring's 101 KB lets two blocks share an SM).
+// * f32 and f16 (no model of the repo computes in f16: untuned): the f32
+//   FMA units.  256 threads per
 //   (b * H + h, 64-row q tile); q, k and v are staged in shared memory as
 //   f32, a thread owns a 4 x 4 piece of the (64, 64) score tile (rows
 //   ty + 16 i, columns tx + 16 j), so a row's max and sum are a shuffle over
@@ -75,14 +77,8 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 __device__ __forceinline__ void store(__half* p, float v) {
   *p = __float2half_rn(v);
 }
@@ -238,14 +234,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// -- the tensor-core path (bf16, D <= 128) -------------------------------------
+// -- the tensor-core path (bf16, D <= 256) -------------------------------------
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 64;        // q rows per block: one warp per 16 rows
-constexpr int kBKV = 64;       // kv rows per step
 constexpr int kThreads = 128;  // 4 warps
 
 template <int D>
@@ -253,9 +248,24 @@ __host__ __device__ constexpr int pitch() {
   return D + 8;  // rows of 2 D + 16 bytes: ldmatrix conflict-free
 }
 
+// kv rows per step: at D = 256 the O accumulator takes 128 registers a
+// thread, so S is kept to 16 (32 rows) and the ring to 101 KB
+template <int D>
+__host__ __device__ constexpr int kv_rows() {
+  return D == 256 ? 32 : 64;
+}
+
+// Q as register fragments for the whole tile up to D = 128 (4 * KD
+// registers); at D = 256 that would be 64 more beside O's 128, so Q is
+// read from shared memory at each depth step instead
+template <int D>
+__host__ __device__ constexpr bool q_in_registers() {
+  return D <= 128;
+}
+
 template <int D>
 constexpr int smem_bytes() {  // q, then k and v double-buffered
-  return (kBQ + 4 * kBKV) * pitch<D>() * (int)sizeof(bf16);
+  return (kBQ + 4 * kv_rows<D>()) * pitch<D>() * (int)sizeof(bf16);
 }
 
 // 2^x by the special-function unit (ex2.approx: 2 ulp, -inf -> +0)
@@ -272,12 +282,15 @@ __global__ void __launch_bounds__(kThreads)
                      int n_heads, int group, int sq, int sk, int causal,
                      float scale_log2, Strides st) {
   constexpr int P = pitch<D>();
-  constexpr int KD = D / 16;  // depth steps of Q K^T
-  constexpr int ND = D / 8;   // column tiles of O
+  constexpr int BKV = kv_rows<D>();
+  constexpr int KD = D / 16;    // depth steps of Q K^T
+  constexpr int ND = D / 8;     // column tiles of O
+  constexpr int NS = BKV / 8;   // column tiles of S
+  constexpr bool kQRegs = q_in_registers<D>();
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kBQ * P;       // [2][kBKV][P]
-  bf16* vs = ks + 2 * kBKV * P;  // [2][kBKV][P]
+  bf16* ks = qs + kBQ * P;      // [2][BKV][P]
+  bf16* vs = ks + 2 * BKV * P;  // [2][BKV][P]
 
   const int n_qt = gridDim.x;
   const int qt = n_qt - 1 - blockIdx.x;  // longest causal tiles first
@@ -310,17 +323,22 @@ __global__ void __launch_bounds__(kThreads)
 
   int kv_end = sk;
   if (causal) kv_end = min(sk, min(q0 + kBQ - 1, sq - 1) + diag + 1);
-  const int n_kv = (kv_end + kBKV - 1) / kBKV;
+  const int n_kv = (kv_end + BKV - 1) / BKV;
 
   load(qs, qp, st.q[2], q0, sq, kBQ);
-  load(ks, kp, st.k[2], 0, sk, kBKV);
-  load(vs, vp, st.v[2], 0, sk, kBKV);
+  load(ks, kp, st.k[2], 0, sk, BKV);
+  load(vs, vp, st.v[2], 0, sk, BKV);
   mma::cp_async_commit();
 
   const int wq0 = q0 + warp * 16;  // this warp's first q row
+  // the A fragment of this warp's 16 q rows at depth step kd
+  auto q_frag = [&](int kd) {
+    return mma::smem_addr(qs + (warp * 16 + lane % 16) * P + kd * 16 +
+                          lane / 16 * 8);
+  };
   const bool warp_active = wq0 < sq;
   const int w_last = min(wq0 + 15, sq - 1);
-  uint32_t qf[KD][4];
+  uint32_t qf[kQRegs ? KD : 1][4];
   float acc[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j)
@@ -329,48 +347,55 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g and g + 8
 
   for (int j = 0; j < n_kv; ++j) {
-    const int kv0 = j * kBKV;
+    const int kv0 = j * BKV;
     if (j + 1 < n_kv) {  // the next tile into the other buffer
-      load(ks + ((j + 1) & 1) * kBKV * P, kp, st.k[2], kv0 + kBKV, sk, kBKV);
-      load(vs + ((j + 1) & 1) * kBKV * P, vp, st.v[2], kv0 + kBKV, sk, kBKV);
+      load(ks + ((j + 1) & 1) * BKV * P, kp, st.k[2], kv0 + BKV, sk, BKV);
+      load(vs + ((j + 1) & 1) * BKV * P, vp, st.v[2], kv0 + BKV, sk, BKV);
     }
     mma::cp_async_commit();
     mma::cp_async_wait<1>();  // this tile (and q) have landed
     __syncthreads();
-    if (j == 0 && warp_active) {
+    if constexpr (kQRegs) {
+      if (j == 0 && warp_active) {
 #pragma unroll
-      for (int kd = 0; kd < KD; ++kd)
-        mma::ldmatrix_x4(qf[kd], mma::smem_addr(qs + (warp * 16 + lane % 16) *
-                                                         P +
-                                                kd * 16 + lane / 16 * 8));
+        for (int kd = 0; kd < KD; ++kd)
+          mma::ldmatrix_x4(qf[kd], q_frag(kd));
+      }
     }
     if (warp_active && !(causal && kv0 > w_last + diag)) {
-      const bf16* kb = ks + (j & 1) * kBKV * P;
-      const bf16* vb = vs + (j & 1) * kBKV * P;
-      float s[8][4];
+      const bf16* kb = ks + (j & 1) * BKV * P;
+      const bf16* vb = vs + (j & 1) * BKV * P;
+      float s[NS][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qa[4];
+        if constexpr (kQRegs) {
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {  // kv columns np*16 .. np*16 + 15
+          for (int c = 0; c < 4; ++c) qa[c] = qf[kd][c];
+        } else {
+          mma::ldmatrix_x4(qa, q_frag(kd));
+        }
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {  // kv columns np*16 .. + 15
           uint32_t r[4];
           mma::ldmatrix_x4(r, mma::smem_addr(kb + (np * 16 + lane % 8 +
                                                    lane / 16 * 8) * P +
                                              kd * 16 + (lane / 8) % 2 * 8));
-          mma::mma_16816(s[2 * np], qf[kd], r[0], r[1]);
-          mma::mma_16816(s[2 * np + 1], qf[kd], r[2], r[3]);
+          mma::mma_16816(s[2 * np], qa, r[0], r[1]);
+          mma::mma_16816(s[2 * np + 1], qa, r[2], r[3]);
         }
       }
       // scale; mask only a tile that crosses Sk or this warp's causal
       // diagonal; row max over the quad (c / 2 picks row g or g + 8)
-      const bool edge = kv0 + kBKV > sk ||
-                        (causal && kv0 + kBKV - 1 > wq0 + diag);
+      const bool edge = kv0 + BKV > sk ||
+                        (causal && kv0 + BKV - 1 > wq0 + diag);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           s[nt][c] *= scale_log2;
@@ -394,7 +419,7 @@ __global__ void __launch_bounds__(kThreads)
         m[i] = m_new;
       }
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const float p = exp2_approx(s[nt][c] - base[c / 2]);
@@ -417,7 +442,7 @@ __global__ void __launch_bounds__(kThreads)
       // O += P V: P's accumulator layout is the A fragment of kv depth
       // steps of 16 (column tiles 2 kk and 2 kk + 1), rounded to bf16
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < NS / 2; ++kk) {
         const uint32_t a[4] = {
             mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
             mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
@@ -457,7 +482,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int batch, int n_heads, int group, int sq, int sk,
                    int causal, float scale, const Strides& st,
                    cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();  // above 48 KB for D = 128
+  constexpr int bytes = smem_bytes<D>();  // above 48 KB for D >= 128
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
@@ -471,7 +496,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
-// -- the FMA path (f32; bf16 at D = 256) ------------------------------------------
+// -- the FMA path (f32 and f16) ---------------------------------------------------
 
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
@@ -525,7 +550,8 @@ bool aligned_rows(const void* const (&ptrs)[4], const Strides& st,
 // The one owner of the rule: bf16 at these head dims runs on the tensor
 // cores, everything else on the f32 FMA units.
 bool tensor_cores(int dtype, int d) {
-  return dtype == 1 && (d == 16 || d == 32 || d == 64 || d == 128);
+  return dtype == 1 &&
+         (d == 16 || d == 32 || d == 64 || d == 128 || d == 256);
 }
 
 // Returned, with nothing launched, when the tensor-core path is given rows
@@ -536,11 +562,7 @@ int dispatch_bf16(int d, const void* q, const void* k, const void* v,
                   void* o, int batch, int n_heads, int group, int sq, int sk,
                   int causal, float scale, const Strides& st,
                   cudaStream_t s) {
-  if (!tensor_cores(1, d))
-    return d == 256 ? launch<256, __nv_bfloat16>(q, k, v, o, batch, n_heads,
-                                                 group, sq, sk, causal,
-                                                 scale, st, s)
-                    : cudaErrorInvalidValue;
+  if (!tensor_cores(1, d)) return cudaErrorInvalidValue;
   const void* const ptrs[4] = {q, k, v, o};
   if (!aligned_rows(ptrs, st, batch, n_heads, n_heads / group, sq, sk))
     return kUnalignedRows;
@@ -549,6 +571,7 @@ int dispatch_bf16(int d, const void* q, const void* k, const void* v,
     case 32: return tc::launch<32>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
     case 64: return tc::launch<64>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
     case 128: return tc::launch<128>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
+    case 256: return tc::launch<256>(q, k, v, o, batch, n_heads, group, sq, sk, causal, scale, st, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -20,10 +20,10 @@ def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
 
 
 def tensor_core_rule(dtype: torch.dtype, head_dim: int) -> bool:
-    """:func:`tensor_core_path` without the library (bf16 at head dims 16
-    to 128, ``tensor_cores`` in the C code), for tensors that hold no data;
-    a card test holds the two equal."""
-    return dtype == torch.bfloat16 and head_dim in (16, 32, 64, 128)
+    """:func:`tensor_core_path` without the library (bf16 at every head dim
+    of :data:`HEAD_DIMS`, ``tensor_cores`` in the C code), for tensors that
+    hold no data; a card test holds the two equal."""
+    return dtype == torch.bfloat16 and head_dim in HEAD_DIMS
 
 
 def readable_layout(t: torch.Tensor, tensor_cores: bool,

@@ -96,12 +96,13 @@ def init_params(cfg, gen: torch.Generator, *, max_dec_len: int = 0) -> dict:
 
 def _stub_frames(cfg, tokens) -> torch.Tensor:
     """Zero frames, ``max(S // frontend_downsample, 1)`` of them, in the
-    compute dtype: the reference's stand-in when no frames are given."""
-    B, S = tokens.shape
-    Sf = max(S // cfg.encdec.frontend_downsample, 1)
-    return torch.zeros((B, Sf, cfg.d_model),
-                       dtype=getattr(torch, cfg.compute_dtype),
-                       device=tokens.device)
+    compute dtype: the reference's stand-in when no frames are given.  They
+    are laid out as ``tokens`` is (a DTensor's own rows, never its global
+    batch on every rank)."""
+    Sf = max(tokens.shape[1] // cfg.encdec.frontend_downsample, 1)
+    zeros = torch.zeros_like(tokens[:, :Sf, None],
+                             dtype=getattr(torch, cfg.compute_dtype))
+    return zeros.expand(-1, -1, cfg.d_model)
 
 
 def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:

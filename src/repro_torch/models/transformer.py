@@ -46,7 +46,7 @@ from . import layers, mamba, moe
 
 __all__ = ["structure", "init_params", "forward", "hidden_states",
            "loss_fn", "init_cache", "decode_step", "prefill", "reset_slot",
-           "param_count"]
+           "param_count", "mrope_positions"]
 
 # cache leaves an attention layer updates in place (the rest are new)
 _IN_PLACE = ("k", "v", "k_scale", "v_scale")
@@ -213,6 +213,25 @@ def _positions(cfg, tokens, offset=0):
     if cfg.mrope:
         pos = pos[..., None].expand(B, S, 3)
     return pos
+
+
+def mrope_positions(batch, seq, start, grid, device=None):
+    """(batch, seq, 3) int32 M-RoPE positions of a prompt whose tokens
+    ``start`` .. ``start + gh * gw`` are an image of ``grid`` = (gh, gw)
+    patches: text before it counts up on all three streams; the image
+    holds t at ``start`` while h and w walk its rows and columns; text
+    after it resumes at one past the largest position so far."""
+    gh, gw = grid
+    n = gh * gw
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[:, None] \
+        .repeat(1, 3)
+    r = torch.arange(n, dtype=torch.int32, device=device)
+    pos[start:start + n, 0] = start
+    pos[start:start + n, 1] = start + r // gw
+    pos[start:start + n, 2] = start + r % gw
+    pos[start + n:] = (start + max(gh, gw) + torch.arange(
+        seq - start - n, dtype=torch.int32, device=device))[:, None]
+    return pos[None].expand(batch, seq, 3).contiguous()
 
 
 def hidden_states(cfg, params, tokens, *, positions=None,

@@ -287,6 +287,19 @@ def test_ssm_prefill_temp_does_not_grow_with_the_world():
     assert two_n <= 0.6 * n
 
 
+def test_whisper_prefill_temp_does_not_grow_with_the_world():
+    """Fault 18 at reduced width: whisper-tiny's prefill of 16 rows on 8
+    ranks (``data``) and on 16 (``pod × data``, one row a rank) holds at
+    most 0.75× the temp bytes on the larger world (0.66× once repaired;
+    the stub frames took the batch's global shape on every rank, and the
+    encoder ran on them whole: 0.99×)."""
+    cfg = get_config("whisper-tiny", reduced=True)
+    shape = ShapeConfig("p", 64, 16, "prefill")
+    n = _temp(cfg, shape, (8,), ("data",), serve_rules())
+    two_n = _temp(cfg, shape, (2, 8), ("pod", "data"), serve_rules())
+    assert two_n <= 0.75 * n, (n, two_n)
+
+
 def test_capacity_prefill_temp_falls_with_the_expert_ways():
     """deepseek's capacity path, (1, 2) → (1, 4) with its 4 experts over
     the model axis: each rank builds dispatch and combine for its own

@@ -209,6 +209,9 @@ FLASH_SHAPES = [  # (B, H, K, Sq, Sk, D)
     (2, 4, 2, 1, 80, 32),        # decode: Sq = 1
     (1, 8, 1, 100, 100, 128), (1, 8, 1, 70, 70, 256),
     (4, 16, 16, 2048, 2048, 128),  # the deepseek-moe-16b forward: MHA, D=128
+    (4, 8, 1, 2048, 2048, 256),  # the gemma-2b forward: MQA, D=256
+    (2, 8, 2, 201, 201, 256),    # D=256, GQA group of 4, ragged
+    (2, 4, 2, 1, 90, 256),       # D=256 decode: Sq = 1
 ]
 
 FLASH_NONCAUSAL_SHAPES = [  # (B, H, K, Sq, Sk, D), causal=False
@@ -217,6 +220,8 @@ FLASH_NONCAUSAL_SHAPES = [  # (B, H, K, Sq, Sk, D), causal=False
     (2, 4, 2, 77, 250, 32),    # cross-attention, 1 < Sq < Sk
     (1, 4, 1, 130, 45, 128),   # Sq > Sk (only without causality)
     (1, 2, 2, 33, 70, 16), (1, 2, 1, 40, 65, 256),
+    (2, 8, 1, 77, 250, 256),   # D=256 cross-attention, MQA, 1 < Sq < Sk
+    (1, 4, 2, 130, 45, 256),   # D=256, Sq > Sk
 ]
 
 
@@ -269,6 +274,37 @@ def test_flash_bf16_model_layout_on_tensor_cores(cuda):
     _assert_flash_close(got, want, torch.bfloat16)
 
 
+@pytest.mark.parametrize("H,K", [(8, 1), (8, 2)], ids=["mqa", "gqa"])
+def test_flash_d256_strided_on_tensor_cores(cuda, H, K):
+    """bf16 at D = 256 on the tensor cores through strides: q, k, v in the
+    model's (B, S, heads, D) layout read in place (output in q's layout),
+    and rows whose seq stride is not a multiple of 8 elements copied once,
+    each one launch against the plain version, causal and not."""
+    from repro_torch.kernels.flash_attention import kernel
+    assert kernel.tensor_core_path(torch.bfloat16, 256)
+    g = torch.Generator().manual_seed(H + K)
+    B, S, D = 2, 150, 256
+    q, k, v = (torch.randn(B, S, n, D, generator=g).bfloat16().to(cuda)
+               for n in (H, K, K))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    wide = torch.randn(B, K, S, D + 4, generator=g).bfloat16().to(cuda)
+    kw = wide[..., :D]  # rows of 260 elements: not 16-byte copies
+    assert kw.stride(2) == D + 4
+    for causal in (True, False):
+        before = fa_ops.mha.launches
+        got = fa_ops.mha(qt, kt, vt, causal=causal)
+        torch.cuda.synchronize()
+        assert fa_ops.mha.launches == before + 1
+        assert got.stride() == qt.stride()
+        _assert_flash_close(got, fa_ref.mha(qt, kt, vt, causal=causal),
+                            torch.bfloat16)
+        got = fa_ops.mha(qt, kw, vt, causal=causal)
+        torch.cuda.synchronize()
+        assert fa_ops.mha.launches == before + 2
+        _assert_flash_close(got, fa_ref.mha(qt, kw, vt, causal=causal),
+                            torch.bfloat16)
+
+
 def test_flash_tensor_core_path_refuses_unaligned_rows(cuda):
     """The tensor-core path copies 16-byte rows: bf16 q, k, v whose seq
     stride is not a multiple of 8 elements, or whose base is not 16-byte
@@ -309,6 +345,7 @@ FLASH_EXTRA = [  # (B, H, K, Sq, Sk, D, dtype, causal)
     (2, 8, 2, 128, 128, 64, torch.float16, True),
     (1, 4, 4, 40, 40, 256, torch.float16, True),
     (1, 2, 1, 50, 50, 200, torch.float32, True),  # D 200 -> 256
+    (2, 8, 1, 90, 90, 200, torch.bfloat16, True),  # D 200 -> 256: tensor cores
 ]
 
 
@@ -1531,6 +1568,8 @@ def test_kernel_ops_on_fake_cuda_tensors_launch_nothing_on_card(cuda, op):
 def test_flash_tensor_core_rule_equals_the_kernels(cuda):
     """The fake rule's tensor-core choice (Python) equals the C code's."""
     from repro_torch.kernels.flash_attention import kernel
+    assert kernel.tensor_core_path(torch.bfloat16, 256)
+    assert not kernel.tensor_core_path(torch.float16, 256)
     for dtype in kernel.DTYPES:
         for d in kernel.HEAD_DIMS:
             assert kernel.tensor_core_rule(dtype, d) == \
@@ -1549,10 +1588,13 @@ def test_dryrun_reduced_cells_on_card(cuda, cell, monkeypatch):
     unfused traffic may differ between the two representations, by 1e-3
     of it: some aten ops decompose differently for CUDA and CPU tensors
     (the train cell read 134,217,728 B of 1.47e12 apart)."""
+    import gc
+
     import _torch_dryrun_records as records
     from repro_torch.kernels import launch_counts
     from repro_torch.launch import dryrun
     assert dryrun._trace_device("cuda")[0].type == "cuda"
+    gc.collect()  # earlier tests' cyclic garbage is not the trace's to free
     before, allocated = launch_counts(), torch.cuda.memory_allocated()
     got = records.reduced_record(*cell)
     assert launch_counts() == before
