@@ -26,7 +26,7 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    batches each) and over 2 spawned host processes (``pipe``, and ``shm``
    with 8 MiB slots, 2 batches each), then the image pipeline at phase 3's
    size cut between its two engines over ``device`` (3 batches), ``pipe``
-   and ``shm`` (2 batches each; the latter at the largest
+   (one cold batch) and ``shm`` (2 batches, at the largest
    microbatch up to 16 whose ring fits in the free ``/dev/shm``, which it
    prints): the partition must refine the network (CSP, both directions),
    every batch must equal phases 2 and 3 exactly, thread hosts must launch
@@ -59,11 +59,11 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    a salvage adopt over a live one, each at epoch 2, refined, its next
    batch equal to phase 2 (the salvaged one building no stage); 13d
    ``python -m repro_torch.launch.cluster`` over 2 ``pipe`` hosts at
-   2048², 64 bands, with ``--iters`` for a ~6 s batch, its whole process
+   2048², 64 bands, with ``--iters`` for a ~3 s batch, its whole process
    group SIGKILLed once the Collect's host wrote a snapshot, then
    ``--resume-from``: adopted at epoch 2 and refined, the pending batch
-   replayed from the snapshot (a nonzero chunk for the Collect's host),
-   the oracle equal, kill → adopted and kill → replayed result printed;
+   replayed from the snapshot (a nonzero chunk for the Collect's host)
+   and one batch more, the oracle equal, kill → adopted and kill → replayed result printed;
    13e qwen2-0.5b served with a store persisting every step, crashed with
    two requests done and two in flight, adopted on a fresh backend: every
    request answered once with the tokens of an uncrashed engine without a
@@ -180,17 +180,20 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    tokens, on the ragged path (``moe_ragged=True``), with the checks of
    phase 6: finite bf16 logits, f32 logits against ``prefill`` of 1024
    tokens and one ``decode_step`` within 3e-3 (the ragged path drops
-   nothing), and each forward launching the grouped-matmul kernel 3 times
-   a MoE layer (81) and the flash kernel once a layer (28); then one bf16
-   forward on the capacity path (the config's default, no grouped matmul),
-   timed, with the share of token-choices it drops at capacity factor
-   1.25 (not gated: it is not dropless, so it differs from the ragged
-   path);
+   nothing; a row whose token 1023 the two route to other experts in some
+   layer is left out of that gate, and the first such layer must show a
+   tie, the k-th and (k+1)-th router logits within 1e-3), and each
+   forward launching the grouped-matmul kernel 3 times a MoE layer (81)
+   and the flash kernel once a layer (28); then one bf16 forward on the
+   capacity path (the config's default, no grouped matmul), timed, with
+   the share of token-choices it drops at capacity factor 1.25 (not
+   gated: it is not dropless, so it differs from the ragged path);
 11. serves deepseek-moe-16b on the ragged path through a ``ServeEngine``
    over ``LocalDecodeBackend`` (4 slots, max_len 128) on phase 10's
    weights (the launcher's ``main`` would build a second copy) with the
-   checks of phase 7; every decode step launches the grouped matmul 81
-   times and nothing else.
+   checks of phase 7 (of the one-slot reruns, the first 2 requests only);
+   every decode step launches the grouped matmul 81 times and nothing
+   else.
 
 22. (run after phase 18, on the card emptied of every earlier model, before
    phases 19 and 21 and the MoE phases) gemma-2b (18 layers, d=2048, 8/1
@@ -207,10 +210,23 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    t, h and w streams differ over the image: finite, 28 flash launches,
    logits moved by the image; 22c 8 requests served as in phase 7 with no
    kernel launched (gemma and qwen2-vl through the launcher's ``main``,
-   glm4 through a ``ServeEngine`` on the forward's weights); 22d one
-   traced bf16 forward (busy, idle, flash's share) and one traced decode
-   step of 4 slots, and the peak memory;
+   glm4 through a ``ServeEngine`` on the forward's weights; none rerun
+   alone); 22d one traced bf16 forward (busy, idle, flash's share) and one
+   traced decode step of 4 slots, and the peak memory;
    the phase prints its wall;
+23. (run after phase 22, on the emptied card) bf16 weights, as the JAX
+   package serves these models: yi-34b at its published config (60
+   layers, d=7168, 56/8 heads of 128, d_ff 20480, vocab 64000; 68.8 GB)
+   and phi3.5-moe-42b-a6.6b at its published widths cut to 24 of its 32
+   layers (d=4096, 32/8 heads, 16 experts of 6400, top-2; 62.9 GB), one
+   at a time: 23a phase 6's forward checks (the init's peak printed;
+   exactly 60 flash launches a yi forward, its f32 check on one row; 24
+   flash and 72 grouped matmuls, bf16 x and bf16 w, a ragged phi forward,
+   its routing compared as phase 10's, then one capacity-path forward with
+   24 flash launches), 23b 8 requests served on 4 slots through a
+   ``ServeEngine`` on the forward's weights (no launch a yi decode step,
+   72 grouped matmuls a phi step), 23c a traced forward and decode step,
+   and the peak memory; the phase prints its wall;
 18. (run after phase 17 and the profiles below, on phase 6's weights)
    training on the card: 18a trains full-width qwen2-0.5b through
    ``python -m repro_torch.launch.train``'s ``main`` (8 steps of (4, 1024),
@@ -255,11 +271,14 @@ in float32, bfloat16 and float16, at widths whose rows are not whole
 than k, and times it on 2048 x 2048 images in the three types (EDGE5 and
 random taps); the flash-attention kernel
 against its plain version on the qwen2 forward's shape (B=4, H=14, K=2,
-S=2048, D=64), deepseek's (B=4, H=16, K=16, D=128) and gemma-2b's (B=4,
-H=8, K=1, D=256), the reference tests' shapes, and without causality at
+S=2048, D=64), deepseek's (B=4, H=16, K=16, D=128), gemma-2b's (B=4,
+H=8, K=1, D=256), glm4-9b's, qwen2-vl-2b's, yi-34b's (B=4, H=56, K=8,
+D=128) and phi3.5-moe's (B=4, H=32, K=8, D=128), the reference tests'
+shapes, and without causality at
 an encoder's (Sq = Sk) and cross-attention's shapes (Sq = 1 and 1 < Sq <
 Sk), in float32 (the FMA path) and bf16 (the tensor cores), timed at the
-three forward shapes (gemma's also in float16, through the FMA path) and
+qwen2, deepseek, gemma and yi forward shapes (gemma's also in float16,
+through the FMA path) and
 at whisper-tiny's encoder (4, 6, 6, 1500, 1500, 64) and decode-step
 cross-attention (Sq = 1 against 1500 frames) without causality, beside
 ``scaled_dot_product_attention`` (the yardstick; the port never calls it);
@@ -269,11 +288,14 @@ forwards' shapes, the reference tests' shapes, a ragged S, G = H, and P >
 cores) also to gates scaled to the output (no PyTorch call computes the
 scan, so it has no yardstick); and the grouped
 expert matmul at deepseek-moe-16b's forward shape (8192 tokens, top-6 of
-64 experts, D 2048 → F 1408, and the down product), with uniform and
-one-expert routing, at a decode step's 24 rows, at the reference tests'
-shapes and at 4.3 M rows (past the 65,535 row blocks a grid.y held), timed
-beside ``torch._grouped_mm`` (the yardstick) at the forward's and the
-decode's shapes, both as the op (routing included) and as the kernel's
+64 experts, D 2048 → F 1408, and the down product; f32 w), with uniform
+and one-expert routing, at a decode step's 24 rows, at phi3.5-moe's
+shapes with bf16 w (8192 tokens, top-2 of 16, D 4096 → F 6400 and back,
+uniform and one-expert, and a decode step of 4 slots), at the reference
+tests' shapes and at 4.3 M rows (past the 65,535 row blocks a grid.y
+held), timed beside ``torch._grouped_mm`` (the yardstick) at deepseek's
+forward and decode shapes and phi's gate/up shape, both as the op
+(routing included) and as the kernel's
 launch alone on the sorted rows (what ``torch._grouped_mm`` is timed on).
 It holds uint8 and int32 2048 x 2048 stencil images (EDGE5 and random
 k = 3 taps, sums out of the type's range both ways) exactly against the
@@ -297,8 +319,8 @@ images.
 Kernel launch counts are reset just before phase 2 and read after phase 9
 (the thread hosts of phases 12, 13 and 15 and the simulated hosts of
 phases 14 and 15 count with them; phase 16, which must launch nothing, is
-counted apart, from 0; phases 17, 18 and 22 are counted apart, from 0, and
-added),
+counted apart, from 0; phases 17, 18, 22 and 23 are counted apart, from
+0, and added),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
 the farm, of the pipeline, one more bf16 forward and one decode step of
@@ -306,7 +328,8 @@ qwen2-0.5b and of mamba2-2.7b, one more zamba2-1.2b forward and one more
 whisper-tiny decode step are traced with ``torch.profiler`` after phase
 17, and one bf16 forward and one decode step of deepseek-moe-16b after
 phase 11, to print the device's busy time, idle share and each of the
-port's kernels' share of the busy time.  The last two lines are a JSON
+port's kernels' share of the busy time.  A ``phase walls:`` line gives
+each phase's wall in the order run.  The last two lines are a JSON
 summary of the kernels and ``{"ok": true, "device": ...}``.  Any failure
 raises and the script exits non-zero; so does a machine without a CUDA
 device, where nothing is printed on standard output.
@@ -670,11 +693,12 @@ def scaled_errors(got, want) -> tuple:
 
 def check_flash(torch, dev) -> dict:
     """The flash kernel against its plain version: the qwen2, deepseek,
-    gemma, glm4 and qwen2-vl forwards' shapes and the reference tests'
-    shapes, f32 and bf16, causal; an encoder's and cross-attention's shapes
-    without causality; times at the qwen2, deepseek and gemma forwards'
-    shapes (gemma's also in f16, the FMA path) and whisper-tiny's encoder
-    and cross-attention shapes (bf16: the tensor-core path)."""
+    gemma, glm4, qwen2-vl, yi and phi3.5-moe forwards' shapes and the
+    reference tests' shapes, f32 and bf16, causal; an encoder's and
+    cross-attention's shapes without causality; times at the qwen2,
+    deepseek, gemma and yi forwards' shapes (gemma's also in f16, the FMA
+    path) and whisper-tiny's encoder and cross-attention shapes (bf16: the
+    tensor-core path)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
@@ -684,7 +708,9 @@ def check_flash(torch, dev) -> dict:
     gemma = (4, 8, 1, 2048, 2048, 256)  # gemma-2b: MQA, D=256
     glm4 = (4, 32, 2, 2048, 2048, 128)  # glm4-9b: GQA group of 16
     qwen2_vl = (4, 12, 2, 2048, 2048, 128)  # qwen2-vl-2b: GQA group of 6
-    causal_shapes = [path, deepseek, gemma, glm4, qwen2_vl,
+    yi = (4, 56, 8, 2048, 2048, 128)  # yi-34b: GQA group of 7
+    phi = (4, 32, 8, 2048, 2048, 128)  # phi3.5-moe: GQA group of 4
+    causal_shapes = [path, deepseek, gemma, glm4, qwen2_vl, yi, phi,
                      (1, 4, 2, 64, 64, 32),
                      (2, 8, 1, 96, 96, 64), (2, 4, 4, 128, 128, 32),
                      (1, 2, 2, 33, 33, 16),  # ragged
@@ -696,11 +722,12 @@ def check_flash(torch, dev) -> dict:
         (4, 6, 6, 1, 1500, 64)
     open_shapes = [whisper_enc, whisper_cross, (2, 8, 2, 77, 300, 128)]
     # the shapes timed in bf16, beside scaled_dot_product_attention: the
-    # forwards of phases 6, 10 and 22 (gemma-2b), and whisper-tiny's
-    # (phase 17) encoder and a decode step's cross-attention over 1500
-    # frames; gemma's also in f16, through the FMA path
+    # forwards of phases 6, 10, 22 (gemma-2b) and 23 (yi-34b, the heaviest
+    # attention), and whisper-tiny's (phase 17) encoder and a decode step's
+    # cross-attention over 1500 frames; gemma's also in f16, through the
+    # FMA path
     timed = {(path, True): "qwen2-0.5b", (deepseek, True): "deepseek-moe-16b",
-             (gemma, True): "gemma-2b",
+             (gemma, True): "gemma-2b", (yi, True): "yi-34b",
              (whisper_enc, False): "whisper-tiny encoder",
              (whisper_cross, False): "whisper-tiny decode step's "
                                      "cross-attention"}
@@ -928,42 +955,57 @@ def grouped_mm_call(torch, x, eo, w):
 def check_moe_gmm(torch, dev) -> dict:
     """The grouped-matmul kernel against its plain version: deepseek-moe-16b's
     products at its forward shape (8192 tokens, top-6 of 64 experts, D 2048
-    → F 1408 and the down product F → D) with uniform and one-expert
-    routing, a decode step's 24 rows, and the reference tests' shapes;
-    times at the forward's and the decode's shapes."""
+    → F 1408 and the down product F → D; f32 weights) with uniform and
+    one-expert routing, a decode step's 24 rows, phi3.5-moe's products with
+    bf16 weights (8192 tokens, top-2 of 16, D 4096 → F 6400 and back; the
+    tensor cores' bf16-w instance) and a decode step of 4 slots, and the
+    reference tests' shapes; times at deepseek's forward and decode shapes
+    and phi's gate/up shape."""
     from repro_torch.kernels.moe_gmm import kernel, ops, ref
     flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     up, down = (8192, 6, 64, 2048, 1408, 128), (8192, 6, 64, 1408, 2048, 128)
     dec = (4, 6, 64, 2048, 1408, 128)
-    # (shape (T, k, E, D, F, tile_m), x dtype, routing, timed).  Tolerances:
-    # bf16 rtol 1e-2 and 1e-2 of max|y| (both sides sum in f32 and round y
-    # once: a flip is one bf16 ulp); f32 at D >= 1408 rtol 1e-4 and 1e-4 of
-    # max|y| (sums of 2048 products in another order); the reference
-    # tests' shapes rtol = atol = 1e-5, their own gate
-    cases = [(up, bf16, "uniform", True), (down, bf16, "uniform", True),
-             (up, f32, "uniform", False), (down, f32, "uniform", False),
-             (up, bf16, "one expert", False), (dec, bf16, "uniform", True),
+    phi_up, phi_down = ((8192, 2, 16, 4096, 6400, 128),
+                        (8192, 2, 16, 6400, 4096, 128))
+    phi_dec = (4, 2, 16, 4096, 6400, 128)
+    # (shape (T, k, E, D, F, tile_m), x dtype, w dtype, routing, timed).
+    # Tolerances: bf16 x rtol 1e-2 and 1e-2 of max|y| (both sides sum in
+    # f32 and round y once: a flip is one bf16 ulp); f32 at D >= 1408 rtol
+    # 1e-4 and 1e-4 of max|y| (sums of 2048 products in another order); the
+    # reference tests' shapes rtol = atol = 1e-5, their own gate
+    cases = [(up, bf16, f32, "uniform", True),
+             (down, bf16, f32, "uniform", True),
+             (up, f32, f32, "uniform", False),
+             (down, f32, f32, "uniform", False),
+             (up, bf16, f32, "one expert", False),
+             (dec, bf16, f32, "uniform", True),
+             # phase 23's phi3.5-moe: bf16 x and bf16 w (tc::launch<bf16>)
+             (phi_up, bf16, bf16, "uniform", True),
+             (phi_down, bf16, bf16, "uniform", False),
+             (phi_up, bf16, bf16, "one expert", False),
+             (phi_down, bf16, bf16, "one expert", False),
+             (phi_dec, bf16, bf16, "uniform", False),
              # a rank of phase 21's mesh: 32 of the 64 experts held, the
              # rows of the other 32 (ids >= 32) skipped and left 0
-             ((8192, 6, 64, 2048, 1408, 128), bf16, "half held", False),
-             ((4, 6, 64, 1408, 2048, 128), bf16, "uniform", False),
-             ((64, 1, 4, 16, 32, 16), f32, "uniform", False),
-             ((200, 1, 8, 32, 64, 16), f32, "uniform", False),
-             ((33, 1, 2, 8, 16, 8), f32, "uniform", False),
-             ((32, 1, 4, 8, 16, 8), f32, "one expert", False),
+             ((8192, 6, 64, 2048, 1408, 128), bf16, f32, "half held", False),
+             ((4, 6, 64, 1408, 2048, 128), bf16, f32, "uniform", False),
+             ((64, 1, 4, 16, 32, 16), f32, f32, "uniform", False),
+             ((200, 1, 8, 32, 64, 16), f32, f32, "uniform", False),
+             ((33, 1, 2, 8, 16, 8), f32, f32, "uniform", False),
+             ((32, 1, 4, 8, 16, 8), f32, f32, "one expert", False),
              # 33,600 row tiles: past the 65,535 row blocks of a grid.y
-             ((4_300_000, 1, 8, 16, 16, 128), bf16, "uniform", False),
-             ((4_300_000, 1, 8, 16, 16, 128), f32, "uniform", False)]
+             ((4_300_000, 1, 8, 16, 16, 128), bf16, f32, "uniform", False),
+             ((4_300_000, 1, 8, 16, 16, 128), f32, f32, "uniform", False)]
     entry = None
-    for (T, k, E, D, F, tile), dtype, routing, timed in cases:
-        x = torch.randn(T * k, D, generator=g).to(dtype).to(dev)
-        eo = torch.randint(0, E, (T * k,), generator=g)
+    for (T, k, E, D, F, tile), dtype, w_dtype, routing, timed in cases:
+        x = torch.randn(T * k, D, generator=g, device=dev).to(dtype)
+        eo = torch.randint(0, E, (T * k,), generator=g, device=dev)
         if routing == "one expert":
             eo.fill_(E // 2)
-        eo = eo.to(dev)
-        w = (torch.randn(E, D, F, generator=g) / D ** 0.5).to(dev)
+        w = (torch.randn(E, D, F, generator=g, device=dev)
+             / D ** 0.5).to(w_dtype)
         if routing == "half held":
             w = w[:E // 2].contiguous()
         got = ops.moe_apply(x, eo, w, tile_m=tile)
@@ -981,10 +1023,10 @@ def check_moe_gmm(torch, dev) -> dict:
                            f"{routing}: outside rtol {rtol} / atol {atol} "
                            f"by {excess}")
         route = "tensor cores" if dtype == bf16 else "FMA"
+        types = f"x {str(dtype)[6:]} ({route}), w {str(w_dtype)[6:]}"
         print(f"[kernel] moe_gmm rows={T * k} ({T} x top-{k}) E={E} D={D} "
-              f"F={F} tile_m={tile} x {str(dtype)[6:]} ({route}), w float32, "
-              f"{routing}: max|diff| {err:.3e} (rtol {rtol:.0e}, atol "
-              f"{atol:.3e})")
+              f"F={F} tile_m={tile} {types}, {routing}: max|diff| "
+              f"{err:.3e} (rtol {rtol:.0e}, atol {atol:.3e})")
         del got, want, diff
         if not timed:
             continue
@@ -1003,7 +1045,7 @@ def check_moe_gmm(torch, dev) -> dict:
                                      "library": 10}, flush=flush_buf.zero_)
         bound_ms, bound_by = gmm_bound(x, eo, w)
         flops = 2.0 * T * k * D * F
-        print(f"[kernel] moe_gmm rows={T * k} D={D} F={F} bf16: kernel "
+        print(f"[kernel] moe_gmm rows={T * k} D={D} F={F} {types}: kernel "
               f"{t['kernel']:.4f} ms as the op, routing included "
               f"({flops / t['kernel'] / 1e9:.1f} TFLOP/s); the launch alone "
               f"{t['launch']:.4f} ms ({flops / t['launch'] / 1e9:.1f} "
@@ -1710,9 +1752,9 @@ def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
     """Phase 12: the farm at phase 2's width over 2 and 4 thread hosts on
     the card (``device``) and 2 spawned host processes (``pipe``, ``shm``),
     then the image pipeline at phase 3's size cut between its engines over
-    ``device``, ``pipe`` and ``shm``; a killed host recovered over ``pipe``
-    and ``shm``, and a failed worker's host rebalanced away over
-    ``device``.  Returns the rebalance's ``recover()`` wall in ms."""
+    ``device``, ``pipe`` (one cold batch) and ``shm``; a killed host of the
+    farm recovered over ``pipe`` and ``shm``, and a failed worker's host
+    rebalanced away over ``device``.  Returns the rebalance's ``recover()`` wall in ms."""
     import multiprocessing
 
     import numpy as np
@@ -1758,10 +1800,10 @@ def run_cluster_phase(torch, counts, farm_img, pipe_outs, W, H, bands, iters,
     assignment = {name: 0 for name in net.procs}
     assignment["engine2"] = assignment["collector"] = 1
     plan = partition(net, assignment=assignment)
-    for transport in ("device", "pipe"):
+    # over pipe one cold batch: its 16 pickled images take ~20 s a batch
+    for transport, batches in (("device", 3), ("pipe", 1)):
         run_deployment(torch, f"image {transport} x2", net, plan, transport,
-                       factory, n_img, 3 if transport == "device" else 2,
-                       counts, "stencil",
+                       factory, n_img, batches, counts, "stencil",
                        n_img if transport == "device" else 0, same_edges)
     # the ring holds `capacity` chunks of mb grey f32 images: the largest
     # microbatch (up to 16) whose ring fits in what /dev/shm has free
@@ -2005,7 +2047,7 @@ def run_launcher_kill(torch, d) -> None:
     from repro_torch.launch.cluster import make_mandelbrot
     label = "[durable] 13d launcher SIGKILL"
     size, bands = 2048, 64
-    # iterations for a ~6 s batch, from the farm's 64 band launches one
+    # iterations for a ~3 s batch, from the farm's 64 band launches one
     # after another (uncounted: the binding, not the op), as a host
     # renders them — a band alone cannot fill the card, so the whole
     # image in one launch would undercount
@@ -2026,7 +2068,7 @@ def run_launcher_kill(torch, d) -> None:
     sweep()
     torch.cuda.synchronize()
     t_img = time.perf_counter() - t0
-    iters = int(n0 * 6.0 / t_img)
+    iters = int(n0 * 3.0 / t_img)
     del out, rows
     coll = partition(make_mandelbrot(bands, size, size, 1),
                      hosts=2).assignment["collect"]
@@ -2072,7 +2114,7 @@ def run_launcher_kill(torch, d) -> None:
     for line in first.splitlines():
         if line.startswith("[cluster]"):
             print(f"  first run: {line}")
-    res = subprocess.Popen([*cmd, "--resume-from", d, "--batches", "2"],
+    res = subprocess.Popen([*cmd, "--resume-from", d, "--batches", "1"],
                            env=env, cwd=ROOT, start_new_session=True,
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                            text=True, bufsize=1)
@@ -3093,30 +3135,42 @@ def describe(cfg) -> str:
 
 
 def run_forward(torch, dev, counts, arch, batch, seq, per_forward,
-                **overrides):
+                f32_rows=None, **overrides):
     """Full-width ``Model.forward`` of ``arch`` (its config with
     ``overrides``) on (batch, seq) tokens: bf16 finite, f32 against
-    prefill + decode, and exactly ``per_forward`` kernel launches per
-    forward (every other kernel: none)."""
+    prefill + decode (on the first ``f32_rows`` rows only, if given: f32
+    matmuls run on the FP32 units; of a MoE model, on the rows whose
+    compared token both route alike, see :func:`compare_routes`), and
+    exactly ``per_forward`` kernel launches per forward (every other
+    kernel: none)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    cfg = dataclasses.replace(get_config(arch), **overrides)
+    published = get_config(arch)
+    cfg = dataclasses.replace(published, **overrides)
     model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in torch.utils._pytree.tree_leaves(params))
+    cut = (f", depth cut to {cfg.n_layers} of {published.n_layers} layers "
+           "(every width published)"
+           if cfg.n_layers != published.n_layers else "")
     print(f"[lm] {cfg.name}: {model.param_count(params) / 1e6:.1f} M "
-          f"params ({cfg.param_dtype}), {describe(cfg)}, vocab {cfg.vocab}, "
-          f"init {(time.perf_counter() - t0) * 1e3:.1f} ms")
+          f"params ({cfg.param_dtype}, {nbytes / 2**30:.2f} GiB), "
+          f"{describe(cfg)}{cut}, vocab {cfg.vocab}, init "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     g = torch.Generator(device=dev).manual_seed(0)
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g,
                          device=dev, dtype=torch.int32)
     want = {k: per_forward.get(k, 0) for k in counts()}
 
-    def forward(m):
+    def forward(m, t=toks):
         before = counts()
-        logits, _ = m.forward(params, toks)
+        logits, _ = m.forward(params, t)
         launched = {k: v - before[k] for k, v in counts().items()}
         check(launched == want, f"{cfg.name} forward launched {launched}, "
                                 f"not {want}")
@@ -3142,32 +3196,45 @@ def run_forward(torch, dev, counts, arch, batch, seq, per_forward,
 
         m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
         half = seq // 2
+        rows = toks[:f32_rows]
         t0 = time.perf_counter()
         with routing_recorder(cfg) as routes_full:
-            full = forward(m32)[:, half - 1:half + 1].clone()
+            full = forward(m32, rows)[:, half - 1:half + 1].clone()
         torch.cuda.synchronize()
         f32_ms = (time.perf_counter() - t0) * 1e3
         with routing_recorder(cfg) as routes_prefill:
-            logits_p, cache = m32.prefill(params, toks[:, :half],
+            logits_p, cache = m32.prefill(params, rows[:, :half],
                                           max_len=half + 1)
         logits_d, _ = m32.decode_step(params, cache,
-                                      toks[:, half:half + 1])
-        err_p = float((logits_p[:, -1] - full[:, 0]).abs().max())
-        err_d = float((logits_d[:, -1] - full[:, 1]).abs().max())
+                                      rows[:, half:half + 1])
+        # a row whose token half - 1 the two paths route to different
+        # experts (at a near-tie, gated in compare_routes) has other logits
+        # there by design: its logits are not compared
+        same = (~compare_routes(cfg, routes_full, routes_prefill, len(rows),
+                                half) if routes_full
+                else torch.ones(len(rows), dtype=torch.bool, device=dev))
+        check(bool(same.any()), f"f32 forward vs prefill: every row's token "
+                                f"{half - 1} routed differently")
+        err_p = float((logits_p[same, -1] - full[same, 0]).abs().max())
+        err_d = float((logits_d[same, -1] - full[same, 1]).abs().max())
         del logits_p, cache
         check(err_p < 3e-3 and err_d < 3e-3,
               f"f32 forward vs prefill+decode: {err_p}, {err_d} >= 3e-3")
-        print(f"[lm] {cfg.name} forward f32 ({batch}, {seq}) {f32_ms:.1f} "
-              f"ms: logits at {half - 1}/{half} vs prefill({half}) + "
-              f"decode_step: max|diff| {err_p:.2e} / {err_d:.2e} (gate 3e-3)")
-        if routes_full:
-            compare_routes(cfg, routes_full, routes_prefill, batch, half)
+        some = (f" (the f32 check on {len(rows)} of the {batch} rows, for "
+                "time)" if len(rows) < batch else "")
+        routed = (f", compared on the {int(same.sum())} rows routed alike"
+                  if not same.all() else "")
+        print(f"[lm] {cfg.name} forward f32 ({len(rows)}, {seq}) "
+              f"{f32_ms:.1f} ms{some}: logits at {half - 1}/{half} vs "
+              f"prefill({half}) + decode_step{routed}: max|diff| "
+              f"{err_p:.2e} / {err_d:.2e} (gate 3e-3)")
     return model, params, toks
 
 
 @contextlib.contextmanager
 def routing_recorder(cfg):
     """Records each ragged MoE layer's top-k expert choices, (tokens, k),
+    and each token's gap between its k-th and (k+1)-th router logits,
     while the block runs (an empty list for other models)."""
     from repro_torch.models import moe
     routes: list = []
@@ -3178,7 +3245,9 @@ def routing_recorder(cfg):
 
     def recording(p, cfg_, x):
         logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
-        routes.append(routed_experts(logits, cfg_.moe.top_k))
+        k = cfg_.moe.top_k
+        top = logits.topk(k + 1, dim=-1).values
+        routes.append((routed_experts(logits, k), top[:, k - 1] - top[:, k]))
         return ragged(p, cfg_, x)
 
     moe.moe_apply_ragged = recording
@@ -3194,34 +3263,56 @@ def routed_experts(logits, k):
     return logits.topk(k, dim=-1).indices.sort(dim=-1).values
 
 
-def compare_routes(cfg, full, prefill, batch, half) -> None:
+ROUTE_TIE = 1e-3  # f32 router logits: the k-th and (k+1)-th choice tied
+
+
+def compare_routes(cfg, full, prefill, batch, half):
     """How many tokens of the first ``half`` positions the f32 forward and
     the f32 prefill route to different expert sets, by MoE layer (not
     gated: a near-tie of the k-th and (k+1)-th router logits flips with
-    the order of a sum)."""
+    the order of a sum).  Returns which rows' token ``half - 1`` routes
+    differently in some layer.  Gated: where such a token first does, its
+    k-th and (k+1)-th router logits in the forward lie within
+    ``ROUTE_TIE`` (up to that layer both paths computed the same sums in
+    another order, so only a tie can route them apart)."""
+    import torch
     k = cfg.moe.top_k
-    per_layer = [int((f.reshape(batch, -1, k)[:, :half]
-                      != p.reshape(batch, half, k)).any(-1).sum())
-                 for f, p in zip(full, prefill)]
-    last = [int((f.reshape(batch, -1, k)[:, half - 1]
-                 != p.reshape(batch, half, k)[:, -1]).any(-1).sum())
-            for f, p in zip(full, prefill)]
+    differ = [(f.reshape(batch, -1, k)[:, :half]
+               != p.reshape(batch, half, k)).any(-1)
+              for (f, _), (p, _) in zip(full, prefill)]  # (batch, half)
+    per_layer = [int(d.sum()) for d in differ]
+    last = [int(d[:, -1].sum()) for d in differ]
     print(f"[lm] {cfg.name} routing f32, forward vs prefill({half}): "
           f"{sum(per_layer)} of {batch * half * len(per_layer)} token "
           f"routings differ over {len(per_layer)} MoE layers (by layer "
           f"{per_layer}); at position {half - 1}: {sum(last)} "
           f"(by layer {last})")
+    apart = torch.zeros(batch, dtype=torch.bool, device=differ[0].device)
+    for layer, (d, (_, gap)) in enumerate(zip(differ, full)):
+        for r in (d[:, -1] & ~apart).nonzero().flatten().tolist():
+            g = float(gap.reshape(batch, -1)[r, half - 1])
+            print(f"[lm] {cfg.name}: row {r}'s token {half - 1} first "
+                  f"routes differently in MoE layer {layer}, its k-th and "
+                  f"(k+1)-th router logits {g:.3e} apart (gate "
+                  f"{ROUTE_TIE:.0e})")
+            check(g < ROUTE_TIE, f"{cfg.name}: row {r}'s token {half - 1} "
+                                 f"routes differently in layer {layer} "
+                                 f"without a tie ({g:.3e} apart)")
+        apart |= d[:, -1]
+    return apart
 
 
 def run_serve(torch, model, params, counts, per_decode=None,
-              launcher_main=True) -> dict:
+              launcher_main=True, alone=8) -> dict:
     """The launcher's defaults: 8 requests, 4 slots, max_len 128, max_new
     16, on the card, through the launcher's ``main`` (which builds its own
     weights) or, with ``launcher_main=False``, through a ``ServeEngine``
     over ``LocalDecodeBackend`` on the given model and weights.  Every
     ``decode_step`` call must launch exactly ``per_decode`` kernels (every
-    other kernel: none).  Returns each request's tokens, its tokens decoded
-    alone in a one-slot engine, and the decode step's p50 ms."""
+    other kernel: none).  Returns each request's tokens, the tokens of the
+    first ``alone`` requests decoded alone in a one-slot engine (not gated;
+    for a deep model all 8 are most of the decode steps, and 0 runs none),
+    and the decode step's p50 ms."""
     from repro_torch.core import trace
     from repro_torch.launch import serve as launcher
     from repro_torch.serve import LocalDecodeBackend, ServeEngine
@@ -3279,23 +3370,24 @@ def run_serve(torch, model, params, counts, per_decode=None,
           f"chunk ({LAUNCH_PREFILL_CHUNK} single-token steps) p50 "
           f"{pct(prefill, 50):.2f} ms over {len(prefill)} chunks")
     tokens = {r.rid: r.tokens for r in done}
-    alone = {}
+    solo = {}
     with torch.inference_mode():
-        for r in reqs:  # each request alone in a one-slot engine
+        for r in reqs[:alone]:  # each request alone in a one-slot engine
             eng = ServeEngine(LocalDecodeBackend(model, params, n_slots=1,
                                                  max_len=128))
             eng.submit(r)
             eng.run_until_drained()
-            alone[r.rid] = eng.poll(r.rid).tokens
-    same = sum(alone[rid] == t for rid, t in tokens.items())
+            solo[r.rid] = eng.poll(r.rid).tokens
+    same = (f"{sum(solo[rid] == tokens[rid] for rid in solo)}/{len(solo)} "
+            f"requests (of {len(reqs)}) give the same tokens decoded alone "
+            "(n_slots=1; not gated)")
     print(f"[serve] {model.cfg.name}: {len(done)} requests complete, {toks} "
           f"tokens in "
           f"{span * 1e3:.1f} ms: {toks / span:.1f} tok/s; ttft p50 "
           f"{pct(ttft, 50):.1f} ms p99 {pct(ttft, 99):.1f} ms; tpot p50 "
           f"{pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} ms; launches "
-          f"{launched}; {same}/{len(reqs)} requests give the same tokens "
-          "decoded alone (n_slots=1; not gated)")
-    return {"tokens": tokens, "alone": alone, "step_ms": pct(decode, 50)}
+          f"{launched}; {same}")
+    return {"tokens": tokens, "alone": solo, "step_ms": pct(decode, 50)}
 
 
 def memory(torch, label: str) -> None:
@@ -3421,11 +3513,11 @@ def run_wide_phase(torch, dev, counts) -> None:
     positions, 22c 8 requests served (glm4-9b on the forward's weights:
     the launcher's ``main`` would build a second 37.6 GB copy), 22d one
     traced bf16 forward and one traced decode step (4 slots); each model
-    freed before the next."""
+    freed before the next.  The served requests are not rerun one by one
+    (phase 7 does that at qwen2-0.5b's cost)."""
     import gc
     t_phase = time.perf_counter()
     for arch, n_flash in WIDE_ARCHS:
-        torch.cuda.reset_peak_memory_stats()
         per_forward = {"flash_attention": n_flash}
         model, params, toks = run_forward(torch, dev, counts, arch, 4, 2048,
                                           per_forward)
@@ -3433,13 +3525,60 @@ def run_wide_phase(torch, dev, counts) -> None:
             run_vlm_embeds_forward(torch, dev, counts, model, params, toks,
                                    per_forward)
         run_serve(torch, model, params, counts,
-                  launcher_main=arch != "glm4-9b")
+                  launcher_main=arch != "glm4-9b", alone=0)
         profile_model(torch, model, params, toks)
         memory(torch, f"phase 22, {arch}")
         del model, params, toks
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[lm] phase 22 wall: {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 23: yi-34b and phi3.5-moe with bf16 weights -------------------------
+
+# (arch, config overrides, launches a forward, launches a decode step, rows
+# of the f32 check (None: all 4)) of phase 23.  yi-34b is the published
+# config (68.8 GB of bf16 weights); phi3.5-moe's 32 layers are 83.75 GB in
+# bf16, more than the card holds, so its depth is cut to 24 (62.9 GB) with
+# every width published.  yi's f32 check (5.6e14 FLOP on the FP32 units
+# for all 4 rows) runs on one row.
+BF16_ARCHS = (
+    ("yi-34b", {}, {"flash_attention": 60}, {}, 1),
+    ("phi3.5-moe-42b-a6.6b", {"n_layers": 24, "moe_ragged": True},
+     {"flash_attention": 24, "moe_gmm": 72}, {"moe_gmm": 72}, None),
+)
+
+
+def run_bf16_phase(torch, dev, counts) -> None:
+    """Phase 23: yi-34b and phi3.5-moe with bf16 weights, as the JAX package
+    serves them (``param_dtype="bfloat16"``, as its dry-run sets for every
+    serving cell), one at a time on the emptied card: 23a phase 6's forward
+    checks (phi on the ragged path, its routing compared, then one
+    capacity-path forward), 23b 8 requests served on 4 slots through a
+    ``ServeEngine`` on the forward's weights (not rerun one by one), 23c a
+    traced forward and decode step, and the peak memory."""
+    import gc
+    t_phase = time.perf_counter()
+    for arch, over, per_forward, per_decode, f32_rows in BF16_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()  # yi's MLP stack is one 17.6 GB block
+        model, params, toks = run_forward(
+            torch, dev, counts, arch, 4, 2048, per_forward, f32_rows=f32_rows,
+            param_dtype="bfloat16", **over)
+        memory(torch, f"phase 23, {arch}: init and forwards")
+        if model.cfg.moe is not None:
+            run_capacity_forward(
+                torch, model, params, toks, counts,
+                {"flash_attention": per_forward["flash_attention"]})
+        run_serve(torch, model, params, counts, per_decode=per_decode,
+                  launcher_main=False, alone=0)
+        profile_model(torch, model, params, toks,
+                      ", ragged" if model.cfg.moe_ragged else "")
+        memory(torch, f"phase 23, {arch}")
+        del model, params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm] phase 23 wall: {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- phase 18: training on the card -------------------------------------------
@@ -4638,9 +4777,18 @@ def phases(torch, cells) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    walls: dict = {}  # each phase's wall, in the order run
+    t_lap = t_start
+
+    def lap(label: str) -> None:
+        nonlocal t_lap
+        now = time.perf_counter()
+        walls[label] = now - t_lap
+        t_lap = now
 
     build_kernels(torch, ["mandelbrot", "stencil", "flash_attention",
                           "ssd_scan", "moe_gmm"])
+    lap("build")
 
     W, H, BANDS, ITERS = 4096, 2048, 64, 1000
     entries = [check_mandelbrot(torch, dev, W, H, BANDS, ITERS),
@@ -4648,23 +4796,30 @@ def phases(torch, cells) -> int:
                check_ssd(torch, dev), check_moe_gmm(torch, dev)]
     check_kernel_grads(torch, dev, entries)
     check_widened(torch, dev)
+    lap("1")
 
     reset_launch_counts()  # the main path starts here
     farm, farm_img = run_farm(torch, launch_counts, W, H, BANDS, ITERS)
     pipeline, edge_maps = run_pipeline(torch, dev, launch_counts, 16, 2048)
     run_jacobi(torch, dev, launch_counts, 4, 4096, 4, 1e-6)
     run_pi(torch, launch_counts, 256, 10**6)
+    lap("2-5")
     rebalance_ms = run_cluster_phase(torch, launch_counts, farm_img,
                                      edge_maps, W, H, BANDS, ITERS, 16, 2048)
+    lap("12")
     model, params, toks = run_forward(torch, dev, launch_counts,
                                       "qwen2-0.5b", 4, 2048,
                                       {"flash_attention": 24})
     phase7 = run_serve(torch, model, params, launch_counts)
+    lap("6-7")
     run_durable_phase(torch, launch_counts, farm_img, model, params,
                       (W, H, BANDS, ITERS), rebalance_ms)
+    lap("13")
     run_sim_phase(torch, launch_counts, farm_img, (W, H, BANDS, ITERS))
+    lap("14")
     run_costs_phase(torch, launch_counts, farm_img, edge_maps, entries,
                     (W, H, BANDS, ITERS), 16, 2048)
+    lap("15")
     mesh_refs = (digest([farm_img]), digest(edge_maps))  # phase 19's gates
     del farm_img, edge_maps
     # phase 16 is its own path: it must launch no kernel
@@ -4674,6 +4829,7 @@ def phases(torch, cells) -> int:
     farm_launched = launch_counts()
     check(not any(farm_launched.values()),
           f"phase 16 launched kernels: {farm_launched}")
+    lap("16")
     reset_launch_counts()
     ssm = run_forward(torch, dev, launch_counts, "mamba2-2.7b", 4, 2048,
                       {"ssd_scan": 64})
@@ -4681,12 +4837,14 @@ def phases(torch, cells) -> int:
                          {"ssd_scan": 38, "flash_attention": 6})
     run_serve(torch, ssm[0], ssm[1], launch_counts)
     launched = {k: v + before_farm[k] for k, v in launch_counts().items()}
+    lap("8-9")
     # phase 17 is counted apart, from 0, and added to the main path's counts
     reset_launch_counts()
     whisper = run_whisper_phase(torch, dev, launch_counts)
     whisper_launched = launch_counts()
     print(f"[whisper] phase 17 launches: {whisper_launched}")
     launched = {k: v + whisper_launched[k] for k, v in launched.items()}
+    lap("17")
 
     # where the time goes: one more fused run of each kernel workload, one
     # more forward and one decode step of each served model, one more
@@ -4706,6 +4864,7 @@ def phases(torch, cells) -> int:
         profile_run(torch, f"{m.cfg.name} decode step (4 utterances, "
                     f"{WHISPER_FRAMES} frames)",
                     lambda: m.decode_step(p, c, t))
+    lap("profiles")
 
     # phase 18 (training, on phase 6's weights) is counted apart, from 0,
     # and added to the main path's counts
@@ -4716,6 +4875,7 @@ def phases(torch, cells) -> int:
     launched = {k: v + train_launched[k] for k, v in launched.items()}
     profile_train_step(torch, dev, params)
     memory(torch, "phase 18, training")
+    lap("18")
 
     # the MoE path needs the card's memory: free every earlier model first
     del farm, pipeline, model, params, toks, ssm, hybrid, whisper, m, p, c, t
@@ -4729,14 +4889,25 @@ def phases(torch, cells) -> int:
     wide_launched = launch_counts()
     print(f"[lm] phase 22 launches: {wide_launched}")
     launched = {k: v + wide_launched[k] for k, v in launched.items()}
+    lap("22")
+    # phase 23 (yi-34b and phi3.5-moe with bf16 weights, one at a time on
+    # the emptied card) likewise
+    reset_launch_counts()
+    run_bf16_phase(torch, dev, launch_counts)
+    bf16_launched = launch_counts()
+    print(f"[lm] phase 23 launches: {bf16_launched}")
+    launched = {k: v + bf16_launched[k] for k, v in launched.items()}
+    lap("23")
     # phase 19 (2 ranks sharing the card) is counted apart, from 0, in its
     # ranks, and added
     launched_19, tp_costs = run_mesh_phase(torch, *mesh_refs,
                                  (W, H, BANDS, ITERS, 16, 2048))
     launched = {k: v + launched_19[k] for k, v in launched.items()}
+    lap("19")
     # phase 21 (the ragged MoE path on 2 ranks) likewise
     launched_21, decode_costs = run_ragged_phase(torch)
     launched = {k: v + launched_21[k] for k, v in launched.items()}
+    lap("21")
     torch.cuda.reset_peak_memory_stats()
     memory(torch, "before the MoE phases")
     reset_launch_counts()  # the MoE path starts here
@@ -4748,13 +4919,15 @@ def phases(torch, cells) -> int:
                          launch_counts, {"flash_attention": 28})
     memory(torch, "phase 10, deepseek-moe-16b forward (capacity)")
     run_serve(torch, moe_model, moe_params, launch_counts,
-              per_decode={"moe_gmm": 81}, launcher_main=False)
+              per_decode={"moe_gmm": 81}, launcher_main=False, alone=2)
     memory(torch, "phase 11, deepseek-moe-16b serving")
     moe_launched = launch_counts()
     profile_model(torch, moe_model, moe_params, moe_toks, ", ragged")
+    lap("10-11")
 
     del moe_model, moe_params, moe_toks
     run_dryrun_phase(torch, launch_counts, cells, step_peaks, tp_costs)
+    lap("20")
 
     for e in entries:
         e["launches"] = launched[e["name"]] + moe_launched[e["name"]]
@@ -4772,6 +4945,8 @@ def phases(torch, cells) -> int:
                       f"between the card and the host, wall "
                       f"{c['wall']:.3f} s")
     print("[mesh] staged collectives (rank 0): " + "; ".join(staged))
+    print("phase walls: " + ", ".join(f"{k} {v:.1f} s"
+                                      for k, v in walls.items()))
     print(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -85,8 +85,7 @@ def init_params(cfg, gen: torch.Generator, *, max_dec_len: int = 0) -> dict:
     max_dec = max_dec_len or MAX_DEC_LEN
     return {
         "embedding": layers.embedding_init(gen, cfg, dtype),
-        "dec_pos": (torch.randn((max_dec, cfg.d_model), generator=gen,
-                                device=gen.device) * 0.01).to(dtype),
+        "dec_pos": layers.normal(gen, (max_dec, cfg.d_model), dtype, 0.01),
         "enc": _enc_block_init(gen, cfg, dtype, cfg.encdec.n_enc_layers),
         "dec": _dec_block_init(gen, cfg, dtype, cfg.n_layers),
         "enc_norm": layers.layernorm_init(cfg.d_model, dtype, gen.device),

@@ -25,19 +25,27 @@ from ..parallel.axes import act, is_dtensor
 # --------------------------------------------------------------------------
 
 
+def normal(gen: torch.Generator, shape, dtype, scale: float):
+    """N(0, 1) · scale of ``shape``, drawn in ``dtype`` and scaled in place,
+    so init never holds an f32 copy of a bf16 leaf: yi-34b's MLP gate
+    stack is 35.2 GB in f32 beside 68.8 GB of bf16 weights.  An f32 leaf
+    keeps the values of ``randn · scale``; a bf16 leaf rounds once more
+    than the reference's ``normal · scale → astype``."""
+    return torch.randn(shape, dtype=dtype, generator=gen,
+                       device=gen.device).mul_(scale)
+
+
 def dense_init(gen: torch.Generator, shape, dtype,
                scale: Optional[float] = None, *, stack: int = 0):
     """N(0, 1) * scale, scale 1/sqrt(fan-in) by default; ``stack`` > 0
     prepends a layer axis of that length (the stacked segments)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     full = ((stack,) if stack else ()) + tuple(shape)
-    return (torch.randn(full, generator=gen, device=gen.device)
-            * scale).to(dtype)
+    return normal(gen, full, dtype, scale)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
-    return (torch.randn(shape, generator=gen, device=gen.device)
-            * 0.02).to(dtype)
+    return normal(gen, shape, dtype, 0.02)
 
 
 def _const(shape, value, dtype, device, stack: int = 0):

@@ -41,8 +41,7 @@ def mamba_init(gen: torch.Generator, cfg, dtype, stack: int = 0) -> dict:
     const = layers._const
     return {
         "in_proj": layers.dense_init(gen, (D, proj_out), dtype, stack=stack),
-        "conv_w": (torch.randn(lead + (ck, conv_dim), generator=gen,
-                               device=dev) * 0.1).to(dtype),
+        "conv_w": layers.normal(gen, lead + (ck, conv_dim), dtype, 0.1),
         "conv_b": const((conv_dim,), 0.0, dtype, dev, stack),
         "dt_bias": const((H,), 0.0, f32, dev, stack),
         "A_log": const((H,), 0.0, f32, dev, stack),  # A = -exp(A_log) = -1

@@ -69,13 +69,12 @@ def moe_init(gen: torch.Generator, cfg, dtype, stack: int = 0) -> dict:
 
 def _stack_init(gen: torch.Generator, shape, dtype,
                 scale: Optional[float] = None, *, stack: int = 0):
-    """N(0, 1) · scale, scale 1/sqrt(shape[1]) by default.  Scaled in
-    place: a full-width expert stack is ~20 GB of f32, and a second copy
-    would not fit beside the rest of the weights."""
+    """N(0, 1) · scale, scale 1/sqrt(shape[1]) by default, through
+    :func:`layers.normal`: a full-width expert stack is ~20–40 GB of f32,
+    and a second copy would not fit beside the rest of the weights."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[1])
     full = ((stack,) if stack else ()) + tuple(shape)
-    return torch.randn(full, generator=gen, device=gen.device) \
-        .mul_(scale).to(dtype)
+    return layers.normal(gen, full, dtype, scale)
 
 
 def _route_choices(probs: torch.Tensor, k: int, C: int):

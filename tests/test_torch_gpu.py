@@ -212,6 +212,8 @@ FLASH_SHAPES = [  # (B, H, K, Sq, Sk, D)
     (4, 8, 1, 2048, 2048, 256),  # the gemma-2b forward: MQA, D=256
     (2, 8, 2, 201, 201, 256),    # D=256, GQA group of 4, ragged
     (2, 4, 2, 1, 90, 256),       # D=256 decode: Sq = 1
+    (4, 56, 8, 512, 512, 128),   # the yi-34b forward, cut in S: group of 7
+    (4, 32, 8, 512, 512, 128),   # the phi3.5-moe forward, cut in S: of 4
 ]
 
 FLASH_NONCAUSAL_SHAPES = [  # (B, H, K, Sq, Sk, D), causal=False
@@ -651,6 +653,8 @@ GMM_SHAPES = [  # (T tokens, k, E, D, F, tile_m)
     (512, 6, 64, 2048, 1408, 128),  # deepseek-moe-16b's gate/up, cut in T
     (512, 6, 64, 1408, 2048, 128),  # ... and its down
     (4, 6, 64, 2048, 1408, 128),    # a decode step of 4 slots
+    (512, 2, 16, 4096, 6400, 128),  # phi3.5-moe's gate/up, cut in T
+    (512, 2, 16, 6400, 4096, 128),  # ... and its down
     (64, 1, 4, 16, 32, 16), (200, 1, 8, 32, 64, 16),
     (33, 1, 2, 8, 16, 8),           # the reference tests' shapes
     (100, 2, 16, 72, 40, 48),       # ragged D, F and tile_m
@@ -816,6 +820,31 @@ def test_moe_gmm_card_refuses_without_fallback(cuda, x_dtype, w_dtype):
     with pytest.raises(ValueError, match="one device"):
         gmm_ops.moe_apply(x, eo.cpu(), w)
     assert gmm_ops.moe_apply.launches == before
+
+
+def test_bf16_init_peaks_at_its_weights(cuda):
+    """yi-34b at its published widths, cut to 2 layers, with bf16 weights
+    (2.03e9 parameters, 4.07 GB): ``init`` on the card holds nothing but
+    the finished bf16 weights, whatever order it builds them in.  Drawing
+    a stack whole in f32 and scaling it into a second f32 tensor, as the
+    port once did, peaks 1.76 GB higher at the last MLP stack."""
+    import dataclasses
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("yi-34b"), n_layers=2,
+                              param_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = Model(cfg).init(seed=0, device=cuda)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    leaves = torch.utils._pytree.tree_leaves(params)
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    # slack for the caching allocator's rounding and the blocks it holds
+    # beside the leaves (the card read 1 MiB over an earlier bound)
+    assert peak <= weights + 2**21, (peak, weights)
+    assert all(t.dtype == torch.bfloat16 for t in leaves)
+    del params
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"])

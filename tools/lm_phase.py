@@ -1,16 +1,25 @@
-"""Phase 22 of ``chip_smoke.py`` alone, or phase 1's flash-attention check.
+"""Phase 22 or 23 of ``chip_smoke.py`` alone, or phase 1's flash-attention
+or grouped-matmul check.
 
     python3 tools/lm_phase.py          # on the card: phase 22
+    python3 tools/lm_phase.py phase23  # on the card: phase 23
     python3 tools/lm_phase.py flash    # on the card: the flash check
+    python3 tools/lm_phase.py gmm      # on the card: the grouped-matmul check
 
 Phase 22 runs gemma-2b, glm4-9b and qwen2-vl-2b at full width, one after
 another (``chip_smoke.run_wide_phase``), after building the flash kernel,
 the only kernel the phase launches; it prints the phase's launches.
-``flash`` builds the flash kernel (ptxas's registers and spills of each
-instance, the HMMA lines of its SASS) and runs ``chip_smoke.check_flash``:
-every shape against the plain version, and the forwards' shapes timed
-beside ``scaled_dot_product_attention`` (gemma-2b's also in f16, on the
-FMA path).  Each exits non-zero on a failed check or without a card.
+Phase 23 runs yi-34b and phi3.5-moe (24 layers) with bf16 weights
+(``chip_smoke.run_bf16_phase``), after building the flash and
+grouped-matmul kernels.  ``flash`` builds the flash kernel (ptxas's
+registers and spills of each instance, the HMMA lines of its SASS) and
+runs ``chip_smoke.check_flash``: every shape against the plain version,
+and the forwards' shapes timed beside ``scaled_dot_product_attention``
+(gemma-2b's also in f16, on the FMA path).  ``gmm`` builds the
+grouped-matmul kernel and runs ``chip_smoke.check_moe_gmm``: every case
+against the plain version, deepseek-moe-16b's and phi3.5-moe's products
+timed beside ``torch._grouped_mm``.  Each exits non-zero on a failed
+check or without a card.
 """
 import os
 import sys
@@ -24,18 +33,30 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("lm_phase: no CUDA device is available", file=sys.stderr)
         return 1
+    if argv not in ([], ["phase23"], ["flash"], ["gmm"]):
+        print(f"lm_phase: unknown arguments {argv}", file=sys.stderr)
+        return 2
     from repro_torch.kernels import launch_counts, reset_launch_counts
     print(f"gpu: {cs.gpu_name_and_power()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cs.build_kernels(torch, ["flash_attention"])
+    if argv == ["gmm"]:
+        cs.build_kernels(torch, ["moe_gmm"])
+        cs.check_moe_gmm(torch, dev)
+        return 0
+    cs.build_kernels(torch, ["flash_attention", "moe_gmm"]
+                     if argv == ["phase23"] else ["flash_attention"])
     if argv == ["flash"]:
         cs.check_flash(torch, dev)
         return 0
     reset_launch_counts()
-    cs.run_wide_phase(torch, dev, launch_counts)
-    print(f"[lm] phase 22 launches: {launch_counts()}")
+    if argv == ["phase23"]:
+        cs.run_bf16_phase(torch, dev, launch_counts)
+        print(f"[lm] phase 23 launches: {launch_counts()}")
+    else:
+        cs.run_wide_phase(torch, dev, launch_counts)
+        print(f"[lm] phase 22 launches: {launch_counts()}")
     return 0
 
 
