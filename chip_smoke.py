@@ -227,6 +227,23 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    ``ServeEngine`` on the forward's weights (no launch a yi decode step,
    72 grouped matmuls a phi step), 23c a traced forward and decode step,
    and the peak memory; the phase prints its wall;
+24. (run after phase 23, on the emptied card) training at full width
+   beyond qwen2-0.5b, one model at a time, each freed before the next:
+   24a mamba2-2.7b (64 Mamba2 layers, d=2560, 80 heads of 64, state 128;
+   2.70 G parameters, 10.07 GiB of f32 weights), 24b zamba2-1.2b and 24c
+   whisper-tiny trained as 18a trains qwen2-0.5b, through ``python -m
+   repro_torch.launch.train``'s ``main`` (8 steps of (4, 1024), whisper
+   (4, 448) over its 1500 stub frames), with the verified network line,
+   finite losses and exactly 128 SSD launches a mamba2 step, 76 SSD and 6
+   flash a zamba2 step (its shared block runs outside remat), 24 flash a
+   whisper step, and no other kernel; each prints its losses, step wall
+   p50, tokens/s, peak device memory and model FLOP utilisation (6·N·T);
+   24e traces one more mamba2 step (busy, idle, the plain backwards' and
+   the SSD kernel's shares); 24d holds the loss and gradients on the card
+   against the CPU's at published widths with the depth cut (mamba2 4
+   layers, zamba2 its first segment of 6 Mamba2 layers and one
+   shared-block application, whisper uncut), in f32 on a (1, 128) batch,
+   within 18b's gates; the phase prints its wall;
 18. (run after phase 17 and the profiles below, on phase 6's weights)
    training on the card: 18a trains full-width qwen2-0.5b through
    ``python -m repro_torch.launch.train``'s ``main`` (8 steps of (4, 1024),
@@ -273,8 +290,9 @@ random taps); the flash-attention kernel
 against its plain version on the qwen2 forward's shape (B=4, H=14, K=2,
 S=2048, D=64), deepseek's (B=4, H=16, K=16, D=128), gemma-2b's (B=4,
 H=8, K=1, D=256), glm4-9b's, qwen2-vl-2b's, yi-34b's (B=4, H=56, K=8,
-D=128) and phi3.5-moe's (B=4, H=32, K=8, D=128), the reference tests'
-shapes, and without causality at
+D=128) and phi3.5-moe's (B=4, H=32, K=8, D=128), whisper-tiny's
+decoder self-attention in a train step (B=4, H=6, K=6, S=448, D=64), the
+reference tests' shapes, and without causality at
 an encoder's (Sq = Sk) and cross-attention's shapes (Sq = 1 and 1 < Sq <
 Sk), in float32 (the FMA path) and bf16 (the tensor cores), timed at the
 qwen2, deepseek, gemma and yi forward shapes (gemma's also in float16,
@@ -283,7 +301,8 @@ at whisper-tiny's encoder (4, 6, 6, 1500, 1500, 64) and decode-step
 cross-attention (Sq = 1 against 1500 frames) without causality, beside
 ``scaled_dot_product_attention`` (the yardstick; the port never calls it);
 the SSD-scan kernel, y and final state, on the mamba2 and zamba2
-forwards' shapes, the reference tests' shapes, a ragged S, G = H, and P >
+forwards' shapes, mamba2's training shape (4, 1024; timed, with the
+plain backward), the reference tests' shapes, a ragged S, G = H, and P >
 64 and N > 128 (split by the op into several launches), bf16 (the tensor
 cores) also to gates scaled to the output (no PyTorch call computes the
 scan, so it has no yardstick); and the grouped
@@ -319,8 +338,8 @@ images.
 Kernel launch counts are reset just before phase 2 and read after phase 9
 (the thread hosts of phases 12, 13 and 15 and the simulated hosts of
 phases 14 and 15 count with them; phase 16, which must launch nothing, is
-counted apart, from 0; phases 17, 18, 22 and 23 are counted apart, from
-0, and added),
+counted apart, from 0; phases 17, 18, 22, 23 and 24 are counted apart,
+from 0, and added),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
 the farm, of the pipeline, one more bf16 forward and one decode step of
@@ -693,9 +712,12 @@ def scaled_errors(got, want) -> tuple:
 
 def check_flash(torch, dev) -> dict:
     """The flash kernel against its plain version: the qwen2, deepseek,
-    gemma, glm4, qwen2-vl, yi and phi3.5-moe forwards' shapes and the
-    reference tests' shapes, f32 and bf16, causal; an encoder's and
-    cross-attention's shapes without causality; times at the qwen2,
+    gemma, glm4, qwen2-vl, yi and phi3.5-moe forwards' shapes, whisper's
+    decoder self-attention (4, 6, 6, 448, 448, 64) and zamba2's shared
+    block (4, 32, 32, 1024, 1024, 64) in a train step and the reference
+    tests' shapes, f32 and bf16, causal; an encoder's and cross-attention's
+    shapes (whisper's train step's (4, 6, 6, 448, 1500, 64) among them)
+    without causality; times at the qwen2,
     deepseek, gemma and yi forwards' shapes (gemma's also in f16, the FMA
     path) and whisper-tiny's encoder and cross-attention shapes (bf16: the
     tensor-core path)."""
@@ -710,7 +732,12 @@ def check_flash(torch, dev) -> dict:
     qwen2_vl = (4, 12, 2, 2048, 2048, 128)  # qwen2-vl-2b: GQA group of 6
     yi = (4, 56, 8, 2048, 2048, 128)  # yi-34b: GQA group of 7
     phi = (4, 32, 8, 2048, 2048, 128)  # phi3.5-moe: GQA group of 4
+    # whisper-tiny's decoder self-attention in a train step (phase 24c)
+    whisper_dec = (4, 6, 6, 448, 448, 64)
+    # zamba2-1.2b's shared attention block in a train step (phase 24b)
+    zamba2 = (4, 32, 32, 1024, 1024, 64)
     causal_shapes = [path, deepseek, gemma, glm4, qwen2_vl, yi, phi,
+                     whisper_dec, zamba2,
                      (1, 4, 2, 64, 64, 32),
                      (2, 8, 1, 96, 96, 64), (2, 4, 4, 128, 128, 32),
                      (1, 2, 2, 33, 33, 16),  # ragged
@@ -720,7 +747,10 @@ def check_flash(torch, dev) -> dict:
     # would call it
     whisper_enc, whisper_cross = (4, 6, 6, 1500, 1500, 64), \
         (4, 6, 6, 1, 1500, 64)
-    open_shapes = [whisper_enc, whisper_cross, (2, 8, 2, 77, 300, 128)]
+    # whisper-tiny's decoder cross-attention in a train step (phase 24c)
+    whisper_train_cross = (4, 6, 6, 448, 1500, 64)
+    open_shapes = [whisper_enc, whisper_cross, whisper_train_cross,
+                   (2, 8, 2, 77, 300, 128)]
     # the shapes timed in bf16, beside scaled_dot_product_attention: the
     # forwards of phases 6, 10, 22 (gemma-2b) and 23 (yi-34b, the heaviest
     # attention), and whisper-tiny's (phase 17) encoder and a decode step's
@@ -824,22 +854,28 @@ def ssd_work(b, S, H, P, G, N, chunk=64) -> float:
 
 def check_ssd(torch, dev) -> dict:
     """The SSD kernel against its plain version, y and the final state: the
-    mamba2 and zamba2 forwards' shapes, the reference tests' shapes, ragged
-    S, G = H, and P > 64 and N > 128 (several launches a call); times at
-    the mamba2 forward's shape.  bf16 y is also held to gates scaled to the
-    output (as flash is): max |diff| <= 2e-2 max |want| and ||diff|| <=
-    1e-2 ||want||."""
+    mamba2 and zamba2 forwards' and train steps' shapes, the reference
+    tests' shapes, ragged S, G = H, and P > 64 and N > 128 (several
+    launches a call); times at
+    the mamba2 forward's shape and at its training step's (4, 1024, 80,
+    64, 1, 128), there also the plain backward.  bf16 y is also held to
+    gates scaled to the output (as flash is): max |diff| <= 2e-2 max
+    |want| and ||diff|| <= 1e-2 ||want||."""
     from repro_torch.kernels.ssd_scan import ops, ref
     flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     g = torch.Generator().manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     path = (4, 2048, 80, 64, 1, 128)  # (batch, S, H, P, G, N) of mamba2-2.7b
+    train = (4, 1024, 80, 64, 1, 128)  # its train step's (phase 24a)
     zamba = (4, 2048, 64, 64, 1, 64)
+    zamba_train = (4, 1024, 64, 64, 1, 64)  # its train step's (phase 24b)
     ref_shape = (1, 64, 2, 8, 2, 4)   # tests/test_kernels.py: BH 2, own B, C
     # (shape, dtype, chunk of the plain version, (rtol, atol)).  bf16: both
     # sides sum in f32 and round y to bf16 once, so a rounding flip costs one
     # ulp (2^-8 of |y|); the f32 state is then held to 2e-4
-    cases = [(path, bf16, 64, (1e-2, 5e-2)), (zamba, bf16, 64, (1e-2, 5e-2)),
+    cases = [(path, bf16, 64, (1e-2, 5e-2)), (train, bf16, 64, (1e-2, 5e-2)),
+             (zamba, bf16, 64, (1e-2, 5e-2)),
+             (zamba_train, bf16, 64, (1e-2, 5e-2)),
              (path, f32, 64, (2e-4, 2e-4)), (zamba, f32, 64, (2e-4, 2e-4)),
              (ref_shape, f32, 16, (1e-4, 1e-5)),
              (ref_shape, f32, 32, (1e-4, 1e-5)),
@@ -893,7 +929,7 @@ def check_ssd(torch, dev) -> dict:
               f"): max|diff| y {err:.3e} (rtol {rtol}, atol {atol}), hT "
               f"{err_h:.3e} (rtol {htol[0]}, atol {htol[1]}){scaled}")
         del y, hT, want_y, want_h
-        if shape != path or dtype != bf16:
+        if shape not in (path, train) or dtype != bf16:
             continue
         t = timed_turns(
             torch, {"plain": lambda: ref.ssd(x, dt, A, B, C),
@@ -903,11 +939,20 @@ def check_ssd(torch, dev) -> dict:
         nbytes = (2 * x.numel() + B.numel() + C.numel()) * x.element_size() \
             + (dt.numel() + A.numel()) * 4
         bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK)
-        print(f"[kernel] ssd_scan path shape bf16: kernel {t['kernel']:.4f} "
-              f"ms, plain {t['plain']:.4f} ms, library none, bound "
+        backward = ""
+        if shape == train:
+            _, b_ms = forward_and_backward_ms(
+                torch, ops.ssd, [x.clone(), dt.clone(), A.clone(), B.clone(),
+                                 C.clone()], g)
+            backward = f", plain backward {b_ms:.4f} ms"
+        print(f"[kernel] ssd_scan {'path' if shape == path else 'training'} "
+              f"shape {shape} bf16: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms{backward}, library none, bound "
               f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
               f"{flops:.3e} FLOP at the bf16 peak), roofline "
               f"{bound_ms / t['kernel']:.1%}")
+        if shape != path:
+            continue
         entry = {"name": "ssd_scan", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan/kernel.py:25",
@@ -1138,21 +1183,7 @@ def check_kernel_grads(torch, dev, entries) -> None:
               f"{scale:.3e})); no_grad: a launch, no graph")
 
     def timed(label, fwd, inputs):
-        """Forward kernel ms (no graph) and plain backward ms (the
-        recompute and its gradient) at one shape."""
-        leaves = [t.requires_grad_() for t in inputs]
-        out = fwd(*leaves)
-        cot = torch.randn(out.shape, generator=g).to(out.dtype).to(dev)
-        args = [t for t in leaves if t.dtype.is_floating_point]
-
-        def backward():
-            torch.autograd.grad(out, args, cot, retain_graph=True)
-
-        def forward():
-            with torch.no_grad():
-                fwd(*leaves)
-
-        f_ms, b_ms = event_ms(torch, forward, 5), event_ms(torch, backward, 3)
+        f_ms, b_ms = forward_and_backward_ms(torch, fwd, inputs, g)
         print(f"[grad] {label}: kernel forward {f_ms:.4f} ms, plain "
               f"backward {b_ms:.4f} ms ({b_ms / f_ms:.1f} x)")
         return f_ms, b_ms
@@ -1186,6 +1217,26 @@ def check_kernel_grads(torch, dev, entries) -> None:
     timed("stencil 2048 x 2048 f32 EDGE5 (phase 1's timed shape)",
           lambda t: st.stencil2d(t, st.taps_of(EDGE5)),
           [rnd(2048, 2048)])
+
+
+def forward_and_backward_ms(torch, fwd, inputs, g) -> tuple:
+    """(ms of the kernel op ``fwd``'s forward without a graph, ms of its
+    backward: the plain version's recompute and gradient) on ``inputs``,
+    made leaves that need their gradients, with a cotangent drawn from
+    ``g``."""
+    leaves = [t.requires_grad_() for t in inputs]
+    out = fwd(*leaves)
+    cot = torch.randn(out.shape, generator=g).to(out.dtype).to(out.device)
+    args = [t for t in leaves if t.dtype.is_floating_point]
+
+    def backward():
+        torch.autograd.grad(out, args, cot, retain_graph=True)
+
+    def forward():
+        with torch.no_grad():
+            fwd(*leaves)
+
+    return event_ms(torch, forward, 5), event_ms(torch, backward, 3)
 
 
 def event_ms(torch, fn, reps: int) -> float:
@@ -3591,21 +3642,25 @@ def expected_train_launches(cfg) -> dict:
     on the card: the flash kernel once per full-sequence attention, the SSD
     kernel once per Mamba2 layer, the grouped matmul three times per MoE
     layer on the ragged path; twice each with ``remat="full"`` (forward
-    and recompute).  The backwards run the plain versions: no launch."""
+    and recompute), but for a hybrid's shared attention block, which runs
+    outside remat as in the reference (zamba2-1.2b: 76 SSD and 6 flash a
+    step).  The backwards run the plain versions: no launch."""
     from repro_torch.models import transformer
+    rep = 2 if cfg.remat == "full" else 1
     want = {"flash_attention": 0, "ssd_scan": 0, "moe_gmm": 0}
     if cfg.family == "audio":
-        want["flash_attention"] = cfg.encdec.n_enc_layers + 2 * cfg.n_layers
+        want["flash_attention"] = rep * (cfg.encdec.n_enc_layers
+                                         + 2 * cfg.n_layers)
     else:
         for kind, n in transformer.structure(cfg):
             if kind == "mamba":
-                want["ssd_scan"] += n
+                want["ssd_scan"] += rep * n
             else:
-                want["flash_attention"] += n
+                want["flash_attention"] += (1 if kind == "shared_attn"
+                                            else rep) * n
                 if kind == "attn_moe" and cfg.moe_ragged:
-                    want["moe_gmm"] += 3 * n
-    rep = 2 if cfg.remat == "full" else 1
-    return {k: v * rep for k, v in want.items()}
+                    want["moe_gmm"] += rep * 3 * n
+    return want
 
 
 def loss_and_grads(torch, model, params, batch):
@@ -3703,53 +3758,71 @@ def per_step_records(torch, counts):
         train_loop.make_train_step = real
 
 
-def run_train_launcher(torch, counts) -> list:
-    """18a: full-width qwen2-0.5b trained through ``python -m
-    repro_torch.launch.train``'s ``main``: 8 steps of (4, 1024), the
-    default config (f32 params, bf16 compute, ``remat="full"``).  Returns
-    each step's (arguments' bytes, the card's peak over the step less the
-    bytes resident beside its arguments), for phase 20b."""
+def train_through_launcher(torch, counts, label, arch, batch, seq) -> dict:
+    """``arch`` at full width trained through ``python -m
+    repro_torch.launch.train``'s ``main``: 8 steps of (``batch``, ``seq``),
+    the default config (f32 params, bf16 compute, ``remat="full"``), with
+    the verified network line, 8 finite losses, and in every step exactly
+    the launches :func:`expected_train_launches` names and no other kernel.
+    Prints the losses, the step wall p50 from step 2 on, tokens/s and the
+    peak device memory.  Returns {"steps": each step's records
+    (:func:`per_step_records`), "p50": s, "result": what ``main`` returned
+    (the trained trees)}."""
     import io
+    from repro_torch.configs import get_config
     from repro_torch.launch import train as launcher
-    args = ["--arch", "qwen2-0.5b", "--steps", "8", "--batch", "4", "--seq",
-            "1024"]
+    args = ["--arch", arch, "--steps", "8", "--batch", str(batch), "--seq",
+            str(seq)]
+    want = {k: expected_train_launches(get_config(arch)).get(k, 0)
+            for k in counts()}
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     out = io.StringIO()
     t0 = time.perf_counter()
     with per_step_records(torch, counts) as steps, \
             contextlib.redirect_stdout(out):
-        launcher.main(args)
+        res = launcher.main(args)
     wall = time.perf_counter() - t0
     text = out.getvalue()
     for line in text.splitlines():
         if line.startswith("[train]"):
             print(line)
-    check("network train[qwen2-0.5b] verified" in text,
-          "18a: the launcher printed no verified line")
+    check(f"network train[{arch}] verified" in text,
+          f"{label}: the launcher printed no verified line")
     losses = [s["loss"] for s in steps]
     check(len(losses) == 8 and all(math.isfinite(x) for x in losses),
-          f"18a: losses {losses}")
-    want = {k: (48 if k == "flash_attention" else 0) for k in counts()}
+          f"{label}: losses {losses}")
     check(all(s["launches"] == want for s in steps),
-          f"18a: launches a step {[s['launches'] for s in steps]}, not "
+          f"{label}: launches a step {[s['launches'] for s in steps]}, not "
           f"{want}")
     p50 = statistics.median(s["s"] for s in steps[2:])
+    print(f"[train] {label} {arch} full width, launcher main "
+          f"{' '.join(args)}: losses {', '.join(f'{x:.4f}' for x in losses)}"
+          f"; launches a step {({k: v for k, v in want.items() if v})} "
+          "(forward and remat's recompute), no other kernel")
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [s["peak_before"] for s in steps])
+    print(f"[train] {label} step wall p50 (steps 2-7) {p50 * 1e3:.1f} ms, "
+          f"{batch * seq / p50:.0f} tokens/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB, {(peak - resident) / 2**30:.2f} GiB above "
+          f"the {resident / 2**30:.2f} GiB resident before; main's wall "
+          f"{wall:.1f} s")
+    return {"steps": steps, "p50": p50, "result": res}
+
+
+def run_train_launcher(torch, counts) -> list:
+    """18a: full-width qwen2-0.5b trained through the launcher's ``main``
+    (:func:`train_through_launcher`, (4, 1024): 48 flash launches a step,
+    24 forward and 24 recompute), and its model FLOP utilisation.  Returns
+    each step's (arguments' bytes, the card's peak over the step less the
+    bytes resident beside its arguments), for phase 20b."""
+    run = train_through_launcher(torch, counts, "18a", "qwen2-0.5b", 4, 1024)
+    p50, steps = run["p50"], run["steps"]
+    del run
     B, S, T = 4, 1024, 4096
     L, H, hd = 24, 14, 64
     attn = 6.0 * L * B * H * hd * S * (S + 1)
     flops = 6.0 * QWEN2_PARAMS * T + attn
-    print(f"[train] 18a qwen2-0.5b full width, launcher main {' '.join(args)}"
-          f": losses {', '.join(f'{x:.4f}' for x in losses)}; flash "
-          f"launches a step {steps[0]['launches']['flash_attention']} (24 "
-          f"forward + 24 recompute), no other kernel")
-    peak = max([torch.cuda.max_memory_allocated()]
-               + [s["peak_before"] for s in steps])
-    print(f"[train] 18a step wall p50 (steps 2-7) {p50 * 1e3:.1f} ms, "
-          f"{T / p50:.0f} tokens/s; peak device memory {peak / 2**30:.2f} "
-          f"GiB, {(peak - resident) / 2**30:.2f} GiB above the "
-          f"{resident / 2**30:.2f} GiB resident before; main's wall "
-          f"{wall:.1f} s")
     print(f"[train] 18a model FLOP utilisation {flops / p50 / BF16_PEAK:.2%}"
           f" = (6·N·T + 6·L·B·H·hd·S·(S+1)) / wall / 989e12 with N = "
           f"{QWEN2_PARAMS:,}, T = {T}, L = {L}, B = {B}, H = {H}, hd = {hd},"
@@ -3851,7 +3924,6 @@ def profile_train_step(torch, dev, params) -> None:
     backwards' profiler range)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import _autograd
     from repro_torch.models import Model
     from repro_torch.train import AdamW, make_train_step
     model = Model(get_config("qwen2-0.5b"))
@@ -3860,16 +3932,23 @@ def profile_train_step(torch, dev, params) -> None:
     batch = SyntheticLM(4, 1024, model.cfg.vocab, device=dev).create(0)
     step = make_train_step(model, opt)
     step(params, state, batch)  # warm-up
-    avgs, busy_ms, wall_ms = profile_run(
-        torch, "qwen2-0.5b train step (4, 1024)",
-        lambda: step(params, state, batch))
+    profile_train_run(torch, "qwen2-0.5b train step (4, 1024)",
+                      lambda: step(params, state, batch))
+
+
+def profile_train_run(torch, label, fn) -> None:
+    """:func:`profile_run` of a train step, and the plain backwards' share
+    of its busy time (the device time of the kernels inside the
+    backwards' profiler range)."""
+    from repro_torch.kernels import _autograd
+    avgs, busy_ms, wall_ms = profile_run(torch, label, fn)
     plain = [e for e in avgs if e.key == _autograd.PROFILE_LABEL]
     on_host = [e for e in plain if str(e.device_type).endswith("CPU")]
     backward_ms = sum(e.device_time_total for e in on_host) / 1e3
-    print(f"[profile] qwen2-0.5b train step (4, 1024): the plain backwards "
-          f"take {backward_ms:.2f} ms of device time in "
-          f"{sum(e.count for e in on_host)} calls, {backward_ms / busy_ms:.1%}"
-          f" of busy {busy_ms:.2f} ms (wall {wall_ms:.1f} ms)")
+    print(f"[profile] {label}: the plain backwards take {backward_ms:.2f} ms"
+          f" of device time in {sum(e.count for e in on_host)} calls, "
+          f"{backward_ms / busy_ms:.1%} of busy {busy_ms:.2f} ms (wall "
+          f"{wall_ms:.1f} ms)")
 
 
 def run_train_phase(torch, dev, counts, params) -> list:
@@ -3887,6 +3966,86 @@ def run_train_phase(torch, dev, counts, params) -> list:
     torch.cuda.empty_cache()
     print(f"[train] phase 18 wall: {time.perf_counter() - t_phase:.1f} s")
     return peaks
+
+
+# -- phase 24: mamba2-2.7b, zamba2-1.2b and whisper-tiny trained at full width -
+
+# (label, arch, batch, seq, what 6·N·T leaves out) of 24a-24c
+WIDE_TRAIN = (
+    ("24a", "mamba2-2.7b", 4, 1024, "the SSD scans' FLOPs"),
+    ("24b", "zamba2-1.2b", 4, 1024, "the SSD scans' and the shared "
+                                    "block's attention FLOPs"),
+    ("24c", "whisper-tiny", 4, 448, "the encoder's 1500 frames a row and "
+                                    "the attention FLOPs"),
+)
+# (arch, config overrides, the cut as printed) of 24d: published widths
+WIDE_TRAIN_CUTS = (
+    ("mamba2-2.7b", {"n_layers": 4}, "cut to 4 of its 64 layers"),
+    ("zamba2-1.2b", {"n_layers": 6}, "cut to its first segment: 6 of its "
+                                     "38 Mamba2 layers and 1 of its 6 "
+                                     "shared-block applications"),
+    ("whisper-tiny", {}, "uncut: its published config"),
+)
+
+
+def run_wide_train_phase(torch, dev, counts) -> None:
+    """Phase 24: 24a-24c train mamba2-2.7b, zamba2-1.2b and whisper-tiny
+    at full width through the launcher (:func:`train_through_launcher`),
+    one at a time on the emptied card, and print each step's model FLOP
+    utilisation by 6·N·T.  zamba2's launches a step are 76 SSD (38 Mamba2
+    layers, forward and recompute) and 6 flash: its shared attention
+    block runs outside remat, as in the reference, so it is not
+    recomputed; whisper's 24 flash are 4 encoder layers and 4 decoder
+    layers' self- and cross-attention, twice.  24e traces one more
+    mamba2-2.7b step on 24a's trees (a donating step, as the loop runs it
+    once it owns them).  24d holds each model's loss and gradients on the
+    card against the CPU's at published widths, its depth cut, in f32 on
+    a (1, 128) batch (loss within 1e-5 relative, each grad leaf within 1e-3
+    of its max |grad|, as 18b holds qwen2)."""
+    import dataclasses
+    import gc
+    import torch.utils._pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW, make_train_step
+    t_phase = time.perf_counter()
+    for label, arch, batch, seq, left_out in WIDE_TRAIN:
+        run = train_through_launcher(torch, counts, label, arch, batch, seq)
+        res = run["result"]
+        n = sum(t.numel() for t in pytree.tree_leaves(res["params"]))
+        flops = 6.0 * n * batch * seq
+        print(f"[train] {label} model FLOP utilisation "
+              f"{flops / run['p50'] / BF16_PEAK:.2%} = 6·N·T / wall / "
+              f"989e12 with N = {n:,}, T = {batch * seq}: {flops:.4e} FLOP "
+              f"a step ({left_out} and remat's recompute not counted)")
+        if arch == "mamba2-2.7b":  # 24e
+            model = Model(get_config(arch))
+            step = make_train_step(model, AdamW(), donate=True)
+            toks = SyntheticLM(batch, seq, model.cfg.vocab,
+                               device=dev).create(0)
+            params, state = res["params"], res["opt_state"]
+            profile_train_run(
+                torch, f"24e {arch} train step ({batch}, {seq}), donating",
+                lambda: step(params, state, toks))
+            del model, step, toks, params, state
+        memory(torch, f"phase 24, {arch}")
+        del run, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, over, cut in WIDE_TRAIN_CUTS:
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                                  **over)
+        model = Model(cfg)
+        params = model.init(seed=0, device=dev)
+        batch = SyntheticLM(1, 128, cfg.vocab, device=dev).create(0)
+        card_against_cpu(torch, dev, counts, f"24d {arch} published widths, "
+                         f"{cut}; f32 (1, 128), remat full", model,
+                         params, batch, loss_rel=1e-5, grad_rel=1e-3)
+        del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] phase 24 wall: {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- phase 19: the mesh, 2 ranks sharing the card ------------------------------
@@ -4898,6 +5057,14 @@ def phases(torch, cells) -> int:
     print(f"[lm] phase 23 launches: {bf16_launched}")
     launched = {k: v + bf16_launched[k] for k, v in launched.items()}
     lap("23")
+    # phase 24 (mamba2-2.7b, zamba2-1.2b and whisper-tiny trained at full
+    # width, one at a time on the emptied card) likewise
+    reset_launch_counts()
+    run_wide_train_phase(torch, dev, launch_counts)
+    wide_train_launched = launch_counts()
+    print(f"[train] phase 24 launches: {wide_train_launched}")
+    launched = {k: v + wide_train_launched[k] for k, v in launched.items()}
+    lap("24")
     # phase 19 (2 ranks sharing the card) is counted apart, from 0, in its
     # ranks, and added
     launched_19, tp_costs = run_mesh_phase(torch, *mesh_refs,

@@ -58,12 +58,17 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64):
     total = cum[..., -1]
 
     # intra-chunk: y[t] = sum_{s<=t} exp(cum t - cum s) dt_s (C_t·B_s) x_s.
-    # Above the diagonal the exponent is positive and may overflow to inf;
-    # a where (never a multiply by the mask) keeps inf * 0 = NaN out.
+    # Above the diagonal the exponent is positive and may overflow, so it
+    # is masked to -inf before the exp: the decay there is 0, and so is
+    # its gradient.  (The reference exponentiates first and masks after:
+    # its forward is the same, but once a chunk's log-decays span more
+    # than ~88 its gradient is exp' = inf times the where's 0, NaN.)  The
+    # where after it keeps the product's signed zeros out of y.
     G = torch.einsum("bctn,bcsn->bcts", Cf, Bf)
-    decay = torch.exp(cum[..., :, None] - cum[..., None, :])
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
+    decay = torch.exp(torch.where(mask, cum[..., :, None] - cum[..., None, :],
+                                  -torch.inf))
     W = torch.where(mask, G * decay, 0.0) * dtf[..., None, :]
     y_intra = torch.einsum("bcts,bcsp->bctp", W, xf)
 

@@ -1,10 +1,13 @@
-"""AdamW, learning-rate schedules and global-norm clipping, as pure
-functions over parameter trees.
+"""AdamW, learning-rate schedules and global-norm clipping over parameter
+trees.
 
-The JAX package's ``train/optimizer.py`` on trees of tensors.  Nothing here
-writes into its inputs: ``update`` returns new parameters and a new state,
+The JAX package's ``train/optimizer.py`` on trees of tensors.  ``update``
+writes nothing into its inputs: it returns new parameters and a new state,
 as the reference's pure pytree transforms do, so a caller may step twice
-from the same parameters.  The state is a plain tree (``m`` and ``v`` in
+from the same parameters.  ``update_`` is its donating form, what the
+reference's step jitted with ``donate_argnums=(0, 1)`` does: the new
+parameters and moments go into the storage of the old ones, bit for bit
+those of ``update``.  The state is a plain tree (``m`` and ``v`` in
 float32, ``step`` a 0-d int32 tensor), the reference's own, so it
 checkpoints like the parameters and crosses between the packages through
 :func:`repro_torch.interop.params_from_numpy`.
@@ -18,6 +21,8 @@ from typing import Callable, Optional
 
 import torch
 import torch.utils._pytree as pytree
+
+from ..parallel.axes import is_dtensor
 
 __all__ = ["AdamW", "cosine_warmup", "linear_warmup", "global_norm",
            "clip_by_global_norm"]
@@ -36,6 +41,29 @@ def clip_by_global_norm(tree, max_norm: float):
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return pytree.tree_map(lambda x: (x.float() * scale).to(x.dtype),
                            tree), norm
+
+
+# the most elements ``update_`` takes of a leaf at once along its leading
+# axis (at least one row): one layer of a stacked leaf, or a band of an
+# embedding's rows, so its temporaries stay two such chunks
+CHUNK_ELEMS = 1 << 24
+
+
+def _chunks(t: torch.Tensor) -> list:
+    """Indices that cut ``t`` along its leading axis into runs of rows of
+    at most :data:`CHUNK_ELEMS` elements (one row at least)."""
+    if t.dim() == 0:
+        return [...]
+    rows = t.shape[0]
+    per = max(1, CHUNK_ELEMS // max(t[0].numel(), 1))
+    return [slice(i, min(i + per, rows)) for i in range(0, rows, per)]
+
+
+def _local(t):
+    """A DTensor's local shard (a view of its storage), else ``t``: the
+    update is elementwise, and a parameter, its moments and its gradient
+    share their placements."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def _steps(step) -> torch.Tensor:
@@ -96,7 +124,9 @@ class AdamW:
     def update(self, grads, state, params):
         """Returns (new_params, new_state, stats), in the reference's order
         of operations: clip, the moments, bias correction, then the step
-        with decoupled weight decay."""
+        with decoupled weight decay.  :meth:`update_` repeats this
+        arithmetic in place and is held to its bits, so a change here is
+        made there too."""
         step = state["step"] + 1
         if self.clip_norm is not None:
             grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
@@ -123,3 +153,62 @@ class AdamW:
         new_params = pytree.tree_map(upd, params, m, v)
         return new_params, {"m": m, "v": v, "step": step}, {
             "grad_norm": gnorm, "lr": lr}
+
+    def update_(self, grads, state, params):
+        """:meth:`update` that consumes ``params`` and ``state``: the new
+        parameters and moments are written into their storage, and the
+        same trees come back (with a new step count) beside the stats.
+
+        It works leaf by leaf and, within a leaf, along its leading axis
+        (:func:`_chunks`), scaling each chunk of the gradient by the clip
+        factor inside the loop, so no clipped tree is built and at most two
+        chunks of temporaries are live.  The global norm is
+        :func:`global_norm`'s and every element goes through
+        :meth:`update`'s operations in its order (clip, the moments, bias
+        correction, the step with decoupled weight decay), so the bits are
+        :meth:`update`'s.  ``grads`` is a tree, or a list of its leaves in
+        ``params``' order; a list is emptied as it goes (each entry set to
+        None once its leaf is applied), so a caller that hands over the
+        only reference frees each gradient as soon as it is used."""
+        if not isinstance(grads, list):
+            grads = pytree.tree_leaves(grads)
+        step = state["step"] + 1
+        gnorm = global_norm(grads)
+        scale = None if self.clip_norm is None else _local(
+            torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0))
+        sf = step.float()
+        bc1 = _local(1 - torch.pow(self.b1, sf))
+        bc2 = _local(1 - torch.pow(self.b2, sf))
+        lr = self._lr(step)
+        lr_l = _local(lr)
+        trees = (pytree.tree_leaves(params), pytree.tree_leaves(state["m"]),
+                 pytree.tree_leaves(state["v"]))
+        for i, leaves in enumerate(zip(*trees)):
+            g, grads[i] = _local(grads[i]), None
+            p, m, v = (_local(t) for t in leaves)
+            for rows in _chunks(p):
+                self._apply_chunk(p[rows], m[rows], v[rows], g[rows], scale,
+                                  bc1, bc2, lr_l)
+            del g
+        return params, {"m": state["m"], "v": state["v"], "step": step}, {
+            "grad_norm": gnorm, "lr": lr}
+
+    def _apply_chunk(self, p, m, v, g, scale, bc1, bc2, lr) -> None:
+        """One chunk of :meth:`update_`, written into ``p``, ``m`` and
+        ``v``: :meth:`update`'s expressions with each result stored in
+        place (a product's operands in either order give the same bits;
+        no operation is fused)."""
+        g = g.float() if scale is None else \
+            (g.float() * scale).to(g.dtype).float()
+        m.mul_(self.b1).add_(g * (1 - self.b1))
+        v.mul_(self.b2).add_(torch.square(g).mul_(1 - self.b2))
+        del g
+        delta = m / bc1
+        den = v / bc2
+        delta.div_(den.sqrt_().add_(self.eps))
+        del den
+        delta.add_(p.float() * self.weight_decay).mul_(lr)
+        if p.dtype == torch.float32:
+            p.sub_(delta)
+        else:
+            p.copy_(p.float() - delta)

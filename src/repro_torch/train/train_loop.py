@@ -7,8 +7,10 @@ stages as processes: Emit(data) → OneFanAny(batch axes) → Worker(fwd/bwd
 and update) → AnyFanOne → Collect(metrics).  The JAX package's
 ``train/train_loop.py``: where it takes ``jax.value_and_grad`` of the loss,
 the step takes ``torch.autograd.grad`` over the parameter leaves; where it
-jits the step with donated buffers, the step runs eagerly and returns new
-trees (the old ones are freed once the caller drops them).
+jits the step with donated buffers, the step runs eagerly, and
+``make_train_step(..., donate=True)`` writes the new weights and moments
+into the old ones (:meth:`~repro_torch.train.AdamW.update_`), which
+``train`` does with every tree it owns.
 
 On the card every full-sequence attention, SSD scan and ragged MoE product
 of the forward runs its hand-written kernel, and the backward goes through
@@ -63,10 +65,15 @@ def _value_and_grad(model: Model, params, batch):
     return loss.detach(), metrics, pytree.tree_unflatten(grads, spec)
 
 
-def make_train_step(model: Model, opt: AdamW, *,
-                    grad_accum: int = 1) -> Callable:
+def make_train_step(model: Model, opt: AdamW, *, grad_accum: int = 1,
+                    donate: bool = False) -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state,
-    metrics).  Nothing is written into the arguments.
+    metrics).  Nothing is written into the arguments, unless ``donate``:
+    then the step consumes ``params`` and ``opt_state``, as the
+    reference's ``donate_argnums=(0, 1)`` does, writing the update into
+    them (:meth:`AdamW.update_`, the same bits) and dropping each gradient
+    once applied, so the update adds two leaf chunks of temporaries to the
+    weights, moments and gradients, not three more trees.
 
     ``grad_accum > 1`` splits the global batch into microbatches along the
     leading axis (:func:`repro_torch.core.stream.stack_microbatches`, the
@@ -89,8 +96,15 @@ def make_train_step(model: Model, opt: AdamW, *,
                 l_sum = l_sum + l
             grads = pytree.tree_map(lambda x: x / grad_accum, g_sum)
             loss = l_sum / grad_accum
+            del g, g_sum
         with torch.no_grad():
-            new_params, new_opt, stats = opt.update(grads, opt_state, params)
+            if donate:  # the list is the only reference to the gradients
+                grads = pytree.tree_leaves(grads)
+                new_params, new_opt, stats = opt.update_(grads, opt_state,
+                                                         params)
+            else:
+                new_params, new_opt, stats = opt.update(grads, opt_state,
+                                                        params)
         return new_params, new_opt, dict(metrics, loss=loss, **stats)
 
     return step
@@ -146,9 +160,17 @@ def train(model: Model, source, *, steps: int, opt: Optional[AdamW] = None,
     Given a ``mesh`` (every rank of its world runs this loop), the weights
     and moments are placed by ``param_specs`` and each batch by
     ``batch_specs`` under ``train_rules(model.cfg.seq_shard)``, and every
-    step runs under ``shard_ctx`` with those rules."""
+    step runs under ``shard_ctx`` with those rules.
+
+    A step donates the trees the loop owns (``donate=True``): weights it
+    drew, moments it initialised, and whatever an earlier step returned.
+    A caller's ``params`` or ``opt_state`` are never written: the first
+    step from them is the pure one.  So ``on_step`` and a checkpointer see
+    trees that the next step overwrites (``Checkpointer.save`` copies
+    every leaf before it returns)."""
     opt = opt or AdamW()
     dev = resolve_device(device if mesh is None else mesh.device)
+    owned = params is None and opt_state is None
     if params is None:
         params = model.init(seed=seed, device=dev)
     if opt_state is None:
@@ -157,7 +179,9 @@ def train(model: Model, source, *, steps: int, opt: Optional[AdamW] = None,
         from ..launch.mesh import train_rules
         rules = train_rules(model.cfg.seq_shard)
         params, opt_state = place_state(params, opt_state, mesh, rules)
-    step_fn = make_train_step(model, opt, grad_accum=grad_accum)
+    pure_step = make_train_step(model, opt, grad_accum=grad_accum)
+    donating_step = make_train_step(model, opt, grad_accum=grad_accum,
+                                    donate=True)
     history = []
     t0 = time.monotonic()
     for i in range(start_step, start_step + steps):
@@ -166,7 +190,9 @@ def train(model: Model, source, *, steps: int, opt: Optional[AdamW] = None,
                  else {k: v.to(dev) for k, v in batch.items()})
         with (shard_ctx(mesh, rules) if mesh is not None
               else contextlib.nullcontext()):
+            step_fn = donating_step if owned else pure_step
             params, opt_state, metrics = step_fn(params, opt_state, batch)
+        owned = True
         if on_step is not None:
             on_step(i, params, opt_state, metrics)
         if ckpt_every and checkpointer is not None \

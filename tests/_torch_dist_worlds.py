@@ -291,6 +291,30 @@ def mha_select(n: int, cases, dev) -> list:
     return res
 
 
+def _donated_step_on_the_mesh(model, params, batch, mesh) -> tuple:
+    """One donating and one pure step from the same placed state on
+    ``mesh``: (the donating step's trees equal the pure one's bit for bit,
+    it wrote into the local shards the state had)."""
+    from repro_torch.data import shard_batch
+    from repro_torch.parallel.axes import shard_ctx
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.train.train_loop import place_state
+    opt, rules = AdamW(lr=1e-2), train_rules()
+    batch = shard_batch(batch, mesh, rules.batch)
+    placed = [place_state(params, opt.init(params), mesh, rules)
+              for _ in range(2)]
+    local = [t.to_local().data_ptr() for t in pytree.tree_leaves(
+        (placed[1][0], placed[1][1]["m"]))]
+    with shard_ctx(mesh, rules):
+        want = make_train_step(model, opt)(*placed[0], batch)
+        got = make_train_step(model, opt, donate=True)(*placed[1], batch)
+    same = all(torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+        pytree.tree_leaves(got[:2]), pytree.tree_leaves(want[:2])))
+    kept = local == [t.to_local().data_ptr() for t in pytree.tree_leaves(
+        (got[0], got[1]["m"]))]
+    return same, kept
+
+
 def _train_loop(rank: int, out: dict) -> None:
     from repro_torch.data import Prefetcher, SyntheticLM
     from repro_torch.train import train
@@ -302,6 +326,8 @@ def _train_loop(rank: int, out: dict) -> None:
     out["train_losses"] = ([h["loss"] for h in one["history"]],
                            [h["loss"] for h in res["history"]])
     out["train_param_err"] = _max_diff(_whole(res["params"]), one["params"])
+    out["donated_on_the_mesh"] = _donated_step_on_the_mesh(
+        model, params, src.create(0), mesh)
     pf = Prefetcher(src, mesh=mesh, n_steps=2)
     got = list(pf)
     tok = got[1][1]["tokens"]

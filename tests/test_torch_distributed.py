@@ -525,6 +525,14 @@ def test_train_loop_over_the_mesh(w4):
         assert r["train_param_err"] < 1e-4
 
 
+def test_donating_step_over_the_mesh_equals_the_pure_one(w4):
+    """On (2, 2) the donating step writes the update into each rank's
+    shards of the weights and moments, and every rank's shards equal the
+    pure step's bit for bit."""
+    for r in w4:
+        assert r["donated_on_the_mesh"] == (True, True)
+
+
 def test_prefetcher_shards_over_the_mesh(w4):
     steps, placements, same = w4[0]["prefetch"]
     assert steps == [0, 1] and same

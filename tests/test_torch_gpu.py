@@ -847,6 +847,94 @@ def test_bf16_init_peaks_at_its_weights(cuda):
     del params
 
 
+def _mamba2_update_peak(cuda, donate: bool) -> tuple:
+    """(peak above resident, bound, weights' bytes) of one AdamW update of
+    mamba2-2.7b at its published widths cut to 8 layers (451 M parameters,
+    1.80 GB of f32 weights; ``in_proj`` (8, 2560, 10576) its largest leaf)
+    from given gradients: ``update_`` as the donating train step runs it
+    (the gradients a list, each freed once applied), or the pure
+    ``update``.  Resident before it: weights, moments, gradients.  The
+    bound: the largest leaf's squares, which the global norm holds once as
+    the pure update's norm does (its bits are kept), plus two layers of
+    that leaf, plus slack for the caching allocator's rounding and its
+    small blocks."""
+    import dataclasses
+    import torch.utils._pytree as pytree
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=8)
+    params = Model(cfg).init(seed=0, device=cuda)
+    opt = AdamW()
+    state = opt.init(params)
+    grads = pytree.tree_map(lambda p: torch.randn_like(p).mul_(1e-3), params)
+    if donate:
+        grads = pytree.tree_leaves(grads)
+    leaves = pytree.tree_leaves(params)
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    largest = max(leaves, key=lambda t: t.numel())
+    bound = largest.numel() * 4 + 2 * largest[0].numel() \
+        * largest.element_size() + 2**21
+    del leaves, largest
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = (opt.update_ if donate else opt.update)(grads, state, params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, params, state, grads
+    torch.cuda.empty_cache()
+    print(f"[update] mamba2-2.7b 8 layers, AdamW.update"
+          f"{'_' if donate else ''}: weights {weights:,} B, resident {base:,} "
+          f"B, peak above resident {peak:,} B ({peak / weights:.2f} x the "
+          f"weights), bound {bound:,} B")
+    return peak, bound, weights
+
+
+def test_donating_update_holds_one_copy_of_the_state(cuda):
+    """Fault 20: the donating update peaks within what is resident plus
+    :func:`_mamba2_update_peak`'s bound."""
+    peak, bound, _ = _mamba2_update_peak(cuda, donate=True)
+    assert peak <= bound, (peak, bound)
+
+
+def test_pure_update_holds_a_second_copy_of_the_state(cuda):
+    """Fault 20's cause, and what the bound above catches: the pure update,
+    which the train step ran before it donated, builds a clipped copy of
+    the gradients and new moments and weights beside the resident ones,
+    at least 3 x the weights' bytes more."""
+    peak, bound, weights = _mamba2_update_peak(cuda, donate=False)
+    assert peak >= 3 * weights > bound, (peak, weights, bound)
+
+
+def test_donating_update_equals_update_on_card(cuda):
+    """Three updates of reduced mamba2-2.7b's tree on the card, clipped
+    hard, not at all and then slightly: ``update_`` gives ``update``'s
+    parameters, moments and stats bit for bit, in its trees' storage."""
+    import torch.utils._pytree as pytree
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW, cosine_warmup
+    params = Model(get_config("mamba2-2.7b", reduced=True)).init(
+        seed=0, device=cuda)
+    opt = AdamW(lr=cosine_warmup(3e-2, 1, 10))
+    state = opt.init(params)
+    p2, s2 = pytree.tree_map(torch.clone, (params, state))
+    ptrs = [t.data_ptr() for t in pytree.tree_leaves((p2, s2["m"], s2["v"]))]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for scale in (30.0, 1e-3, 0.5):
+        grads = pytree.tree_map(lambda t: torch.randn(
+            t.shape, generator=g, device=cuda) * scale, params)
+        params, state, stats = opt.update(grads, state, params)
+        p2, s2, stats2 = opt.update_(pytree.tree_map(torch.clone, grads),
+                                     s2, p2)
+        for a, b in zip(pytree.tree_leaves((params, state)),
+                        pytree.tree_leaves((p2, s2))):
+            assert torch.equal(a, b)
+        assert all(torch.equal(stats[k], stats2[k]) for k in stats)
+    assert ptrs == [t.data_ptr() for t in
+                    pytree.tree_leaves((p2, s2["m"], s2["v"]))]
+
+
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"])
 def test_reduced_moe_on_card_matches_cpu(cuda, arch):
     """The reduced MoE model (float32) on its ragged path on the card,

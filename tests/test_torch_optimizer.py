@@ -114,3 +114,65 @@ def test_update_writes_nothing_into_its_inputs():
         assert torch.equal(x, y)
     for x, y in zip(pytree.tree_leaves(a[:2]), pytree.tree_leaves(b[:2])):
         assert torch.equal(x, y)
+
+
+def _model_tree(arch, rng):
+    """A reduced arch's parameter tree (the port's seed-0 draw) and a
+    numpy-seeded gradient tree of its shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    params = Model(get_config(arch, reduced=True)).init(seed=0, device="cpu")
+    grads = pytree.tree_map(
+        lambda x: torch.from_numpy(rng.normal(size=x.shape).astype(
+            np.float32)), params)
+    return params, grads
+
+
+@pytest.mark.parametrize("chunk", [None, 64], ids=["whole", "chunked"])
+@pytest.mark.parametrize("clip", [1.0, None], ids=["clipped", "unclipped"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-2.7b"])
+def test_donating_update_equals_update_bit_for_bit(arch, clip, chunk,
+                                                   monkeypatch):
+    """Three updates of a reduced arch's tree (gradient scales 0.5, 30 and
+    0.01: clipped hard, then not at all): ``update_`` gives ``update``'s
+    parameters, moments, step and stats bit for bit, whether a leaf is
+    taken whole or in chunks of 64 elements along its leading axis."""
+    from repro_torch.train import optimizer
+    if chunk is not None:
+        monkeypatch.setattr(optimizer, "CHUNK_ELEMS", chunk)
+    rng = np.random.default_rng(2)
+    params, grads = _model_tree(arch, rng)
+    opt = AdamW(lr=cosine_warmup(3e-2, 1, 10), clip_norm=clip)
+    state = opt.init(params)
+    p2, s2 = pytree.tree_map(torch.clone, (params, state))
+    for s in (0.5, 30.0, 0.01):
+        g = pytree.tree_map(lambda x: x * s, grads)
+        params, state, stats = opt.update(g, state, params)
+        p2, s2, stats2 = opt.update_(pytree.tree_map(torch.clone, g), s2,
+                                     p2)
+        for a, b in zip(pytree.tree_leaves((params, state)),
+                        pytree.tree_leaves((p2, s2))):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for k in stats:
+            assert torch.equal(stats[k], stats2[k]), k
+
+
+def test_donating_update_writes_into_its_trees():
+    """``update_`` returns its own trees with the new values in the same
+    storage, and empties a list of gradients as it applies them."""
+    rng = np.random.default_rng(3)
+    params, grads = _model_tree("mamba2-2.7b", rng)
+    opt = AdamW(lr=1e-2)
+    state = opt.init(params)
+    ptrs = [t.data_ptr() for t in
+            pytree.tree_leaves((params, state["m"], state["v"]))]
+    want = opt.update(grads, state, params)
+    glist = pytree.tree_leaves(pytree.tree_map(torch.clone, grads))
+    got = opt.update_(glist, state, params)
+    assert got[0] is params and got[1]["m"] is state["m"]
+    assert got[1]["v"] is state["v"] and int(got[1]["step"]) == 1
+    assert ptrs == [t.data_ptr() for t in
+                    pytree.tree_leaves((params, state["m"], state["v"]))]
+    assert glist == [None] * len(glist)
+    for a, b in zip(pytree.tree_leaves(want[:2]), pytree.tree_leaves(got[:2])):
+        assert torch.equal(a, b)

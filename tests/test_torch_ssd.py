@@ -9,6 +9,7 @@ The tolerance is the reference's own (``tests/test_kernels.py``): rtol
 on the card by ``test_torch_gpu.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,6 +157,35 @@ def test_large_decays_give_no_nan():
     _close(h, h0)
     jy, _ = jref.ssd_chunked(*_j(x, dt, A, B, C), chunk=32)
     _close(y, jy)
+
+
+def test_large_decays_give_finite_gradients():
+    """Full-width mamba2's decays (dt 0.1 and A = -16 span 102 in a chunk
+    of 64, past f32's exp range): the chunked version's gradients with
+    respect to every input are finite and equal the naive scan's, in the
+    port and in the JAX package (whose chunked version's are NaN there:
+    it exponentiates before it masks)."""
+    rng = np.random.default_rng(19)
+    x, _, _, B, C = _folded(rng, 2, 128, 8, 16)
+    dt = np.full((2, 128), 0.1, np.float32)
+    A = np.array([-16.0, -1.0], np.float32)
+    w = rng.normal(size=x.shape).astype(np.float32)
+
+    def grads(fn):
+        leaves = [t.requires_grad_() for t in _t(x, dt, A, B, C)]
+        y, h = fn(*leaves)
+        return torch.autograd.grad((y * torch.from_numpy(w)).sum()
+                                   + h.sum(), leaves)
+
+    ours = grads(lambda *a: ref.ssd_chunked(*a, chunk=64))
+    naive = grads(ref.ssd_naive)
+    jnaive = jax.grad(lambda *a: jnp.sum(jref.ssd_naive(*a)[0] * w)
+                      + jnp.sum(jref.ssd_naive(*a)[1]),
+                      argnums=(0, 1, 2, 3, 4))(*_j(x, dt, A, B, C))
+    for g, g0, jg in zip(ours, naive, jnaive):
+        assert torch.isfinite(g).all()
+        _close(g.detach(), g0.detach())
+        _close(g.detach(), jg)
 
 
 def test_bf16_inputs_round_only_y():

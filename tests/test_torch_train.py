@@ -65,10 +65,18 @@ def _from_jax(tree, like):
                              "cpu", like=like)
 
 
+# (arch, microbatches): qwen2-0.5b's cases keep their ids "1" and "2"
+# (zamba2-1.2b has its own test below)
+STEP_CASES = [pytest.param("qwen2-0.5b", 1, id="1"),
+              pytest.param("qwen2-0.5b", 2, id="2")] + [
+    pytest.param(arch, 1, id=arch)
+    for arch in ("mamba2-2.7b", "whisper-tiny")]
+
+
 class TestTrainStep:
-    @pytest.mark.parametrize("accum", [1, 2])
-    def test_step_equals_the_references(self, accum):
-        jm, jp, m, p = pair("qwen2-0.5b")
+    @pytest.mark.parametrize("arch,accum", STEP_CASES)
+    def test_step_equals_the_references(self, arch, accum):
+        jm, jp, m, p = pair(arch)
         jopt, opt = JAdamW(lr=1e-3), AdamW(lr=1e-3)
         jsrc = JSyntheticLM(batch=8, seq=16, vocab=m.cfg.vocab)
         src = SyntheticLM(batch=8, seq=16, vocab=m.cfg.vocab, device="cpu")
@@ -80,6 +88,41 @@ class TestTrainStep:
         assert _max_diff(o2["m"], _from_jax(jo2["m"], o2["m"])) < 1e-6
         assert int(o2["step"]) == 1
         assert set(met) == set(jmet)
+        for k in met:
+            np.testing.assert_allclose(float(met[k]), float(jmet[k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+
+    def test_zamba2_step_equals_the_references_where_adam_is_conditioned(
+            self):
+        """zamba2-1.2b's step against the reference's, with
+        :meth:`test_step_equals_the_references`' gates on the moments
+        (1e-6) and metrics, and its 5e-5 on every parameter whose gradient
+        is at least 10 eps in both packages.  Below that, AdamW's first
+        step lr · g / (|g| + eps) turns the gradients' rounding into the
+        step (reduced zamba2 has in_proj entries with |g| of 1e-10 to 2e-9
+        in columns whose largest is 1.6e-3), so such an entry is held to
+        5e-5 plus that rounding carried through the step to first order,
+        lr · |g - g_ref| / eps."""
+        jm, jp, m, p = pair("zamba2-1.2b")
+        jopt, opt = JAdamW(lr=1e-3), AdamW(lr=1e-3)
+        jsrc = JSyntheticLM(batch=8, seq=16, vocab=m.cfg.vocab)
+        src = SyntheticLM(batch=8, seq=16, vocab=m.cfg.vocab, device="cpu")
+        jp2, jo2, jmet = jax.jit(jmake_train_step(jm, jopt))(
+            jp, jopt.init(jp), jsrc.create(0))
+        p2, o2, met = make_train_step(m, opt)(p, opt.init(p), src.create(0))
+        assert _max_diff(o2["m"], _from_jax(jo2["m"], o2["m"])) < 1e-6
+        ours, theirs = _by_path(p2), _by_path(_from_jax(jp2, p2))
+        g, jg = (_by_path(pytree.tree_map(lambda x: x / (1 - opt.b1), t))
+                 for t in (o2["m"], _from_jax(jo2["m"], o2["m"])))
+        loose = 0
+        for k in ours:
+            sharp = torch.minimum(g[k].abs(), jg[k].abs()) >= 10 * opt.eps
+            gate = torch.where(sharp, 5e-5, 5e-5 + opt.lr
+                               * (g[k] - jg[k]).abs() / opt.eps)
+            assert bool(((ours[k] - theirs[k]).abs() <= gate).all()), k
+            loose += int((~sharp).sum())
+        assert loose < 1e-2 * sum(t.numel() for t in ours.values())
+        assert int(o2["step"]) == 1 and set(met) == set(jmet)
         for k in met:
             np.testing.assert_allclose(float(met[k]), float(jmet[k]),
                                        rtol=1e-5, atol=1e-6, err_msg=k)
@@ -108,6 +151,105 @@ class TestTrainStep:
         for x, y in zip(pytree.tree_leaves((p, state, batch)), snap):
             assert torch.equal(x, y)
         assert _max_diff(a[0], b[0]) == 0.0
+
+    @pytest.mark.parametrize("arch,accum", [("qwen2-0.5b", 1),
+                                            ("qwen2-0.5b", 2),
+                                            ("mamba2-2.7b", 1)])
+    def test_donating_step_equals_the_pure_one(self, arch, accum):
+        """Three steps with ``donate=True`` give the pure step's
+        parameters, moments and metrics bit for bit, in the storage the
+        weights and moments had before."""
+        _, _, m, p = pair(arch)
+        opt = AdamW(lr=1e-2)
+        src = SyntheticLM(batch=4, seq=16, vocab=m.cfg.vocab, device="cpu")
+        pure = make_train_step(m, opt, grad_accum=accum)
+        donating = make_train_step(m, opt, grad_accum=accum, donate=True)
+        state = opt.init(p)
+        ours = pytree.tree_map(torch.clone, (p, state))
+        ptrs = [t.data_ptr() for t in pytree.tree_leaves(
+            (ours[0], ours[1]["m"], ours[1]["v"]))]
+        for i in range(3):
+            p, state, met = pure(p, state, src.create(i))
+            p2, s2, met2 = donating(*ours, src.create(i))
+            ours = (p2, s2)
+            for a, b in zip(pytree.tree_leaves((p, state)),
+                            pytree.tree_leaves(ours)):
+                assert torch.equal(a, b)
+            assert met.keys() == met2.keys()
+            for k in met:
+                assert torch.equal(met[k], met2[k]), k
+        assert ptrs == [t.data_ptr() for t in pytree.tree_leaves(
+            (ours[0], ours[1]["m"], ours[1]["v"]))]
+
+    def test_train_writes_no_given_tree(self):
+        """``train(params=p, opt_state=s)`` leaves ``p`` and ``s`` as they
+        were (its first step is the pure one, the rest donate what the
+        loop owns), and its history and result are the pure loop's."""
+        _, _, m, p = pair("mamba2-2.7b")
+        opt = AdamW(lr=1e-2)
+        src = SyntheticLM(batch=4, seq=16, vocab=m.cfg.vocab, device="cpu")
+        state = opt.init(p)
+        snap = [t.clone() for t in pytree.tree_leaves((p, state))]
+        res = train(m, src, steps=3, opt=opt, device="cpu", params=p,
+                    opt_state=state, log_every=1)
+        for x, y in zip(pytree.tree_leaves((p, state)), snap):
+            assert torch.equal(x, y)
+        step, want = make_train_step(m, opt), []
+        for i in range(3):
+            p, state, met = step(p, state, src.create(i))
+            want.append({k: float(v) for k, v in met.items()})
+        for h, w in zip(res["history"], want):
+            assert {k: h[k] for k in w} == w
+        for a, b in zip(pytree.tree_leaves((res["params"],
+                                            res["opt_state"])),
+                        pytree.tree_leaves((p, state))):
+            assert torch.equal(a, b)
+
+    def test_train_of_its_own_weights_equals_the_pure_loop(self):
+        """Without given trees every step donates, and the loop still
+        gives the pure loop's weights, moments and losses bit for bit."""
+        _, _, m, _ = pair("qwen2-0.5b")
+        opt = AdamW(lr=1e-2)
+        src = SyntheticLM(batch=4, seq=16, vocab=m.cfg.vocab, device="cpu")
+        res = train(m, src, steps=3, opt=opt, device="cpu", seed=0,
+                    log_every=1)
+        p = m.init(seed=0, device="cpu")
+        state, step, losses = opt.init(p), make_train_step(m, opt), []
+        for i in range(3):
+            p, state, met = step(p, state, src.create(i))
+            losses.append(float(met["loss"]))
+        assert [h["loss"] for h in res["history"]] == losses
+        for a, b in zip(pytree.tree_leaves((res["params"],
+                                            res["opt_state"])),
+                        pytree.tree_leaves((p, state))):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("async_save", [False, True],
+                             ids=["sync", "async"])
+    def test_checkpoint_outlives_later_in_place_steps(self, tmp_path,
+                                                      async_save):
+        """A checkpoint saved at step 2 of a donating loop, restored after
+        two more steps wrote into the same storage, is the state of step
+        2."""
+        _, _, m, _ = pair("qwen2-0.5b")
+        src = SyntheticLM(batch=2, seq=8, vocab=m.cfg.vocab, device="cpu")
+        ck = Checkpointer(str(tmp_path), async_save=async_save)
+        seen = {}
+
+        def on_step(i, params, opt_state, metrics):
+            if i == 1:  # the state that the step-2 checkpoint saves
+                seen["state"] = pytree.tree_map(
+                    torch.clone, {"params": params, "opt_state": opt_state})
+                seen["ptr"] = pytree.tree_leaves(params)[0].data_ptr()
+
+        res = train(m, src, steps=4, device="cpu", checkpointer=ck,
+                    ckpt_every=2, on_step=on_step)
+        ck.wait()
+        assert pytree.tree_leaves(res["params"])[0].data_ptr() == seen["ptr"]
+        assert _max_diff(res["params"], seen["state"]["params"]) > 0
+        step, back = ck.restore(seen["state"], 2, device="cpu")
+        assert step == 2
+        assert _max_diff(back, seen["state"]) == 0
 
     def test_loss_decreases(self):
         _, _, m, _ = pair("qwen2-0.5b")
@@ -225,6 +367,28 @@ class TestFaultTolerance:
                                step_fn=step_fn, save_every=3,
                                injector=FaultInjector(fail_at=(2,)))
         assert seen == [0, 1, 0, 1, 2, 3] and float(final["x"]) == 4.0
+
+    def test_restart_before_a_checkpoint_starts_from_the_given_state(self):
+        """A failure before the first save: the runner restarts from the
+        state it was given, which no step wrote (its steps are pure), and
+        ends where a clean run does."""
+        _, _, m, p = pair("qwen2-0.5b")
+        opt = AdamW(lr=1e-3)
+        step_fn = _runner_step(m, opt, SyntheticLM(
+            batch=4, seq=16, vocab=m.cfg.vocab, device="cpu"))
+        state = {"params": p, "opt_state": opt.init(p)}
+        snap = pytree.tree_map(torch.clone, state)
+        with tempfile.TemporaryDirectory() as d:
+            runner = FaultTolerantRunner(Checkpointer(d), max_restarts=1)
+            final = runner.run(total_steps=4, state=state, step_fn=step_fn,
+                               save_every=10,
+                               injector=FaultInjector(fail_at=(2,)))
+        assert runner.restarts == 1
+        assert _max_diff(state, snap) == 0
+        clean = snap
+        for i in range(4):
+            clean = step_fn(i, clean)
+        assert _max_diff(final, clean) == 0
 
     def test_resumes_from_an_existing_checkpoint(self):
         with tempfile.TemporaryDirectory() as d:

@@ -1,9 +1,11 @@
-"""Phase 22 or 23 of ``chip_smoke.py`` alone, or phase 1's flash-attention
-or grouped-matmul check.
+"""Phase 22, 23 or 24 of ``chip_smoke.py`` alone, or phase 1's
+flash-attention, SSD-scan or grouped-matmul check.
 
     python3 tools/lm_phase.py          # on the card: phase 22
     python3 tools/lm_phase.py phase23  # on the card: phase 23
+    python3 tools/lm_phase.py phase24  # on the card: phase 24
     python3 tools/lm_phase.py flash    # on the card: the flash check
+    python3 tools/lm_phase.py ssd      # on the card: the SSD-scan check
     python3 tools/lm_phase.py gmm      # on the card: the grouped-matmul check
 
 Phase 22 runs gemma-2b, glm4-9b and qwen2-vl-2b at full width, one after
@@ -11,7 +13,12 @@ another (``chip_smoke.run_wide_phase``), after building the flash kernel,
 the only kernel the phase launches; it prints the phase's launches.
 Phase 23 runs yi-34b and phi3.5-moe (24 layers) with bf16 weights
 (``chip_smoke.run_bf16_phase``), after building the flash and
-grouped-matmul kernels.  ``flash`` builds the flash kernel (ptxas's
+grouped-matmul kernels.  Phase 24 trains mamba2-2.7b, zamba2-1.2b and
+whisper-tiny at full width (``chip_smoke.run_wide_train_phase``), after
+building the flash and SSD-scan kernels.  ``ssd`` builds the SSD-scan
+kernel and runs ``chip_smoke.check_ssd``: every shape against the plain
+version, the mamba2 forward's and training step's shapes timed (the
+latter also as the plain backward).  ``flash`` builds the flash kernel (ptxas's
 registers and spills of each instance, the HMMA lines of its SASS) and
 runs ``chip_smoke.check_flash``: every shape against the plain version,
 and the forwards' shapes timed beside ``scaled_dot_product_attention``
@@ -33,7 +40,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("lm_phase: no CUDA device is available", file=sys.stderr)
         return 1
-    if argv not in ([], ["phase23"], ["flash"], ["gmm"]):
+    if argv not in ([], ["phase23"], ["phase24"], ["flash"], ["ssd"],
+                    ["gmm"]):
         print(f"lm_phase: unknown arguments {argv}", file=sys.stderr)
         return 2
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -45,8 +53,13 @@ def main(argv) -> int:
         cs.build_kernels(torch, ["moe_gmm"])
         cs.check_moe_gmm(torch, dev)
         return 0
-    cs.build_kernels(torch, ["flash_attention", "moe_gmm"]
-                     if argv == ["phase23"] else ["flash_attention"])
+    if argv == ["ssd"]:
+        cs.build_kernels(torch, ["ssd_scan"])
+        cs.check_ssd(torch, dev)
+        return 0
+    cs.build_kernels(torch, {"phase23": ["flash_attention", "moe_gmm"],
+                             "phase24": ["flash_attention", "ssd_scan"]}.get(
+                                 argv[0] if argv else "", ["flash_attention"]))
     if argv == ["flash"]:
         cs.check_flash(torch, dev)
         return 0
@@ -54,6 +67,9 @@ def main(argv) -> int:
     if argv == ["phase23"]:
         cs.run_bf16_phase(torch, dev, launch_counts)
         print(f"[lm] phase 23 launches: {launch_counts()}")
+    elif argv == ["phase24"]:
+        cs.run_wide_train_phase(torch, dev, launch_counts)
+        print(f"[train] phase 24 launches: {launch_counts()}")
     else:
         cs.run_wide_phase(torch, dev, launch_counts)
         print(f"[lm] phase 22 launches: {launch_counts()}")
