@@ -208,8 +208,9 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    ``input_embeds`` (the text's embeddings with 1024 seeded patch
    embeddings, a 32 x 32 image at position 64) and 3-D positions whose
    t, h and w streams differ over the image: finite, 28 flash launches,
-   logits moved by the image; 22c 8 requests served as in phase 7 with no
-   kernel launched (gemma and qwen2-vl through the launcher's ``main``,
+   logits moved by the image; 22c the first 4 of phase 7's 8 requests
+   served as in phase 7 with no kernel launched (gemma and qwen2-vl
+   through the launcher's ``main``,
    glm4 through a ``ServeEngine`` on the forward's weights; none rerun
    alone); 22d one traced bf16 forward (busy, idle, flash's share) and one
    traced decode step of 4 slots, and the peak memory;
@@ -223,16 +224,25 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    exactly 60 flash launches a yi forward, its f32 check on one row; 24
    flash and 72 grouped matmuls, bf16 x and bf16 w, a ragged phi forward,
    its routing compared as phase 10's, then one capacity-path forward with
-   24 flash launches), 23b 8 requests served on 4 slots through a
-   ``ServeEngine`` on the forward's weights (no launch a yi decode step,
-   72 grouped matmuls a phi step), 23c a traced forward and decode step,
-   and the peak memory; the phase prints its wall;
+   24 flash launches), 23b the first 4 of phase 7's requests served on 4
+   slots through a ``ServeEngine`` on the forward's weights (no launch a
+   yi decode step, 72 grouped matmuls a phi step), 23c a traced forward
+   and decode step, and the peak memory; 23d (yi-34b, on 23a's weights) a
+   second model with ``kv_quant=True`` serves the same 4 requests on 2
+   slots of 32,768 positions (the JAX package's decode_32k length) from
+   an int8 KV cache of at most 0.55x the bf16 cache's bytes, with no
+   kernel launched, printing the cache's bytes, the peak memory, TPOT p50
+   and a traced decode step's idle share; then the int8 and the bf16
+   cache on the same weights over a teacher-forced prefill of (2, 64)
+   and 8 decode steps: the logits' relative norm within 0.08 (from the
+   CPU readings of ``tools/lm_phase.py int8 cpu``), and how many greedy
+   tokens agree; the phase prints its wall;
 24. (run after phase 23, on the emptied card) training at full width
    beyond qwen2-0.5b, one model at a time, each freed before the next:
    24a mamba2-2.7b (64 Mamba2 layers, d=2560, 80 heads of 64, state 128;
    2.70 G parameters, 10.07 GiB of f32 weights), 24b zamba2-1.2b and 24c
    whisper-tiny trained as 18a trains qwen2-0.5b, through ``python -m
-   repro_torch.launch.train``'s ``main`` (8 steps of (4, 1024), whisper
+   repro_torch.launch.train``'s ``main`` (5 steps of (4, 1024), whisper
    (4, 448) over its 1500 stub frames), with the verified network line,
    finite losses and exactly 128 SSD launches a mamba2 step, 76 SSD and 6
    flash a zamba2 step (its shared block runs outside remat), 24 flash a
@@ -240,10 +250,29 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    p50, tokens/s, peak device memory and model FLOP utilisation (6·N·T);
    24e traces one more mamba2 step (busy, idle, the plain backwards' and
    the SSD kernel's shares); 24d holds the loss and gradients on the card
-   against the CPU's at published widths with the depth cut (mamba2 4
+   against the CPU's at published widths with the depth cut (mamba2 2
    layers, zamba2 its first segment of 6 Mamba2 layers and one
    shared-block application, whisper uncut), in f32 on a (1, 128) batch,
    within 18b's gates; the phase prints its wall;
+25. (run after phase 24, on the emptied card) the JAX package's two
+   memory levers at full width: 25a gemma-2b at its published config with
+   ``loss_chunk=512`` (the loss over 8 chunks, each under activation
+   checkpointing, so the (4, 4096, 256000) f32 logits never exist at
+   once) trained through ``repro_torch.train.train`` for 4 steps of (4,
+   4096), train_4k's sequence: finite losses, exactly 36 flash launches a
+   step, the step p50 over steps 1-3, tokens/s, peak memory and model
+   FLOP utilisation; 25b qwen2-vl-2b trained as 24a-24c through the
+   launcher, 5 steps of (4, 1024), 56 flash launches a step; 25c the card
+   against the CPU at published widths with the depth cut to 2 layers,
+   f32 compute on a (1, 128) batch within 18b's gates: gemma-2b's chunked
+   loss (4 chunks of 32) and qwen2-vl-2b's (M-RoPE positions) with their
+   gradients, and yi-34b's int8 cache (bf16 weights): a prefill of 64
+   tokens and 4 decode steps, no element of the int8 payloads more than
+   one step apart; layer 0's scales within 1e-5 of the largest and at most
+   0.1 % of its elements one step apart (a k or v within its rounding of
+   a half step); layer 1, which also carries what layer 0's flips moved,
+   within 2e-3 and 2 %; the logits within 3e-3 in relative norm; the
+   phase prints its wall;
 18. (run after phase 17 and the profiles below, on phase 6's weights)
    training on the card: 18a trains full-width qwen2-0.5b through
    ``python -m repro_torch.launch.train``'s ``main`` (8 steps of (4, 1024),
@@ -291,12 +320,13 @@ against its plain version on the qwen2 forward's shape (B=4, H=14, K=2,
 S=2048, D=64), deepseek's (B=4, H=16, K=16, D=128), gemma-2b's (B=4,
 H=8, K=1, D=256), glm4-9b's, qwen2-vl-2b's, yi-34b's (B=4, H=56, K=8,
 D=128) and phi3.5-moe's (B=4, H=32, K=8, D=128), whisper-tiny's
-decoder self-attention in a train step (B=4, H=6, K=6, S=448, D=64), the
+decoder self-attention in a train step (B=4, H=6, K=6, S=448, D=64),
+gemma-2b's train step at S=4096 and qwen2-vl-2b's at S=1024, the
 reference tests' shapes, and without causality at
 an encoder's (Sq = Sk) and cross-attention's shapes (Sq = 1 and 1 < Sq <
 Sk), in float32 (the FMA path) and bf16 (the tensor cores), timed at the
 qwen2, deepseek, gemma and yi forward shapes (gemma's also in float16,
-through the FMA path) and
+through the FMA path), gemma's train step's and
 at whisper-tiny's encoder (4, 6, 6, 1500, 1500, 64) and decode-step
 cross-attention (Sq = 1 against 1500 frames) without causality, beside
 ``scaled_dot_product_attention`` (the yardstick; the port never calls it);
@@ -338,8 +368,8 @@ images.
 Kernel launch counts are reset just before phase 2 and read after phase 9
 (the thread hosts of phases 12, 13 and 15 and the simulated hosts of
 phases 14 and 15 count with them; phase 16, which must launch nothing, is
-counted apart, from 0; phases 17, 18, 22, 23 and 24 are counted apart,
-from 0, and added),
+counted apart, from 0; phases 17, 18, 22, 23, 24 and 25 are counted
+apart, from 0, and added),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
 the farm, of the pipeline, one more bf16 forward and one decode step of
@@ -713,14 +743,15 @@ def scaled_errors(got, want) -> tuple:
 def check_flash(torch, dev) -> dict:
     """The flash kernel against its plain version: the qwen2, deepseek,
     gemma, glm4, qwen2-vl, yi and phi3.5-moe forwards' shapes, whisper's
-    decoder self-attention (4, 6, 6, 448, 448, 64) and zamba2's shared
-    block (4, 32, 32, 1024, 1024, 64) in a train step and the reference
-    tests' shapes, f32 and bf16, causal; an encoder's and cross-attention's
-    shapes (whisper's train step's (4, 6, 6, 448, 1500, 64) among them)
-    without causality; times at the qwen2,
-    deepseek, gemma and yi forwards' shapes (gemma's also in f16, the FMA
-    path) and whisper-tiny's encoder and cross-attention shapes (bf16: the
-    tensor-core path)."""
+    decoder self-attention (4, 6, 6, 448, 448, 64), zamba2's shared block
+    (4, 32, 32, 1024, 1024, 64), gemma's (4, 8, 1, 4096, 4096, 256) and
+    qwen2-vl's (4, 12, 2, 1024, 1024, 128) in a train step and the
+    reference tests' shapes, f32 and bf16, causal; an encoder's and
+    cross-attention's shapes (whisper's train step's (4, 6, 6, 448, 1500,
+    64) among them) without causality; times at the qwen2, deepseek, gemma
+    and yi forwards' shapes (gemma's also in f16, the FMA path), gemma's
+    train step's and whisper-tiny's encoder and cross-attention shapes
+    (bf16: the tensor-core path)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
@@ -736,8 +767,11 @@ def check_flash(torch, dev) -> dict:
     whisper_dec = (4, 6, 6, 448, 448, 64)
     # zamba2-1.2b's shared attention block in a train step (phase 24b)
     zamba2 = (4, 32, 32, 1024, 1024, 64)
+    # gemma-2b's and qwen2-vl-2b's train steps (phases 25a and 25b)
+    gemma_train = (4, 8, 1, 4096, 4096, 256)
+    qwen2_vl_train = (4, 12, 2, 1024, 1024, 128)
     causal_shapes = [path, deepseek, gemma, glm4, qwen2_vl, yi, phi,
-                     whisper_dec, zamba2,
+                     whisper_dec, zamba2, gemma_train, qwen2_vl_train,
                      (1, 4, 2, 64, 64, 32),
                      (2, 8, 1, 96, 96, 64), (2, 4, 4, 128, 128, 32),
                      (1, 2, 2, 33, 33, 16),  # ragged
@@ -753,11 +787,12 @@ def check_flash(torch, dev) -> dict:
                    (2, 8, 2, 77, 300, 128)]
     # the shapes timed in bf16, beside scaled_dot_product_attention: the
     # forwards of phases 6, 10, 22 (gemma-2b) and 23 (yi-34b, the heaviest
-    # attention), and whisper-tiny's (phase 17) encoder and a decode step's
-    # cross-attention over 1500 frames; gemma's also in f16, through the
-    # FMA path
+    # attention), gemma-2b's train step at 4096 positions (phase 25a), and
+    # whisper-tiny's (phase 17) encoder and a decode step's cross-attention
+    # over 1500 frames; gemma's forward also in f16, through the FMA path
     timed = {(path, True): "qwen2-0.5b", (deepseek, True): "deepseek-moe-16b",
              (gemma, True): "gemma-2b", (yi, True): "yi-34b",
+             (gemma_train, True): "gemma-2b training",
              (whisper_enc, False): "whisper-tiny encoder",
              (whisper_cross, False): "whisper-tiny decode step's "
                                      "cross-attention"}
@@ -3354,36 +3389,42 @@ def compare_routes(cfg, full, prefill, batch, half):
 
 
 def run_serve(torch, model, params, counts, per_decode=None,
-              launcher_main=True, alone=8) -> dict:
-    """The launcher's defaults: 8 requests, 4 slots, max_len 128, max_new
-    16, on the card, through the launcher's ``main`` (which builds its own
-    weights) or, with ``launcher_main=False``, through a ``ServeEngine``
-    over ``LocalDecodeBackend`` on the given model and weights.  Every
-    ``decode_step`` call must launch exactly ``per_decode`` kernels (every
-    other kernel: none).  Returns each request's tokens, the tokens of the
-    first ``alone`` requests decoded alone in a one-slot engine (not gated;
-    for a deep model all 8 are most of the decode steps, and 0 runs none),
-    and the decode step's p50 ms."""
+              launcher_main=True, alone=8, n_requests=8,
+              backend=None) -> dict:
+    """The launcher's defaults: ``n_requests`` requests (8), 4 slots,
+    max_len 128, max_new 16, on the card, through the launcher's ``main``
+    (which builds its own weights) or, with ``launcher_main=False``,
+    through a ``ServeEngine`` over ``backend`` (by default a
+    ``LocalDecodeBackend`` of 4 slots and max_len 128 on the given model
+    and weights).  Every ``decode_step`` call must launch exactly
+    ``per_decode`` kernels (every other kernel: none).  Returns each
+    request's tokens, the tokens of the first ``alone`` requests decoded
+    alone in a one-slot engine (not gated; for a deep model all 8 are
+    most of the decode steps, and 0 runs none), the decode step's p50 ms
+    and the TPOT p50 ms."""
     from repro_torch.core import trace
     from repro_torch.launch import serve as launcher
     from repro_torch.serve import LocalDecodeBackend, ServeEngine
-    reqs = launcher.requests(8, model.cfg.vocab, 16)
+    reqs = launcher.requests(n_requests, model.cfg.vocab, 16)
     before = counts()
     rec = trace.enable(host="serve")  # the engine's decode/prefill spans
     try:
         with torch.inference_mode():
             if launcher_main:
-                done = launcher.main(["--arch", model.cfg.name])
+                done = launcher.main(["--arch", model.cfg.name,
+                                      "--requests", str(n_requests)])
             else:
+                be = backend or LocalDecodeBackend(model, params, n_slots=4,
+                                                   max_len=128)
                 t0 = time.perf_counter()
-                with ServeEngine(LocalDecodeBackend(
-                        model, params, n_slots=4, max_len=128)) as eng:
+                with ServeEngine(be) as eng:
                     for r in reqs:
                         eng.submit(r)
                     done = eng.run_until_drained()
                 print(f"[serve] {model.cfg.name} (ServeEngine over "
-                      f"LocalDecodeBackend, 4 slots, max_len 128): "
-                      f"{time.perf_counter() - t0:.2f} s wall")
+                      f"LocalDecodeBackend, {be.n_slots} slots, max_len "
+                      f"{be.max_len}{', int8 KV cache' * model.cfg.kv_quant}"
+                      f"): {time.perf_counter() - t0:.2f} s wall")
         spans = [e for e in rec.events() if e.kind == "span"]
     finally:
         trace.disable()
@@ -3438,7 +3479,8 @@ def run_serve(torch, model, params, counts, per_decode=None,
           f"{pct(ttft, 50):.1f} ms p99 {pct(ttft, 99):.1f} ms; tpot p50 "
           f"{pct(tpot, 50):.2f} ms p99 {pct(tpot, 99):.2f} ms; launches "
           f"{launched}; {same}")
-    return {"tokens": tokens, "alone": solo, "step_ms": pct(decode, 50)}
+    return {"tokens": tokens, "alone": solo, "step_ms": pct(decode, 50),
+            "tpot_ms": pct(tpot, 50)}
 
 
 def memory(torch, label: str) -> None:
@@ -3503,6 +3545,9 @@ def run_capacity_forward(torch, model, params, toks, counts, per_forward):
 
 # (arch, flash launches a forward: one a layer) of phase 22
 WIDE_ARCHS = (("gemma-2b", 18), ("glm4-9b", 40), ("qwen2-vl-2b", 28))
+# requests served by each model of phases 22 and 23 (the launcher's first
+# 4 of 8; phase 7 serves all 8 and reruns them one by one)
+SERVED_REQUESTS = 4
 # 22b's image: its first position and its (rows, columns) of patches
 VLM_IMAGE = (64, (32, 32))
 
@@ -3564,8 +3609,9 @@ def run_wide_phase(torch, dev, counts) -> None:
     positions, 22c 8 requests served (glm4-9b on the forward's weights:
     the launcher's ``main`` would build a second 37.6 GB copy), 22d one
     traced bf16 forward and one traced decode step (4 slots); each model
-    freed before the next.  The served requests are not rerun one by one
-    (phase 7 does that at qwen2-0.5b's cost)."""
+    freed before the next.  The served requests (4 of the launcher's 8:
+    ``SERVED_REQUESTS``) are not rerun one by one (phase 7 does that at
+    qwen2-0.5b's cost)."""
     import gc
     t_phase = time.perf_counter()
     for arch, n_flash in WIDE_ARCHS:
@@ -3576,7 +3622,8 @@ def run_wide_phase(torch, dev, counts) -> None:
             run_vlm_embeds_forward(torch, dev, counts, model, params, toks,
                                    per_forward)
         run_serve(torch, model, params, counts,
-                  launcher_main=arch != "glm4-9b", alone=0)
+                  launcher_main=arch != "glm4-9b", alone=0,
+                  n_requests=SERVED_REQUESTS)
         profile_model(torch, model, params, toks)
         memory(torch, f"phase 22, {arch}")
         del model, params, toks
@@ -3605,9 +3652,11 @@ def run_bf16_phase(torch, dev, counts) -> None:
     serves them (``param_dtype="bfloat16"``, as its dry-run sets for every
     serving cell), one at a time on the emptied card: 23a phase 6's forward
     checks (phi on the ragged path, its routing compared, then one
-    capacity-path forward), 23b 8 requests served on 4 slots through a
-    ``ServeEngine`` on the forward's weights (not rerun one by one), 23c a
-    traced forward and decode step, and the peak memory."""
+    capacity-path forward), 23b ``SERVED_REQUESTS`` requests served on 4
+    slots through a ``ServeEngine`` on the forward's weights (not rerun
+    one by one), 23c a traced forward and decode step, and the peak
+    memory; then 23d serves yi-34b's weights from an int8 KV cache
+    (:func:`run_int8_cache`)."""
     import gc
     t_phase = time.perf_counter()
     for arch, over, per_forward, per_decode, f32_rows in BF16_ARCHS:
@@ -3622,14 +3671,237 @@ def run_bf16_phase(torch, dev, counts) -> None:
                 torch, model, params, toks, counts,
                 {"flash_attention": per_forward["flash_attention"]})
         run_serve(torch, model, params, counts, per_decode=per_decode,
-                  launcher_main=False, alone=0)
+                  launcher_main=False, alone=0, n_requests=SERVED_REQUESTS)
         profile_model(torch, model, params, toks,
                       ", ragged" if model.cfg.moe_ragged else "")
         memory(torch, f"phase 23, {arch}")
-        del model, params, toks
+        del toks
+        if arch == "yi-34b":
+            run_int8_cache(torch, dev, counts, model, params)
+        del model, params
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[lm] phase 23 wall: {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 23d: yi-34b served from an int8 KV cache --------------------------
+
+# 23d serves 4 requests on 2 slots of the JAX package's decode_32k length
+# (src/repro/configs/base.py: 32,768 positions)
+INT8_SLOTS, INT8_MAX_LEN = 2, 32768
+# the int8 cache's bytes against the bf16 cache's: the JAX package's
+# contract (tests/test_models.py, test_cache_half_size)
+INT8_CACHE_RATIO = 0.55
+# the two caches compared on the same weights: rows, prompt, teacher-forced
+# decode steps (each position's logits compared)
+INT8_COMPARE = (2, 64, 8)
+# the gate on ||logits(int8 cache) - logits(bf16 cache)|| / ||logits(bf16
+# cache)|| over every compared position, bf16 compute.  The CPU readings of
+# `tools/lm_phase.py int8 cpu` (seed-0 yi-34b, INT8_COMPARE): 0.0153 /
+# 0.0239 / 0.0303 / 0.0316 at reduced width and 2 / 8 / 30 / 60 layers,
+# 0.0154 / 0.0182 at published widths with 1 / 2 layers (vocab 1024); the
+# error grows with depth, so the gate is 2.5x the largest reading.  A cache
+# quantised with a wrong scale, or its rows written at the wrong positions,
+# is off by O(1).
+INT8_LOGITS_GATE = 0.08
+
+
+def teacher_forced(torch, model, params, toks, steps: int) -> tuple:
+    """A prefill of ``toks[:, :-steps]`` on a cache of ``toks``' length,
+    then ``steps`` decode steps feeding the rest of ``toks``: (the last
+    position's logits of the prefill and of each step, (B, steps + 1, V)
+    in f32, the cache)."""
+    P, T = toks.shape[1] - steps, toks.shape[1]
+    with torch.inference_mode():
+        out, cache = model.prefill(params, toks[:, :P], max_len=T)
+        got = [out[:, -1].float()]
+        for t in range(P, T):
+            out, cache = model.decode_step(params, cache, toks[:, t:t + 1])
+            got.append(out[:, -1].float())
+    return torch.stack(got, 1), cache
+
+
+def compare_int8_cache(torch, model, params, toks, steps: int) -> dict:
+    """``model`` (its cache in the compute dtype) against the same config
+    with ``kv_quant`` on the same weights, each :func:`teacher_forced` on
+    ``toks``.  Returns {"rel": the relative norm of the logits' difference
+    over every compared position, "worst": the largest at one row and
+    position, "same": how many greedy tokens agree, "of": how many were
+    compared}."""
+    import dataclasses
+    from repro_torch.models import Model
+    quant = Model(dataclasses.replace(model.cfg, kv_quant=True))
+    plain = teacher_forced(torch, model, params, toks, steps)[0]
+    q = teacher_forced(torch, quant, params, toks, steps)[0]
+    diff = q - plain
+    same = q.argmax(-1) == plain.argmax(-1)
+    return {"rel": float(diff.norm() / plain.norm()),
+            "worst": float((diff.norm(dim=-1) / plain.norm(dim=-1)).max()),
+            "same": int(same.sum()), "of": same.numel()}
+
+
+def int8_cpu_readings() -> list:
+    """:func:`compare_int8_cache`'s readings on the CPU, from which
+    ``INT8_LOGITS_GATE`` was set: seed-0 yi-34b with bf16 weights and
+    compute, at reduced width with 2, 8, 30 and 60 layers, and at published
+    widths with 1 and 2 layers (vocab cut to 1024, so the two unembedding
+    tables stay small)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    rows, prompt, steps = INT8_COMPARE
+    out = []
+    cases = [(True, n, {}) for n in (2, 8, 30, 60)] + \
+        [(False, n, {"vocab": 1024}) for n in (1, 2)]
+    for reduced, n, over in cases:
+        cfg = dataclasses.replace(get_config("yi-34b", reduced=reduced),
+                                  n_layers=n, param_dtype="bfloat16",
+                                  compute_dtype="bfloat16", **over)
+        model = Model(cfg)
+        params = model.init(seed=0, device="cpu")
+        g = torch.Generator().manual_seed(0)
+        toks = torch.randint(0, cfg.vocab, (rows, prompt + steps),
+                             generator=g, dtype=torch.int32)
+        r = compare_int8_cache(torch, model, params, toks, steps)
+        label = (f"{'reduced' if reduced else 'published'} widths, {n} "
+                 f"layer{'s' * (n > 1)}{', vocab 1024' if over else ''}")
+        print(f"[int8] yi-34b {label}: logits ||int8 - bf16|| / ||bf16|| "
+              f"{r['rel']:.4f} (worst position {r['worst']:.4f}); greedy "
+              f"tokens agree {r['same']}/{r['of']}")
+        out.append(r)
+        del model, params
+    return out
+
+
+def int8_flip_readings() -> dict:
+    """How far an int8 cache carries a difference of f32 rounding: yi-34b
+    at published widths cut to 2 layers (vocab 1024, bf16 weights, f32
+    compute, ``INT8_CARD_CPU``'s prefill and decode steps) on the CPU,
+    against itself with its embedding table perturbed by 1e-6 relative
+    noise.  Prints and returns the logits' relative norm and, for each
+    layer, the int8 elements one step apart and the scales' error (the
+    readings behind 25c's gates)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    rows, prompt, n_steps = INT8_CARD_CPU
+    cfg = dataclasses.replace(get_config("yi-34b"), n_layers=2, vocab=1024,
+                              param_dtype="bfloat16",
+                              compute_dtype="float32", kv_quant=True)
+    model = Model(cfg)
+    params = model.init(seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (rows, prompt + n_steps),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+
+    def run(p):
+        logits, cache = teacher_forced(torch, model, p, toks, n_steps)
+        return logits, cache["segments"][0]
+
+    a, ca = run(params)
+    table = params["embedding"]["embed"].float()
+    noise = torch.randn(table.shape,
+                        generator=torch.Generator().manual_seed(5))
+    moved = dict(params, embedding=dict(params["embedding"],
+                                        embed=table * (1 + 1e-6 * noise)))
+    b, cb = run(moved)
+    out = {"rel": float((a - b).norm() / b.norm()), "layers": []}
+    for layer in range(cfg.n_layers):
+        flips = sum(int(((ca[n][layer].int() - cb[n][layer].int()).abs()
+                         == 1).sum()) for n in ("k", "v"))
+        elems = sum(ca[n][layer].numel() for n in ("k", "v"))
+        scale = max(float((ca[n][layer] - cb[n][layer]).abs().max()
+                          / cb[n][layer].abs().max())
+                    for n in ("k_scale", "v_scale"))
+        out["layers"].append((flips, elems, scale))
+    print(f"[int8] yi-34b published widths, 2 layers, vocab 1024, f32 "
+          f"compute, against itself with the embedding table 1e-6 off: "
+          f"logits {out['rel']:.3e} apart in relative norm; " + "; ".join(
+              f"layer {i}: {f} of {e:,} int8 elements one step apart, "
+              f"scales {sc:.2e} of the largest apart"
+              for i, (f, e, sc) in enumerate(out["layers"])))
+    return out
+
+
+def run_int8_cache(torch, dev, counts, model, params) -> None:
+    """23d: yi-34b (``model``, bf16 weights ``params``, phase 23's) served
+    from an int8 KV cache: a second ``Model`` with ``kv_quant=True`` on the
+    same weights serves ``SERVED_REQUESTS`` of the launcher's requests on
+    ``INT8_SLOTS`` slots of ``INT8_MAX_LEN`` positions (no kernel
+    launched: a decode step's attention reads the dequantised cache).  It
+    prints the cache's bytes beside the bf16 cache's at that size (reckoned
+    on the meta device; gate ``INT8_CACHE_RATIO``), the peak device memory,
+    TPOT p50 and a traced decode step's device idle share; then it compares
+    the two caches on the same weights at ``INT8_COMPARE``'s short length
+    (:func:`compare_int8_cache`, gate ``INT8_LOGITS_GATE``) and prints how
+    many greedy tokens agree (not gated)."""
+    import dataclasses
+    import gc
+    from repro_torch.models import Model, transformer
+    from repro_torch.serve import LocalDecodeBackend
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(model.cfg, kv_quant=True)
+    quant = Model(cfg)
+    bf16_bytes = tree_bytes(transformer.init_cache(
+        model.cfg, INT8_SLOTS, INT8_MAX_LEN, torch.device("meta")))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    backend = LocalDecodeBackend(quant, params, n_slots=INT8_SLOTS,
+                                 max_len=INT8_MAX_LEN)
+    int8_bytes = tree_bytes(backend.cache)
+    ratio = int8_bytes / bf16_bytes
+    print(f"[lm] 23d yi-34b int8 KV cache, {INT8_SLOTS} slots x "
+          f"{INT8_MAX_LEN} positions: {int8_bytes:,} B "
+          f"({int8_bytes / 2**30:.2f} GiB; int8 k and v, f32 scales a "
+          f"position and head), the bf16 cache's {bf16_bytes:,} B "
+          f"({bf16_bytes / 2**30:.2f} GiB): "
+          f"{ratio:.4f}x (gate {INT8_CACHE_RATIO}); weights "
+          f"{resident / 2**30:.2f} GiB resident beside it")
+    check(ratio <= INT8_CACHE_RATIO, f"23d: int8 cache {int8_bytes} B is "
+          f"{ratio:.4f}x the bf16 cache's {bf16_bytes} B")
+    check(all(t.dtype == torch.int8 for seg in backend.cache["segments"]
+              for name, t in seg.items() if name in ("k", "v")),
+          "23d: the cache's k and v are not int8")
+    run = run_serve(torch, quant, params, counts, launcher_main=False,
+                    alone=0, n_requests=SERVED_REQUESTS, backend=backend)
+    memory(torch, "phase 23d, yi-34b from the int8 cache")
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        last = torch.ones((INT8_SLOTS, 1), dtype=torch.int32, device=dev)
+        adv = torch.ones(INT8_SLOTS, dtype=torch.bool, device=dev)
+        _, busy_ms, wall_ms = profile_run(
+            torch, f"23d yi-34b decode step ({INT8_SLOTS} slots, int8 cache "
+            f"of {INT8_MAX_LEN})", lambda: quant.decode_step(
+                params, backend.cache, last, advance=adv))
+    print(f"[lm] 23d yi-34b served from the int8 cache: TPOT p50 "
+          f"{run['tpot_ms']:.2f} ms, decode step p50 {run['step_ms']:.2f} ms"
+          f", a traced decode step {1 - busy_ms / wall_ms:.1%} idle; peak "
+          f"device memory {peak / 2**30:.2f} GiB "
+          f"({(peak - resident) / 2**30:.2f} GiB above the weights)")
+    del backend, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, prompt, steps = INT8_COMPARE
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, model.cfg.vocab, (rows, prompt + steps),
+                         generator=g, device=dev, dtype=torch.int32)
+    before = counts()
+    r = compare_int8_cache(torch, model, params, toks, steps)
+    launched = {k: v - before[k] for k, v in counts().items()}
+    check(not any(launched.values()), f"23d: the cached attention launched "
+                                      f"{launched}")
+    print(f"[lm] 23d yi-34b int8 cache against the bf16 cache on the same "
+          f"weights, teacher-forced prefill of ({rows}, {prompt}) + {steps} "
+          f"decode steps: logits ||int8 - bf16|| / ||bf16|| {r['rel']:.4f} "
+          f"(gate {INT8_LOGITS_GATE}; worst position {r['worst']:.4f}); "
+          f"greedy tokens agree {r['same']}/{r['of']} (not gated); 23d "
+          f"wall {time.perf_counter() - t0:.1f} s")
+    check(r["rel"] <= INT8_LOGITS_GATE, f"23d: int8 against bf16 cache "
+          f"logits {r['rel']} > {INT8_LOGITS_GATE}")
 
 
 # -- phase 18: training on the card -------------------------------------------
@@ -3758,56 +4030,73 @@ def per_step_records(torch, counts):
         train_loop.make_train_step = real
 
 
-def train_through_launcher(torch, counts, label, arch, batch, seq) -> dict:
+def checked_steps(torch, counts, label, cfg, what, fn, n_steps: int,
+                  tokens: int, warm: int) -> dict:
+    """Runs ``fn``, a training loop of ``n_steps`` steps of ``tokens``
+    tokens each, with each step recorded (:func:`per_step_records`): finite
+    losses, and in every step exactly the launches
+    :func:`expected_train_launches` names for ``cfg`` and no other kernel.
+    Prints ``what``, the losses, the step wall p50 from step ``warm`` on,
+    tokens/s and the peak device memory.  Returns {"steps": each step's
+    records, "p50": s, "result": what ``fn`` returned}."""
+    want = {k: expected_train_launches(cfg).get(k, 0) for k in counts()}
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with per_step_records(torch, counts) as steps:
+        res = fn()
+    wall = time.perf_counter() - t0
+    losses = [s["loss"] for s in steps]
+    check(len(losses) == n_steps and all(math.isfinite(x) for x in losses),
+          f"{label}: losses {losses}")
+    check(all(s["launches"] == want for s in steps),
+          f"{label}: launches a step {[s['launches'] for s in steps]}, not "
+          f"{want}")
+    p50 = statistics.median(s["s"] for s in steps[warm:])
+    print(f"[train] {label} {cfg.name} full width, {what}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches a step "
+          f"{({k: v for k, v in want.items() if v})} (forward and remat's "
+          "recompute), no other kernel")
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [s["peak_before"] for s in steps])
+    print(f"[train] {label} step wall p50 (steps {warm}-{n_steps - 1}) "
+          f"{p50 * 1e3:.1f} ms, {tokens / p50:.0f} tokens/s; peak device "
+          f"memory {peak / 2**30:.2f} GiB, {(peak - resident) / 2**30:.2f} "
+          f"GiB above the {resident / 2**30:.2f} GiB resident before; the "
+          f"loop's wall {wall:.1f} s")
+    return {"steps": steps, "p50": p50, "result": res}
+
+
+def train_through_launcher(torch, counts, label, arch, batch, seq,
+                           n_steps: int = 8) -> dict:
     """``arch`` at full width trained through ``python -m
-    repro_torch.launch.train``'s ``main``: 8 steps of (``batch``, ``seq``),
-    the default config (f32 params, bf16 compute, ``remat="full"``), with
-    the verified network line, 8 finite losses, and in every step exactly
-    the launches :func:`expected_train_launches` names and no other kernel.
-    Prints the losses, the step wall p50 from step 2 on, tokens/s and the
-    peak device memory.  Returns {"steps": each step's records
-    (:func:`per_step_records`), "p50": s, "result": what ``main`` returned
-    (the trained trees)}."""
+    repro_torch.launch.train``'s ``main``: ``n_steps`` steps of
+    (``batch``, ``seq``), the default config (f32 params, bf16 compute,
+    ``remat="full"``), with the verified network line and
+    :func:`checked_steps`' checks, its p50 from step 2 on.  Returns
+    :func:`checked_steps`' record, ``result`` what ``main`` returned (the
+    trained trees)."""
     import io
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launcher
-    args = ["--arch", arch, "--steps", "8", "--batch", str(batch), "--seq",
-            str(seq)]
-    want = {k: expected_train_launches(get_config(arch)).get(k, 0)
-            for k in counts()}
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
+    args = ["--arch", arch, "--steps", str(n_steps), "--batch", str(batch),
+            "--seq", str(seq)]
     out = io.StringIO()
-    t0 = time.perf_counter()
-    with per_step_records(torch, counts) as steps, \
-            contextlib.redirect_stdout(out):
-        res = launcher.main(args)
-    wall = time.perf_counter() - t0
+
+    def main():
+        with contextlib.redirect_stdout(out):
+            return launcher.main(args)
+
+    run = checked_steps(torch, counts, label, get_config(arch),
+                        f"launcher main {' '.join(args)}", main, n_steps,
+                        batch * seq, warm=2)
     text = out.getvalue()
     for line in text.splitlines():
         if line.startswith("[train]"):
             print(line)
     check(f"network train[{arch}] verified" in text,
           f"{label}: the launcher printed no verified line")
-    losses = [s["loss"] for s in steps]
-    check(len(losses) == 8 and all(math.isfinite(x) for x in losses),
-          f"{label}: losses {losses}")
-    check(all(s["launches"] == want for s in steps),
-          f"{label}: launches a step {[s['launches'] for s in steps]}, not "
-          f"{want}")
-    p50 = statistics.median(s["s"] for s in steps[2:])
-    print(f"[train] {label} {arch} full width, launcher main "
-          f"{' '.join(args)}: losses {', '.join(f'{x:.4f}' for x in losses)}"
-          f"; launches a step {({k: v for k, v in want.items() if v})} "
-          "(forward and remat's recompute), no other kernel")
-    peak = max([torch.cuda.max_memory_allocated()]
-               + [s["peak_before"] for s in steps])
-    print(f"[train] {label} step wall p50 (steps 2-7) {p50 * 1e3:.1f} ms, "
-          f"{batch * seq / p50:.0f} tokens/s; peak device memory "
-          f"{peak / 2**30:.2f} GiB, {(peak - resident) / 2**30:.2f} GiB above "
-          f"the {resident / 2**30:.2f} GiB resident before; main's wall "
-          f"{wall:.1f} s")
-    return {"steps": steps, "p50": p50, "result": res}
+    return run
 
 
 def run_train_launcher(torch, counts) -> list:
@@ -3970,6 +4259,9 @@ def run_train_phase(torch, dev, counts, params) -> list:
 
 # -- phase 24: mamba2-2.7b, zamba2-1.2b and whisper-tiny trained at full width -
 
+# steps of 24a-24c and 25b through the launcher (the step p50 over steps
+# 2-4)
+WIDE_TRAIN_STEPS = 5
 # (label, arch, batch, seq, what 6·N·T leaves out) of 24a-24c
 WIDE_TRAIN = (
     ("24a", "mamba2-2.7b", 4, 1024, "the SSD scans' FLOPs"),
@@ -3980,12 +4272,25 @@ WIDE_TRAIN = (
 )
 # (arch, config overrides, the cut as printed) of 24d: published widths
 WIDE_TRAIN_CUTS = (
-    ("mamba2-2.7b", {"n_layers": 4}, "cut to 4 of its 64 layers"),
+    ("mamba2-2.7b", {"n_layers": 2}, "cut to 2 of its 64 layers"),
     ("zamba2-1.2b", {"n_layers": 6}, "cut to its first segment: 6 of its "
                                      "38 Mamba2 layers and 1 of its 6 "
                                      "shared-block applications"),
     ("whisper-tiny", {}, "uncut: its published config"),
 )
+
+
+def print_mfu(label, params, tokens: int, p50: float, left_out: str) -> None:
+    """The model FLOP utilisation of a train step of ``p50`` s over
+    ``tokens`` tokens, by 6·N·T at the bf16 peak, and what that leaves
+    out."""
+    import torch.utils._pytree as pytree
+    n = sum(t.numel() for t in pytree.tree_leaves(params))
+    flops = 6.0 * n * tokens
+    print(f"[train] {label} model FLOP utilisation "
+          f"{flops / p50 / BF16_PEAK:.2%} = 6·N·T / wall / 989e12 with N = "
+          f"{n:,}, T = {tokens}: {flops:.4e} FLOP a step ({left_out} and "
+          f"remat's recompute not counted)")
 
 
 def run_wide_train_phase(torch, dev, counts) -> None:
@@ -4004,21 +4309,16 @@ def run_wide_train_phase(torch, dev, counts) -> None:
     of its max |grad|, as 18b holds qwen2)."""
     import dataclasses
     import gc
-    import torch.utils._pytree as pytree
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.models import Model
     from repro_torch.train import AdamW, make_train_step
     t_phase = time.perf_counter()
     for label, arch, batch, seq, left_out in WIDE_TRAIN:
-        run = train_through_launcher(torch, counts, label, arch, batch, seq)
+        run = train_through_launcher(torch, counts, label, arch, batch, seq,
+                                     n_steps=WIDE_TRAIN_STEPS)
         res = run["result"]
-        n = sum(t.numel() for t in pytree.tree_leaves(res["params"]))
-        flops = 6.0 * n * batch * seq
-        print(f"[train] {label} model FLOP utilisation "
-              f"{flops / run['p50'] / BF16_PEAK:.2%} = 6·N·T / wall / "
-              f"989e12 with N = {n:,}, T = {batch * seq}: {flops:.4e} FLOP "
-              f"a step ({left_out} and remat's recompute not counted)")
+        print_mfu(label, res["params"], batch * seq, run["p50"], left_out)
         if arch == "mamba2-2.7b":  # 24e
             model = Model(get_config(arch))
             step = make_train_step(model, AdamW(), donate=True)
@@ -4046,6 +4346,183 @@ def run_wide_train_phase(torch, dev, counts) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[train] phase 24 wall: {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 25: the chunked cross-entropy and the int8 cache at full width ----
+
+# 25a: gemma-2b trained through `train` at train_4k's 4096 tokens a row with
+# the loss over chunks of 512 positions; (batch, seq, loss_chunk, steps)
+CHUNKED_TRAIN = (4, 4096, 512, 4)
+# 25c: (arch, config overrides, the cut as printed); published widths, 2
+# layers, f32 compute
+LEVER_CUTS = (
+    ("gemma-2b", {"n_layers": 2, "loss_chunk": 32},
+     "cut to 2 of its 18 layers, the loss over 4 chunks of 32"),
+    ("qwen2-vl-2b", {"n_layers": 2}, "cut to 2 of its 28 layers"),
+)
+# 25c's int8 cache on the card against the CPU: yi-34b at published widths
+# cut to 2 layers, bf16 weights, f32 compute; (rows, prompt, decode steps)
+INT8_CARD_CPU = (1, 64, 4)
+# its gates: the logits' relative norm over every position, and for layer
+# 0 and the layer after it the share of int8 payload elements one step
+# apart (none may be further apart) and the f32 scales' error against the
+# largest scale.  Layer 0's k and v come from the embeddings alone: the
+# card's and the CPU's matmuls round in other orders, and an element
+# within that rounding of a half step flips (the card read 2 of 147,456,
+# scales 3.8e-7 apart, over 8 decode steps).  A flipped v moves layer 0's
+# attention output by a step's share, so layer 1's k and v, and the
+# logits, move by more: over 8 decode steps the card read 1031 flips
+# (0.70 %), scales 3.5e-4 apart, logits 7.3e-4; the CPU against itself
+# with its embedding table 1e-6 off (`tools/lm_phase.py int8 cpu`) reads
+# 853 (0.58 %), 2.8e-4 and 6.9e-4 there, and 801 of 139,264 (0.58 %),
+# 2.8e-4 and 7.2e-4 over these 4.  The gates are ~3-6x those readings; a
+# wrong scale or row is off by O(1).
+INT8_CARD_CPU_REL = 3e-3
+INT8_CARD_CPU_FLIPS = (1e-3, 2e-2)
+INT8_SCALE_REL = (1e-5, 2e-3)
+
+
+def run_chunked_train(torch, dev, counts) -> None:
+    """25a: gemma-2b at its published config with ``loss_chunk=512``
+    trained through ``train`` on ``CHUNKED_TRAIN``'s (4, 4096) batches (the
+    donating step; the first step is the warm-up), with
+    :func:`checked_steps`' checks: 36 flash launches a step (18 layers,
+    forward and remat's recompute; the chunked loss launches none); and
+    the model FLOP utilisation by 6·N·T."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train import train
+    batch, seq, chunk, n_steps = CHUNKED_TRAIN
+    cfg = dataclasses.replace(get_config("gemma-2b"), loss_chunk=chunk)
+    src = SyntheticLM(batch, seq, cfg.vocab, device=dev)
+    run = checked_steps(
+        torch, counts, "25a", cfg, f"loss_chunk {chunk}, through train, "
+        f"{n_steps} steps of ({batch}, {seq})",
+        lambda: train(Model(cfg), src, steps=n_steps, device=dev,
+                      log_every=1), n_steps, batch * seq, warm=1)
+    walls = ", ".join(f"{s['s']:.3f}" for s in run["steps"])
+    print(f"[train] 25a each step's wall: {walls} s")
+    print_mfu("25a", run["result"]["params"], batch * seq, run["p50"],
+              "the causal attention FLOPs")
+    memory(torch, "phase 25a, gemma-2b")
+
+
+def int8_card_against_cpu(torch, dev, counts) -> None:
+    """25c: yi-34b at published widths cut to 2 layers with an int8 KV
+    cache (bf16 weights, f32 compute): a prefill of ``INT8_CARD_CPU``'s
+    prompt and its decode steps on the card and on the CPU from the same
+    weights and tokens, no kernel launched on the card.  Layer 0's k and v
+    come from the token embeddings alone, so its f32 scales are held to
+    ``INT8_SCALE_REL[0]`` of the largest and its int8 payloads to at most
+    ``INT8_CARD_CPU_FLIPS[0]`` of their elements one step apart (a value
+    that the card's and the CPU's matmuls round to either side of a half
+    step); layer 1's k and v also carry what layer 0's flips moved, so
+    they get ``[1]``.  No element may be more than one step apart, and the
+    logits are held to ``INT8_CARD_CPU_REL`` in relative norm over every
+    position.  It prints each layer's flips and scale error."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.device import to_device
+    from repro_torch.models import Model
+    rows, prompt, n_steps = INT8_CARD_CPU
+    cfg = dataclasses.replace(get_config("yi-34b"), n_layers=2,
+                              param_dtype="bfloat16",
+                              compute_dtype="float32", kv_quant=True)
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (rows, prompt + n_steps),
+                         generator=g, device=dev, dtype=torch.int32)
+
+    def run(p, t):
+        logits, cache = teacher_forced(torch, model, p, t, n_steps)
+        seg = to_device(cache["segments"][0], "cpu")  # (layer, B, T, K, hd)
+        return logits.cpu(), seg
+
+    before = counts()
+    t0 = time.perf_counter()
+    card, card_cache = run(params, toks)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before[k] for k, v in counts().items()}
+    cpu, cpu_cache = run(to_device(params, "cpu"), toks.cpu())
+    rel = float((card - cpu).norm() / cpu.norm())
+    layers = []
+    for layer in range(cfg.n_layers):
+        r = {"flips": 0, "elems": 0, "gap": 0, "scale": 0.0, "by": []}
+        for name in ("k", "v"):
+            gap = (card_cache[name][layer].int()
+                   - cpu_cache[name][layer].int()).abs()
+            n = int((gap == 1).sum())
+            r["flips"] += n
+            r["elems"] += gap.numel()
+            r["gap"] = max(r["gap"], int(gap.max()))
+            r["by"].append(f"{name} {n}")
+            want = cpu_cache[f"{name}_scale"][layer]
+            err = (card_cache[f"{name}_scale"][layer] - want).abs().max()
+            r["scale"] = max(r["scale"], float(err / want.abs().max()))
+        layers.append(r)
+    print(f"[train] 25c yi-34b int8 KV cache, published widths cut to 2 "
+          f"layers, bf16 weights, f32 compute: prefill ({rows}, {prompt}) + "
+          f"{n_steps} decode steps, card against CPU: logits ||diff|| / "
+          f"||CPU|| {rel:.3e} (gate {INT8_CARD_CPU_REL}); " + "; ".join(
+              f"layer {i}: {r['flips']} of {r['elems']:,} int8 elements one "
+              f"step apart ({', '.join(r['by'])}; gate "
+              f"{INT8_CARD_CPU_FLIPS[min(i, 1)]:.0e} of them), the largest "
+              f"gap {r['gap']} step, scales {r['scale']:.2e} of the largest "
+              f"apart (gate {INT8_SCALE_REL[min(i, 1)]:.0e})"
+              for i, r in enumerate(layers))
+          + f"; card {card_ms:.1f} ms, launches {launched}")
+    check(not any(launched.values()), f"25c int8: launched {launched}")
+    check(rel <= INT8_CARD_CPU_REL, f"25c int8: logits {rel}")
+    for i, r in enumerate(layers):
+        check(r["gap"] <= 1 and r["flips"]
+              <= INT8_CARD_CPU_FLIPS[min(i, 1)] * r["elems"]
+              and r["scale"] <= INT8_SCALE_REL[min(i, 1)],
+              f"25c int8: layer {i}: {r}")
+
+
+def run_lever_phase(torch, dev, counts) -> None:
+    """Phase 25, the JAX package's two memory levers at full width, one
+    model at a time on the emptied card: 25a gemma-2b trained with the
+    chunked cross-entropy (:func:`run_chunked_train`); 25b qwen2-vl-2b
+    trained through the launcher on (4, 1024) (:func:`train_through_launcher`,
+    56 flash launches a step); 25c the card against the CPU at published
+    widths with the depth cut, in f32 on (1, 128): gemma-2b's chunked loss
+    and qwen2-vl-2b's loss with their gradients (18b's gates), and yi-34b's
+    int8 cache (:func:`int8_card_against_cpu`)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    t_phase = time.perf_counter()
+    run_chunked_train(torch, dev, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = train_through_launcher(torch, counts, "25b", "qwen2-vl-2b", 4, 1024,
+                                 n_steps=WIDE_TRAIN_STEPS)
+    print_mfu("25b", run["result"]["params"], 4 * 1024, run["p50"],
+              "the causal attention FLOPs")
+    memory(torch, "phase 25b, qwen2-vl-2b")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, over, cut in LEVER_CUTS:
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                                  **over)
+        model = Model(cfg)
+        params = model.init(seed=0, device=dev)
+        batch = SyntheticLM(1, 128, cfg.vocab, device=dev).create(0)
+        card_against_cpu(torch, dev, counts, f"25c {arch} published widths, "
+                         f"{cut}; f32 (1, 128), remat full", model, params,
+                         batch, loss_rel=1e-5, grad_rel=1e-3)
+        del model, params, batch
+    int8_card_against_cpu(torch, dev, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] phase 25 wall: {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- phase 19: the mesh, 2 ranks sharing the card ------------------------------
@@ -5065,6 +5542,14 @@ def phases(torch, cells) -> int:
     print(f"[train] phase 24 launches: {wide_train_launched}")
     launched = {k: v + wide_train_launched[k] for k, v in launched.items()}
     lap("24")
+    # phase 25 (the chunked loss and the int8 cache at full width, one model
+    # at a time on the emptied card) likewise
+    reset_launch_counts()
+    run_lever_phase(torch, dev, launch_counts)
+    lever_launched = launch_counts()
+    print(f"[train] phase 25 launches: {lever_launched}")
+    launched = {k: v + lever_launched[k] for k, v in launched.items()}
+    lap("25")
     # phase 19 (2 ranks sharing the card) is counted apart, from 0, in its
     # ranks, and added
     launched_19, tp_costs = run_mesh_phase(torch, *mesh_refs,

@@ -345,10 +345,13 @@ def step_args(model: Model, shape, mesh, rules, dev: torch.device, *,
 def run_step(model: Model, shape, args: tuple, *, grad_accum: int = 1):
     """The cell's step on :func:`step_args`' arguments: the train step with
     AdamW, the prefill forward's logits, or a decode step and its greedy
-    tokens with the new cache.  The caller installs the mesh's
-    ``shard_ctx``."""
+    tokens with the new cache.  The train step donates its weights and
+    moments, as the reference lowers it (``donate_argnums=(0, 1)``) and as
+    ``train`` runs it: the update is written into them.  The caller
+    installs the mesh's ``shard_ctx``."""
     if shape.kind == "train":
-        return make_train_step(model, AdamW(), grad_accum=grad_accum)(*args)
+        return make_train_step(model, AdamW(), grad_accum=grad_accum,
+                               donate=True)(*args)
     with torch.no_grad():
         if shape.kind == "prefill":
             params, batch = args

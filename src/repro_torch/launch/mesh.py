@@ -151,6 +151,22 @@ def fake_world(n: int):
         yield
     finally:
         dist.destroy_process_group()
+        _forget_meshes()
+
+
+def _forget_meshes() -> None:
+    """Empty ``DTensor``'s caches of sharding propagations (the Python one
+    and, where the running torch has it, the native one).  Their entries
+    hold the ``DeviceMesh`` they were made on, and a mesh of a later world
+    of the same shape compares equal to it, so a hit would hand back a mesh
+    whose process groups are gone."""
+    from torch.distributed.tensor import DTensor
+    DTensor._op_dispatcher.sharding_propagator \
+        .propagate_op_sharding.cache_clear()
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                     None)
+    if native is not None:
+        native()
 
 
 def world_backend(device_type: str) -> str:

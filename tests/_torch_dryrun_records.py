@@ -14,7 +14,7 @@ REDUCED_CELLS = {
         "mem": {"argument_bytes": 858372, "output_bytes": 334108,
                 "temp_bytes": 14204486676, "code_bytes": 0},
         "flops_per_dev": 1966893694976.0,
-        "bytes_per_dev": 1462569740596.0,
+        "bytes_per_dev": 1462569963316.0,
         "coll_bytes_per_dev": 1362299416.0,
         "coll_kinds": {"all-gather": 403177472.0, "all-reduce": 471155980.0,
                        "reduce-scatter": 16809984.0},

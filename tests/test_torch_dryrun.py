@@ -257,12 +257,52 @@ def _wide_vocab(arch: str = "qwen2-0.5b", vocab: int = 8192):
 def test_train_temp_falls_with_the_model_ways():
     """A train step whose vocab is its largest dim, (2, 2) → (2, 4): the
     logits and the loss stay split over the vocab (model) ways, so the
-    temp bytes fall to at most 0.6× (whole-vocab logits kept them)."""
-    cfg, shape = _wide_vocab(), ShapeConfig("t", 64, 8, "train")
+    temp bytes fall to at most 0.6× (whole-vocab logits kept them).  The
+    step donates, so its peak is the loss's backward, beside ~4 MB of
+    activations split over the data ways only: at vocab 16384 the fall
+    reads 0.56× (at 8192, 0.61×; the pure step's peak was its update,
+    whose trees split exactly: 0.50×)."""
+    cfg, shape = _wide_vocab(vocab=16384), ShapeConfig("t", 64, 8, "train")
     axes = ("data", "model")
     two = _temp(cfg, shape, (2, 2), axes, train_rules())
     four = _temp(cfg, shape, (2, 4), axes, train_rules())
     assert four <= 0.6 * two
+
+
+def _local_param_bytes(cfg, shape, dims, axes, rules) -> int:
+    """Rank 0's bytes of the weights of ``cfg`` placed on a mesh of
+    ``dims`` × ``axes`` as the dry-run places them."""
+    import math
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.device import card_model
+    from repro_torch.models import Model
+    with fake_world(math.prod(dims)):
+        mesh = make_mesh(dims, axes, device=torch.device("cpu"))
+        mesh.device_mesh()
+        with FakeTensorMode(), card_model():
+            args = dryrun.step_args(Model(cfg), shape, mesh, rules,
+                                    torch.device("cpu"))
+            return dryrun.tree_bytes(args[0])
+
+
+def test_train_temp_at_the_update_falls_when_the_step_donates(monkeypatch):
+    """Fault 22: a train cell whose peak sits at the update (reduced
+    qwen2-0.5b, 4 × 8 tokens on (2, 2), so the activations are small
+    beside the weights) holds at least two trees of weights fewer temp
+    bytes a device under the donating step the dry-run traces than under
+    the pure step, which builds a clipped gradient tree and new weights
+    and moments beside the old (2.54 trees fewer)."""
+    from repro_torch.train import train_loop
+    cfg = get_config("qwen2-0.5b", reduced=True)
+    shape = ShapeConfig("t", 8, 4, "train")
+    dims, axes = (2, 2), ("data", "model")
+    donated = _temp(cfg, shape, dims, axes, train_rules())
+    monkeypatch.setattr(dryrun, "make_train_step",
+                        lambda model, opt, **kw: train_loop.make_train_step(
+                            model, opt, **dict(kw, donate=False)))
+    pure = _temp(cfg, shape, dims, axes, train_rules())
+    tree = _local_param_bytes(cfg, shape, dims, axes, train_rules())
+    assert donated <= pure - 2 * tree, (donated, pure, tree)
 
 
 def test_decode_temp_below_the_table():

@@ -907,6 +907,107 @@ def test_pure_update_holds_a_second_copy_of_the_state(cuda):
     assert peak >= 3 * weights > bound, (peak, weights, bound)
 
 
+def _gemma_loss_head_peak(cuda, chunk: int) -> tuple:
+    """(peak above resident, resident) of full-width gemma-2b's loss at
+    (4, 4096) on the hidden states of its first 2 layers: with ``chunk``
+    the chunked loss's forward and its backward to the hidden states and
+    the tied (256000, 2048) table; with 0 the dense loss's forward alone
+    (its f32 logits are 15.6 GiB, and its backward holds ~4 more copies,
+    more than the card has)."""
+    import dataclasses
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model, transformer
+    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=2,
+                              loss_chunk=chunk)
+    params = Model(cfg).init(seed=0, device=cuda)
+    batch = SyntheticLM(4, 4096, cfg.vocab, device=cuda).create(0)
+    with torch.no_grad():
+        hidden, _ = transformer.hidden_states(cfg, params, batch["tokens"])
+    hidden.requires_grad_(True)
+    table = params["embedding"]["embed"].detach().requires_grad_(True)
+    head = {"embedding": {"embed": table}}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.enable_grad():
+        if chunk:
+            total = transformer._nll_chunked(cfg, head, hidden,
+                                             batch["labels"])
+            grads = torch.autograd.grad(total, (hidden, table))
+            assert all(bool(torch.isfinite(g).all()) for g in grads)
+            del grads
+        else:
+            total = transformer._nll_dense(cfg, head, hidden,
+                                           batch["labels"])
+        assert bool(torch.isfinite(total))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del total, hidden, table, head, params
+    torch.cuda.empty_cache()
+    what = (f"loss_chunk {chunk}, forward and backward" if chunk
+            else "dense loss, forward")
+    print(f"[loss] gemma-2b (4, 4096), 2 layers' hidden states, {what}"
+          f": peak {peak:,} B ({peak / 2**30:.2f} GiB) above the "
+          f"{base:,} B resident")
+    return peak, base
+
+
+def test_chunked_loss_holds_one_chunk_of_logits(cuda):
+    """The chunked cross-entropy at train_4k's 4096 positions (gemma-2b,
+    published widths, ``loss_chunk=512``): each chunk's logits are dropped
+    by its checkpoint and recomputed in the backward, so the loss's
+    forward and backward peak at most 6 f32 copies of one (4, 512, 256000)
+    chunk (2.10 GB each) above what is resident, beside the table's f32
+    gradient and its bf16 cast and the hidden states' gradient (17.0 GB
+    in all).  Holding the 8 chunks' f32 logits for the backward alone
+    would take 16.8 GB."""
+    peak, _ = _gemma_loss_head_peak(cuda, 512)
+    B, ck, V, D = 4, 512, 256000, 2048
+    chunk_f32 = B * ck * V * 4
+    bound = 6 * chunk_f32 + 2 * V * D * 4 + 2 * B * 4096 * D * 2 + 2**26
+    assert peak <= bound, (peak, bound)
+
+
+def test_dense_loss_holds_the_whole_logits(cuda):
+    """What the chunked loss avoids: gemma-2b's dense loss at (4, 4096)
+    holds at least one whole (4, 4096, 256000) f32 copy of its logits
+    (15.6 GiB) in its forward alone."""
+    peak, _ = _gemma_loss_head_peak(cuda, 0)
+    assert peak >= 4 * 4096 * 256000 * 4, peak
+
+
+def test_int8_cache_of_yi_34b_at_decode_32k_is_half(cuda):
+    """yi-34b's caches at its published widths on the card, 2 slots of
+    32,768 positions (the JAX package's decode_32k length): the int8 one
+    (k and v in int8, an f32 scale a position and head) takes under 0.55x
+    the bf16 one's bytes, as the JAX package's ``test_cache_half_size``
+    asks, and so much device memory."""
+    import dataclasses
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("yi-34b"), param_dtype="bfloat16")
+    sizes = {}
+    for quant in (False, True):
+        model = Model(dataclasses.replace(cfg, kv_quant=quant))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cache = model.init_cache(2, 32768, device=cuda)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        leaves = torch.utils._pytree.tree_leaves(cache)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        assert held >= nbytes, (held, nbytes)
+        if quant:
+            assert {t.dtype for t in leaves} == {torch.int8, torch.float32,
+                                                 torch.int32}
+        sizes[quant] = nbytes
+        del cache, leaves
+        torch.cuda.empty_cache()
+    print(f"[cache] yi-34b (2, 32768): bf16 {sizes[False]:,} B, int8 "
+          f"{sizes[True]:,} B, {sizes[True] / sizes[False]:.4f}x")
+    assert sizes[True] < 0.55 * sizes[False]
+
+
 def test_donating_update_equals_update_on_card(cuda):
     """Three updates of reduced mamba2-2.7b's tree on the card, clipped
     hard, not at all and then slightly: ``update_`` gives ``update``'s

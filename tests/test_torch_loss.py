@@ -41,6 +41,20 @@ def test_loss_chunk_equivalence():
     assert max_grad_diff(g_chunk, jgrads) < 1e-4
 
 
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-vl-2b"])
+def test_loss_chunk_equals_the_dense_loss(arch):
+    """The reference's chunked-CE gates (1e-5 on the loss and every
+    gradient) on reduced gemma-2b, whose tied table's gradient sums the
+    four chunks' recomputed unembeddings with the scaled lookup's, and
+    qwen2-vl-2b, whose M-RoPE positions the backward goes through."""
+    _, _, m, p = pair(arch, loss_chunk=8)
+    nb = batch((4, 32), seed=3)
+    l_chunk, _, g_chunk = torch_loss_grads(m, p, nb)
+    l_dense, _, g_dense = torch_loss_grads(_variant(m, loss_chunk=0), p, nb)
+    assert abs(l_chunk - l_dense) < 1e-5
+    assert _max_diff(g_chunk, g_dense) < 1e-5
+
+
 def test_loss_chunk_that_does_not_divide_is_one_chunk():
     _, _, m, p = pair("qwen2-0.5b", loss_chunk=10)
     nb = batch((2, 24), seed=4)

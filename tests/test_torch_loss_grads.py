@@ -1,6 +1,9 @@
 """``Model.loss_fn`` and its gradients against ``jax.grad``, on the CPU:
 the dense, VLM, SSM and encoder-decoder architectures at reduced width
-(the MoE and hybrid ones are in ``test_torch_loss_grads_moe.py``).
+(the MoE and hybrid ones are in ``test_torch_loss_grads_moe.py``), and,
+as ``<arch>/chunk8``, gemma-2b (tied table, embedding scale, GeGLU, one KV
+head) and qwen2-vl-2b (M-RoPE) with the loss over chunks of 8 positions
+(``loss_chunk``), against the reference's chunked loss.
 
 The JAX package's ``PRNGKey(0)`` weights cross with ``params_from_numpy``
 and the same numpy-seeded batch goes through both; the reference trains on
@@ -15,7 +18,8 @@ from _torch_loss_pairs import (batch, jax_loss_grads, max_grad_diff, pair,
                                torch_loss_grads)
 
 ARCHS = ["gemma-2b", "glm4-9b", "qwen2-0.5b", "qwen2-vl-2b", "yi-34b",
-         "mamba2-2.7b", "whisper-tiny"]
+         "mamba2-2.7b", "whisper-tiny", "gemma-2b/chunk8",
+         "qwen2-vl-2b/chunk8"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -1,31 +1,43 @@
-"""Phase 22, 23 or 24 of ``chip_smoke.py`` alone, or phase 1's
+"""Phase 22, 23, 24 or 25 of ``chip_smoke.py`` alone, or phase 1's
 flash-attention, SSD-scan or grouped-matmul check.
 
     python3 tools/lm_phase.py          # on the card: phase 22
-    python3 tools/lm_phase.py phase23  # on the card: phase 23
+    python3 tools/lm_phase.py phase23  # on the card: phase 23 (23d too)
     python3 tools/lm_phase.py phase24  # on the card: phase 24
+    python3 tools/lm_phase.py phase25  # on the card: phase 25
+    python3 tools/lm_phase.py int8 cpu # no card: 23d's gate's readings
     python3 tools/lm_phase.py flash    # on the card: the flash check
     python3 tools/lm_phase.py ssd      # on the card: the SSD-scan check
     python3 tools/lm_phase.py gmm      # on the card: the grouped-matmul check
 
 Phase 22 runs gemma-2b, glm4-9b and qwen2-vl-2b at full width, one after
 another (``chip_smoke.run_wide_phase``), after building the flash kernel,
-the only kernel the phase launches; it prints the phase's launches.
-Phase 23 runs yi-34b and phi3.5-moe (24 layers) with bf16 weights
-(``chip_smoke.run_bf16_phase``), after building the flash and
-grouped-matmul kernels.  Phase 24 trains mamba2-2.7b, zamba2-1.2b and
-whisper-tiny at full width (``chip_smoke.run_wide_train_phase``), after
-building the flash and SSD-scan kernels.  ``ssd`` builds the SSD-scan
-kernel and runs ``chip_smoke.check_ssd``: every shape against the plain
-version, the mamba2 forward's and training step's shapes timed (the
-latter also as the plain backward).  ``flash`` builds the flash kernel (ptxas's
-registers and spills of each instance, the HMMA lines of its SASS) and
-runs ``chip_smoke.check_flash``: every shape against the plain version,
-and the forwards' shapes timed beside ``scaled_dot_product_attention``
-(gemma-2b's also in f16, on the FMA path).  ``gmm`` builds the
-grouped-matmul kernel and runs ``chip_smoke.check_moe_gmm``: every case
-against the plain version, deepseek-moe-16b's and phi3.5-moe's products
-timed beside ``torch._grouped_mm``.  Each exits non-zero on a failed
+the only kernel the phase launches; it prints the phase's launches. Phase
+23 runs yi-34b and phi3.5-moe (24 layers) with bf16 weights
+(``chip_smoke.run_bf16_phase``), then serves yi-34b from an int8 KV cache
+of 32,768 positions (23d), after building the flash and grouped-matmul
+kernels. Phase 24 trains mamba2-2.7b, zamba2-1.2b and whisper-tiny at full
+width (``chip_smoke.run_wide_train_phase``), after building the flash and
+SSD-scan kernels. Phase 25 trains gemma-2b with the chunked loss at (4,
+4096) and qwen2-vl-2b at (4, 1024) and holds both, and yi-34b's int8
+cache, against the CPU (``chip_smoke.run_lever_phase``), after building
+the flash kernel. ``int8 cpu`` prints, on the CPU,
+``chip_smoke.compare_int8_cache``'s readings from which 23d's gate on the
+int8 cache against the bf16 cache was set
+(``chip_smoke.int8_cpu_readings``), and how far the int8 cache carries a
+difference of f32 rounding, as 25c's gates on the card against the CPU
+read it (``chip_smoke.int8_flip_readings``); about a minute. ``ssd``
+builds the SSD-scan kernel and runs ``chip_smoke.check_ssd``: every shape
+against the plain version, the mamba2 forward's and training step's shapes
+timed (the latter also as the plain backward). ``flash`` builds the flash
+kernel (ptxas's registers and spills of each instance, the HMMA lines of
+its SASS) and runs ``chip_smoke.check_flash``: every shape against the
+plain version, and the forwards' shapes timed beside
+``scaled_dot_product_attention`` (gemma-2b's also in f16, on the FMA
+path). ``gmm`` builds the grouped-matmul kernel and runs
+``chip_smoke.check_moe_gmm``: every case against the plain version,
+deepseek-moe-16b's and phi3.5-moe's products timed beside
+``torch._grouped_mm``. Each but ``int8 cpu`` exits non-zero on a failed
 check or without a card.
 """
 import os
@@ -37,11 +49,15 @@ import chip_smoke as cs
 
 def main(argv) -> int:
     import torch
+    if argv == ["int8", "cpu"]:
+        cs.int8_cpu_readings()
+        cs.int8_flip_readings()
+        return 0
     if not torch.cuda.is_available():
         print("lm_phase: no CUDA device is available", file=sys.stderr)
         return 1
-    if argv not in ([], ["phase23"], ["phase24"], ["flash"], ["ssd"],
-                    ["gmm"]):
+    if argv not in ([], ["phase23"], ["phase24"], ["phase25"], ["flash"],
+                    ["ssd"], ["gmm"]):
         print(f"lm_phase: unknown arguments {argv}", file=sys.stderr)
         return 2
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -70,6 +86,9 @@ def main(argv) -> int:
     elif argv == ["phase24"]:
         cs.run_wide_train_phase(torch, dev, launch_counts)
         print(f"[train] phase 24 launches: {launch_counts()}")
+    elif argv == ["phase25"]:
+        cs.run_lever_phase(torch, dev, launch_counts)
+        print(f"[train] phase 25 launches: {launch_counts()}")
     else:
         cs.run_wide_phase(torch, dev, launch_counts)
         print(f"[lm] phase 22 launches: {launch_counts()}")
