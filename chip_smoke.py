@@ -273,6 +273,31 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    a half step); layer 1, which also carries what layer 0's flips moved,
    within 2e-3 and 2 %; the logits within 3e-3 in relative norm; the
    phase prints its wall;
+26. (run after phase 25, on the emptied card, one model at a time) the
+   JAX package's long-context cells on seeded tensors at published
+   widths: 26a-26c ``prefill_32k``, ``Model.forward`` of one row of
+   32,768 tokens (the cell's 32 rows are a mesh's) by mamba2-2.7b (64 SSD
+   launches a forward), zamba2-1.2b (38 SSD, 6 flash) and qwen2-0.5b (24
+   flash): a cold and a warm bf16 forward (finite logits; wall, tokens/s,
+   peak), the f32 forward's first 2,048 rows against an f32 forward of
+   those tokens alone within 3e-3 (the causal prefix), the bf16 logits of
+   the last 3 rows within the arch's ``LONG_BF16_GATE`` of the f32 ones in
+   relative norm, which a bf16 forward with layer 0's output dropped must
+   exceed, and mamba2's f32 forward's last 3 rows against ``prefill`` of
+   32,766 tokens and 2 decode steps within 3e-3 (the kernels at those
+   lengths are held against their plain versions in phase 1);
+   26d ``long_500k``: mamba2-2.7b's 8 decode steps from a cache of
+   524,288 positions equal those from 128, whose cache has the same
+   bytes; zamba2-1.2b serves one seeded request (16 prompt tokens fed
+   one a step, 16 new) from a one-slot cache of 524,288 positions
+   (exactly 25,769,803,776 B of shared k and v) with no kernel launched,
+   TTFT, TPOT and the step's p50 and p99, the peak above the weights and
+   cache under one f32 copy of an application's k, and a traced step
+   (idle share, device kernels against a step at 128, peak); in f32 the
+   same request from 524,288 positions and from 128 gives equal greedy
+   tokens and logits within 1e-5 in relative norm; and the rotary angles
+   of every position up to 524,288 on the card against the CPU; the
+   phase prints its wall;
 18. (run after phase 17 and the profiles below, on phase 6's weights)
    training on the card: 18a trains full-width qwen2-0.5b through
    ``python -m repro_torch.launch.train``'s ``main`` (8 steps of (4, 1024),
@@ -298,7 +323,10 @@ CUDA toolkit (``nvcc``).  It builds the port's CUDA kernels from
    whisper-tiny × decode_32k on 16x16; phi3.5-moe-42b-a6.6b × train_4k on
    2x16x16, memory only) traced with fake CUDA tensors in a process of
    their own, started before the kernel builds: each ``ok``, no kernel
-   launched and no device byte allocated by the traces; 20b, 18a's step
+   launched and no device byte allocated by the traces; the same process
+   traces 26d's one-device decode step (zamba2-1.2b from 524,288
+   positions), printed beside the card's peak over that step (not gated);
+   20b, 18a's step
    traced: its peak (argument + temp bytes) within 15 % of the card's
    peak over that step and its FLOPs within 2 % of the step's executed
    count (``dryrun_step_flops``); 20c, 19b's bf16 step traced in a fake
@@ -368,7 +396,7 @@ images.
 Kernel launch counts are reset just before phase 2 and read after phase 9
 (the thread hosts of phases 12, 13 and 15 and the simulated hosts of
 phases 14 and 15 count with them; phase 16, which must launch nothing, is
-counted apart, from 0; phases 17, 18, 22, 23, 24 and 25 are counted
+counted apart, from 0; phases 17, 18, 22, 23, 24, 25 and 26 are counted
 apart, from 0, and added),
 and reset again just before phase 10 and read after phase 11: each kernel
 must have been launched by one of the two paths.  One more fused run of
@@ -740,16 +768,31 @@ def scaled_errors(got, want) -> tuple:
             float(diff.norm() / want.norm()))
 
 
+def flash_gates(name, got, want, tol) -> tuple:
+    """Holds a flash output to ``tol`` and to the gates scaled to the
+    output; returns :func:`scaled_errors`."""
+    err, scale, rel_rms = scaled_errors(got, want)
+    check(err <= tol, f"{name}: max |diff| {err} > {tol}")
+    check(err <= REL_MAX * scale,
+          f"{name}: max |diff| {err} > {REL_MAX} x max|want| {scale}")
+    check(rel_rms <= REL_RMS,
+          f"{name}: |got - want| / |want| {rel_rms} > {REL_RMS}")
+    return err, scale, rel_rms
+
+
 def check_flash(torch, dev) -> dict:
     """The flash kernel against its plain version: the qwen2, deepseek,
     gemma, glm4, qwen2-vl, yi and phi3.5-moe forwards' shapes, whisper's
     decoder self-attention (4, 6, 6, 448, 448, 64), zamba2's shared block
     (4, 32, 32, 1024, 1024, 64), gemma's (4, 8, 1, 4096, 4096, 256) and
     qwen2-vl's (4, 12, 2, 1024, 1024, 128) in a train step and the
-    reference tests' shapes, f32 and bf16, causal; an encoder's and
+    reference tests' shapes, and zamba2's and qwen2's at one row of 32,768
+    tokens (phase 26; against the plain version's query-chunked form, with
+    the last query tile also alone), f32 and bf16, causal; an encoder's and
     cross-attention's shapes (whisper's train step's (4, 6, 6, 448, 1500,
     64) among them) without causality; times at the qwen2, deepseek, gemma
-    and yi forwards' shapes (gemma's also in f16, the FMA path), gemma's
+    and yi forwards' shapes (gemma's also in f16, the FMA path), the 32k
+    shapes, gemma's
     train step's and whisper-tiny's encoder and cross-attention shapes
     (bf16: the tensor-core path)."""
     import torch.nn.functional as F
@@ -770,8 +813,13 @@ def check_flash(torch, dev) -> dict:
     # gemma-2b's and qwen2-vl-2b's train steps (phases 25a and 25b)
     gemma_train = (4, 8, 1, 4096, 4096, 256)
     qwen2_vl_train = (4, 12, 2, 1024, 1024, 128)
+    # one row of the JAX package's prefill_32k cell (phase 26): zamba2-1.2b's
+    # shared block and qwen2-0.5b
+    zamba2_long, qwen2_long = LONG_FLASH["zamba2-1.2b"], \
+        LONG_FLASH["qwen2-0.5b"]
     causal_shapes = [path, deepseek, gemma, glm4, qwen2_vl, yi, phi,
                      whisper_dec, zamba2, gemma_train, qwen2_vl_train,
+                     zamba2_long, qwen2_long,
                      (1, 4, 2, 64, 64, 32),
                      (2, 8, 1, 96, 96, 64), (2, 4, 4, 128, 128, 32),
                      (1, 2, 2, 33, 33, 16),  # ragged
@@ -793,6 +841,8 @@ def check_flash(torch, dev) -> dict:
     timed = {(path, True): "qwen2-0.5b", (deepseek, True): "deepseek-moe-16b",
              (gemma, True): "gemma-2b", (yi, True): "yi-34b",
              (gemma_train, True): "gemma-2b training",
+             (zamba2_long, True): "zamba2-1.2b prefill_32k",
+             (qwen2_long, True): "qwen2-0.5b prefill_32k",
              (whisper_enc, False): "whisper-tiny encoder",
              (whisper_cross, False): "whisper-tiny decode step's "
                                      "cross-attention"}
@@ -809,30 +859,48 @@ def check_flash(torch, dev) -> dict:
             q = (torch.randn(B, H, Sq, D, generator=g) * 0.3).to(dtype).to(dev)
             k = (torch.randn(B, K, Sk, D, generator=g) * 0.3).to(dtype).to(dev)
             v = torch.randn(B, K, Sk, D, generator=g).to(dtype).to(dev)
+            # the plain version's whole (Sq, Sk) f32 logits past 4 GiB
+            # (137 GB at zamba2's 32k shape): its query-chunked form
+            chunked = B * H * Sq * Sk * 4 > 1 << 32
+
+            def plain():
+                if chunked:
+                    return ref.mha_chunked(q, k, v, causal=causal,
+                                           chunk=LONG_FLASH_CHUNK)
+                return ref.mha(q, k, v, causal=causal)
+
             got = ops.mha(q, k, v, causal=causal)
-            want = ref.mha(q, k, v, causal=causal)
-            err, scale, rel_rms = scaled_errors(got, want)
-            del got, want
+            want = plain()
             name = (f"flash ({B}, {H}, {K}, {Sq}, {Sk}, {D}) causal={causal} "
                     f"{dtype}")
-            check(err <= tol, f"{name}: max |diff| {err} > {tol}")
-            check(err <= REL_MAX * scale,
-                  f"{name}: max |diff| {err} > {REL_MAX} x max|want| "
-                  f"{scale}")
-            check(rel_rms <= REL_RMS,
-                  f"{name}: |got - want| / |want| {rel_rms} > {REL_RMS}")
+            err, scale, rel_rms = flash_gates(name, got, want, tol)
+            tail = ""
+            if chunked:
+                # the last query tile, whose online softmax runs its maximum
+                # over every key tile, and the worst row
+                t_err, _, t_rms = flash_gates(f"{name} last query tile",
+                                              got[:, :, -128:],
+                                              want[:, :, -128:], tol)
+                rows = (got.float() - want.float()).abs().amax(-1).flatten()
+                worst = int(rows.argmax())
+                tail = (f"; against mha_chunked (chunk {LONG_FLASH_CHUNK}); "
+                        f"the last 128 query rows {t_err:.3e} / {t_rms:.3e}; "
+                        f"the worst row (head {worst // Sq % H}, query "
+                        f"{worst % Sq}) {float(rows[worst]):.3e}")
+                del rows
+            del got, want
             route = ("tensor cores" if kernel.tensor_core_path(dtype, D)
                      else "FMA")
             print(f"[kernel] flash_attention B={B} H={H} K={K} Sq={Sq} "
                   f"Sk={Sk} D={D} {str(dtype)[6:]} causal={causal} "
                   f"({route}): max|diff| {err:.3e} (gates {tol} and "
                   f"{REL_MAX} x max|want| {scale:.3e}), |got - want| / "
-                  f"|want| {rel_rms:.3e} (gate {REL_RMS})")
+                  f"|want| {rel_rms:.3e} (gate {REL_RMS}){tail}")
             shape = (B, H, K, Sq, Sk, D)
             label = timed.get((shape, causal))
             if label is None or dtype != torch.bfloat16:
                 continue
-            fns = {"plain": lambda: ref.mha(q, k, v, causal=causal),
+            fns = {"plain": plain,
                    "kernel": lambda: ops.mha(q, k, v, causal=causal),
                    "library": lambda: F.scaled_dot_product_attention(
                        q, k, v, is_causal=causal, enable_gqa=True)}
@@ -841,9 +909,9 @@ def check_flash(torch, dev) -> dict:
                       "flash f16 D=256 is no longer the FMA path")
                 qh, kh, vh = (t.half() for t in (q, k, v))
                 fns["fma"] = lambda: ops.mha(qh, kh, vh, causal=causal)
-            t = timed_turns(torch, fns, {"plain": 3, "kernel": 10,
-                                         "library": 10, "fma": 5},
-                            flush=flush_buf.zero_)
+            reps = ({"plain": 1, "kernel": 3, "library": 3} if chunked else
+                    {"plain": 3, "kernel": 10, "library": 10, "fma": 5})
+            t = timed_turns(torch, fns, reps, flush=flush_buf.zero_)
             pairs = B * H * (sum(min(Sk, i + Sk - Sq + 1) for i in range(Sq))
                              if causal else Sq * Sk)
             flops = 4.0 * D * pairs
@@ -887,13 +955,41 @@ def ssd_work(b, S, H, P, G, N, chunk=64) -> float:
                                               + 4.0 * N * P * S)
 
 
+def ssd_gates(name, y, hT, want_y, want_h, rtol, atol) -> tuple:
+    """Holds an SSD scan's y to (rtol, atol) and its f32 final state to
+    them (f32 y) or to 2e-4 (bf16 y); bf16 y also to the gates scaled to
+    the output.  Returns (max |diff| of y, of hT, the scaled gates' text)."""
+    import torch
+    err = float((y.float() - want_y.float()).abs().max())
+    err_h = float((hT - want_h).abs().max())
+    htol = (rtol, atol) if y.dtype == torch.float32 else (2e-4, 2e-4)
+    for got, want, (rt, at), what in ((y.float(), want_y.float(),
+                                       (rtol, atol), "y"),
+                                      (hT, want_h, htol, "hT")):
+        excess = float(((got - want).abs() - (at + rt * want.abs())).max())
+        check(excess <= 0, f"{name}: {what} outside rtol {rt} / atol {at} "
+                           f"by {excess}")
+    if y.dtype != torch.bfloat16:
+        return err, err_h, ""
+    _, scale, rel_rms = scaled_errors(y, want_y)
+    check(err <= REL_MAX * scale,
+          f"{name}: max |diff| {err} > {REL_MAX} x max|want| {scale}")
+    check(rel_rms <= REL_RMS,
+          f"{name}: |y - want| / |want| {rel_rms} > {REL_RMS}")
+    return err, err_h, (f"; {err / scale:.2%} of max|want| {scale:.3e} "
+                        f"(gate {REL_MAX:.0%}), |y - want| / |want| "
+                        f"{rel_rms:.3e} (gate {REL_RMS})")
+
+
 def check_ssd(torch, dev) -> dict:
     """The SSD kernel against its plain version, y and the final state: the
     mamba2 and zamba2 forwards' and train steps' shapes, the reference
     tests' shapes, ragged S, G = H, and P > 64 and N > 128 (several
-    launches a call); times at
+    launches a call), and mamba2's and zamba2's at one row of 32,768
+    tokens (phase 26; there also the last chunk's y); times at
     the mamba2 forward's shape and at its training step's (4, 1024, 80,
-    64, 1, 128), there also the plain backward.  bf16 y is also held to
+    64, 1, 128), there also the plain backward, and at both 32k shapes.
+    bf16 y is also held to
     gates scaled to the output (as flash is): max |diff| <= 2e-2 max
     |want| and ||diff|| <= 1e-2 ||want||."""
     from repro_torch.kernels.ssd_scan import ops, ref
@@ -905,6 +1001,9 @@ def check_ssd(torch, dev) -> dict:
     zamba = (4, 2048, 64, 64, 1, 64)
     zamba_train = (4, 1024, 64, 64, 1, 64)  # its train step's (phase 24b)
     ref_shape = (1, 64, 2, 8, 2, 4)   # tests/test_kernels.py: BH 2, own B, C
+    # one row of the JAX package's prefill_32k cell (phase 26): 512 chunks
+    # walked in series by each of batch x H blocks
+    long, zamba_long = LONG_SSD["mamba2-2.7b"], LONG_SSD["zamba2-1.2b"]
     # (shape, dtype, chunk of the plain version, (rtol, atol)).  bf16: both
     # sides sum in f32 and round y to bf16 once, so a rounding flip costs one
     # ulp (2^-8 of |y|); the f32 state is then held to 2e-4
@@ -912,6 +1011,9 @@ def check_ssd(torch, dev) -> dict:
              (zamba, bf16, 64, (1e-2, 5e-2)),
              (zamba_train, bf16, 64, (1e-2, 5e-2)),
              (path, f32, 64, (2e-4, 2e-4)), (zamba, f32, 64, (2e-4, 2e-4)),
+             (long, bf16, 64, (1e-2, 5e-2)), (long, f32, 64, (2e-4, 2e-4)),
+             (zamba_long, bf16, 64, (1e-2, 5e-2)),
+             (zamba_long, f32, 64, (2e-4, 2e-4)),
              (ref_shape, f32, 16, (1e-4, 1e-5)),
              (ref_shape, f32, 32, (1e-4, 1e-5)),
              ((1, 2047, 80, 64, 1, 128), bf16, 64, (1e-2, 5e-2)),  # ragged
@@ -937,34 +1039,24 @@ def check_ssd(torch, dev) -> dict:
               f"ssd {shape}: {pieces} launches")
         want_y, want_h = ref.ssd(x, dt, A, B, C, chunk=chunk,
                                  return_state=True)
-        err = float((y.float() - want_y.float()).abs().max())
-        err_h = float((hT - want_h).abs().max())
+        name = f"ssd {shape} {dtype} chunk {chunk}"
+        err, err_h, scaled = ssd_gates(name, y, hT, want_y, want_h, rtol,
+                                       atol)
+        if S >= LONG_SEQ:  # the last chunk's y, which carries every state
+            last, _, last_scaled = ssd_gates(
+                f"{name} last chunk", y[:, -chunk:], hT,
+                want_y[:, -chunk:], want_h, rtol, atol)
+            scaled += f"; the last of {S // chunk} chunks' y {last:.3e}" \
+                + last_scaled
         htol = (rtol, atol) if dtype == f32 else (2e-4, 2e-4)
-        for got, want, (rt, at), what in ((y.float(), want_y.float(),
-                                           (rtol, atol), "y"),
-                                          (hT, want_h, htol, "hT")):
-            excess = float(((got - want).abs()
-                            - (at + rt * want.abs())).max())
-            check(excess <= 0, f"ssd {shape} {dtype} chunk {chunk}: {what} "
-                               f"outside rtol {rt} / atol {at} by {excess}")
-        _, scale, rel_rms = scaled_errors(y, want_y)
-        scaled = ""
-        if dtype == bf16:
-            name = f"ssd {shape} bf16"
-            check(err <= REL_MAX * scale,
-                  f"{name}: max |diff| {err} > {REL_MAX} x max|want| "
-                  f"{scale}")
-            check(rel_rms <= REL_RMS,
-                  f"{name}: |y - want| / |want| {rel_rms} > {REL_RMS}")
-            scaled = (f"; {err / scale:.2%} of max|want| {scale:.3e} (gate "
-                      f"{REL_MAX:.0%}), |y - want| / |want| "
-                      f"{rel_rms:.3e} (gate {REL_RMS})")
         print(f"[kernel] ssd_scan batch={b} S={S} H={H} P={P} G={G} N={N} "
               f"{str(dtype)[6:]} ({pieces} launch{'es' if pieces > 1 else ''}"
               f"): max|diff| y {err:.3e} (rtol {rtol}, atol {atol}), hT "
               f"{err_h:.3e} (rtol {htol[0]}, atol {htol[1]}){scaled}")
         del y, hT, want_y, want_h
-        if shape not in (path, train) or dtype != bf16:
+        labels = {path: "path", train: "training", long: "prefill_32k",
+                  zamba_long: "zamba2-1.2b prefill_32k"}
+        if shape not in labels or dtype != bf16:
             continue
         t = timed_turns(
             torch, {"plain": lambda: ref.ssd(x, dt, A, B, C),
@@ -980,7 +1072,7 @@ def check_ssd(torch, dev) -> dict:
                 torch, ops.ssd, [x.clone(), dt.clone(), A.clone(), B.clone(),
                                  C.clone()], g)
             backward = f", plain backward {b_ms:.4f} ms"
-        print(f"[kernel] ssd_scan {'path' if shape == path else 'training'} "
+        print(f"[kernel] ssd_scan {labels[shape]} "
               f"shape {shape} bf16: kernel {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms{backward}, library none, bound "
               f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
@@ -3390,13 +3482,14 @@ def compare_routes(cfg, full, prefill, batch, half):
 
 def run_serve(torch, model, params, counts, per_decode=None,
               launcher_main=True, alone=8, n_requests=8,
-              backend=None) -> dict:
+              backend=None, reqs=None) -> dict:
     """The launcher's defaults: ``n_requests`` requests (8), 4 slots,
     max_len 128, max_new 16, on the card, through the launcher's ``main``
     (which builds its own weights) or, with ``launcher_main=False``,
     through a ``ServeEngine`` over ``backend`` (by default a
     ``LocalDecodeBackend`` of 4 slots and max_len 128 on the given model
-    and weights).  Every ``decode_step`` call must launch exactly
+    and weights), serving ``reqs`` if given, else the launcher's.  Every
+    ``decode_step`` call must launch exactly
     ``per_decode`` kernels (every other kernel: none).  Returns each
     request's tokens, the tokens of the first ``alone`` requests decoded
     alone in a one-slot engine (not gated; for a deep model all 8 are
@@ -3405,7 +3498,7 @@ def run_serve(torch, model, params, counts, per_decode=None,
     from repro_torch.core import trace
     from repro_torch.launch import serve as launcher
     from repro_torch.serve import LocalDecodeBackend, ServeEngine
-    reqs = launcher.requests(n_requests, model.cfg.vocab, 16)
+    reqs = reqs or launcher.requests(n_requests, model.cfg.vocab, 16)
     before = counts()
     rec = trace.enable(host="serve")  # the engine's decode/prefill spans
     try:
@@ -3462,14 +3555,9 @@ def run_serve(torch, model, params, counts, per_decode=None,
           f"chunk ({LAUNCH_PREFILL_CHUNK} single-token steps) p50 "
           f"{pct(prefill, 50):.2f} ms over {len(prefill)} chunks")
     tokens = {r.rid: r.tokens for r in done}
-    solo = {}
-    with torch.inference_mode():
-        for r in reqs[:alone]:  # each request alone in a one-slot engine
-            eng = ServeEngine(LocalDecodeBackend(model, params, n_slots=1,
-                                                 max_len=128))
-            eng.submit(r)
-            eng.run_until_drained()
-            solo[r.rid] = eng.poll(r.rid).tokens
+    # each request alone in a one-slot engine
+    solo = {r.rid: serve_alone(torch, model, params, r, 128)[0]
+            for r in reqs[:alone]}
     same = (f"{sum(solo[rid] == tokens[rid] for rid in solo)}/{len(solo)} "
             f"requests (of {len(reqs)}) give the same tokens decoded alone "
             "(n_slots=1; not gated)")
@@ -4525,6 +4613,490 @@ def run_lever_phase(torch, dev, counts) -> None:
     print(f"[train] phase 25 wall: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 26: the JAX package's long-context cells on real tensors -----------
+
+# The JAX package's prefill_32k and long_500k cells (src/repro/configs/
+# base.py:168, :170; what each runs: src/repro/launch/dryrun.py:197-221):
+# ``Model.forward`` on rows of 32,768 tokens, and a decode step over a cache
+# of 524,288 positions (long_500k is for the sub-quadratic archs only,
+# :176-181).  prefill_32k's global batch of 32 rows is a mesh's; one card
+# takes one row of it.  long_500k's batch of 1 is the JAX package's own.
+LONG_SEQ = 32_768
+LONG_ROWS, LONG_GLOBAL_ROWS = 1, 32
+LONG_DECODE_LEN = 524_288
+# (arch, launches a forward) of 26a-26c, one model at a time
+LONG_ARCHS = (("mamba2-2.7b", {"ssd_scan": 64}),
+              ("zamba2-1.2b", {"ssd_scan": 38, "flash_attention": 6}),
+              ("qwen2-0.5b", {"flash_attention": 24}))
+# the kernels' shapes in those forwards: SSD (batch, S, H, P, G, N), flash
+# (B, H, K, Sq, Sk, D), causal
+LONG_SSD = {"mamba2-2.7b": (1, LONG_SEQ, 80, 64, 1, 128),
+            "zamba2-1.2b": (1, LONG_SEQ, 64, 64, 1, 64)}
+LONG_FLASH = {"zamba2-1.2b": (1, 32, 32, LONG_SEQ, LONG_SEQ, 64),
+              "qwen2-0.5b": (1, 14, 2, LONG_SEQ, LONG_SEQ, 64)}
+# flash's plain version at 32,768 keys: query chunks of this many rows
+# (mha_chunked: (1, 32, 1024, 32768) f32 logits a chunk; mha's whole
+# logits would be 137 GB at zamba2's shape)
+LONG_FLASH_CHUNK = 1024
+# the causal-prefix check: the f32 forward's first rows against an f32
+# forward of those tokens alone (gate 3e-3, as forward against decode)
+PREFIX_ROWS = 2048
+# the last rows compared: mamba2's f32 forward against prefill(S -
+# LAST_ROWS) and LAST_ROWS decode steps (a prefill of an attention arch at
+# this length forms (S, T) f32 logits: 68.7 GB for zamba2); every model's
+# bf16 logits against its f32 ones there, in relative norm, within the
+# arch's gate, which a bf16 forward with layer 0's output dropped must
+# exceed.  Read on an H100 at 700 W: 0.0666, 0.0504 and 0.0226, the
+# controls 1.393, 1.410 and 1.403; each gate is about 1.5x its reading
+LAST_ROWS = 2
+LONG_BF16_GATE = {"mamba2-2.7b": 0.1, "zamba2-1.2b": 0.08,
+                  "qwen2-0.5b": 0.035}
+# 26d: one seeded request of 16 prompt tokens (fed one a step, as serving
+# does) and 16 new tokens, served from LONG_DECODE_LEN positions and from
+# LONG_SHORT_LEN: f32 tokens equal, logits within LONG_LOGITS_GATE in
+# relative norm (the masked positions add exact zeros; only the softmax's
+# and the PV product's longer sums round otherwise)
+LONG_REQUEST = (16, 16)
+LONG_SHORT_LEN = 128
+LONG_LOGITS_GATE = 1e-5
+# mamba2-2.7b × long_500k: greedy decode steps from init_cache(1, 524,288)
+# and from init_cache(1, 128)
+MAMBA_LONG_STEPS = 8
+
+
+def run_long_forward(torch, dev, counts, arch, per_forward) -> tuple:
+    """26a-26c: ``arch`` at its published config (f32 weights, bf16
+    compute) on a seeded (LONG_ROWS, LONG_SEQ) row: a cold and a warm bf16
+    forward (finite logits of the right shape; wall, tokens/s and the peak
+    above the weights), then the f32 forward, whose first PREFIX_ROWS rows
+    must equal an f32 forward of those tokens alone (the causal-prefix
+    check) and whose last LAST_ROWS + 1 rows the bf16 ones must follow
+    within LONG_BF16_GATE; an SSM arch's also prefill(S - LAST_ROWS) and
+    LAST_ROWS decode steps (:func:`teacher_forced`), within 3e-3.  Every
+    forward and prefill launches exactly ``per_forward``.  Returns (model,
+    weights)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(arch)
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    g = torch.Generator(device=dev).manual_seed(26)
+    toks = torch.randint(0, cfg.vocab, (LONG_ROWS, LONG_SEQ), generator=g,
+                         device=dev, dtype=torch.int32)
+    want = {k: per_forward.get(k, 0) for k in counts()}
+    R = LAST_ROWS + 1
+
+    def launched_as_a_forward(fn, what):
+        before = counts()
+        out = fn()
+        launched = {k: v - before[k] for k, v in counts().items()}
+        check(launched == want, f"26 {arch} {what} launched {launched}, "
+                                f"not {want}")
+        return out
+
+    walls = []
+    with torch.inference_mode():
+        for i in range(2):  # the first is cold
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = launched_as_a_forward(
+                lambda: model.forward(params, toks), "bf16 forward")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                del logits
+        peak = torch.cuda.max_memory_allocated() - resident
+        check(logits.shape == (LONG_ROWS, LONG_SEQ, cfg.vocab)
+              and logits.dtype == torch.bfloat16,
+              f"26 {arch}: logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()), f"26 {arch}: non-finite "
+                                                  "bf16 logits")
+        low = logits[:, -R:].float()
+        del logits
+        # the gate's control: the bf16 forward with the first layer's output
+        # projection zeroed, so that its kernel's output is dropped
+        seg = params["segments"][0]
+        w = seg["attn"]["wo"] if "attn" in seg else seg["mamba"]["out_proj"]
+        saved = w[0].clone()
+        w[0].zero_()
+        dropped, _ = launched_as_a_forward(
+            lambda: model.forward(params, toks), "bf16 forward, layer 0 "
+                                                 "dropped")
+        w[0].copy_(saved)
+        control = dropped[:, -R:].float()
+        del dropped, saved
+        tokens = LONG_ROWS * LONG_SEQ
+        print(f"[long] 26 {arch} × prefill_32k forward bf16 ({LONG_ROWS}, "
+              f"{LONG_SEQ}) (the cell's {LONG_GLOBAL_ROWS} rows are a mesh's;"
+              f" one row on one card): {walls[1]:.1f} ms warm (cold "
+              f"{walls[0]:.1f} ms), {tokens / walls[1] * 1e3:.0f} tok/s; "
+              f"finite logits; launches a forward {per_forward}; peak "
+              f"{peak / 2**30:.2f} GiB above the {resident / 2**30:.2f} GiB "
+              f"of weights")
+        m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
+        t0 = time.perf_counter()
+        full, _ = launched_as_a_forward(lambda: m32.forward(params, toks),
+                                        "f32 forward")
+        head, tail = full[:, :PREFIX_ROWS].clone(), full[:, -R:].clone()
+        del full
+        torch.cuda.synchronize()
+        f32_ms = (time.perf_counter() - t0) * 1e3
+        alone, _ = launched_as_a_forward(
+            lambda: m32.forward(params, toks[:, :PREFIX_ROWS]),
+            f"f32 forward of {PREFIX_ROWS} tokens")
+        err_prefix = float((alone - head).abs().max())
+        del alone, head
+        rel = float((low - tail).norm() / tail.norm())
+        rel_control = float((control - tail).norm() / tail.norm())
+        gate = LONG_BF16_GATE[arch]
+        agree = int((low.argmax(-1) == tail.argmax(-1)).sum())
+        print(f"[long] 26 {arch} forward f32 ({LONG_ROWS}, {LONG_SEQ}) "
+              f"{f32_ms:.1f} ms: the first {PREFIX_ROWS} rows against an f32"
+              f" forward of those tokens alone, max|diff| {err_prefix:.2e} "
+              f"(gate 3e-3); the bf16 logits of the last {R} rows against "
+              f"the f32 ones ||diff|| / ||f32|| {rel:.3e} (gate {gate}), "
+              f"max|diff| {float((low - tail).abs().max()):.3e}, greedy "
+              f"tokens agree {agree}/{R * LONG_ROWS}; the control (layer "
+              f"0's output dropped) {rel_control:.3e} (must exceed the "
+              f"gate)")
+        check(err_prefix < 3e-3, f"26 {arch}: causal prefix {err_prefix}")
+        check(rel <= gate < rel_control, f"26 {arch}: bf16 against f32 "
+                                         f"{rel}, the control {rel_control}")
+        if cfg.hybrid is None and cfg.ssm is not None:
+            before = counts()
+            got, cache = teacher_forced(torch, m32, params, toks, LAST_ROWS)
+            launched = {k: v - before[k] for k, v in counts().items()}
+            check(launched == want, f"26 {arch}: prefill and decode steps "
+                                    f"launched {launched}, not {want}")
+            del cache
+            errs = (got - tail).abs().amax(dim=-1).flatten().tolist()
+            print(f"[long] 26 {arch} f32 forward's last {R} rows against "
+                  f"prefill({LONG_SEQ - LAST_ROWS}) + {LAST_ROWS} decode "
+                  f"steps: max|diff| " + " / ".join(f"{e:.2e}" for e in errs)
+                  + " (gate 3e-3)")
+            check(max(errs) < 3e-3, f"26 {arch}: forward against prefill "
+                                    f"and decode {errs}")
+        del low, tail, control, toks
+    return model, params
+
+
+def run_mamba_long_decode(torch, dev, counts, model, params) -> None:
+    """26d for mamba2-2.7b (no attention): MAMBA_LONG_STEPS greedy decode
+    steps, bf16, from ``init_cache(1, LONG_DECODE_LEN)`` and from
+    ``init_cache(1, LONG_SHORT_LEN)``: the caches' bytes are equal (the
+    state does not grow with the length), so are the logits bit for bit,
+    and no kernel is launched."""
+    tok = torch.full((1, 1), 7, dtype=torch.int32, device=dev)
+    sizes, runs = {}, {}
+    before = counts()
+    with torch.inference_mode():
+        for max_len in (LONG_DECODE_LEN, LONG_SHORT_LEN):
+            cache = model.init_cache(1, max_len, device=dev)
+            sizes[max_len] = tree_bytes(cache)
+            t, got, walls = tok, [], []
+            for _ in range(MAMBA_LONG_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(params, cache, t)
+                t = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                got.append(logits[:, -1].float())
+            runs[max_len] = (torch.cat(got), walls)
+            del cache
+    launched = {k: v - before[k] for k, v in counts().items()}
+    same = torch.equal(runs[LONG_DECODE_LEN][0], runs[LONG_SHORT_LEN][0])
+    print(f"[long] 26d mamba2-2.7b × long_500k: init_cache(1, "
+          f"{LONG_DECODE_LEN}) {sizes[LONG_DECODE_LEN]:,} B, init_cache(1, "
+          f"{LONG_SHORT_LEN}) {sizes[LONG_SHORT_LEN]:,} B; "
+          f"{MAMBA_LONG_STEPS} greedy bf16 decode steps from each: logits "
+          f"equal bit for bit {same}; step wall p50 "
+          f"{statistics.median(runs[LONG_DECODE_LEN][1][1:]):.2f} ms; "
+          f"launches {launched}")
+    check(sizes[LONG_DECODE_LEN] == sizes[LONG_SHORT_LEN],
+          f"26d mamba2: cache {sizes}")
+    check(same, "26d mamba2: logits differ with the cache's length")
+    check(not any(launched.values()), f"26d mamba2: launched {launched}")
+
+
+class RecordingModel:
+    """A model whose ``decode_step`` keeps each step's last-position
+    logits in f32."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def decode_step(self, params, cache, tokens, **kw):
+        logits, cache = self.model.decode_step(params, cache, tokens, **kw)
+        self.logits.append(logits[:, -1].float().clone())
+        return logits, cache
+
+
+def shared_kv_bytes(cfg, cache) -> int:
+    """The bytes of the shared attention block's k and v in ``cache``."""
+    from repro_torch.models import transformer
+    return sum(seg[name].numel() * seg[name].element_size()
+               for (kind, _), seg in zip(transformer.structure(cfg),
+                                         cache["segments"])
+               if kind == "shared_attn" for name in ("k", "v"))
+
+
+def serve_alone(torch, model, params, req, max_len) -> tuple:
+    """``req`` alone in a ``ServeEngine`` over a one-slot
+    ``LocalDecodeBackend`` of ``max_len`` positions: (its tokens, each
+    decode step's logits (steps, V) in f32, the shared k and v's bytes)."""
+    from repro_torch.serve import LocalDecodeBackend, ServeEngine
+    rec = RecordingModel(model)
+    with torch.inference_mode():
+        backend = LocalDecodeBackend(rec, params, n_slots=1, max_len=max_len)
+        kv = shared_kv_bytes(model.cfg, backend.cache)
+        with ServeEngine(backend) as eng:
+            eng.submit(req)
+            (done,) = eng.run_until_drained()
+        del backend, eng
+    return done.tokens, torch.cat(rec.logits), kv
+
+
+def check_long_rope(torch, dev, cfg) -> None:
+    """The rotary angles of every position up to LONG_DECODE_LEN
+    (``rope_angles``' f32 angles reach 524,288 rad) on the card and on the
+    CPU: each side's cos and sin within 1e-6 of float64's of its own f32
+    angles, the inverse frequencies within two f32 ulps of each other
+    (CUDA's powf is within 2 ulps), and the card's cos and sin within the
+    CPU's plus the angles' difference."""
+    from repro_torch.models import layers
+    rot = int(cfg.hd * cfg.rope_fraction) // 2 * 2
+    half = rot // 2
+    sides = []
+    for where in (dev, torch.device("cpu")):
+        pos = torch.arange(LONG_DECODE_LEN, device=where)[None]
+        cos, sin = layers.rope_angles(pos, rot, cfg.rope_theta)
+        # the angles as rope_angles forms them (f32 inverse frequencies
+        # times f32 positions)
+        expo = torch.arange(0, half, dtype=torch.float32, device=where) / half
+        inv = 1.0 / torch.pow(cfg.rope_theta, expo)
+        ang = pos.float()[..., None] * inv
+        err = max(float((cos.double() - torch.cos(ang.double())).abs().max()),
+                  float((sin.double() - torch.sin(ang.double())).abs().max()))
+        sides.append((cos.cpu(), sin.cpu(), inv.cpu(), ang.cpu(), err))
+    (c_cos, c_sin, c_inv, c_ang, c_err), (h_cos, h_sin, h_inv, h_ang,
+                                          h_err) = sides
+    ulps = int((c_inv.view(torch.int32) - h_inv.view(torch.int32)).abs()
+               .max())
+    dang = float((c_ang - h_ang).abs().max())
+    apart = max(float((c_cos - h_cos).abs().max()),
+                float((c_sin - h_sin).abs().max()))
+    print(f"[long] 26d rope_angles of positions 0-{LONG_DECODE_LEN - 1} "
+          f"(rot {rot}, theta {cfg.rope_theta:g}): cos and sin against "
+          f"float64's of the f32 angles: card {c_err:.2e}, CPU {h_err:.2e} "
+          f"(gate 1e-6); inverse frequencies {ulps} ulp apart (gate 2); "
+          f"card against CPU {apart:.2e} (gate: the angles' difference "
+          f"{dang:.2e} + 1e-6)")
+    check(c_err <= 1e-6 and h_err <= 1e-6, f"26d rope: {c_err}, {h_err}")
+    check(ulps <= 2, f"26d rope: inverse frequencies {ulps} ulp apart")
+    check(apart <= dang + 1e-6, f"26d rope: card against CPU {apart}")
+
+
+def run_long_decode(torch, dev, counts, model, params) -> dict:
+    """26d, zamba2-1.2b × long_500k: one seeded request (LONG_REQUEST)
+    served by a ``ServeEngine`` over a one-slot ``LocalDecodeBackend`` of
+    LONG_DECODE_LEN positions, bf16 compute on 26b's f32 weights, through
+    :func:`run_serve` (TTFT, TPOT, the step's p50 and p99, no kernel
+    launched a step); the shared k and v's bytes, exact; the peak above
+    the resident weights and cache beside the float32 copies of fault 23;
+    one traced decode step (device busy time, idle share, its device
+    kernels against a step at LONG_SHORT_LEN, and its peak, returned for
+    phase 20's dry-run); the bf16 tokens against the same request served
+    from LONG_SHORT_LEN (not gated).  Then, with the bf16 cache freed, f32
+    compute: the greedy tokens served from LONG_DECODE_LEN equal those from
+    LONG_SHORT_LEN and the logits of every step agree within
+    LONG_LOGITS_GATE.  And :func:`check_long_rope`."""
+    import dataclasses
+    import gc
+    from torch.autograd import DeviceType
+    from repro_torch.models import Model, layers, transformer
+    from repro_torch.serve import LocalDecodeBackend, Request
+    cfg = model.cfg
+    n_shared = sum(kind == "shared_attn"
+                   for kind, _ in transformer.structure(cfg))
+    kv_want = n_shared * 2 * LONG_DECODE_LEN * cfg.n_kv_heads * cfg.hd
+    g = torch.Generator().manual_seed(26)
+    n_prompt, n_new = LONG_REQUEST
+    req = Request(rid=0, prompt=tuple(torch.randint(
+        1, cfg.vocab, (n_prompt,), generator=g).tolist()), max_new=n_new)
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        backend = LocalDecodeBackend(model, params, n_slots=1,
+                                     max_len=LONG_DECODE_LEN)
+    torch.cuda.synchronize()
+    kv, total = shared_kv_bytes(cfg, backend.cache), tree_bytes(backend.cache)
+    resident = torch.cuda.memory_allocated()
+    print(f"[long] 26d zamba2-1.2b × long_500k, bf16 cache of 1 row × "
+          f"{LONG_DECODE_LEN} positions: {total:,} B, of which the shared "
+          f"block's k and v ({n_shared} applications × 2 × "
+          f"{LONG_DECODE_LEN} × {cfg.n_kv_heads} × {cfg.hd} × 2 B) "
+          f"{kv:,} B and the Mamba2 states the rest; "
+          f"{weights / 2**30:.2f} GiB of f32 weights beside it")
+    check(kv == kv_want * 2, f"26d: shared k and v {kv} B, not "
+                             f"{kv_want * 2}")
+    # fault 23 cast each application's whole k and v to float32: one f32
+    # copy of its k alone is the bf16 bytes of its k and v
+    copy = kv // n_shared
+    torch.cuda.reset_peak_memory_stats()
+    run = run_serve(torch, model, params, counts, launcher_main=False,
+                    alone=0, backend=backend, reqs=[req])
+    peak = torch.cuda.max_memory_allocated() - resident
+    print(f"[long] 26d served from {LONG_DECODE_LEN} positions: TPOT p50 "
+          f"{run['tpot_ms']:.2f} ms, decode step p50 {run['step_ms']:.2f} ms;"
+          f" peak {peak:,} B ({peak / 2**30:.2f} GiB) above the resident "
+          f"weights and cache ({resident / 2**30:.2f} GiB), against one f32 "
+          f"copy of an application's k, {copy:,} B (gate), and the "
+          f"{2 * copy:,} B of f32 k and v that fault 23 cast")
+    check(peak < copy, f"26d: peak {peak} above resident, not under one "
+                       f"f32 copy of an application's k ({copy} B)")
+    traced = {}
+    with torch.inference_mode():
+        last = torch.ones((1, 1), dtype=torch.int32, device=dev)
+        adv = torch.ones(1, dtype=torch.bool, device=dev)
+        for max_len in (LONG_DECODE_LEN, LONG_SHORT_LEN):
+            be = backend if max_len == LONG_DECODE_LEN else \
+                LocalDecodeBackend(model, params, n_slots=1, max_len=max_len)
+            model.decode_step(params, be.cache, last, advance=adv)  # warm
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            avgs, busy, wall = profile_run(
+                torch, f"26d zamba2-1.2b decode step, 1 slot of {max_len}",
+                lambda: model.decode_step(params, be.cache, last,
+                                          advance=adv))
+            kernels = sum(e.count for e in avgs
+                          if e.device_type == DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False))
+            traced[max_len] = (kernels, busy, wall,
+                               torch.cuda.max_memory_allocated() - base,
+                               base)
+            del be
+    n_long, busy, wall, step_peak, step_base = traced[LONG_DECODE_LEN]
+    print(f"[long] 26d a traced decode step from {LONG_DECODE_LEN} "
+          f"positions: device busy {busy:.2f} ms of {wall:.2f} ms "
+          f"({1 - busy / wall:.1%} idle), {n_long} device kernels against "
+          f"{traced[LONG_SHORT_LEN][0]} from {LONG_SHORT_LEN} positions "
+          f"(+{n_long - traced[LONG_SHORT_LEN][0]}: the cached attention "
+          f"reads a bf16 cache in blocks of {layers.CAST_BLOCK_BYTES:,} B "
+          f"of f32); its peak "
+          f"{step_peak:,} B above the {step_base:,} B allocated before it")
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    short = serve_alone(torch, model, params, req, LONG_SHORT_LEN)[0]
+    same = sum(a == b for a, b in zip(run["tokens"][0], short))
+    print(f"[long] 26d bf16: {same}/{n_new} greedy tokens served from "
+          f"{LONG_DECODE_LEN} positions equal those served from "
+          f"{LONG_SHORT_LEN} (not gated)")
+    m32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
+    before = counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    toks_l, logits_l, kv32 = serve_alone(torch, m32, params, req,
+                                         LONG_DECODE_LEN)
+    peak32 = torch.cuda.max_memory_allocated() - base
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks_s, logits_s, _ = serve_alone(torch, m32, params, req,
+                                      LONG_SHORT_LEN)
+    launched = {k: v - before[k] for k, v in counts().items()}
+    rel = float((logits_l - logits_s).norm() / logits_s.norm())
+    print(f"[long] 26d f32: the same request from {LONG_DECODE_LEN} "
+          f"positions (shared k and v {kv32:,} B; peak {peak32 / 2**30:.2f} "
+          f"GiB above the weights) and from {LONG_SHORT_LEN}: greedy tokens "
+          f"equal {toks_l == toks_s}; {logits_l.shape[0]} steps' logits "
+          f"||diff|| / ||short|| {rel:.3e} (gate {LONG_LOGITS_GATE:.0e}), "
+          f"max|diff| {float((logits_l - logits_s).abs().max()):.3e}; "
+          f"launches {launched}")
+    check(kv32 == kv_want * 4, f"26d f32: shared k and v {kv32} B")
+    check(toks_l == toks_s, f"26d f32: tokens {toks_l} against {toks_s}")
+    check(rel <= LONG_LOGITS_GATE, f"26d f32: logits {rel}")
+    check(not any(launched.values()), f"26d f32: launched {launched}")
+    del logits_l, logits_s
+    check_long_rope(torch, dev, cfg)
+    return {"peak": step_peak, "resident": step_base, "tpot_ms":
+            run["tpot_ms"]}
+
+
+def run_long_phase(torch, dev, counts) -> dict:
+    """Phase 26, the JAX package's long-context cells on real, seeded
+    tensors at published widths, one model at a time on the emptied card
+    (its kernels at that length are checked in phase 1, by
+    :func:`check_flash` and :func:`check_ssd`): 26a-26c each arch of LONG_ARCHS on
+    prefill_32k's row (:func:`run_long_forward`); 26d mamba2-2.7b
+    (:func:`run_mamba_long_decode`) and zamba2-1.2b
+    (:func:`run_long_decode`) × long_500k.  Returns 26d's traced step for
+    phase 20."""
+    import gc
+    t_phase = time.perf_counter()
+    long = None
+    for arch, per_forward in LONG_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, params = run_long_forward(torch, dev, counts, arch,
+                                         per_forward)
+        if arch == "mamba2-2.7b":
+            run_mamba_long_decode(torch, dev, counts, model, params)
+        if arch == "zamba2-1.2b":
+            long = run_long_decode(torch, dev, counts, model, params)
+        memory(torch, f"phase 26, {arch}")
+        del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[long] phase 26 wall: {time.perf_counter() - t_phase:.1f} s")
+    return long
+
+
+def trace_long_step() -> dict:
+    """26d's bf16 decode step (zamba2-1.2b at its published config: f32
+    weights, bf16 compute; one row of a LONG_DECODE_LEN cache; one device)
+    traced by the dry-run with fake CUDA tensors: its argument and temp
+    bytes."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    tr = dryrun._trace_variant(
+        get_config("zamba2-1.2b"),
+        ShapeConfig("long_500k", LONG_DECODE_LEN, 1, "decode"), None, None,
+        device="cuda")
+    return {"ok": True, "argument_bytes": tr.argument_bytes,
+            "temp_bytes": tr.temp_bytes, "seconds": tr.seconds}
+
+
+def report_long_trace(rec: dict, card: dict) -> None:
+    """Prints the dry-run's traced 26d step (``rec``: argument and temp
+    bytes) beside the card's (``card``: its peak above what was allocated
+    before it, and that), or why the dry-run could not trace it (not
+    gated)."""
+    if not rec["ok"]:
+        print(f"[dryrun] 26d: the dry-run could not trace the step: "
+              f"{rec['error']}")
+        return
+    print(f"[dryrun] 26d zamba2-1.2b decode step from {LONG_DECODE_LEN} "
+          f"positions, one device: traced temp {rec['temp_bytes']:,} B "
+          f"beside {rec['argument_bytes']:,} B of arguments (traced in "
+          f"{rec['seconds']:.1f} s); the card's step peaked "
+          f"{card['peak']:,} B above the {card['resident']:,} B allocated "
+          f"before it; the traced temp is "
+          f"{rec['temp_bytes'] / max(card['peak'], 1):.3f}x the card's (not "
+          f"gated)")
+
+
 # -- phase 19: the mesh, 2 ranks sharing the card ------------------------------
 
 MESH_RANKS = 2
@@ -4913,8 +5485,10 @@ def dryrun_cells() -> int:
     """20a's process (``python3 chip_smoke.py --dryrun-cells``): trace
     :data:`DRYRUN_CELLS` with ``repro_torch.launch.dryrun`` (fake CUDA
     tensors in fake worlds of 256 and 512 ranks), printing each record as
-    a ``[dryrun-cell]`` JSON line, then one ``[dryrun-end]`` line with the
-    kernel launches and the device bytes this process allocated."""
+    a ``[dryrun-cell]`` JSON line, then 26d's one-device decode step
+    (:func:`trace_long_step`) as a ``[dryrun-long]`` line, then one
+    ``[dryrun-end]`` line with the kernel launches and the device bytes
+    this process allocated."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.kernels import launch_counts
@@ -4935,6 +5509,11 @@ def dryrun_cells() -> int:
             rec = {"arch": arch, "shape": shape, "ok": False,
                    "error": repr(exc)[-1000:]}
         print("[dryrun-cell] " + json.dumps(rec), flush=True)
+    try:
+        rec = trace_long_step()
+    except Exception as exc:  # printed by the parent, not gated
+        rec = {"ok": False, "error": repr(exc)[-1000:]}
+    print("[dryrun-long] " + json.dumps(rec), flush=True)
     print("[dryrun-end] " + json.dumps({
         "launches": launch_counts(),
         "allocated": torch.cuda.memory_allocated(),
@@ -5022,14 +5601,17 @@ def trace_tp_step(torch):
     return costs
 
 
-def run_dryrun_phase(torch, counts, cells, step_peaks, tp_costs) -> None:
+def run_dryrun_phase(torch, counts, cells, step_peaks, tp_costs,
+                     long_step) -> None:
     """Phase 20: the dry-run, held against the card.  20a reads the cells
     traced in their own process since the start (each ``ok``; no kernel
-    launched, no device byte allocated there).  20b traces 18a's step and
-    holds its peak against the card's over that step and its FLOPs
-    against the executed count (``step_peaks``: 18a's).  20c traces 19b's
-    step in a fake world of 2 and holds its collectives, call for call and
-    byte for byte, against what 19b's rank 0 ran (``tp_costs``)."""
+    launched, no device byte allocated there), and prints that process's
+    trace of 26d's decode step beside the card's (``long_step``).  20b
+    traces 18a's step and holds its peak against the card's over that
+    step and its FLOPs against the executed count (``step_peaks``: 18a's).
+    20c traces 19b's step in a fake world of 2 and holds its collectives,
+    call for call and byte for byte, against what 19b's rank 0 ran
+    (``tp_costs``)."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import dryrun
     t_phase = time.perf_counter()
@@ -5049,7 +5631,10 @@ def run_dryrun_phase(torch, counts, cells, step_peaks, tp_costs) -> None:
             if x.startswith("[dryrun-cell] ")]
     ends = [json.loads(x.split(" ", 1)[1]) for x in lines
             if x.startswith("[dryrun-end] ")]
-    check(len(recs) == len(DRYRUN_CELLS) and len(ends) == 1,
+    longs = [json.loads(x.split(" ", 1)[1]) for x in lines
+             if x.startswith("[dryrun-long] ")]
+    check(len(recs) == len(DRYRUN_CELLS) and len(ends) == 1
+          and len(longs) == 1,
           f"20a: {len(recs)} records: {lines[-5:]} {errors[-2000:]}")
     for rec in recs:
         check(rec["ok"], f"20a: {rec['arch']} × {rec['shape']} failed: "
@@ -5077,6 +5662,7 @@ def run_dryrun_phase(torch, counts, cells, step_peaks, tp_costs) -> None:
           f"allocated by the traces in that process (PyTorch's context "
           f"probe for fake CUDA tensors before them: {end['context_probe']}"
           f" B); its wall {end['wall']:.1f} s (run beside phases 1-19)")
+    report_long_trace(longs[0], long_step)
 
     # 20b: 18a's step, traced, against the card
     cfg = get_config("qwen2-0.5b")
@@ -5550,6 +6136,15 @@ def phases(torch, cells) -> int:
     print(f"[train] phase 25 launches: {lever_launched}")
     launched = {k: v + lever_launched[k] for k, v in launched.items()}
     lap("25")
+    # phase 26 (the JAX package's long-context cells, one model at a time
+    # on the emptied card; its kernels at that length are checked in phase
+    # 1) likewise
+    reset_launch_counts()
+    long_step = run_long_phase(torch, dev, launch_counts)
+    long_launched = launch_counts()
+    print(f"[long] phase 26 launches: {long_launched}")
+    launched = {k: v + long_launched[k] for k, v in launched.items()}
+    lap("26")
     # phase 19 (2 ranks sharing the card) is counted apart, from 0, in its
     # ranks, and added
     launched_19, tp_costs = run_mesh_phase(torch, *mesh_refs,
@@ -5578,7 +6173,8 @@ def phases(torch, cells) -> int:
     lap("10-11")
 
     del moe_model, moe_params, moe_toks
-    run_dryrun_phase(torch, launch_counts, cells, step_peaks, tp_costs)
+    run_dryrun_phase(torch, launch_counts, cells, step_peaks, tp_costs,
+                     long_step)
     lap("20")
 
     for e in entries:

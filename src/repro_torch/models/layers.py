@@ -244,23 +244,48 @@ def _write_rows_sharded(buf, new, start) -> None:
               device_mesh=dm, redistribute_inputs=True)(buf, new, start)
 
 
+# the most bytes of float32 that :func:`_cached_attention` casts a cache in
+# another dtype to at once
+CAST_BLOCK_BYTES = 1 << 28
+
+
 def _cached_attention(q, k, v, idx, dtype):
     """Attention of q (B, S, H, hd) over the cache's k, v (B, T, K, hd):
     row b's queries sit at positions idx_b + [0, S) and see the keys up to
-    their own.  GQA via a grouped einsum — never materialise repeated
-    KV."""
+    their own.  GQA via a grouped einsum — never materialise repeated (or
+    f32) KV.
+
+    The products are the cache's dtype's, summed in f32 into f32 logits
+    and softmax, with the probabilities cast to v's dtype before the PV
+    product, as the JAX package's einsums with ``preferred_element_type``
+    compute them.  A float32 cache is read as it is; a cache in another
+    dtype is cast in blocks of positions of at most ``CAST_BLOCK_BYTES``
+    of f32, never whole: zamba2-1.2b at 524,288 positions would otherwise
+    hold 4.3 GB of f32 k and as much v in each shared application.  A
+    cache that fits one block takes the same ops as a whole cast."""
     B, S, H, hd = q.shape
     K, T = k.shape[2], k.shape[1]
-    qg = q.reshape(B, S, K, H // K, hd)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
-                          k.float()) * (hd ** -0.5)
+    qg = q.reshape(B, S, K, H // K, hd).float()
+    step = (T if k.dtype == torch.float32
+            else max(1, CAST_BLOCK_BYTES // (4 * B * K * hd)))
+    starts = range(0, T, step)
+    parts = [torch.einsum("bskgd,btkd->bkgst", qg, k[:, t:t + step].float())
+             for t in starts]
+    logits = (parts[0] if len(parts) == 1
+              else torch.cat(parts, dim=-1)) * (hd ** -0.5)
+    del parts
     ki = torch.arange(T, device=q.device)[None, None, None, None, :]
     qi = (idx.to(q.device)[:, None, None, None, None]
           + torch.arange(S, device=q.device)[None, None, None, :, None])
     logits = logits.masked_fill(~(ki <= qi), float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    ot = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(),
-                      v.float())
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    del logits
+    ot = None
+    for t in starts:
+        part = torch.einsum("bkgst,btkd->bskgd",
+                            probs[..., t:t + step].float(),
+                            v[:, t:t + step].float())
+        ot = part if ot is None else ot.add_(part)
     return ot.reshape(B, S, H, hd).to(dtype)
 
 

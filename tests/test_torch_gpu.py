@@ -214,6 +214,9 @@ FLASH_SHAPES = [  # (B, H, K, Sq, Sk, D)
     (2, 4, 2, 1, 90, 256),       # D=256 decode: Sq = 1
     (4, 56, 8, 512, 512, 128),   # the yi-34b forward, cut in S: group of 7
     (4, 32, 8, 512, 512, 128),   # the phi3.5-moe forward, cut in S: of 4
+    # qwen2-0.5b in the JAX package's prefill_32k cell: one row of 32,768
+    # tokens, held against the plain version's query-chunked form
+    (1, 14, 2, 32768, 32768, 64),
 ]
 
 FLASH_NONCAUSAL_SHAPES = [  # (B, H, K, Sq, Sk, D), causal=False
@@ -238,11 +241,17 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
     v = torch.randn(B, K, Sk, D, generator=g).to(dtype).to(cuda)
     before = fa_ops.mha.launches
     got = fa_ops.mha(q, k, v, causal=True)
-    want = fa_ref.mha(q, k, v, causal=True)
+    # past 4 GiB of (Sq, Sk) f32 logits (60 GB at 32k), the chunked form
+    if B * H * Sq * Sk * 4 > 1 << 32:
+        want = fa_ref.mha_chunked(q, k, v, causal=True, chunk=1024)
+    else:
+        want = fa_ref.mha(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert fa_ops.mha.launches == before + 1
     assert got.dtype == dtype
     _assert_flash_close(got, want, dtype)
+    # the last query tile, whose online softmax sees every key tile
+    _assert_flash_close(got[:, :, -128:], want[:, :, -128:], dtype)
 
 
 @pytest.mark.parametrize("shape", FLASH_NONCAUSAL_SHAPES,
@@ -411,6 +420,9 @@ SSD_SHAPES = [  # (batch, S, H, P, G, N)
     (2, 33, 4, 16, 4, 16),      # ragged, G = H
     (1, 2047, 8, 64, 1, 128),   # ragged, long
     (2, 100, 6, 16, 2, 16),     # 1 < G < H
+    # the mamba2-2.7b forward in the JAX package's prefill_32k cell: one row
+    # of 32,768 tokens, 512 chunks walked in series by each of 80 blocks
+    (1, 32768, 80, 64, 1, 128),
 ]
 
 
@@ -437,6 +449,8 @@ def test_ssd_kernel_matches_plain(cuda, shape, dtype):
     assert ssd_ops.ssd.launches == before + 1
     assert y.dtype == dtype and hT.dtype == torch.float32
     _assert_ssd_close(y, hT, want_y, want_h, dtype)
+    # the last chunk's y, which carries the state of every chunk before it
+    _assert_ssd_close(y[:, -64:], hT, want_y[:, -64:], want_h, dtype)
     assert torch.equal(ssd_ops.ssd(x, dt, A, B, C), y)  # no state: same y
 
 
@@ -845,6 +859,41 @@ def test_bf16_init_peaks_at_its_weights(cuda):
     assert peak <= weights + 2**21, (peak, weights)
     assert all(t.dtype == torch.bfloat16 for t in leaves)
     del params
+
+
+def test_decode_step_from_a_long_bf16_cache_holds_no_f32_copy(cuda):
+    """Fault 23: zamba2-1.2b at its published widths, cut to its first
+    segment (6 Mamba2 layers and one application of the shared block), f32
+    weights and bf16 compute, decoding one row from a cache of 524,288
+    positions (the JAX package's long_500k): the step peaks less than one
+    float32 copy of the application's k (4.29 GB) above the weights and
+    cache.  Casting the whole cache to f32, as the cached attention once
+    did, holds that copy (and v's) in the step."""
+    import dataclasses
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=6)
+    model = Model(cfg)
+    params = model.init(seed=0, device=cuda)
+    T = 524_288
+    with torch.inference_mode():
+        cache = model.init_cache(1, T, device=cuda)
+        tok = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+        model.decode_step(params, cache, tok)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        logits, _ = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    k = cache["segments"][1]["k"]
+    assert k.dtype == torch.bfloat16 and k.shape[1] == T
+    copy = k.numel() * 4
+    print(f"[fault 23] decode step from {T} positions: peak {peak:,} B "
+          f"above the resident {base:,} B; one f32 copy of k {copy:,} B")
+    assert bool(torch.isfinite(logits).all())
+    assert peak < copy, (peak, copy)
+    del cache, params
 
 
 def _mamba2_update_peak(cuda, donate: bool) -> tuple:

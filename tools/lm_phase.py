@@ -1,10 +1,11 @@
-"""Phase 22, 23, 24 or 25 of ``chip_smoke.py`` alone, or phase 1's
+"""Phase 22, 23, 24, 25 or 26 of ``chip_smoke.py`` alone, or phase 1's
 flash-attention, SSD-scan or grouped-matmul check.
 
     python3 tools/lm_phase.py          # on the card: phase 22
     python3 tools/lm_phase.py phase23  # on the card: phase 23 (23d too)
     python3 tools/lm_phase.py phase24  # on the card: phase 24
     python3 tools/lm_phase.py phase25  # on the card: phase 25
+    python3 tools/lm_phase.py long     # on the card: phase 26
     python3 tools/lm_phase.py int8 cpu # no card: 23d's gate's readings
     python3 tools/lm_phase.py flash    # on the card: the flash check
     python3 tools/lm_phase.py ssd      # on the card: the SSD-scan check
@@ -21,8 +22,14 @@ width (``chip_smoke.run_wide_train_phase``), after building the flash and
 SSD-scan kernels. Phase 25 trains gemma-2b with the chunked loss at (4,
 4096) and qwen2-vl-2b at (4, 1024) and holds both, and yi-34b's int8
 cache, against the CPU (``chip_smoke.run_lever_phase``), after building
-the flash kernel. ``int8 cpu`` prints, on the CPU,
-``chip_smoke.compare_int8_cache``'s readings from which 23d's gate on the
+the flash kernel. Phase 26 runs the JAX package's long-context cells
+(``chip_smoke.run_long_phase``: mamba2-2.7b, zamba2-1.2b and qwen2-0.5b
+on a row of 32,768 tokens, then zamba2-1.2b and mamba2-2.7b decoding
+from 524,288 positions; the kernels at that length are in the ``flash``
+and ``ssd`` checks) after
+building the flash and SSD-scan kernels, then traces 26d's decode step
+with the dry-run and prints it beside the card's. ``int8 cpu`` prints,
+on the CPU, ``chip_smoke.compare_int8_cache``'s readings from which 23d's gate on the
 int8 cache against the bf16 cache was set
 (``chip_smoke.int8_cpu_readings``), and how far the int8 cache carries a
 difference of f32 rounding, as 25c's gates on the card against the CPU
@@ -56,8 +63,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("lm_phase: no CUDA device is available", file=sys.stderr)
         return 1
-    if argv not in ([], ["phase23"], ["phase24"], ["phase25"], ["flash"],
-                    ["ssd"], ["gmm"]):
+    if argv not in ([], ["phase23"], ["phase24"], ["phase25"], ["long"],
+                    ["flash"], ["ssd"], ["gmm"]):
         print(f"lm_phase: unknown arguments {argv}", file=sys.stderr)
         return 2
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -74,7 +81,8 @@ def main(argv) -> int:
         cs.check_ssd(torch, dev)
         return 0
     cs.build_kernels(torch, {"phase23": ["flash_attention", "moe_gmm"],
-                             "phase24": ["flash_attention", "ssd_scan"]}.get(
+                             "phase24": ["flash_attention", "ssd_scan"],
+                             "long": ["flash_attention", "ssd_scan"]}.get(
                                  argv[0] if argv else "", ["flash_attention"]))
     if argv == ["flash"]:
         cs.check_flash(torch, dev)
@@ -89,6 +97,10 @@ def main(argv) -> int:
     elif argv == ["phase25"]:
         cs.run_lever_phase(torch, dev, launch_counts)
         print(f"[train] phase 25 launches: {launch_counts()}")
+    elif argv == ["long"]:
+        long_step = cs.run_long_phase(torch, dev, launch_counts)
+        print(f"[long] phase 26 launches: {launch_counts()}")
+        cs.report_long_trace(cs.trace_long_step(), long_step)
     else:
         cs.run_wide_phase(torch, dev, launch_counts)
         print(f"[lm] phase 22 launches: {launch_counts()}")
